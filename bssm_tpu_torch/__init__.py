@@ -1,0 +1,34 @@
+"""bssm_tpu_torch: Bayesian inference for state-space models in PyTorch with
+hand-written CUDA kernels for NVIDIA Hopper.
+
+The port of the JAX package ``bssm_tpu`` that lives beside it, module for
+module (``core/``, ``ops/``, ``models/``, ``inference/``, ``diagnostics/``).
+It imports torch and numpy and nothing of JAX or of ``bssm_tpu``.
+
+What runs today: IS-MCMC (``mcmc_type="is2"``) and approximate MCMC on
+``bsm_ng`` models with the psi-auxiliary particle filter at up to 32
+particles and ``output_type="theta"``.  Entry points run on the CUDA device
+unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# Kalman covariance recursions lose their meaning under reduced-precision
+# products (NaN log-likelihoods, Laplace iterations that never converge).
+# The system matrices are tiny, so full-float32 products cost nothing: TF32
+# is switched off for matrix products and for cuDNN, process wide.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+from .core.spec import (LGSpec, NGSpec, SVM, POISSON, BINOMIAL,  # noqa: E402
+                        NEGBIN, GAMMA, GAUSSIAN)
+from .core.priors import (uniform_prior, halfnormal_prior,       # noqa: E402
+                          normal_prior, tnormal_prior, gamma_prior,
+                          PriorStack)
+from .models.bsm import bsm_ng                                   # noqa: E402
+from .inference.mcmc import run_mcmc, McmcOutput                 # noqa: E402
+from .inference.approx import approximate, approx_loglik         # noqa: E402
+from .diagnostics.summary import (weighted_mean, weighted_var,   # noqa: E402
+                                  ess_is)

@@ -1,0 +1,78 @@
+"""State carried across from numpy (and so from the JAX package, whose
+arrays a caller converts with ``np.asarray``) into this package's tensors.
+
+The dictionaries use the JAX package's field names; a leading batch axis on
+any leaf is optional.  Nothing here imports JAX: the caller hands over plain
+numpy arrays.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+
+from .core.config import DEFAULT_DTYPE, resolve_device
+from .core.spec import LGSpec, NGSpec, POISSON
+from .inference.approx import ApproxLoglik, ApproxResult
+
+
+def _tensor(x, device, dtype) -> torch.Tensor:
+    # np.array copies: the source may be a read-only view of foreign memory
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+
+def _leaves(d: Mapping, names, device, dtype) -> dict:
+    missing = [k for k in names if k not in d]
+    if missing:
+        raise KeyError(f"missing spec fields: {missing}")
+    return {k: _tensor(d[k], device, dtype) for k in names}
+
+
+def lgspec_from_numpy(d: Mapping, device=None,
+                      dtype: torch.dtype = DEFAULT_DTYPE) -> LGSpec:
+    """``LGSpec`` from arrays ``y, Z, H, T, R, a1, P1, D, C``."""
+    device = resolve_device(device)
+    return LGSpec(**_leaves(d, LGSpec._fields, device, dtype))
+
+
+def ngspec_from_numpy(d: Mapping, device=None,
+                      dtype: torch.dtype = DEFAULT_DTYPE) -> NGSpec:
+    """``NGSpec`` from arrays ``y, Z, T, R, a1, P1, D, C, phi, u`` plus the
+    int ``distribution`` and, optionally, ``initial_mode``."""
+    device = resolve_device(device)
+    names = ("y", "Z", "T", "R", "a1", "P1", "D", "C", "phi", "u")
+    leaves = _leaves(d, names, device, dtype)
+    mode: Optional[torch.Tensor] = None
+    if d.get("initial_mode") is not None:
+        mode = _tensor(d["initial_mode"], device, dtype)
+    return NGSpec(**leaves, distribution=int(d.get("distribution", POISSON)),
+                  initial_mode=mode)
+
+
+def approx_from_numpy(d: Mapping, device=None,
+                      dtype: torch.dtype = DEFAULT_DTYPE) -> ApproxLoglik:
+    """``ApproxLoglik`` from arrays ``mode, ytilde, Htilde, scales`` (each
+    ``(n,)`` or ``(B, n)``) with zero log-likelihood terms: what the
+    log-weight-only correction consumes."""
+    device = resolve_device(device)
+    t = {k: torch.atleast_2d(_tensor(d[k], device, dtype))
+         for k in ("mode", "ytilde", "Htilde", "scales")}
+    B = t["mode"].shape[0]
+    zero = torch.zeros(B, dtype=dtype, device=device)
+    ar = ApproxResult(t["mode"], t["ytilde"], t["Htilde"],
+                      torch.ones(B, dtype=torch.int32, device=device),
+                      zero, None)
+    return ApproxLoglik(ar, t["scales"], zero, zero)
+
+
+def model_state_from_numpy(theta, S, device=None,
+                           dtype: torch.dtype = DEFAULT_DTYPE):
+    """Chain state ``(theta (C, d), S (C, d, d))`` as tensors; a single
+    chain's ``(d,)`` and ``(d, d)`` get the chain axis."""
+    device = resolve_device(device)
+    theta = torch.atleast_2d(_tensor(theta, device, dtype))
+    S = _tensor(S, device, dtype)
+    if S.dim() == 2:
+        S = S.expand(theta.shape[0], -1, -1).contiguous()
+    return theta, S

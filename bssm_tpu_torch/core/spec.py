@@ -1,0 +1,164 @@
+"""Model-specification containers of tensors, batch first.
+
+Counterpart of ``bssm_tpu/core/spec.py``.  The conventions of the system
+matrices carry over: every matrix has a "time" axis of size 1 (time
+invariant) or ``n`` (time varying), and ``y`` uses NaN for a missing
+observation.  What differs is batching: where the JAX package maps a
+function over specs with ``vmap``, here every leaf may carry one explicit
+leading batch axis ``B`` (chains in the MCMC phase, stored draws in the
+importance-sampling correction).  Leaves that do not depend on theta
+(``y``, ``u``, ``Z``, ``T``, ``C``, ``a1``, ``initial_mode``) may stay
+unbatched and broadcast against the batched ones.
+
+==========  ==================  =====================
+field       unbatched shape     batched shape
+==========  ==================  =====================
+``y``       ``(n,)``            ``(B, n)``
+``Z``       ``(nz, m)``         ``(B, nz, m)``
+``H``       ``(nh,)``           ``(B, nh)``
+``T``       ``(nt, m, m)``      ``(B, nt, m, m)``
+``R``       ``(nr, m, k)``      ``(B, nr, m, k)``
+``a1``      ``(m,)``            ``(B, m)``
+``P1``      ``(m, m)``          ``(B, m, m)``
+``D``       ``(nd,)``           ``(B, nd)``
+``C``       ``(nc, m)``         ``(B, nc, m)``
+``phi``     ``()``              ``(B,)``
+``u``       ``(n,)``            ``(B, n)``
+==========  ==================  =====================
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+# Observation-family codes (the same integers as the JAX package).
+SVM = 0
+POISSON = 1
+BINOMIAL = 2
+NEGBIN = 3
+GAMMA = 4
+GAUSSIAN = 5
+
+# number of trailing (non-batch) axes of each leaf
+CORE_NDIM = dict(y=1, Z=2, H=1, T=3, R=3, a1=1, P1=2, D=1, C=2, phi=0, u=1,
+                 initial_mode=1)
+
+
+def with_batch(x: torch.Tensor, core_ndim: int) -> torch.Tensor:
+    """View ``x`` with exactly one leading batch axis (size 1 if it had
+    none), so that batched and shared leaves broadcast against each other."""
+    if x.dim() == core_ndim:
+        return x.unsqueeze(0)
+    if x.dim() != core_ndim + 1:
+        raise ValueError(f"expected {core_ndim} or {core_ndim + 1} axes, "
+                         f"got shape {tuple(x.shape)}")
+    return x
+
+
+def at_t(A: torch.Tensor, t: int) -> torch.Tensor:
+    """Index the time axis (axis 1 of a ``with_batch`` view); a size-1 axis
+    broadcasts to every t."""
+    return A[:, 0] if A.shape[1] == 1 else A[:, t]
+
+
+def _batch_of(leaves) -> Optional[int]:
+    B = None
+    for name, x in leaves:
+        if x is None or x.dim() == CORE_NDIM[name]:
+            continue
+        b = x.shape[0]
+        if B is not None and b != B and 1 not in (b, B):
+            raise ValueError(f"batch sizes disagree: {B} vs {b} ({name})")
+        B = b if B is None else max(B, b)
+    return B
+
+
+class LGSpec(NamedTuple):
+    """Univariate-observation linear-Gaussian state-space model."""
+    y: torch.Tensor
+    Z: torch.Tensor
+    H: torch.Tensor
+    T: torch.Tensor
+    R: torch.Tensor
+    a1: torch.Tensor
+    P1: torch.Tensor
+    D: torch.Tensor
+    C: torch.Tensor
+
+    @property
+    def n(self) -> int:
+        return self.y.shape[-1]
+
+    @property
+    def m(self) -> int:
+        return self.a1.shape[-1]
+
+    @property
+    def k(self) -> int:
+        return self.R.shape[-1]
+
+    @property
+    def batch(self) -> Optional[int]:
+        """Batch size, or None when no leaf is batched."""
+        return _batch_of(zip(self._fields, self))
+
+    @property
+    def HH(self) -> torch.Tensor:
+        return self.H * self.H
+
+    @property
+    def RR(self) -> torch.Tensor:
+        return self.R @ self.R.transpose(-1, -2)
+
+    @property
+    def obs_mask(self) -> torch.Tensor:
+        return torch.isfinite(self.y)
+
+
+@dataclasses.dataclass(frozen=True)
+class NGSpec:
+    """Univariate non-Gaussian model: linear-Gaussian state dynamics and
+    exponential-family observations.  ``distribution`` is a plain int,
+    ``phi`` the auxiliary parameter (SV sigma, negbin dispersion, gamma
+    shape), ``u`` the exposure or number of trials."""
+    y: torch.Tensor
+    Z: torch.Tensor
+    T: torch.Tensor
+    R: torch.Tensor
+    a1: torch.Tensor
+    P1: torch.Tensor
+    D: torch.Tensor
+    C: torch.Tensor
+    phi: torch.Tensor
+    u: torch.Tensor
+    distribution: int = POISSON
+    initial_mode: Optional[torch.Tensor] = None
+
+    @property
+    def n(self) -> int:
+        return self.y.shape[-1]
+
+    @property
+    def m(self) -> int:
+        return self.a1.shape[-1]
+
+    @property
+    def k(self) -> int:
+        return self.R.shape[-1]
+
+    @property
+    def batch(self) -> Optional[int]:
+        names = ("y", "Z", "T", "R", "a1", "P1", "D", "C", "phi", "u")
+        return _batch_of((f, getattr(self, f)) for f in names)
+
+    @property
+    def obs_mask(self) -> torch.Tensor:
+        return torch.isfinite(self.y)
+
+    def approx_gaussian(self, ytilde: torch.Tensor,
+                        Htilde: torch.Tensor) -> LGSpec:
+        """The approximating LG model sharing this model's state dynamics."""
+        return LGSpec(y=ytilde, Z=self.Z, H=Htilde, T=self.T, R=self.R,
+                      a1=self.a1, P1=self.P1, D=self.D, C=self.C)

@@ -1,0 +1,208 @@
+// psi_logw: the complete psi-auxiliary-particle-filter log-weight of one
+// stored draw, for N <= 32 particles, from injected normals and uniforms.
+//
+// Replaces the TPU kernel `_psi_kernel` (bssm_tpu/ops/pallas_kalman.py:1599,
+// called at :1843).  Plain version: inference/particle.psi_logw_scan.
+//
+// Generation runs backwards in time through the FFBS factors (ahat, Lb, Ab):
+//   step 0:        alpha_n = ahat_n + Lb_n eps_0            (no weighting)
+//   step s = 1..n: state t = n - s; stratified resampling of the ensemble
+//                  with us[s-1] (cum[N-1] := 1, u_p = (p + r_p)/N, ancestor =
+//                  first q with cum[q] >= u_p); propagate
+//                  alpha_t = ahat_t + Ab_t (anc - ahat_{t+1}) + Lb_t eps_s;
+//                  log-weight log g(y_t|s) - log g~(ytilde_t|s) - scales_t;
+//                  log-sum-exp accumulation.  A missing y_t contributes 0 and
+//                  resets the weights to 1/N; non-finite log-weights count as
+//                  zero weight; an all-dead ensemble gives -inf.
+//
+// What bounds it on this card: bytes.  A row reads (n+1) N m normals and n N
+// uniforms once (about 18 KB at n = 153, N = 10, m = 2, float32) and does a
+// few hundred operations a step, far below the card's operations-per-byte
+// balance.  The design is one warp per row, one particle per lane (lanes >= N
+// idle and are masked out of every reduction): the ensemble never leaves
+// registers, the randomness is read coalesced across lanes, the per-step
+// scalars are warp-uniform loads, max / sum / prefix sum are warp shuffles,
+// each lane searches the shuffled cumulative weights for its ancestor and
+// fetches the ancestor's state with one shuffle per state component.  One
+// thread per row with the ensemble in registers was the alternative; it
+// would need N m live registers per thread and N^2 compares a step in one
+// thread, and would read the randomness uncoalesced.  The kernel reads ahat /
+// Lb / Ab in their natural time order and indexes backwards itself: no
+// flipped or padded copies are made.
+#include "kalman_common.cuh"
+
+namespace bssm {
+
+constexpr unsigned kFull = 0xffffffffu;
+
+template <typename R> __device__ __forceinline__ R warp_max(R x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmax(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+template <typename R> __device__ __forceinline__ R warp_sum(R x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+template <typename R>
+__device__ __forceinline__ R warp_inclusive_scan(R x, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const R up = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += up;
+  }
+  return x;
+}
+
+template <typename R, int M>
+__global__ void psi_logw_kernel(
+    int dist, int N, long B, int n, const R* __restrict__ ytilde,
+    const R* __restrict__ Htilde, const R* __restrict__ y, long y_bs,
+    const R* __restrict__ u, long u_bs, const R* __restrict__ scales,
+    const R* __restrict__ D, long D_bs, long D_ts,
+    const R* __restrict__ zphi, const R* __restrict__ ahat,
+    const R* __restrict__ Lb, const R* __restrict__ Ab,
+    const R* __restrict__ eps, const R* __restrict__ us,
+    R* __restrict__ logw) {
+  const long b = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (b >= B) return;  // warp-uniform
+  constexpr int MM = M * M;
+  const bool active = lane < N;
+  const R inv_n = R(1) / R(N);
+  const R tiny = R(1e-35);
+
+  R Z[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) Z[i] = zphi[b * (M + 1) + i];
+  const R phi = zphi[b * (M + 1) + M];
+  ytilde += b * (long)n;
+  Htilde += b * (long)n;
+  scales += b * (long)n;
+  y += b * y_bs;
+  u += b * u_bs;
+  D += b * D_bs;
+  ahat += b * (long)(n + 1) * M;
+  Lb += b * (long)(n + 1) * MM;
+  Ab += b * (long)(n + 1) * MM;
+  eps += b * (long)(n + 1) * N * M;
+  us += b * (long)n * N;
+
+  // ---- step 0: alpha_n ~ N(ahat_n, Lb_n Lb_n'), no observation
+  R alpha[M], ah_prev[M];
+  {
+    R e[M];
+#pragma unroll
+    for (int j = 0; j < M; ++j) e[j] = active ? eps[(long)lane * M + j] : R(0);
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      ah_prev[i] = ahat[(long)n * M + i];
+      R acc = ah_prev[i];
+#pragma unroll
+      for (int j = 0; j < M; ++j) acc += Lb[(long)n * MM + i * M + j] * e[j];
+      alpha[i] = acc;
+    }
+  }
+  R nw = inv_n;
+  R ll = R(0);
+
+  for (int s = 1; s <= n; ++s) {
+    const int t = n - s;
+    // ---- stratified resampling
+    R cum = warp_inclusive_scan<R>(active ? nw : R(0), lane);
+    if (lane == N - 1) cum = R(1);
+    const R r = active ? us[(long)(s - 1) * N + lane] : R(0);
+    const R u_p = (R(lane) + r) * inv_n;
+    int anc = N - 1;
+    bool found = false;
+    for (int q = 0; q < N; ++q) {
+      const R c = __shfl_sync(kFull, cum, q);
+      if (!found && c >= u_p) {
+        anc = q;
+        found = true;
+      }
+    }
+    // ---- propagate through the backward conditional proposal
+    R e[M], ah_t[M], dv[M];
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      const R anc_j = __shfl_sync(kFull, alpha[j], anc);
+      dv[j] = anc_j - ah_prev[j];
+      e[j] = active ? eps[((long)s * N + lane) * M + j] : R(0);
+    }
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      ah_t[i] = ahat[(long)t * M + i];
+      R acc = ah_t[i];
+#pragma unroll
+      for (int j = 0; j < M; ++j)
+        acc += Ab[(long)t * MM + i * M + j] * dv[j]
+               + Lb[(long)t * MM + i * M + j] * e[j];
+      alpha[i] = acc;
+    }
+#pragma unroll
+    for (int i = 0; i < M; ++i) ah_prev[i] = ah_t[i];
+    // ---- weight
+    const R y_t = y[t];
+    if (isfinite(y_t)) {  // warp-uniform
+      R sig;
+      if (dist == kSvm) {
+        sig = alpha[0];
+      } else {
+        sig = D[t * D_ts];
+#pragma unroll
+        for (int i = 0; i < M; ++i) sig += Z[i] * alpha[i];
+      }
+      const R lw = log_weight<R>(dist, y_t, u[t], phi, sig, ytilde[t],
+                                 Htilde[t]) - scales[t];
+      const bool alive = active && isfinite(lw);
+      const R mx = warp_max<R>(alive ? lw : R(-INFINITY));
+      const bool mx_ok = isfinite(mx);
+      const R mxs = mx_ok ? mx : R(0);
+      const R w = alive ? exp(lw - mxs) : R(0);
+      const R sw = warp_sum<R>(w);
+      const bool ok2 = (sw > R(0)) && mx_ok;
+      const R sws = fmax(sw, tiny);
+      ll += ok2 ? mxs + log(sws * inv_n) : R(-INFINITY);
+      nw = ok2 ? w / sws : inv_n;
+    } else {
+      nw = inv_n;
+    }
+  }
+  if (lane == 0) logw[b] = ll;
+}
+
+}  // namespace bssm
+
+// Plain C entry point.  ytilde, Htilde, scales (B, n); y, u, D with batch
+// strides as in bssm_laplace_solve; zphi (B, m + 1) = [Z, phi]; ahat
+// (B, n+1, m); Lb, Ab (B, n+1, m, m); eps (B, n+1, N, m); us (B, n, N);
+// logw (B,).  All contiguous.  `threads` is a multiple of 32; one warp serves
+// one row.
+extern "C" int bssm_psi_logw(int is_double, int m, int dist, int N, long B,
+                             int n, const void* ytilde, const void* Htilde,
+                             const void* y, long y_bs, const void* u,
+                             long u_bs, const void* scales, const void* D,
+                             long D_bs, long D_ts, const void* zphi,
+                             const void* ahat, const void* Lb, const void* Ab,
+                             const void* eps, const void* us, void* logw,
+                             int threads, void* stream) {
+  if (N < 1 || N > 32 || threads % 32 != 0) return -2;
+  const long warps_per_block = threads / 32;
+  const unsigned blocks =
+      (unsigned)((B + warps_per_block - 1) / warps_per_block);
+  bool known;
+#define LAUNCH(R, M)                                                         \
+  bssm::psi_logw_kernel<R, M><<<blocks, threads, 0, (cudaStream_t)stream>>>( \
+      dist, N, B, n, (const R*)ytilde, (const R*)Htilde, (const R*)y, y_bs,  \
+      (const R*)u, u_bs, (const R*)scales, (const R*)D, D_bs, D_ts,          \
+      (const R*)zphi, (const R*)ahat, (const R*)Lb, (const R*)Ab,            \
+      (const R*)eps, (const R*)us, (R*)logw)
+  BSSM_DISPATCH(is_double, m, known, LAUNCH);
+#undef LAUNCH
+  if (!known) return -1;
+  return (int)cudaGetLastError();
+}

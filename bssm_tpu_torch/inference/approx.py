@@ -1,0 +1,159 @@
+"""Gaussian (Laplace) approximation of non-Gaussian models, batched.
+
+Counterpart of ``bssm_tpu/inference/approx.py``.  The mode-matching
+iteration of Durbin-Koopman / Shephard-Pitt: iterate
+{ pseudo-observations (ytilde, Htilde) at the current signal mode ->
+  Kalman fast-smooth the approximating LG model -> new signal mode }
+until the mean-squared signal change drops below ``conv_tol`` (at most
+``max_iter`` passes), always started cold from ``spec.initial_mode``.
+
+On a CUDA device the whole iteration is one launch of the hand-written
+``laplace_solve`` kernel (``ops/cuda_kalman.py``); ``laplace_solve_plain``
+below is its plain version.  Both stop row by row.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..core import distributions as fam
+from ..core.spec import LGSpec, NGSpec, SVM, with_batch
+from ..ops import cuda_kalman, kalman
+
+CONV_TOL = 1e-8
+MAX_ITER = 100
+
+
+def _col(phi: torch.Tensor) -> torch.Tensor:
+    """phi ``()`` or ``(B,)`` -> broadcastable against ``(B, n)`` series."""
+    return phi.unsqueeze(-1) if phi.dim() == 1 else phi
+
+
+def signal_from_states(spec: NGSpec, alpha: torch.Tensor) -> torch.Tensor:
+    """Linear signal s_t = D_t + Z_t' alpha_t, ``(B, n)`` from alpha
+    ``(B, n, m)``; for the SV family the signal is the first state."""
+    if spec.distribution == SVM:
+        return alpha[..., 0]
+    Z = with_batch(spec.Z, 2)               # (b, nz, m), nz in {1, n}
+    D = with_batch(spec.D, 1)               # (b, nd)
+    return D + (Z * alpha).sum(-1)
+
+
+class ApproxResult(NamedTuple):
+    mode: torch.Tensor       # (B, n) converged signal mode
+    ytilde: torch.Tensor     # (B, n) pseudo-observations (NaN at missing y)
+    Htilde: torch.Tensor     # (B, n) pseudo-std-devs
+    niter: torch.Tensor      # (B,) passes used
+    diff: torch.Tensor       # (B,) final mean-squared change
+    gloglik: Optional[torch.Tensor] = None   # (B,) KF loglik of the
+    # approximating model at (ytilde, Htilde), from the final smoother pass
+
+    def gaussian(self, spec: NGSpec) -> LGSpec:
+        return spec.approx_gaussian(self.ytilde, self.Htilde)
+
+
+def _one_match(spec: NGSpec, mode: torch.Tensor):
+    yt, HH = fam.laplace_match(spec.distribution, spec.y, spec.u,
+                               _col(spec.phi), mode)
+    H = torch.sqrt(torch.where(torch.isfinite(HH) & (HH > 0), HH,
+                               torch.ones_like(HH)))
+    yt = torch.where(spec.obs_mask, yt, torch.full_like(yt, torch.nan))
+    return yt, H
+
+
+def _laplace_step(spec: NGSpec, mode: torch.Tensor):
+    """One body of the iteration: (new mode, KF loglik of the approximating
+    model at match(mode), mean-squared change), all per row."""
+    yt, H = _one_match(spec, mode)
+    alpha, ll = kalman.fast_smoother_ll(spec.approx_gaussian(yt, H))
+    new_mode = signal_from_states(spec, alpha[:, :spec.n])
+    diff = torch.square(new_mode - mode).sum(-1) / spec.n
+    return new_mode, ll, diff
+
+
+def laplace_solve_plain(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
+                        max_iter: int):
+    """Plain version of the ``laplace_solve`` kernel: the batched loop over
+    ``_laplace_step`` with per-row stopping (a converged row keeps its
+    values while the others go on).  Returns (mode, prev, niter, diff, ll)."""
+    B, n = spec.batch or 1, spec.n
+    dt, dev = spec.y.dtype, spec.y.device
+    mode = with_batch(mode0, 1).expand(B, n).clone()
+    prev = mode.clone()
+    niter = torch.zeros(B, dtype=torch.int32, device=dev)
+    diff = torch.full((B,), conv_tol + 1.0, dtype=dt, device=dev)
+    ll = torch.zeros(B, dtype=dt, device=dev)
+    for _ in range(int(max_iter)):
+        active = diff > conv_tol
+        if not bool(active.any()):
+            break
+        new_mode, new_ll, new_diff = _laplace_step(spec, mode)
+        a2 = active.unsqueeze(-1)
+        prev = torch.where(a2, mode, prev)
+        mode = torch.where(a2, new_mode, mode)
+        ll = torch.where(active, new_ll, ll)
+        diff = torch.where(active, new_diff, diff)
+        niter = niter + active.to(torch.int32)
+    return mode, prev, niter, diff, ll
+
+
+def approximate(spec: NGSpec, conv_tol: float = CONV_TOL,
+                max_iter: int = MAX_ITER, mode0=None) -> ApproxResult:
+    """Full Laplace iteration from ``spec.initial_mode`` (or ``mode0``).
+
+    The (ytilde, Htilde) returned are re-derived from the penultimate mode,
+    exactly the pair the last smoother pass consumed, and ``gloglik`` is
+    that pass's Kalman log-likelihood."""
+    if mode0 is None:
+        mode0 = spec.initial_mode
+    mode0 = mode0.to(spec.y.dtype)
+    # a conv_tol below the dtype's noise floor would always exhaust max_iter
+    # (float32 eps ~1e-7); clamp to a resolvable tolerance
+    conv_tol = max(conv_tol, 50.0 * float(torch.finfo(spec.y.dtype).eps))
+    mode, prev, niter, diff, gll = cuda_kalman.laplace_solve(
+        spec, mode0, conv_tol, max_iter)
+    yt, H = _one_match(spec, prev)
+    return ApproxResult(mode, yt, H, niter, diff, gll)
+
+
+def approximate_for_is(spec: NGSpec, stored_mode: torch.Tensor
+                       ) -> ApproxResult:
+    """Rebuild the approximation from a stored mode without iterating."""
+    yt, H = _one_match(spec, stored_mode)
+    B = stored_mode.shape[0]
+    dev = stored_mode.device
+    return ApproxResult(stored_mode, yt, H,
+                        torch.ones(B, dtype=torch.int32, device=dev),
+                        torch.zeros(B, dtype=spec.y.dtype, device=dev))
+
+
+class ApproxLoglik(NamedTuple):
+    approx: ApproxResult
+    scales: torch.Tensor        # (B, n) mode-based correction terms
+    loglik: torch.Tensor        # (B,) approximate marginal log-likelihood
+    gaussian_loglik: torch.Tensor
+
+
+def mode_scales(spec: NGSpec, approx: ApproxResult) -> torch.Tensor:
+    """Mode-based correction terms ``(B, n)``, zero at missing y."""
+    sc = fam.scales(spec.distribution, spec.y, spec.u, _col(spec.phi),
+                    approx.mode, approx.ytilde, approx.Htilde)
+    return torch.where(spec.obs_mask, sc, torch.zeros_like(sc))
+
+
+def approx_loglik(spec: NGSpec, approx: Optional[ApproxResult] = None,
+                  conv_tol: float = CONV_TOL, max_iter: int = MAX_ITER,
+                  mode0=None) -> ApproxLoglik:
+    """Approximate marginal log-likelihood = KF loglik of the approximating
+    model + exact constant term + sum of the mode-based scales."""
+    if approx is None:
+        approx = approximate(spec, conv_tol, max_iter, mode0=mode0)
+    if approx.gloglik is not None:
+        gll = approx.gloglik
+    else:
+        gll = kalman.log_likelihood(approx.gaussian(spec))
+    sc = mode_scales(spec, approx)
+    ct = fam.const_term(spec.distribution, spec.y, spec.u, _col(spec.phi),
+                        approx.ytilde, approx.Htilde)
+    return ApproxLoglik(approx, sc, gll + ct + sc.sum(-1), gll)
