@@ -5,10 +5,11 @@ The port of the JAX package ``bssm_tpu`` that lives beside it, module for
 module (``core/``, ``ops/``, ``models/``, ``inference/``, ``diagnostics/``).
 It imports torch and numpy and nothing of JAX or of ``bssm_tpu``.
 
-What runs today: IS-MCMC (``mcmc_type="is2"``) and approximate MCMC on
-``bsm_ng`` models with the psi-auxiliary particle filter at up to 32
-particles and ``output_type="theta"``.  Entry points run on the CUDA device
-unless the caller passes ``device="cpu"``.
+What runs today, on ``bsm_ng`` models with ``output_type="theta"``: IS-MCMC
+(``mcmc_type="is2"``), approximate, pseudo-marginal (``"pm"``) and
+delayed-acceptance (``"da"``) MCMC, with the psi-auxiliary particle filter
+or the bootstrap filter at up to 512 particles.  Entry points run on the
+CUDA device unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -30,5 +31,7 @@ from .core.priors import (uniform_prior, halfnormal_prior,       # noqa: E402
 from .models.bsm import bsm_ng                                   # noqa: E402
 from .inference.mcmc import run_mcmc, McmcOutput                 # noqa: E402
 from .inference.approx import approximate, approx_loglik         # noqa: E402
+from .inference.particle import (psi_logw, bsf_logw,             # noqa: E402
+                                 psi_logw_scan, bsf_logw_scan)
 from .diagnostics.summary import (weighted_mean, weighted_var,   # noqa: E402
                                   ess_is)

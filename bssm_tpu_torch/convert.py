@@ -76,3 +76,19 @@ def model_state_from_numpy(theta, S, device=None,
     if S.dim() == 2:
         S = S.expand(theta.shape[0], -1, -1).contiguous()
     return theta, S
+
+
+def particle_streams_from_numpy(eps, us, device=None,
+                                dtype: torch.dtype = DEFAULT_DTYPE):
+    """The injected randomness of the JAX package's large-ensemble kernels
+    in this package's layout.  The JAX package keeps particles innermost and
+    pads the uniforms with an unused leading row block:
+
+    - psi mode: ``eps (B, n+1, m, N)``, ``us (B, n+1, N)``
+      -> ``eps (B, n+1, N, m)``, ``us (B, n, N)``;
+    - bootstrap mode: ``eps (B, n, m, N)``, ``us (B, n, N)``
+      -> ``eps (B, n, N, m)``, ``us (B, n-1, N)``."""
+    device = resolve_device(device)
+    eps = np.ascontiguousarray(np.swapaxes(np.asarray(eps), -1, -2))
+    us = np.ascontiguousarray(np.asarray(us)[:, 1:])
+    return _tensor(eps, device, dtype), _tensor(us, device, dtype)

@@ -1,5 +1,6 @@
-// Device functions shared by the three state-space kernels of this package
-// (laplace_solve.cu, rts_factors.cu, psi_logw.cu), written once.
+// Device functions shared by the state-space kernels of this package
+// (laplace_solve.cu, rts_factors.cu, psi_logw.cu, particle_big.cu), written
+// once.
 //
 // Everything is templated on the real type R (float or double) and on the
 // state dimension M (1..4), so the small M x M matrices live in registers
@@ -302,6 +303,140 @@ __device__ __forceinline__ R log_weight(int dist, R y, R u, R phi, R s, R yt,
   const R z = ((okg ? yt : R(0)) - s) / hts;
   const R g = okg ? R(-0.5) * z * z : R(0);
   return (ok ? w : R(0)) - g;
+}
+
+// ---------------------------------------------------------------------------
+// warp-wide reductions and prefix sum (all 32 lanes take part)
+// ---------------------------------------------------------------------------
+
+constexpr unsigned kFull = 0xffffffffu;
+
+template <typename R> __device__ __forceinline__ R warp_max(R x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmax(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+template <typename R> __device__ __forceinline__ R warp_sum(R x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+template <typename R>
+__device__ __forceinline__ R warp_inclusive_scan(R x, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const R up = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += up;
+  }
+  return x;
+}
+
+// ---------------------------------------------------------------------------
+// counter-based random numbers (Philox-4x32-10, Salmon et al. 2011)
+// ---------------------------------------------------------------------------
+// A value is a pure function of (key, counter), so it depends neither on the
+// launch geometry nor on the order in which threads run.  The plain PyTorch
+// version is ops/cuda_kalman.philox_fill_plain; both follow the layout
+//   counter = (particle, step, row, which),  key = (key0, key1).
+// which = 0: words (w0, w1) feed the Box-Muller pair of normals 0 and 1.  For
+// M <= 2 word w2 of the same call feeds the resampling uniform, so a
+// particle-step costs one Philox call.  For M > 2 the pair (w2, w3) feeds
+// normals 2 and 3, and the uniform is word 0 of a second call, which = 1,
+// made at resampling steps only.
+
+__device__ __forceinline__ void philox4x32_10(unsigned c0, unsigned c1,
+                                              unsigned c2, unsigned c3,
+                                              unsigned k0, unsigned k1,
+                                              unsigned (&out)[4]) {
+  constexpr unsigned kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
+  constexpr unsigned kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const unsigned hi0 = __umulhi(kM0, c0), lo0 = kM0 * c0;
+    const unsigned hi1 = __umulhi(kM1, c2), lo1 = kM1 * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+    k0 += kW0;
+    k1 += kW1;
+  }
+  out[0] = c0;
+  out[1] = c1;
+  out[2] = c2;
+  out[3] = c3;
+}
+
+// Uniform strictly inside (0, 1) from the top 24 bits: (b + 0.5) / 2^24,
+// rounded once to R.  In float that rounding reaches 1 for the largest b, so
+// the value is capped at the largest float below 1.
+template <typename R> __device__ __forceinline__ R u01_from_bits(unsigned w);
+template <> __device__ __forceinline__ float u01_from_bits<float>(unsigned w) {
+  const float u = __fmaf_rn((float)(w >> 8), 5.9604644775390625e-08f,
+                            2.98023223876953125e-08f);
+  return fminf(u, 0.99999994039535522f);
+}
+template <>
+__device__ __forceinline__ double u01_from_bits<double>(unsigned w) {
+  return ((double)(w >> 8) + 0.5) * 5.9604644775390625e-08;
+}
+
+__device__ __forceinline__ void sincospi_of(float x, float& s, float& c) {
+  sincospif(x, &s, &c);
+}
+__device__ __forceinline__ void sincospi_of(double x, double& s, double& c) {
+  sincospi(x, &s, &c);
+}
+
+// Box-Muller: two independent standard normals from two uniforms
+template <typename R>
+__device__ __forceinline__ void box_muller(R u1, R u2, R& z0, R& z1) {
+  const R rad = sqrt(R(-2) * log(u1));
+  R sn, cs;
+  sincospi_of(R(2) * u2, sn, cs);
+  z0 = rad * cs;
+  z1 = rad * sn;
+}
+
+// The four words of (row, step, particle) with which = 0
+__device__ __forceinline__ void philox_words(unsigned k0, unsigned k1,
+                                             unsigned row, unsigned step,
+                                             unsigned particle,
+                                             unsigned (&w)[4]) {
+  philox4x32_10(particle, step, row, 0u, k0, k1, w);
+}
+
+// The M standard normals from those words
+template <typename R, int M>
+__device__ __forceinline__ void philox_normals(const unsigned (&w)[4],
+                                               R (&z)[M]) {
+  R a, b;
+  box_muller<R>(u01_from_bits<R>(w[0]), u01_from_bits<R>(w[1]), a, b);
+  z[0] = a;
+  if constexpr (M > 1) z[1] = b;
+  if constexpr (M > 2) {
+    box_muller<R>(u01_from_bits<R>(w[2]), u01_from_bits<R>(w[3]), a, b);
+    z[2] = a;
+    if constexpr (M > 3) z[3] = b;
+  }
+}
+
+// The resampling uniform of (row, step, particle): word 2 of `w` where the
+// normals leave it unused, else word 0 of the call with which = 1
+template <typename R, int M>
+__device__ __forceinline__ R philox_uniform(const unsigned (&w)[4],
+                                            unsigned k0, unsigned k1,
+                                            unsigned row, unsigned step,
+                                            unsigned particle) {
+  if constexpr (M <= 2) {
+    return u01_from_bits<R>(w[2]);
+  } else {
+    unsigned v[4];
+    philox4x32_10(particle, step, row, 1u, k0, k1, v);
+    return u01_from_bits<R>(v[0]);
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -33,30 +33,6 @@
 
 namespace bssm {
 
-constexpr unsigned kFull = 0xffffffffu;
-
-template <typename R> __device__ __forceinline__ R warp_max(R x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmax(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-template <typename R> __device__ __forceinline__ R warp_sum(R x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-template <typename R>
-__device__ __forceinline__ R warp_inclusive_scan(R x, int lane) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const R up = __shfl_up_sync(kFull, x, o);
-    if (lane >= o) x += up;
-  }
-  return x;
-}
-
 template <typename R, int M>
 __global__ void psi_logw_kernel(
     int dist, int N, long B, int n, const R* __restrict__ ytilde,

@@ -1,18 +1,27 @@
-"""MCMC engines: RAM Metropolis on the Gaussian approximation and its
-importance-sampling post-correction.  Counterpart of
-``bssm_tpu/inference/mcmc.py`` for ``mcmc_type in ("approx", "is2")`` with
-``output_type="theta"`` on non-Gaussian (``kind == "ng"``) models.
+"""MCMC engines for non-Gaussian (``kind == "ng"``) models with
+``output_type="theta"``.  Counterpart of ``bssm_tpu/inference/mcmc.py`` for
 
-- Phase 1 is a Python loop over iterations with ALL chains advanced together
-  as one batch: every proposal costs one launch of the ``laplace_solve``
-  kernel plus elementwise tensor code.  A proposal whose prior is not finite
-  is masked out, not branched around.
-- Phase 2 (is2) corrects each jump-chain head once with a psi-auxiliary
-  particle filter; duplicate slots share their head's result.  The heads are
-  processed in chunks of ``corr_batch`` rows, which only bounds memory (the
-  injected normals of one chunk are ``corr_batch x (n+1) x N x m`` values).
-  Each chunk runs the ``laplace_solve`` (when the modes were not stored),
-  ``rts_factors`` and ``psi_logw`` kernels once.
+- ``mcmc_type="approx"``: RAM Metropolis on the Gaussian approximation;
+- ``mcmc_type="is2"``: the same chain followed by an importance-sampling
+  correction of each jump-chain head, by the psi-auxiliary particle filter
+  (``sampling_method="psi"``) or the bootstrap filter (``"bsf"``);
+- ``mcmc_type="pm"``: pseudo-marginal Metropolis on a particle-filter
+  estimate of the likelihood (psi or bsf);
+- ``mcmc_type="da"``: delayed acceptance, stage 1 on the approximation and
+  stage 2 on the particle-filter estimate.
+
+All chains advance together as one batch in a Python loop over iterations:
+every proposal costs one launch of each kernel on its path plus elementwise
+tensor code.  A proposal whose prior is not finite is masked out, not
+branched around.  Kernels per evaluation (``ops/cuda_kalman.py``):
+``laplace_solve`` for the approximation; ``rts_factors`` and ``psi_logw``
+(up to 32 particles) or ``psi_big_logw`` (up to 512) for the psi filter;
+``bsf_big_logw`` for the bootstrap filter.
+
+The is2 correction processes the heads in chunks of ``corr_batch`` rows,
+which only bounds memory; duplicate slots share their head's result.  The
+filters of pm and da resample at every step; ``psi_resample_every`` sets the
+period of the is2 correction's filter above 32 particles.
 
 Statistical defaults: burnin = iter/2, target acceptance 0.234,
 gamma = 2/3, RAM adaptation at every iteration unless
@@ -45,6 +54,9 @@ class ChainState(NamedTuple):
     ll: torch.Tensor           # (C,) log-likelihood of the current state
     aux: Optional[torch.Tensor]  # (C, ...) extras carried with theta
     S: torch.Tensor            # (C, d, d)
+    # (C,) log-likelihood the RAM adaptation sees: ``ll`` itself, or in
+    # pseudo-marginal psi the approximation's, free of filter noise
+    ll_ram: torch.Tensor
 
 
 def _ram_step(logdens: Callable, log_prior: Callable, state: ChainState,
@@ -55,18 +67,24 @@ def _ram_step(logdens: Callable, log_prior: Callable, state: ChainState,
     the accept test, ``i`` the 1-based iteration number.  Returns the new
     state and the accept flags ``(C,)``.
 
-    ``logdens(theta (C, d)) -> (ll (C,), aux)``.  Rows whose proposal has a
-    non-finite prior are evaluated at their current theta (so the kernels
-    see sane inputs) and then masked: log-likelihood -inf, never accepted."""
+    ``logdens(theta (C, d)) -> (ll (C,), ll_ram (C,), aux)``: the accept
+    test uses ``ll``, the acceptance probability fed to the RAM adaptation
+    comes from ``ll_ram``.  Rows whose proposal has a non-finite prior are
+    evaluated at their current theta (so the kernels see sane inputs) and
+    then masked: log-likelihood -inf, never accepted.  The stored ``ll`` of
+    the current state is never evaluated again, which is what makes a noisy
+    ``logdens`` a valid pseudo-marginal sampler."""
     prop = state.theta + (state.S @ u.unsqueeze(-1)).squeeze(-1)
     lp_prop = log_prior(prop)
     ok = lp_prop > -torch.inf
-    ll_prop, aux_prop = logdens(torch.where(ok.unsqueeze(-1), prop,
-                                            state.theta))
-    ll_prop = torch.where(ok, ll_prop.to(prop.dtype),
-                          torch.full_like(lp_prop, -torch.inf))
+    ninf = torch.full_like(lp_prop, -torch.inf)
+    ll_prop, ll_ram_prop, aux_prop = logdens(
+        torch.where(ok.unsqueeze(-1), prop, state.theta))
+    ll_prop = torch.where(ok, ll_prop.to(prop.dtype), ninf)
+    ll_ram_prop = torch.where(ok, ll_ram_prop.to(prop.dtype), ninf)
     diff = ll_prop - state.ll + lp_prop - state.lp_prior
-    acc_prob = torch.where(ok, torch.clamp(torch.exp(diff), max=1.0),
+    ram_diff = ll_ram_prop - state.ll_ram + lp_prop - state.lp_prior
+    acc_prob = torch.where(ok, torch.clamp(torch.exp(ram_diff), max=1.0),
                            torch.zeros_like(diff))
     accept = ok & (torch.log(unif) < diff)
     acc1 = accept.unsqueeze(-1)
@@ -77,7 +95,8 @@ def _ram_step(logdens: Callable, log_prior: Callable, state: ChainState,
     S = adapt_S(state.S, u, acc_prob, target, i, gamma) if adapt else state.S
     new = ChainState(theta=torch.where(acc1, prop, state.theta),
                      lp_prior=torch.where(accept, lp_prop, state.lp_prior),
-                     ll=torch.where(accept, ll_prop, state.ll), aux=aux, S=S)
+                     ll=torch.where(accept, ll_prop, state.ll), aux=aux, S=S,
+                     ll_ram=torch.where(accept, ll_ram_prop, state.ll_ram))
     return new, accept
 
 
@@ -93,9 +112,9 @@ def _ram_scan(logdens: Callable, log_prior: Callable, theta0: torch.Tensor,
     after burn-in ``(C,)``)."""
     C, d = theta0.shape
     dt, dev = theta0.dtype, theta0.device
-    ll0, aux0 = logdens(theta0)
+    ll0, ll_ram0, aux0 = logdens(theta0)
     state = ChainState(theta0, log_prior(theta0), ll0.to(dt),
-                       aux0 if store_aux else None, S0)
+                       aux0 if store_aux else None, S0, ll_ram0.to(dt))
     slots = list(range(burnin, n_iter, thin))
     Sn = len(slots)
     thetas = torch.empty((C, Sn, d), dtype=dt, device=dev)
@@ -199,7 +218,7 @@ def _approx_chain(model: Model, n_iter, burnin, thin, target, gamma, end_ram,
         spec = model.build(theta)
         al = approx_mod.approx_loglik(spec, conv_tol=conv_tol,
                                       max_iter=max_iter)
-        return al.loglik, al.approx.mode
+        return al.loglik, al.loglik, al.approx.mode
 
     def chain(generator, theta0, S0):
         final, thetas, lps, lls, accepted, modes, acc_rate = _ram_scan(
@@ -216,46 +235,64 @@ def _approx_chain(model: Model, n_iter, burnin, thin, target, gamma, end_ram,
 # phase 2: IS post-correction
 # --------------------------------------------------------------------------
 
-def _make_correct_rows(model: Model, nsim: int, sampling_method: str,
-                       conv_tol: float = 1e-8, max_iter: int = 100):
-    """The psi-APF log-weight-only correction of a batch of stored draws
-    (the counterpart of the JAX package's per-draw ``_make_correct_one``,
-    psi / theta-output branch).
-
-    ``correct_rows(theta (B, d), modes (B, n) or None, generator, eps=None,
-    us=None) -> {"log_w": (B,)}``.  Without stored modes the Laplace
-    approximation is recomputed cold, which reproduces phase 1's (it cold
-    starts too)."""
-    if sampling_method != "psi":
+def _check_method(model: Model, sampling_method: str) -> None:
+    if sampling_method not in ("psi", "bsf"):
         raise NotImplementedError(
-            f"sampling_method={sampling_method!r}: only 'psi' is ported")
+            f"sampling_method={sampling_method!r}: only 'psi' and 'bsf' are "
+            "ported")
     if model.kind != "ng":
         raise NotImplementedError(f"model kind {model.kind!r} is not ported")
 
+
+def _psi_al(spec, ar):
+    """What the log-weight-only psi filter consumes: the approximation with
+    its mode-based scales and zero log-likelihood terms."""
+    zero = torch.zeros(ar.mode.shape[0], dtype=spec.y.dtype,
+                       device=spec.y.device)
+    return approx_mod.ApproxLoglik(ar, approx_mod.mode_scales(spec, ar),
+                                   zero, zero)
+
+
+def _make_correct_rows(model: Model, nsim: int, sampling_method: str,
+                       conv_tol: float = 1e-8, max_iter: int = 100,
+                       psi_resample_every: int = 1):
+    """The log-weight-only correction of a batch of stored draws (the
+    counterpart of the JAX package's per-draw ``_make_correct_one``,
+    theta-output branches).
+
+    ``correct_rows(theta (B, d), modes (B, n) or None, generator, eps=None,
+    us=None) -> {"log_w": (B,)}``.  psi: the psi-APF log-weight; without
+    stored modes the Laplace approximation is recomputed cold, which
+    reproduces phase 1's (it cold starts too).  bsf: the bootstrap filter's
+    log-likelihood estimate, from which ``_is_finish`` subtracts the stored
+    approximate log-likelihood; the modes are not used."""
+    _check_method(model, sampling_method)
+    kk = int(psi_resample_every)
+
     def correct_rows(theta, modes=None, generator=None, eps=None, us=None):
         spec = model.build(theta)
+        if sampling_method == "bsf":
+            return {"log_w": pf_mod.bsf_logw(
+                spec, nsim, generator, resample_every=kk, eps=eps, us=us)}
         if modes is None:
             ar = approx_mod.approximate(spec, conv_tol, max_iter)
         else:
             ar = approx_mod.approximate_for_is(spec, modes)
-        sc = approx_mod.mode_scales(spec, ar)
-        zero = torch.zeros(theta.shape[0], dtype=spec.y.dtype,
-                           device=spec.y.device)
-        al = approx_mod.ApproxLoglik(ar, sc, zero, zero)
-        return {"log_w": pf_mod.psi_logw(spec, al, nsim, generator, eps=eps,
-                                         us=us)}
+        return {"log_w": pf_mod.psi_logw(spec, _psi_al(spec, ar), nsim,
+                                         generator, eps=eps, us=us,
+                                         resample_every=kk)}
 
     return correct_rows
 
 
 def _is_correction_flat(model: Model, thetas, modes, generator, nsim,
                         sampling_method, batch_size, conv_tol=1e-8,
-                        max_iter=100):
+                        max_iter=100, psi_resample_every=1):
     """IS correction over a flat axis of stored draws, in chunks of
     ``batch_size`` rows.  thetas ``(Ns, d)``; modes ``(Ns, n)`` or None.
     Returns ``{"log_w": (Ns,)}``."""
     correct_rows = _make_correct_rows(model, nsim, sampling_method, conv_tol,
-                                      max_iter)
+                                      max_iter, psi_resample_every)
     parts = []
     for lo in range(0, thetas.shape[0], batch_size):
         mo = None if modes is None else modes[lo:lo + batch_size]
@@ -264,12 +301,12 @@ def _is_correction_flat(model: Model, thetas, modes, generator, nsim,
     return {"log_w": torch.cat(parts)}
 
 
-def _is_postprocess(model: Model, thetas, modes, accepted, generator, *,
-                    nsim, sampling_method, batch_size, conv_tol=1e-8,
-                    max_iter=100):
+def _is_postprocess(model: Model, thetas, modes, accepted, approx_ll,
+                    generator, *, nsim, sampling_method, batch_size,
+                    conv_tol=1e-8, max_iter=100, psi_resample_every=1):
     """is2: correct each jump-chain head once with ``nsim`` particles;
-    duplicate slots share the head's result.  thetas ``(C, S, d)``; returns
-    ``({"log_w": (C, S)}, number of heads)``."""
+    duplicate slots share the head's result.  thetas ``(C, S, d)``,
+    approx_ll ``(C, S)``; returns ``({"log_w": (C, S)}, number of heads)``."""
     C, Sn = thetas.shape[:2]
     hmask = accepted.clone()
     hmask[:, 0] = True                      # slot 0 of a chain is a head
@@ -279,17 +316,162 @@ def _is_postprocess(model: Model, thetas, modes, accepted, generator, *,
     mo_rows = None if modes is None else modes.reshape(C * Sn, -1)[hidx]
     corr = _is_correction_flat(model, th_rows, mo_rows, generator, nsim,
                                sampling_method, batch_size, conv_tol,
-                               max_iter)
-    return _is_finish(corr, hmask, (C, Sn)), int(hidx.shape[0])
+                               max_iter, psi_resample_every)
+    return (_is_finish(corr, hmask, (C, Sn), approx_ll, sampling_method),
+            int(hidx.shape[0]))
 
 
-def _is_finish(corr, hmask, shape):
-    """Assembly pass of is2: jump-chain fill of the heads' log-weights."""
+def _is_finish(corr, hmask, shape, approx_ll=None, sampling_method="psi"):
+    """Assembly pass of is2: jump-chain fill of the heads' log-weights.  The
+    bootstrap filter estimates the full likelihood, so its weight is the
+    ratio to the stored approximate likelihood ``approx_ll``."""
     src = torch.cumsum(hmask.to(torch.int64), 0) - 1   # head ordinal per slot
     log_w = corr["log_w"][src]
+    if sampling_method == "bsf":
+        log_w = log_w - approx_ll.reshape(-1)
     log_w = torch.where(torch.isfinite(log_w), log_w,
                         torch.full_like(log_w, -torch.inf))
     return {"log_w": log_w.reshape(shape)}
+
+
+# --------------------------------------------------------------------------
+# pseudo-marginal and delayed-acceptance MCMC
+# --------------------------------------------------------------------------
+
+def _pf_loglik(model: Model, theta: torch.Tensor, generator, nsim: int,
+               sampling_method: str, conv_tol: float, max_iter: int):
+    """``(ll (C,), approx_ll (C,))`` of every row of ``theta``: the
+    particle-filter estimate of the log-likelihood and the approximation's.
+    bsf: the bootstrap filter's estimate, twice.  psi: the approximate
+    log-likelihood plus the psi-APF log-weight, the filter linearised at the
+    converged mode.  The filters resample at every step."""
+    spec = model.build(theta)
+    if sampling_method == "bsf":
+        ll = pf_mod.bsf_logw(spec, nsim, generator)
+        return ll, ll
+    al = approx_mod.approx_loglik(spec, conv_tol=conv_tol, max_iter=max_iter)
+    ar = approx_mod.approximate_for_is(spec, al.approx.mode)
+    log_corr = pf_mod.psi_logw(spec, _psi_al(spec, ar), nsim, generator)
+    return al.loglik + log_corr, al.loglik
+
+
+def _pm_chain(model: Model, n_iter, burnin, thin, target, gamma, end_ram,
+              nsim, sampling_method, conv_tol, max_iter, pf_generator):
+    """Pseudo-marginal RAM Metropolis: the chain accepts on the noisy
+    particle-filter log-likelihood, whose value at the current state is kept
+    as stored, and adapts on the approximation's (psi) or the same (bsf)."""
+    _check_method(model, sampling_method)
+
+    def logdens(theta):
+        ll, approx_ll = _pf_loglik(model, theta, pf_generator, nsim,
+                                   sampling_method, conv_tol, max_iter)
+        return ll, approx_ll, None
+
+    def chain(generator, theta0, S0):
+        final, thetas, lps, lls, accepted, _, acc_rate = _ram_scan(
+            logdens, model.log_prior, theta0, S0, generator, n_iter, burnin,
+            thin, target, gamma, end_ram, store_aux=False)
+        return dict(theta=thetas, prior=lps, ll=lls, accepted=accepted,
+                    S=final.S, acc_rate=acc_rate)
+
+    return chain
+
+
+class DaState(NamedTuple):
+    theta: torch.Tensor        # (C, d)
+    lp_prior: torch.Tensor     # (C,)
+    ll: torch.Tensor           # (C,) particle-filter log-likelihood, stored
+    ll_approx: torch.Tensor    # (C,) approximate log-likelihood
+    S: torch.Tensor            # (C, d, d)
+
+
+def _da_step(full_eval: Callable, log_prior: Callable, state: DaState,
+             u: torch.Tensor, unif1: torch.Tensor, unif2: torch.Tensor,
+             i: int, target: float, gamma: float, adapt: bool):
+    """One delayed-acceptance iteration of every chain from injected
+    randomness: ``u (C, d)`` proposal normals, ``unif1``, ``unif2 (C,)`` the
+    uniforms of the two stages.  ``full_eval(theta) -> (ll, ll_approx)``.
+
+    Stage 1 screens the proposal on the approximation; stage 2 accepts the
+    survivors with the ratio of the particle-filter estimate to the
+    approximation.  ``full_eval`` runs on every row and the rows that failed
+    stage 1 are masked out of stage 2: the same law as evaluating the
+    survivors only, without a host round trip per iteration.  RAM adapts on
+    the stage-1 acceptance probability."""
+    prop = state.theta + (state.S @ u.unsqueeze(-1)).squeeze(-1)
+    lp_prop = log_prior(prop)
+    ok = lp_prop > -torch.inf
+    ninf = torch.full_like(lp_prop, -torch.inf)
+    ll_prop, ll_approx_prop = full_eval(torch.where(ok.unsqueeze(-1), prop,
+                                                    state.theta))
+    ll_prop = torch.where(ok, ll_prop.to(prop.dtype), ninf)
+    ll_approx_prop = torch.where(ok, ll_approx_prop.to(prop.dtype), ninf)
+    acc_prob = torch.where(
+        ok, torch.clamp(torch.exp(ll_approx_prop - state.ll_approx
+                                  + lp_prop - state.lp_prior), max=1.0),
+        torch.zeros_like(lp_prop))
+    pass1 = unif1 < acc_prob
+    log_alpha = ll_prop + state.ll_approx - state.ll - ll_approx_prop
+    accept = pass1 & (torch.log(unif2) < log_alpha)
+    S = adapt_S(state.S, u, acc_prob, target, i, gamma) if adapt else state.S
+    new = DaState(
+        theta=torch.where(accept.unsqueeze(-1), prop, state.theta),
+        lp_prior=torch.where(accept, lp_prop, state.lp_prior),
+        ll=torch.where(accept, ll_prop, state.ll),
+        ll_approx=torch.where(accept, ll_approx_prop, state.ll_approx), S=S)
+    return new, accept
+
+
+def _da_chain(model: Model, n_iter, burnin, thin, target, gamma, end_ram,
+              nsim, sampling_method, conv_tol, max_iter, pf_generator):
+    """Delayed-acceptance RAM Metropolis, all chains batched; stores the
+    post-burn-in slots like ``_ram_scan``."""
+    _check_method(model, sampling_method)
+
+    def full_eval(theta):
+        ll, approx_ll = _pf_loglik(model, theta, pf_generator, nsim,
+                                   sampling_method, conv_tol, max_iter)
+        if sampling_method == "bsf":        # stage 1 needs the approximation
+            approx_ll = approx_mod.approx_loglik(
+                model.build(theta), conv_tol=conv_tol,
+                max_iter=max_iter).loglik
+        return ll, approx_ll
+
+    def chain(generator, theta0, S0):
+        C, d = theta0.shape
+        dt, dev = theta0.dtype, theta0.device
+        ll0, all0 = full_eval(theta0)
+        state = DaState(theta0, model.log_prior(theta0), ll0.to(dt),
+                        all0.to(dt), S0)
+        Sn = len(range(burnin, n_iter, thin))
+        thetas = torch.empty((C, Sn, d), dtype=dt, device=dev)
+        lps = torch.empty((C, Sn), dtype=dt, device=dev)
+        lls = torch.empty((C, Sn), dtype=dt, device=dev)
+        accs = torch.empty((C, Sn), dtype=torch.bool, device=dev)
+        n_acc = torch.zeros(C, dtype=dt, device=dev)
+        k = 0
+        for i in range(1, n_iter + 1):
+            u = torch.randn((C, d), dtype=dt, device=dev,
+                            generator=generator)
+            unif = torch.rand((2, C), dtype=dt, device=dev,
+                              generator=generator)
+            adapt = (i <= burnin) if end_ram else True
+            state, accept = _da_step(full_eval, model.log_prior, state, u,
+                                     unif[0], unif[1], i, target, gamma,
+                                     adapt)
+            pos = i - 1
+            if pos >= burnin:
+                n_acc += accept.to(dt)
+                if (pos - burnin) % thin == 0:
+                    thetas[:, k] = state.theta
+                    lps[:, k] = state.lp_prior
+                    lls[:, k] = state.ll
+                    accs[:, k] = accept
+                    k += 1
+        return dict(theta=thetas, prior=lps, ll=lls, accepted=accs,
+                    S=state.S, acc_rate=n_acc / max(n_iter - burnin, 1))
+
+    return chain
 
 
 # --------------------------------------------------------------------------
@@ -313,13 +495,20 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
              output_type: str = "theta", n_chains: int = 1, seed: int = 1,
              conv_tol: float = 1e-8, max_iter: int = 100, theta_init=None,
              corr_batch: Optional[int] = None, store_modes: bool = True,
+             psi_resample_every: int = 1,
              device=None, dtype: Optional[torch.dtype] = None) -> McmcOutput:
     """Bayesian inference via adaptive MCMC for non-Gaussian models.
 
-    mcmc_type: "is2" (default) or "approx".  sampling_method: "psi".
-    output_type: "theta".  ``device=None`` means the CUDA device and raises
-    when there is none; it must agree with the device the model was built
-    on.  ``dtype`` defaults to the model's."""
+    mcmc_type: "is2" (default), "approx", "pm" or "da".  sampling_method:
+    "psi" (default) or "bsf".  output_type: "theta".  ``particles``: 2 to
+    512.  ``psi_resample_every``: the stratified-resampling period of the
+    is2 correction's particle filter above 32 particles; 1 (default)
+    resamples at every step, k > 1 at every k-th step only, which keeps the
+    likelihood estimate unbiased for a fixed schedule (check ESS_IS when
+    raising it).  The filters of pm and da always resample at every step.
+    ``device=None`` means the CUDA device and raises when there is none; it
+    must agree with the device the model was built on.  ``dtype`` defaults
+    to the model's."""
     t0 = _time.time()
     device = resolve_device(device)
     dtype = model.dtype if dtype is None else dtype
@@ -332,17 +521,20 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
         raise NotImplementedError(f"model kind {model.kind!r} is not ported")
     mcmc_type = mcmc_type or "is2"
     sampling_method = sampling_method or "psi"
-    if mcmc_type not in ("approx", "is2"):
+    if mcmc_type not in ("approx", "is2", "pm", "da"):
         raise NotImplementedError(
-            f"mcmc_type={mcmc_type!r}: only 'approx' and 'is2' are ported")
+            f"mcmc_type={mcmc_type!r}: only 'approx', 'is2', 'pm' and 'da' "
+            "are ported")
     if output_type != "theta":
         raise NotImplementedError(
             f"output_type={output_type!r}: only 'theta' is ported")
-    if sampling_method != "psi":
-        raise NotImplementedError(
-            f"sampling_method={sampling_method!r}: only 'psi' is ported")
-    if mcmc_type == "is2" and particles < 2:
-        raise ValueError("particles >= 2 required for non-approx MCMC")
+    _check_method(model, sampling_method)
+    if mcmc_type != "approx":
+        if particles < 2:
+            raise ValueError("particles >= 2 required for non-approx MCMC")
+        pf_mod._check_particles(particles)
+    if int(psi_resample_every) < 1:
+        raise ValueError("psi_resample_every must be >= 1")
     if burnin is None:
         burnin = iter // 2
 
@@ -357,18 +549,24 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
     S0 = dev(model.initial_S() if S is None else S)
     if S0.dim() == 2:
         S0 = S0.expand(n_chains, -1, -1).contiguous()
+    # gen1: proposals and accept tests; gen2: the particle filters
     gen1, gen2 = _generators(seed, device)
 
     # fail fast on a non-finite initial prior
     if not bool(torch.isfinite(model.log_prior(theta0)).all()):
         raise ValueError("Initial prior probability is not finite.")
 
-    # "approx" keeps the modes when asked (later state draws replay them)
-    scan_modes = bool(store_modes)
-    chain = _approx_chain(model, n_iter=iter, burnin=burnin, thin=thin,
-                          target=target_acceptance, gamma=gamma,
-                          end_ram=end_adaptive_phase, conv_tol=conv_tol,
-                          max_iter=max_iter, scan_modes=scan_modes)
+    common = dict(n_iter=iter, burnin=burnin, thin=thin,
+                  target=target_acceptance, gamma=gamma,
+                  end_ram=end_adaptive_phase, conv_tol=conv_tol,
+                  max_iter=max_iter)
+    if mcmc_type in ("pm", "da"):
+        make = _pm_chain if mcmc_type == "pm" else _da_chain
+        chain = make(model, nsim=particles, sampling_method=sampling_method,
+                     pf_generator=gen2, **common)
+    else:
+        # "approx" keeps the modes when asked (later state draws replay them)
+        chain = _approx_chain(model, scan_modes=bool(store_modes), **common)
     res = chain(gen1, theta0, S0)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -379,24 +577,27 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
 
     out = McmcOutput(
         theta=host(model.to_natural(res["theta"])),
-        posterior=host(res["prior"] + res["approx_ll"]),
+        posterior=host(res["prior"] + res["ll" if "ll" in res
+                                          else "approx_ll"]),
         accepted=host(res["accepted"]),
         acceptance_rate=float(res["acc_rate"].mean()),
         S=host(res["S"]), theta_names=model.theta_names, mcmc_type=mcmc_type,
         output_type=output_type, iter=iter, burnin=burnin, thin=thin,
-        prior=host(res["prior"]), approx_loglik=host(res["approx_ll"]),
-        time={"mcmc": t_mcmc})
-    if store_modes:
-        out.modes = host(res["modes"])
-        out.theta_sampled = host(res["theta"])
+        prior=host(res["prior"]), time={"mcmc": t_mcmc})
+    if mcmc_type in ("approx", "is2"):
+        out.approx_loglik = host(res["approx_ll"])
+        if store_modes:
+            out.modes = host(res["modes"])
+            out.theta_sampled = host(res["theta"])
 
     if mcmc_type == "is2":
         t1 = _time.time()
         post, n_heads = _is_postprocess(
-            model, res["theta"], res["modes"], res["accepted"], gen2,
-            nsim=particles, sampling_method=sampling_method,
+            model, res["theta"], res["modes"], res["accepted"],
+            res["approx_ll"], gen2, nsim=particles,
+            sampling_method=sampling_method,
             batch_size=int(corr_batch or 256), conv_tol=conv_tol,
-            max_iter=max_iter)
+            max_iter=max_iter, psi_resample_every=psi_resample_every)
         log_w = post["log_w"]
         # weights are stored shifted by the global max so exp never
         # overflows (IS averages are scale invariant)

@@ -1,19 +1,38 @@
-"""psi-auxiliary particle filter log-weights, batched.
+"""Particle-filter log-likelihood estimates, batched: the psi-auxiliary
+particle filter's log-weight and the bootstrap filter's log-likelihood.
 
-Counterpart of ``bssm_tpu/inference/particle.py`` for the log-weight-only
-correction of IS-MCMC: the proposal is the smoothing law of the
-approximating Gaussian model in its BACKWARD (FFBS) factorisation, so
-generation runs t = n..0, drawing alpha_n from the smoothed marginal and each
-alpha_t from N(ahat_t + Ab_t (alpha_{t+1} - ahat_{t+1}), Lb_t Lb_t');
-observation weights attach at the step that generates their state, and the
-ensemble is stratified-resampled at every step.
+Counterpart of ``bssm_tpu/inference/particle.py`` for the estimators that
+need no trajectories (IS-MCMC correction, pseudo-marginal and
+delayed-acceptance MCMC with ``output_type="theta"``).
 
-All randomness is injected as tensors (``eps`` normals, ``us`` uniforms), so
-the hand-written ``psi_logw`` kernel (``ops/cuda_kalman.py``) and its plain
-version ``psi_logw_scan`` below consume identical inputs.
+psi-APF: the proposal is the smoothing law of the approximating Gaussian
+model in its BACKWARD (FFBS) factorisation, so generation runs t = n..0,
+drawing alpha_n from the smoothed marginal and each alpha_t from
+N(ahat_t + Ab_t (alpha_{t+1} - ahat_{t+1}), Lb_t Lb_t'); observation weights
+attach at the step that generates their state.  Bootstrap filter: particles
+start from N(a1, P1), move forwards through the state equation and are
+weighted by the observation density.  Both resample (stratified) at every
+``resample_every``-th step and carry their log-weights in between.
+
+Which kernel serves which ensemble (``ops/cuda_kalman.py``):
+
+=============  ======================  ==============================
+particles      psi-APF                 bootstrap filter
+=============  ======================  ==============================
+N <= 32        ``psi_logw``            ``bsf_big_logw``
+32 < N <= 512  ``psi_big_logw``        ``bsf_big_logw``
+N > 512        not ported              not ported
+=============  ======================  ==============================
+
+``psi_logw`` takes its randomness injected as tensors; the large-ensemble
+kernel takes a Philox key drawn from the caller's generator and makes its
+own normals and uniforms, or injected tensors for the checks.  The plain
+versions ``psi_logw_scan`` and ``bsf_logw_scan`` below consume injected
+tensors.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -44,15 +63,66 @@ def _lse_update(logw: torch.Tensor):
     return inc.squeeze(-1), normw
 
 
+def _carry_update(lnw: torch.Tensor, lw: torch.Tensor, ok: torch.Tensor):
+    """Weight update of every ensemble with carried log-weights, as the
+    large-ensemble kernel does it: ``lnw (B, N)`` normalised log-weights,
+    ``lw (B, N)`` the step's log-weights, ``ok (B, 1)`` whether y is
+    observed.  Returns (increment ``(B,)``, new normalised log-weights).  A
+    missing y leaves the weights as they were (normalised anew); a dead
+    ensemble gives ``-inf`` and log-weights ``-log N``."""
+    N = lnw.shape[-1]
+    lt = lnw + torch.where(ok, lw, torch.zeros_like(lw))
+    fin = torch.isfinite(lt)
+    ninf = torch.full_like(lt, -torch.inf)
+    lt = torch.where(fin, lt, ninf)
+    mx = lt.max(dim=-1, keepdim=True).values
+    mx_ok = torch.isfinite(mx)
+    mxs = torch.where(mx_ok, mx, torch.zeros_like(mx))
+    w = torch.where(fin, torch.exp(lt - mxs), torch.zeros_like(lt))
+    sw = w.sum(-1, keepdim=True)
+    ok2 = (sw > 0) & mx_ok
+    inc = torch.where(ok2, mxs + torch.log(torch.clamp(sw, min=1e-35)),
+                      ninf[..., :1])
+    lnw_new = torch.where(ok2, lt - inc,
+                          torch.full_like(lt, -math.log(N)))
+    return inc.squeeze(-1), lnw_new
+
+
+def _resample(lnw: torch.Tensor, r: torch.Tensor, alpha: torch.Tensor):
+    """Stratified resampling of ``alpha (B, N, m)`` by the normalised
+    log-weights ``lnw`` and uniforms ``r``."""
+    nw = torch.where(torch.isfinite(lnw), torch.exp(lnw),
+                     torch.zeros_like(lnw))
+    return stratified_gather_from_uniforms(nw, r, alpha)
+
+
+def _signal(spec: NGSpec, alpha: torch.Tensor, Z, D, t: int) -> torch.Tensor:
+    if spec.distribution == SVM:
+        return alpha[..., 0]
+    return at_t(D, t).unsqueeze(-1) \
+        + (alpha * at_t(Z, t).unsqueeze(-2)).sum(-1)
+
+
 def psi_logw_scan(spec: NGSpec, al: ApproxLoglik, eps: torch.Tensor,
-                  us: torch.Tensor, factors=None) -> torch.Tensor:
-    """Plain version of the ``psi_logw`` kernel: the psi-APF log-weight
-    ``(B,)`` as a Python loop over time with injected randomness
-    ``eps (B, n+1, N, m)`` and ``us (B, n, N)``.  ``factors`` are the
-    proposal factors ``(ahat, Lb, Ab)``; computed when absent."""
+                  us: torch.Tensor, factors=None,
+                  resample_every: int = 1) -> torch.Tensor:
+    """Plain version of the ``psi_logw`` and ``psi_big_logw`` kernels: the
+    psi-APF log-weight ``(B,)`` as a Python loop over time with injected
+    randomness ``eps (B, n+1, N, m)`` and ``us (B, n, N)``.  ``factors`` are
+    the proposal factors ``(ahat, Lb, Ab)``; computed when absent.  With
+    ``resample_every`` = kk > 1 the ensemble is resampled at generation
+    steps 1, 1 + kk, ... only (``us`` of the other steps is not read) and
+    carries its log-weights in between (``_carry_update``, the recursion of
+    the large-ensemble kernel).  kk = 1 keeps the linear-weight recursion of
+    the ``psi_logw`` kernel (``_lse_update``) so that its result stays what
+    that kernel's tests pin, to the bit; with weights that restart from 1/N
+    at every step the two recursions are the same function, and the float64
+    checks on the card hold the large-ensemble kernel at kk = 1 to this
+    branch at 1e-9."""
     n = spec.n
     B, _, N, _ = eps.shape
     dt = spec.y.dtype
+    kk = int(resample_every)
     if factors is None:
         factors = cuda_kalman.rts_factors(al.approx.gaussian(spec))
     ahat, Lb, Ab = factors
@@ -66,48 +136,135 @@ def psi_logw_scan(spec: NGSpec, al: ApproxLoglik, eps: torch.Tensor,
 
     alpha = ahat[:, n, None, :] + eps[:, 0] @ tr(Lb[:, n])   # no observation
     nw = torch.full((B, N), 1.0 / N, dtype=dt, device=eps.device)
+    lnw = torch.full((B, N), -math.log(N), dtype=dt, device=eps.device)
     ll = torch.zeros(B, dtype=dt, device=eps.device)
     for s in range(1, n + 1):
         t = n - s
-        anc = stratified_gather_from_uniforms(nw, us[:, s - 1], alpha)
+        if kk == 1:
+            anc = stratified_gather_from_uniforms(nw, us[:, s - 1], alpha)
+        elif (s - 1) % kk == 0:
+            anc = _resample(lnw, us[:, s - 1], alpha)
+            lnw = torch.full_like(lnw, -math.log(N))
+        else:
+            anc = alpha
         alpha = (ahat[:, t, None, :]
                  + (anc - ahat[:, t + 1, None, :]) @ tr(Ab[:, t])
                  + eps[:, s] @ tr(Lb[:, t]))
-        if spec.distribution == SVM:
-            sig = alpha[..., 0]
-        else:
-            sig = at_t(D, t).unsqueeze(-1) \
-                + (alpha * at_t(Z, t).unsqueeze(-2)).sum(-1)
+        sig = _signal(spec, alpha, Z, D, t)
         y_t = y[:, t, None]
         lw = fam.log_weights(spec.distribution, y_t, u[:, t, None], phi, sig,
                              yt[:, t, None], Ht[:, t, None]) - scl[:, t, None]
         ok = torch.isfinite(y_t)                             # (b, 1)
-        inc, nw_new = _lse_update(torch.where(ok, lw, torch.zeros_like(lw)))
+        if kk == 1:
+            inc, nw_new = _lse_update(torch.where(ok, lw,
+                                                  torch.zeros_like(lw)))
+            nw = torch.where(ok, nw_new, torch.full_like(nw_new, 1.0 / N))
+        else:
+            inc, lnw = _carry_update(lnw, lw, ok)
         ll = ll + torch.where(ok[:, 0], inc, torch.zeros_like(inc))
-        nw = torch.where(ok, nw_new, torch.full_like(nw_new, 1.0 / N))
     return ll
+
+
+def bsf_logw_scan(spec: NGSpec, eps: torch.Tensor, us: torch.Tensor,
+                  resample_every: int = 1) -> torch.Tensor:
+    """Plain version of the ``bsf_big_logw`` kernel: the bootstrap-filter
+    log-likelihood ``(B,)`` less the observation constants, as a Python loop
+    over time with injected randomness ``eps (B, n, N, m)`` (``eps[:, 0]``
+    draws the initial ensemble; the state noise is ``R`` zero-padded to m
+    columns times ``eps[:, s]``) and ``us (B, n-1, N)`` (``us[:, s-1]``
+    resamples before step s)."""
+    n, m = spec.n, spec.m
+    B, _, N, _ = eps.shape
+    dt = spec.y.dtype
+    kk = int(resample_every)
+    y = with_batch(spec.y, 1)
+    u = with_batch(spec.u, 1)
+    Z = with_batch(spec.Z, 2)
+    D = with_batch(spec.D, 1).to(dt)
+    phi = _col(spec.phi)
+    sysb = cuda_kalman.pack_bootstrap_system(spec, B)
+    a1, L1, C, R, T = torch.split(sysb, [m, m * m, m, m * m, m * m], dim=1)
+    mat = lambda A: A.reshape(B, m, m).transpose(-1, -2)     # noqa: E731
+
+    def weigh(alpha, lnw, ll, t):
+        y_t = y[:, t, None]
+        lw = fam.log_obs_density(spec.distribution, y_t, u[:, t, None], phi,
+                                 _signal(spec, alpha, Z, D, t))
+        ok = torch.isfinite(y_t)
+        inc, lnw = _carry_update(lnw, lw, ok)
+        return lnw, ll + torch.where(ok[:, 0], inc, torch.zeros_like(inc))
+
+    alpha = a1[:, None, :] + eps[:, 0] @ mat(L1)
+    lnw = torch.full((B, N), -math.log(N), dtype=dt, device=eps.device)
+    lnw, ll = weigh(alpha, lnw, torch.zeros(B, dtype=dt, device=eps.device),
+                    0)
+    for s in range(1, n):
+        if (s - 1) % kk == 0:
+            alpha = _resample(lnw, us[:, s - 1], alpha)
+            lnw = torch.full_like(lnw, -math.log(N))
+        alpha = C[:, None, :] + alpha @ mat(T) + eps[:, s] @ mat(R)
+        lnw, ll = weigh(alpha, lnw, ll, s)
+    return ll
+
+
+def _check_particles(nsim: int) -> None:
+    if nsim > cuda_kalman.MAX_N_BIG:
+        raise NotImplementedError(
+            f"{nsim} particles: the kernels serve at most "
+            f"{cuda_kalman.MAX_N_BIG}; the scan tier for larger ensembles "
+            "is not ported yet.")
 
 
 def psi_logw(spec: NGSpec, al: ApproxLoglik, nsim: int,
              generator: Optional[torch.Generator] = None,
              eps: Optional[torch.Tensor] = None,
-             us: Optional[torch.Tensor] = None) -> torch.Tensor:
+             us: Optional[torch.Tensor] = None,
+             resample_every: int = 1) -> torch.Tensor:
     """The psi-APF log-likelihood estimate only (no trajectories), ``(B,)``:
-    ``al.loglik`` plus the log-weight of ``nsim`` particles.  The normals
-    and uniforms are drawn from ``generator`` unless given."""
-    if nsim > cuda_kalman.MAX_N_PSI:
-        raise NotImplementedError(
-            f"psi_logw handles at most {cuda_kalman.MAX_N_PSI} particles; "
-            "the large-ensemble kernel (in-kernel random numbers, resampling "
-            "period) is the next slice of this package.")
+    ``al.loglik`` plus the log-weight of ``nsim`` particles.
+
+    Up to 32 particles go to the ``psi_logw`` kernel, which resamples at
+    every step, with normals and uniforms drawn from ``generator`` unless
+    given.  Up to 512 go to ``psi_big_logw`` with the resampling period
+    ``resample_every``; unless ``eps`` and ``us`` are given it draws a
+    Philox key from ``generator`` and the kernel makes its own randomness
+    (the injected tensors of one 16384-row chunk at n = 153, N = 256 would
+    be gigabytes)."""
+    _check_particles(nsim)
     n, m = spec.n, spec.m
     B = al.approx.mode.shape[0]
     dt, dev = spec.y.dtype, spec.y.device
+    ahat, Lb, Ab = cuda_kalman.rts_factors(al.approx.gaussian(spec))
+    if nsim > cuda_kalman.MAX_N_PSI:
+        if eps is not None:
+            return al.loglik + cuda_kalman.psi_big_logw(
+                spec, al, ahat, Lb, Ab, resample_every, eps=eps, us=us)
+        return al.loglik + cuda_kalman.psi_big_logw(
+            spec, al, ahat, Lb, Ab, resample_every,
+            seed=cuda_kalman.philox_key(generator, dev), nsim=nsim)
     if eps is None:
         eps = torch.randn((B, n + 1, nsim, m), dtype=dt, device=dev,
                           generator=generator)
     if us is None:
         us = torch.rand((B, n, nsim), dtype=dt, device=dev,
                         generator=generator)
-    ahat, Lb, Ab = cuda_kalman.rts_factors(al.approx.gaussian(spec))
     return al.loglik + cuda_kalman.psi_logw(spec, al, ahat, Lb, Ab, eps, us)
+
+
+def bsf_logw(spec: NGSpec, nsim: int,
+             generator: Optional[torch.Generator] = None,
+             resample_every: int = 1, eps: Optional[torch.Tensor] = None,
+             us: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The bootstrap-filter log-likelihood estimate only, ``(B,)``, with
+    ``nsim`` <= 512 particles: the ``bsf_big_logw`` kernel plus the exact
+    observation constants.  Randomness as in ``psi_logw``'s large-ensemble
+    branch."""
+    _check_particles(nsim)
+    const = fam.obs_log_const(spec.distribution, with_batch(spec.y, 1),
+                              with_batch(spec.u, 1), _col(spec.phi))
+    if eps is not None:
+        return const + cuda_kalman.bsf_big_logw(spec, resample_every,
+                                                eps=eps, us=us)
+    return const + cuda_kalman.bsf_big_logw(
+        spec, resample_every, nsim=nsim,
+        seed=cuda_kalman.philox_key(generator, spec.y.device))

@@ -1,15 +1,27 @@
 """Hand-written CUDA kernels of the state-space hot paths, their build and
 their wrappers.  Counterpart of ``bssm_tpu/ops/pallas_kalman.py``.
 
-Three kernels (sources in ``bssm_tpu_torch/csrc/``, CUDA C++ for sm_90a):
+Four sources in ``bssm_tpu_torch/csrc/`` (CUDA C++ for sm_90a), six wrappers:
 
-===============  ======================  ===================================
+===============  ======================  ====================================
 wrapper          source                  plain version
-===============  ======================  ===================================
+===============  ======================  ====================================
 laplace_solve    csrc/laplace_solve.cu   inference/approx.laplace_solve_plain
 rts_factors      csrc/rts_factors.cu     ops/kalman.smoother_bwd_factors
 psi_logw         csrc/psi_logw.cu        inference/particle.psi_logw_scan
-===============  ======================  ===================================
+psi_big_logw     csrc/particle_big.cu    inference/particle.psi_logw_scan
+                                         (with ``resample_every``)
+bsf_big_logw     csrc/particle_big.cu    inference/particle.bsf_logw_scan
+philox_fill      csrc/particle_big.cu    philox_fill_plain (this module)
+===============  ======================  ====================================
+
+``psi_logw`` serves N <= 32 particles from injected randomness.
+``psi_big_logw`` and ``bsf_big_logw`` are the two modes of one kernel for
+2 <= N <= 512 particles with a resampling period; they take their
+randomness either injected (``eps``, ``us``: stream mode) or from a Philox
+key that the kernel expands itself (``seed``), which is what the MCMC paths
+use.  ``philox_fill`` writes the tensors the Philox mode would consume, so
+that the two modes can be compared.
 
 Each wrapper checks its inputs, allocates outputs and scratch with
 ``torch.empty``, launches on PyTorch's current stream, checks the launch
@@ -45,6 +57,7 @@ LIB_NAME = "libbssm_kernels.so"
 
 MAX_M = 4
 MAX_N_PSI = 32
+MAX_N_BIG = 512
 # Threads per block.  The row-per-thread kernels use blocks of one warp so
 # that a few thousand rows still spread over every SM; psi_logw gives each
 # row a warp, four rows to a block.
@@ -52,7 +65,8 @@ THREADS_PER_ROW_BLOCK = 32
 THREADS_PSI_BLOCK = 128
 
 # launches of each kernel since the last reset_launch_counts()
-LAUNCHES = {"laplace_solve": 0, "rts_factors": 0, "psi_logw": 0}
+LAUNCHES = {"laplace_solve": 0, "rts_factors": 0, "psi_logw": 0,
+            "psi_big_logw": 0, "bsf_big_logw": 0, "philox_fill": 0}
 
 # seconds the last build took (None: library was already built or not loaded)
 build_seconds: Optional[float] = None
@@ -177,6 +191,15 @@ def _load():
         P, L, L, P,               # D (+strides), zphi
         P, P, P, P, P, P,         # ahat, Lb, Ab, eps, us, logw
         I, P]
+    lib.bssm_particle_big.restype = I
+    lib.bssm_particle_big.argtypes = [
+        I, I, I, I, I, I,         # is_double, m, dist, bsf, philox, N
+        L, I, I,                  # B, S, kk
+        P, P, P, P, P, P, P,      # ytilde, Htilde, scales, ahat, Lb, Ab, sysb
+        P, L, P, L, P, L, L,      # y, u, D (+strides)
+        P, P, P, P, P, P]         # zphi, eps, us, key, out, stream
+    lib.bssm_philox_fill.restype = I
+    lib.bssm_philox_fill.argtypes = [I, I, L, I, I, P, P, P, P]
     lib.bssm_error_string.restype = ctypes.c_char_p
     lib.bssm_error_string.argtypes = [I]
     _lib = lib
@@ -257,6 +280,14 @@ def _dense(x: torch.Tensor, shape, name: str) -> torch.Tensor:
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     return x
+
+
+def _zphi(spec, B: int) -> torch.Tensor:
+    """``(B, m + 1)`` rows [Z, phi] of the time-invariant observation
+    vector and the family's auxiliary parameter."""
+    return torch.cat([with_batch(spec.Z, 2)[:, 0].expand(B, spec.m),
+                      with_batch(spec.phi, 0).expand(B)[:, None]],
+                     dim=1).contiguous()
 
 
 def _stream(device) -> int:
@@ -391,9 +422,7 @@ def psi_logw(spec: NGSpec, al, ahat: torch.Tensor, Lb: torch.Tensor,
     Ab = _dense(Ab, (B, n + 1, m, m), "Ab")
     eps = _dense(eps, (B, n + 1, N, m), "eps")
     us = _dense(us, (B, n, N), "us")
-    zphi = torch.cat([with_batch(spec.Z, 2)[:, 0].expand(B, m),
-                      with_batch(spec.phi, 0).expand(B)[:, None]],
-                     dim=1).contiguous()
+    zphi = _zphi(spec, B)
     logw = torch.empty((B,), dtype=dt, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
@@ -406,3 +435,253 @@ def psi_logw(spec: NGSpec, al, ahat: torch.Tensor, Lb: torch.Tensor,
     _check_launch(lib, code, "psi_logw")
     LAUNCHES["psi_logw"] += 1
     return logw
+
+
+# ---------------------------------------------------------------------------
+# Philox keys and the tensors the Philox mode consumes
+# ---------------------------------------------------------------------------
+
+def philox_key(generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """A fresh Philox key: two 32-bit words in an int64 ``(2,)`` tensor on
+    ``device``, drawn from ``generator`` without a host synchronisation.
+    Every call advances the generator, so successive calls (chunks of a
+    correction, iterations of a chain) get independent streams."""
+    return torch.randint(0, 2 ** 32, (2,), dtype=torch.int64, device=device,
+                         generator=generator)
+
+
+def _check_key(key: torch.Tensor, device) -> torch.Tensor:
+    if key.dtype != torch.int64 or tuple(key.shape) != (2,):
+        raise TypeError("a Philox key is an int64 tensor of shape (2,)")
+    if key.device != device:
+        raise ValueError(f"key lies on {key.device}, expected {device}")
+    return key.contiguous()
+
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """(high, low) 32-bit words of the product of the 32-bit constant ``a``
+    and the 32-bit words ``b`` (held in int64), without leaving int64."""
+    p0 = (b & 0xFFFF) * a                 # < 2^48
+    p1 = (b >> 16) * a                    # < 2^48
+    lo = ((p0 & 0xFFFFFFFF) + ((p1 & 0xFFFF) << 16)) & 0xFFFFFFFF
+    hi = ((p0 >> 16) + p1) >> 16
+    return hi, lo
+
+
+def philox4x32_10(ctr, key):
+    """Philox-4x32-10 on int64 tensors holding 32-bit words: ``ctr`` a list
+    of four broadcastable tensors, ``key`` of two.  Returns four words."""
+    c0, c1, c2, c3 = ctr
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(0xD2511F53, c0)
+        hi1, lo1 = _mulhilo(0xCD9E8D57, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + 0x9E3779B9) & 0xFFFFFFFF
+        k1 = (k1 + 0xBB67AE85) & 0xFFFFFFFF
+    return c0, c1, c2, c3
+
+
+def _u01(w: torch.Tensor, dtype) -> torch.Tensor:
+    """(b + 0.5) / 2^24 from the top 24 bits, rounded once to ``dtype`` and
+    kept strictly below 1."""
+    u = (((w >> 8).to(torch.float64) + 0.5) / float(1 << 24)).to(dtype)
+    one = torch.ones((), dtype=dtype, device=w.device)
+    return torch.minimum(u, torch.nextafter(one, torch.zeros_like(one)))
+
+
+def philox_fill_plain(key: torch.Tensor, B: int, steps: int, N: int, m: int,
+                      dtype):
+    """Plain version of ``philox_fill``: the same counter layout (particle,
+    step, row, which) in tensor code.  Words 0 and 1 of the call with
+    which = 0 feed normals 0 and 1.  For m <= 2 its word 2 feeds the
+    resampling uniform; for m > 2 words 2 and 3 feed normals 2 and 3 and the
+    uniform is word 0 of a second call, which = 1."""
+    dev = key.device
+    k = (key[0] & 0xFFFFFFFF, key[1] & 0xFFFFFFFF)
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=dev)  # noqa: E731
+    row, step, part = ar(B)[:, None, None], ar(steps)[None, :, None], \
+        ar(N)[None, None, :]
+    zero = torch.zeros((B, steps, N), dtype=torch.int64, device=dev)
+    ctr = [part + zero, step + zero, row + zero]
+    w = philox4x32_10(ctr + [zero], k)
+    zs = []
+    for a, b in ((w[0], w[1]), (w[2], w[3]))[:(m + 1) // 2]:
+        rad = torch.sqrt(-2.0 * torch.log(_u01(a, dtype)))
+        ang = 2.0 * torch.pi * _u01(b, dtype)
+        zs += [rad * torch.cos(ang), rad * torch.sin(ang)]
+    eps = torch.stack(zs[:m], dim=-1).contiguous()
+    wu = w[2] if m <= 2 else philox4x32_10(ctr + [zero + 1], k)[0]
+    us = _u01(wu, dtype)[:, 1:].contiguous()
+    return eps, us
+
+
+def philox_fill(key: torch.Tensor, B: int, steps: int, N: int, m: int,
+                dtype):
+    """``(eps (B, steps, N, m), us (B, steps - 1, N))``: the standard
+    normals and the resampling uniforms that the Philox mode of
+    ``psi_big_logw`` / ``bsf_big_logw`` consumes for ``key`` (``us[:, s-1]``
+    belongs to generation step ``s``)."""
+    if not key.is_cuda:
+        return philox_fill_plain(key, B, steps, N, m, dtype)
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"kernels take float32 or float64, got {dtype}")
+    if not 1 <= m <= MAX_M or steps < 1:
+        raise ValueError("philox_fill: need 1 <= m <= 4 and steps >= 1")
+    dev = key.device
+    key = _check_key(key, dev)
+    eps = torch.empty((B, steps, N, m), dtype=dtype, device=dev)
+    us = torch.empty((B, steps - 1, N), dtype=dtype, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        code = lib.bssm_philox_fill(
+            int(dtype == torch.float64), m, B, steps - 1, N, key.data_ptr(),
+            eps.data_ptr(), us.data_ptr(), _stream(dev))
+    _check_launch(lib, code, "philox_fill")
+    LAUNCHES["philox_fill"] += 1
+    return eps, us
+
+
+# ---------------------------------------------------------------------------
+# K4 / K5: the large-ensemble particle kernel, psi mode and bootstrap mode
+# ---------------------------------------------------------------------------
+
+def _randomness(name, B, steps, m, dev, eps, us, seed, nsim):
+    """Checks the randomness arguments of the large-ensemble wrappers.
+    Returns ``(N, eps, us, key)`` with either the stream tensors or the key
+    set.  ``steps`` counts the initial draw."""
+    if (eps is None) != (us is None) or (eps is None) == (seed is None):
+        raise ValueError(f"{name}: give either eps and us, or seed")
+    if eps is not None:
+        N = eps.shape[2]
+        eps = _dense(eps, (B, steps, N, m), "eps")
+        us = _dense(us, (B, steps - 1, N), "us")
+        key = None
+    else:
+        if nsim is None:
+            raise ValueError(f"{name}: seed needs nsim, the particle count")
+        N, key = int(nsim), _check_key(seed, dev)
+    if not 2 <= N <= MAX_N_BIG:
+        raise NotImplementedError(
+            f"{name} handles 2 <= N <= {MAX_N_BIG} particles, got {N}")
+    return N, eps, us, key
+
+
+def _launch_big(name, spec, bsf, B, N, S, kk, psi_t, sysb, eps, us, key):
+    """Shared launch of the two modes; ``psi_t`` = (ytilde, Htilde, scales,
+    ahat, Lb, Ab) or None, ``sysb`` the packed bootstrap system or None."""
+    m = spec.m
+    dt, dev = spec.y.dtype, spec.y.device
+    y, y_bs, _ = _series(spec.y, B, "y")
+    u, u_bs, _ = _series(spec.u, B, "u")
+    D, D_bs, D_ts = _series(spec.D, B, "D")
+    zphi = _zphi(spec, B)
+    out = torch.empty((B,), dtype=dt, device=dev)
+    ptr = lambda x: 0 if x is None else x.data_ptr()        # noqa: E731
+    psi_ptrs = [0] * 6 if psi_t is None else [x.data_ptr() for x in psi_t]
+    lib = _load()
+    with torch.cuda.device(dev):
+        code = lib.bssm_particle_big(
+            int(dt == torch.float64), m, int(spec.distribution), int(bsf),
+            int(key is not None), N, B, S, int(kk), *psi_ptrs, ptr(sysb),
+            y.data_ptr(), y_bs, u.data_ptr(), u_bs, D.data_ptr(), D_bs, D_ts,
+            zphi.data_ptr(), ptr(eps), ptr(us), ptr(key), out.data_ptr(),
+            _stream(dev))
+    _check_launch(lib, code, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _check_big(name, spec, kk) -> None:
+    _check_system(spec)
+    if not SVM <= spec.distribution <= GAMMA:
+        raise NotImplementedError(
+            f"{name}: unsupported family {spec.distribution}")
+    if int(kk) < 1:
+        raise ValueError(f"{name}: the resampling period must be >= 1")
+
+
+def psi_big_logw(spec: NGSpec, al, ahat: torch.Tensor, Lb: torch.Tensor,
+                 Ab: torch.Tensor, kk: int, *, eps=None, us=None, seed=None,
+                 nsim: Optional[int] = None) -> torch.Tensor:
+    """psi-APF log-weight ``(B,)`` of every batch row with 2 <= N <= 512
+    particles, resampling at every ``kk``-th step.  Randomness: either
+    injected ``eps (B, n+1, N, m)`` and ``us (B, n, N)``, or ``seed``, a
+    Philox key (``philox_key``), together with ``nsim`` = N."""
+    B, n, m = al.approx.mode.shape[0], spec.n, spec.m
+    N, eps, us, key = _randomness("psi_big_logw", B, n + 1, m,
+                                  spec.y.device, eps, us, seed, nsim)
+    if not spec.y.is_cuda:
+        from ..inference.particle import psi_logw_scan
+        if eps is None:
+            eps, us = philox_fill_plain(key, B, n + 1, N, m, spec.y.dtype)
+        return psi_logw_scan(spec, al, eps, us, factors=(ahat, Lb, Ab),
+                             resample_every=kk)
+    _check_big("psi_big_logw", spec, kk)
+    if spec.batch not in (None, 1, B):
+        raise ValueError("spec batch does not match the approximation")
+    dt, dev = spec.y.dtype, spec.y.device
+    yt, Ht, sc = al.approx.ytilde, al.approx.Htilde, al.scales
+    named = [("u", spec.u), ("D", spec.D), ("Z", spec.Z), ("phi", spec.phi),
+             ("ytilde", yt), ("Htilde", Ht), ("scales", sc), ("ahat", ahat),
+             ("Lb", Lb), ("Ab", Ab)]
+    if eps is not None:
+        named += [("eps", eps), ("us", us)]
+    _check_tensors(named, spec.y)
+    psi_t = (_dense(yt, (B, n), "ytilde"), _dense(Ht, (B, n), "Htilde"),
+             _dense(sc, (B, n), "scales"),
+             _dense(ahat, (B, n + 1, m), "ahat"),
+             _dense(Lb, (B, n + 1, m, m), "Lb"),
+             _dense(Ab, (B, n + 1, m, m), "Ab"))
+    return _launch_big("psi_big_logw", spec, False, B, N, n, kk, psi_t, None,
+                       eps, us, key)
+
+
+def pack_bootstrap_system(spec: NGSpec, B: int) -> torch.Tensor:
+    """``(B, 2m + 3m^2)`` rows [a1, chol(P1), C, R, T] of the time-invariant
+    system, R zero-padded to m columns (more columns than states are not
+    served)."""
+    from .chol import psd_chol
+    m = spec.m
+    R = with_batch(spec.R, 3)[:, 0]
+    k = R.shape[-1]
+    if k > m:
+        raise NotImplementedError(
+            f"bsf_big_logw: R has {k} columns, more than the {m} states")
+    if k < m:
+        R = torch.cat([R, R.new_zeros(R.shape[0], m, m - k)], dim=-1)
+    leaves = [with_batch(spec.a1, 1), psd_chol(with_batch(spec.P1, 2)),
+              with_batch(spec.C, 2)[:, 0], R, with_batch(spec.T, 3)[:, 0]]
+    return torch.cat([x.reshape(x.shape[0], -1).expand(B, -1)
+                      for x in leaves], dim=1).contiguous()
+
+
+def bsf_big_logw(spec: NGSpec, kk: int, *, eps=None, us=None, seed=None,
+                 nsim: Optional[int] = None) -> torch.Tensor:
+    """Bootstrap-filter log-likelihood ``(B,)`` less the observation
+    constants, 2 <= N <= 512 particles, resampling at every ``kk``-th step.
+    Randomness: either injected ``eps (B, n, N, m)`` and ``us (B, n-1, N)``,
+    or ``seed`` (a Philox key) with ``nsim``; B is then the batch size of
+    ``spec``."""
+    n, m = spec.n, spec.m
+    B = eps.shape[0] if eps is not None else _batch(spec)
+    N, eps, us, key = _randomness("bsf_big_logw", B, n, m, spec.y.device,
+                                  eps, us, seed, nsim)
+    if not spec.y.is_cuda:
+        from ..inference.particle import bsf_logw_scan
+        if eps is None:
+            eps, us = philox_fill_plain(key, B, n, N, m, spec.y.dtype)
+        return bsf_logw_scan(spec, eps, us, resample_every=kk)
+    _check_big("bsf_big_logw", spec, kk)
+    if spec.batch not in (None, 1, B):
+        raise ValueError("spec batch does not match eps")
+    dt, dev = spec.y.dtype, spec.y.device
+    named = [("u", spec.u), ("D", spec.D), ("Z", spec.Z), ("phi", spec.phi),
+             ("T", spec.T), ("R", spec.R), ("a1", spec.a1), ("P1", spec.P1),
+             ("C", spec.C)]
+    if eps is not None:
+        named += [("eps", eps), ("us", us)]
+    _check_tensors(named, spec.y)
+    sysb = pack_bootstrap_system(spec, B)
+    return _launch_big("bsf_big_logw", spec, True, B, N, n - 1, kk, None,
+                       sysb, eps, us, key)

@@ -13,14 +13,26 @@ What it does, in order:
    float32 and float64, and at small shapes over the other state dimensions,
    observation families and particle counts; times kernel and plain version
    with CUDA events;
-3. drives the main path through the public entry points: IS-MCMC
-   (``mcmc_type="is2"``, psi-APF correction) on a level + slope ``bsm_ng``
-   Poisson model, 4096 chains, and checks finite posteriors, the acceptance
-   rate, the importance-sampling effective sample size and that every kernel
-   was launched by that run;
-4. prints one JSON object per line: ``card``, ``checks``, ``kernels``,
-   ``main_path``, the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+3. does the same for the large-ensemble kernel in its two modes
+   (``psi_big_logw``, ``bsf_big_logw``): stream mode against the plain
+   versions at B = 2048, N in {256, 200}, resampling period in {1, 8}, and
+   at B = 256 over families, state dimensions, N in {2, 32, 33, 40, 512};
+   Philox
+   mode against stream mode and against the plain versions on tensors that
+   ``philox_fill`` wrote, the filled tensors against their plain version
+   and their moments, at the shapes the paths give the kernel; and times
+   both modes at B = 16384 against the plain versions on the same tensors;
+4. drives five paths through the public entry points and gates each (finite
+   values, acceptance rate, ESS_IS fraction where there are weights, the
+   path's kernels launched by that very run):
+   ``psi_N10`` / ``psi_N256`` (resampling period 8) / ``psi_N256_refexact``
+   (period 1): IS-MCMC (``mcmc_type="is2"``) on a level + slope ``bsm_ng``
+   Poisson model, n = 153, 4096 / 4096 / 1024 chains; ``pm_bsf_N200``:
+   pseudo-marginal MCMC with a 200-particle bootstrap filter on a level-only
+   model, 1024 chains; ``da_psi_N64``: delayed acceptance, 1024 chains;
+5. prints one JSON object per line: ``card``, ``checks``, ``big_checks``,
+   one ``path`` line each (``main_path`` for ``psi_N10``), ``kernels``, the
+   card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check ends the run with a non-zero exit code and without the last
 line.  Tolerances (|a - b| <= tol (1 + |b|)):
@@ -33,6 +45,27 @@ line.  Tolerances (|a - b| <= tol (1 + |b|)):
   differs visibly.  So in float32 the tolerance must hold for 99% of the
   entries, every entry must stay inside 100x the tolerance or 0.5, whichever
   is larger, and the share of entries outside the tolerance is printed.
+  Large-ensemble kernel, per row: float64 1e-9 (1 + |ref|), every row.
+  float32: one ulp in a cumulative weight flips a resampled ancestor, and
+  after that the two runs are different, equally valid draws.  A row meets
+  about lambda = c x (resampling steps) x N^2 x 2^-23 such near-ties (each of
+  N particles has about one of N cumulative weights in its stratum of width
+  1/N; c is the typical difference of two summation orders in units of
+  2^-23, read on the card as 0.13-0.29 in psi mode and 0.23-0.50 in
+  bootstrap mode, and set to 0.3 and 0.5).  With p = exp(-lambda) the share
+  of the B rows inside the tight tolerance must be at least
+  p - 0.02 - 4 sqrt(p (1 - p) / B): 0.96 at the N = 64, n = 11, B = 128 of
+  the JAX package's own kernel test, whose tolerance this is, 0.92 at
+  N = 256, B = 2048 with period 8 and 0.64 with period 1 (psi mode).  The
+  tight tolerance is 2e-4 + 2e-6 sum|scales| in psi mode (the log-weight is
+  a residue of |scales|-sized terms) and 2e-4 (1 + |ref|) in bootstrap mode.
+  Every row must stay inside 0.35 (psi: ten times the largest difference a
+  flip was seen to make) or 0.5 + 0.05 |ref| (bootstrap, where a flip moves
+  the estimate by its Monte-Carlo spread; also about ten times the largest
+  seen), and the mean difference over the rows must lie within 5 of its
+  standard errors of zero: flips are draws, not a bias.  The share of rows
+  outside the tight tolerance ("flipped") is printed.  Philox mode against
+  stream mode: 1e-6 (float32) / 1e-12 (float64) scaled, every row.
 """
 from __future__ import annotations
 
@@ -120,15 +153,28 @@ def outer(L: torch.Tensor) -> torch.Tensor:
 # models and inputs
 # ---------------------------------------------------------------------------
 
-def main_path_series() -> np.ndarray:
-    """The benchmark series of the JAX package's bench.py: n = 153 Poisson
-    counts around a slowly drifting level (numpy recipe, seed 1)."""
+def bench_series():
+    """The two series of the JAX package's bench.py (numpy recipe, seed 1,
+    drawn in its order): n = 153 Poisson counts around a slowly drifting
+    level, and the calmer level-only series of its bootstrap-filter row."""
     rng = np.random.default_rng(1)
     n = 153
     slope = np.cumsum(rng.normal(0, 0.01, n))
     level = np.cumsum(slope + rng.normal(0, 0.1, n)) + 2.0
     y = rng.poisson(np.exp(0.5 * level / np.abs(level).max() + 1.0))
-    return y.astype(float)
+    yb = rng.poisson(np.exp(np.cumsum(rng.normal(0, 0.03, n)) + 1.0))
+    return y.astype(float), yb.astype(float)
+
+
+def main_path_series() -> np.ndarray:
+    return bench_series()[0]
+
+
+def calm_model(bt, dtype):
+    """bench.py's model of the pseudo-marginal row: level only, m = 1."""
+    return bt.bsm_ng(bench_series()[1],
+                     sd_level=bt.halfnormal_prior(0.05, 0.5),
+                     distribution="poisson", dtype=dtype, device="cuda")
 
 
 def main_path_model(bt, dtype):
@@ -139,11 +185,12 @@ def main_path_model(bt, dtype):
 
 
 def sweep_model(bt, family: str, m: int, dtype, n: int = 40,
-                xreg: bool = False):
+                xreg: bool = False, p1=None):
     """A small bsm_ng model with state dimension ``m`` (1: level, 2: level +
     slope, 3: level + seasonal(3), 4: level + slope + seasonal(3)) and two
     missing observations; ``xreg`` adds two regressors, which make the
-    intercept D vary over time and over rows."""
+    intercept D vary over time and over rows; ``p1`` replaces the diffuse
+    initial variance 100 on the diagonal of P1."""
     rng = np.random.default_rng(100 + m)
     lam = np.exp(np.cumsum(rng.normal(0, .1, n)) + 1.0)
     kw = dict(sd_level=bt.halfnormal_prior(0.1, 1.0), distribution=family,
@@ -167,6 +214,8 @@ def sweep_model(bt, family: str, m: int, dtype, n: int = 40,
         y = rng.poisson(lam).astype(float)
     y[n // 3] = np.nan
     y[n - 2] = np.nan
+    if p1 is not None:
+        kw["P1"] = np.eye(m) * p1
     if xreg:
         kw["xreg"] = rng.normal(0, 0.3, (n, 2))
         kw["beta"] = bt.normal_prior(np.zeros(2), 0.0, 1.0)
@@ -328,6 +377,278 @@ def bounds(B: int, n: int, m: int, N: int, dt, total_passes: float) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the large-ensemble kernel against its plain versions
+# ---------------------------------------------------------------------------
+
+def compare_rows(name: str, got: torch.Tensor, ref: torch.Tensor,
+                 atol: torch.Tensor, cap: torch.Tensor,
+                 min_share: float) -> dict:
+    """Per-row |got - ref| against the per-row tolerance ``atol``: at least
+    ``min_share`` of the rows inside it, every row inside ``cap``, both
+    finite everywhere, and the mean difference (in units of ``cap``) within
+    5 standard errors plus the mean tight tolerance of zero.  The share
+    outside ``atol`` is reported as flipped."""
+    got, ref = got.double(), ref.double()
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(ref).all())
+    diff = (got - ref).abs()
+    inside = float((diff <= atol).double().mean())
+    rel = (got - ref) / cap
+    se = float(rel.std()) / np.sqrt(rel.numel()) if rel.numel() > 1 else 0.0
+    bias_ok = bool(abs(float(rel.mean()))
+                   <= 5.0 * se + float((atol / cap).mean()))
+    ok = bool(finite and inside >= min_share
+              and bool((diff <= cap).all()) and bias_ok)
+    res = {"what": name, "max_abs_err": float(diff.max()),
+           "share_flipped": 1.0 - inside, "min_share": min_share,
+           "mean_diff_over_cap": float(rel.mean()), "mean_diff_se": se,
+           "ok": ok}
+    if not ok:
+        FAILURES.append(res)
+    return res
+
+
+def big_inputs(model, B: int, seed: int):
+    """Spec, approximation and proposal factors of B rows around the
+    initial theta, through the K1 and K2 kernels."""
+    from bssm_tpu_torch.inference import approx as amod
+    from bssm_tpu_torch.inference.mcmc import _psi_al
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    spec = model.build(thetas_around_init(model, B, seed))
+    al = _psi_al(spec, amod.approximate(spec))
+    fac = ck.rts_factors(al.approx.gaussian(spec))
+    return spec, al, fac
+
+
+PSI_CAP = 0.35                   # largest |kernel - plain| of a psi row
+FLIP_RATE = {"psi": 0.3, "bsf": 0.5}   # c of the docstring's lambda
+
+
+def compare_big(name: str, got, ref, dt, resamplings: int, N: int,
+                scales=None) -> dict:
+    """The stated tolerance of one mode: ``scales`` given means psi mode;
+    ``resamplings`` is the number of resampling steps of a row."""
+    r = ref.double().abs()
+    if dt == torch.float64:
+        tol = F64_TOL * (1.0 + r)
+        return compare_rows(name, got, ref, tol, tol, 1.0)
+    c = FLIP_RATE["bsf" if scales is None else "psi"]
+    p = float(np.exp(-c * resamplings * N * N * 2.0 ** -23))
+    min_share = p - 0.02 - 4.0 * float(np.sqrt(p * (1.0 - p) / r.numel()))
+    if scales is not None:
+        atol = 2e-4 + 2e-6 * scales.double().abs().sum(-1)
+        return compare_rows(name, got, ref, atol,
+                            torch.full_like(r, PSI_CAP), min_share)
+    return compare_rows(name, got, ref, 2e-4 * (1.0 + r), 0.5 + 0.05 * r,
+                        min_share)
+
+
+def check_big(model, B: int, N: int, kk: int, label: str, timed: bool,
+              modes=("psi", "bsf"), seed: int = 11) -> dict:
+    """The modes of the large-ensemble kernel, stream randomness, against
+    their plain versions on the same tensors on the card."""
+    from bssm_tpu_torch.inference import particle as pmod
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    dt, m = model.dtype, model.extra["m"]
+    spec, al, fac = big_inputs(model, B, seed)
+    n = spec.n
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    eps = torch.randn((B, n + 1, N, m), dtype=dt, device="cuda",
+                      generator=gen)
+    us = torch.rand((B, n, N), dtype=dt, device="cuda", generator=gen)
+    eps_b, us_b = eps[:, :n].contiguous(), us[:, :n - 1].contiguous()
+    out = {"label": label, "B": B, "n": n, "m": m, "N": N, "kk": kk,
+           "dtype": str(dt).replace("torch.", ""),
+           "family": spec.distribution, "checks": [], "ms": {},
+           "plain_ms": {}}
+    calls = {
+        "psi": ("psi_big_logw", -(-n // kk), al.scales,
+                lambda: ck.psi_big_logw(spec, al, *fac, kk, eps=eps, us=us),
+                lambda: pmod.psi_logw_scan(spec, al, eps, us, factors=fac,
+                                           resample_every=kk)),
+        "bsf": ("bsf_big_logw", -(-(n - 1) // kk), None,
+                lambda: ck.bsf_big_logw(spec, kk, eps=eps_b, us=us_b),
+                lambda: pmod.bsf_logw_scan(spec, eps_b, us_b,
+                                           resample_every=kk))}
+    for mode in modes:
+        name, resamplings, scales, kernel, plain = calls[mode]
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        out["checks"].append(compare_big(name, got, ref, dt, resamplings, N,
+                                         scales))
+        if timed:
+            out["ms"][name] = time_ms(kernel)
+            out["plain_ms"][name] = time_ms(plain, reps=1, warmup=0)
+    return out
+
+
+def check_philox(model, B: int, N: int, kk: int, label: str,
+                 seed: int = 13, plain=("psi", "bsf")) -> dict:
+    """``philox_fill`` against its plain version and its moments, then the
+    kernel's Philox mode against its stream mode and, for the modes in
+    ``plain``, against the plain version on the filled tensors (the main
+    model's diffuse initial state puts float32 bootstrap rows in the far
+    tail, so its bootstrap mode is held against the stream mode only)."""
+    from bssm_tpu_torch.inference import particle as pmod
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    dt, m = model.dtype, model.extra["m"]
+    f64 = dt == torch.float64
+    spec, al, fac = big_inputs(model, B, seed)
+    n = spec.n
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    key, key2 = ck.philox_key(gen, "cuda"), ck.philox_key(gen, "cuda")
+    eps, us = ck.philox_fill(key, B, n + 1, N, m, dt)
+    p_eps, p_us = ck.philox_fill_plain(key, B, n + 1, N, m, dt)
+    eps2, _ = ck.philox_fill(key2, B, n + 1, N, m, dt)
+    out = {"label": label, "B": B, "n": n, "m": m, "N": N, "kk": kk,
+           "dtype": str(dt).replace("torch.", ""), "checks": []}
+    out["checks"].append(compare("philox_fill.us", us, p_us,
+                                 1e-15 if f64 else 1e-7, True))
+    # cos / sin of 2 pi u against sincospi(2 u): roundoff of the angle
+    out["checks"].append(compare("philox_fill.eps", eps, p_eps,
+                                 1e-12 if f64 else 2e-5, True))
+    e, u = eps.double(), us.double()
+    mom = {"eps_mean": float(e.mean()), "eps_var": float(e.var()),
+           "eps_abs_max": float(e.abs().max()), "us_mean": float(u.mean()),
+           "us_min": float(u.min()), "us_max": float(u.max()),
+           "count_eps": e.numel(), "count_us": u.numel(),
+           "other_key_equal_share": float((eps == eps2).double().mean())}
+    se = 1.0 / np.sqrt(e.numel())
+    mom["ok"] = bool(abs(mom["eps_mean"]) < 5 * se
+                     and abs(mom["eps_var"] - 1.0) < 5 * np.sqrt(2.0) * se
+                     and abs(mom["us_mean"] - 0.5)
+                     < 5 / np.sqrt(12.0 * u.numel())
+                     and 0.0 < mom["us_min"] and mom["us_max"] < 1.0
+                     and mom["other_key_equal_share"] < 1e-3)
+    out["moments"] = mom
+    if not mom["ok"]:
+        FAILURES.append({"what": "philox_fill moments", **mom})
+    tol = 1e-12 if f64 else 1e-6
+    eps_b, us_b = eps[:, :n].contiguous(), us[:, :n - 1].contiguous()
+    for mode, name, a, b, scan, resamplings, scales in (
+            ("psi", "psi_big_logw",
+             ck.psi_big_logw(spec, al, *fac, kk, seed=key, nsim=N),
+             ck.psi_big_logw(spec, al, *fac, kk, eps=eps, us=us),
+             lambda: pmod.psi_logw_scan(spec, al, eps, us, factors=fac,
+                                        resample_every=kk),
+             -(-n // kk), al.scales),
+            ("bsf", "bsf_big_logw",
+             ck.bsf_big_logw(spec, kk, seed=key, nsim=N),
+             ck.bsf_big_logw(spec, kk, eps=eps_b, us=us_b),
+             lambda: pmod.bsf_logw_scan(spec, eps_b, us_b,
+                                        resample_every=kk),
+             -(-(n - 1) // kk), None)):
+        torch.cuda.synchronize()
+        out["checks"].append(compare(f"{name} philox vs stream", a, b, tol,
+                                     True))
+        if mode in plain:
+            out["checks"].append(compare_big(
+                f"{name} philox vs plain", a, scan(), dt, resamplings, N,
+                scales))
+    return out
+
+
+def time_big(psi_model, bsf_model, B: int, N_psi: int, kk_psi: int,
+             N_bsf: int, B_bsf: int) -> dict:
+    """Times of both modes at the shapes the paths give them, Philox mode,
+    and of stream mode and the plain versions on the tensors ``philox_fill``
+    wrote for the same key; the comparison at this width rides along."""
+    from bssm_tpu_torch.inference import particle as pmod
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    res = {}
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    key = ck.philox_key(gen, "cuda")
+    # psi mode --------------------------------------------------------------
+    spec, al, fac = big_inputs(psi_model, B, 19)
+    n, m, dt = spec.n, psi_model.extra["m"], psi_model.dtype
+    r = {"shape": f"B={B} n={n} m={m} N={N_psi} kk={kk_psi} float32"}
+    r["ms"] = time_ms(lambda: ck.psi_big_logw(
+        spec, al, *fac, kk_psi, seed=key, nsim=N_psi))
+    r["ms_kk1"] = time_ms(lambda: ck.psi_big_logw(
+        spec, al, *fac, 1, seed=key, nsim=N_psi))
+    eps, us = ck.philox_fill(key, B, n + 1, N_psi, m, dt)
+    r["ms_stream"] = time_ms(lambda: ck.psi_big_logw(
+        spec, al, *fac, kk_psi, eps=eps, us=us))
+    r["plain_ms"] = time_ms(lambda: pmod.psi_logw_scan(
+        spec, al, eps, us, factors=fac, resample_every=kk_psi),
+        reps=1, warmup=0)
+    got = ck.psi_big_logw(spec, al, *fac, kk_psi, seed=key, nsim=N_psi)
+    ref = pmod.psi_logw_scan(spec, al, eps, us, factors=fac,
+                             resample_every=kk_psi)
+    torch.cuda.synchronize()
+    r["check"] = compare_big(f"psi_big_logw philox vs plain B={B}", got, ref,
+                             dt, -(-n // kk_psi), N_psi, al.scales)
+    r.update(big_bounds(B, n, n, m, N_psi, kk_psi, dt, psi=True))
+    res["psi_big_logw"] = r
+    del eps, us, got, ref
+    torch.cuda.empty_cache()
+    # bootstrap mode ----------------------------------------------------------
+    m = bsf_model.extra["m"]
+    dt = bsf_model.dtype
+    r = {}
+    for rows, tag in ((B_bsf, ""), (B, f"_B{B}")):
+        spec = bsf_model.build(thetas_around_init(bsf_model, rows, 23))
+        n = spec.n
+        r["ms" + tag] = time_ms(lambda: ck.bsf_big_logw(
+            spec, 1, seed=key, nsim=N_bsf))
+        eps, us = ck.philox_fill(key, rows, n, N_bsf, m, dt)
+        r["ms_stream" + tag] = time_ms(lambda: ck.bsf_big_logw(
+            spec, 1, eps=eps, us=us))
+        r["plain_ms" + tag] = time_ms(lambda: pmod.bsf_logw_scan(
+            spec, eps, us, resample_every=1), reps=1, warmup=0)
+        if not tag:
+            got = ck.bsf_big_logw(spec, 1, seed=key, nsim=N_bsf)
+            ref = pmod.bsf_logw_scan(spec, eps, us, resample_every=1)
+            torch.cuda.synchronize()
+            r["check"] = compare_big(
+                f"bsf_big_logw philox vs plain B={rows}", got, ref, dt,
+                n - 1, N_bsf)
+            r["shape"] = f"B={rows} n={n} m={m} N={N_bsf} kk=1 float32"
+            r.update(big_bounds(rows, n, n - 1, m, N_bsf, 1, dt, psi=False))
+        else:
+            r["bound_ms" + tag] = big_bounds(rows, n, n - 1, m, N_bsf, 1, dt,
+                                             psi=False)["bound_ms"]
+        del eps, us
+        torch.cuda.empty_cache()
+    res["bsf_big_logw"] = r
+    return res
+
+
+def big_bounds(B: int, n: int, S: int, m: int, N: int, kk: int, dt,
+               psi: bool) -> dict:
+    """Least time for one launch of the large-ensemble kernel in Philox mode
+    on these shapes.  Bytes: the observation and factor rows read once, one
+    scalar written.  Operations per particle and step, counted from
+    csrc/particle_big.cu (integer operations of the generator at the
+    float32 rate; a multiply-add is 2): Philox 10 rounds x 10 = 100 for the
+    normals' call, whose third word also gives the resampling uniform at
+    m <= 2, and at m > 2 another 100 at a resampling step for the uniform's
+    call; 3 for each word turned into a uniform; 60 a Box-Muller pair (log,
+    sqrt, sincospi); resampling step: exp 10, block scan 10 + warps, binary
+    search 4 log2 N, gather m; propagation 4 m^2 + m; signal 2 m;
+    log-weight 20; block max and sum with exp and log 70."""
+    it = torch.finfo(dt).bits // 8
+    mm = m * m
+    pairs = (m + 1) // 2
+    warps = (N + 31) // 32
+    normals = 100 + 6 * pairs + 60 * pairs
+    uniform = 3 if m <= 2 else 100 + 3
+    resample = uniform + 10 + 10 + warps + 4 * int(np.ceil(np.log2(N))) + m
+    step = normals + resample / kk + 4 * mm + m + 2 * m + 20 + 70
+    ops = B * (S + 1) * N * step
+    if psi:
+        byts = it * (3 * B * n + B * (n + 1) * (m + 2 * mm) + 3 * n
+                     + B * (m + 1) + B) + 16
+    else:
+        byts = it * (B * (2 * m + 3 * mm) + 3 * n + B * (m + 1) + B) + 16
+    t_b = byts / PEAK_BYTES_PER_S * 1e3
+    t_o = ops / PEAK_F32_FLOPS * 1e3
+    return {"bytes": byts, "operations": ops,
+            "operations_per_particle_step": step,
+            "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
 def small_reference(bt) -> dict:
     """The phase-2 correction on the card (kernels) against the same rows on
     the CPU (plain versions), float64, same injected randomness."""
@@ -395,12 +716,66 @@ def profile_main_path(bt, model, run: dict, iters: int = 60) -> dict:
 
 # ---------------------------------------------------------------------------
 
+def run_path(bt, ck, model, label: str, desc: str, chains: int, iters: int,
+             required, acc_range, ess_min, **run) -> dict:
+    """Drives one ``run_mcmc`` path at full width: a short warm-up, launch
+    counts set to 0 just before the run and read just after, then the
+    gates.  Returns the path's JSON object with its ``problems``."""
+    kw = dict(output_type="theta", n_chains=chains, seed=1, **run)
+    bt.run_mcmc(model, iter=20, **kw)                     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.time()
+    out = bt.run_mcmc(model, iter=iters, **kw)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    launches = dict(ck.LAUNCHES)
+
+    d = out.theta.shape[-1]
+    w = out.flat_weights()
+    finite = bool(np.isfinite(out.posterior).all()
+                  and np.isfinite(out.theta).all() and np.isfinite(w).all())
+    sd = out.flat_theta()
+    res = {"path": label, "model": desc, "chains": chains, "iter": iters,
+           "mcmc_type": run.get("mcmc_type"),
+           "sampling_method": run.get("sampling_method"),
+           "particles": run.get("particles"),
+           "psi_resample_every": run.get("psi_resample_every", 1),
+           "corr_batch": run.get("corr_batch"), "elapsed_s": elapsed,
+           "time": out.time, "samples_per_s": chains * iters / elapsed,
+           "acceptance_rate": out.acceptance_rate,
+           "ess_is_fraction": (bt.ess_is(w) / w.size
+                               if out.weights is not None else None),
+           "heads_corrected": out.n_corrected, "finite": finite,
+           "posterior_mean_sd": [float(bt.weighted_mean(sd[:, j], w))
+                                 for j in range(d)],
+           "launches": launches,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    problems = []
+    if not finite:
+        problems.append("non-finite posterior values")
+    if not acc_range[0] <= out.acceptance_rate <= acc_range[1]:
+        problems.append(f"acceptance rate {out.acceptance_rate}")
+    if ess_min is not None and not res["ess_is_fraction"] >= ess_min:
+        problems.append(f"ESS_IS fraction {res['ess_is_fraction']}")
+    for k in required:
+        if launches[k] <= 0:
+            problems.append(f"kernel {k} was not launched by this path")
+    if out.theta.shape != (chains, iters - iters // 2, d):
+        problems.append(f"theta shape {out.theta.shape}")
+    res["problems"] = [f"{label}: {p}" for p in problems]
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iter", type=int, default=1000,
-                    help="iterations of the main path (default 1000)")
+                    help="iterations of each path (default 1000; the "
+                         "pseudo-marginal and delayed-acceptance paths run "
+                         "half as many)")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace a short main-path run with "
+                    help="also trace short runs of three paths with "
                          "torch.profiler and print device time by kernel")
     args = ap.parse_args()
 
@@ -430,7 +805,10 @@ def main() -> int:
     c_4k = check_kernels(m32, 4096, 10, "main f32 B=4096", timed=True)
     checks += [c_16k, c_4k,
                check_kernels(m64, 16384, 10, "main f64 B=16384", timed=True),
-               check_kernels(m64, 4096, 10, "main f64 B=4096", timed=False)]
+               check_kernels(m64, 4096, 10, "main f64 B=4096", timed=False),
+               # the 1024-chain paths give K1 and K2 this batch
+               check_kernels(m32, 1024, 10, "main f32 B=1024", timed=False),
+               check_kernels(m64, 1024, 10, "main f64 B=1024", timed=False)]
     for dtype in (torch.float64, torch.float32):
         for fam in ("svm", "binomial", "negative binomial", "gamma"):
             checks.append(check_kernels(
@@ -455,48 +833,96 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
-    # ---- main path --------------------------------------------------------
-    run = dict(particles=10, mcmc_type="is2", sampling_method="psi",
-               output_type="theta", store_modes=False, n_chains=CHAINS,
-               corr_batch=16384, seed=1)
-    bt.run_mcmc(m32, iter=20, **run)                      # warm-up
-    torch.cuda.synchronize()
-    ck.reset_launch_counts()
-    t0 = time.time()
-    out = bt.run_mcmc(m32, iter=args.iter, **run)
-    torch.cuda.synchronize()
-    elapsed = time.time() - t0
-    launches = dict(ck.LAUNCHES)
+    # ---- the large-ensemble kernel ----------------------------------------
+    big = []
+    big_main = []
+    mb32, mb64 = calm_model(bt, torch.float32), calm_model(bt, torch.float64)
+    for psi_model, bsf_model in ((m32, mb32), (m64, mb64)):
+        for N in (256, 200):
+            for kk in (1, 8):
+                big_main.append(check_big(
+                    psi_model, 2048, N, kk, f"main psi N={N} kk={kk}",
+                    timed=True, modes=("psi",)))
+                big_main.append(check_big(
+                    bsf_model, 2048, N, kk, f"main bsf N={N} kk={kk}",
+                    timed=True, modes=("bsf",)))
+        # the delayed-acceptance path's shape
+        big_main.append(check_big(psi_model, 1024, 64, 1,
+                                  "main psi N=64 kk=1 B=1024", timed=True,
+                                  modes=("psi",)))
+    big += big_main
+    # the sweeps start the bootstrap filter from a proper initial variance:
+    # under the diffuse one some rows sit in the far tail, where a float32
+    # estimate is of the order 1e13 and so is the effect of a flip
+    for dtype in (torch.float64, torch.float32):
+        def sweep(label, B, N, kk, *a, **kw):
+            big.append(check_big(sweep_model(bt, *a, dtype, p1=1.0, **kw),
+                                 B, N, kk, label, timed=False))
+        for fam in ("svm", "binomial", "negative binomial", "gamma"):
+            sweep(f"sweep {fam} (2 missing y)", 256, 40, 2, fam, 2)
+        for m in (1, 3, 4):
+            sweep(f"sweep m={m}", 256, 40, 3, "poisson", m)
+        for N, kk in ((33, 1), (512, 1), (512, 5)):
+            sweep(f"sweep N={N}", 256, N, kk, "poisson", 2)
+        # a block of 32 threads is narrower than the step's 42 scalars
+        for N in (2, 32):
+            sweep(f"sweep m=4 N={N}", 256, N, 1, "poisson", 4)
+        sweep("sweep gamma + xreg", 256, 64, 4, "gamma", 2, xreg=True)
+    psi_only = dict(plain=("psi",))
+    philox = [check_philox(m32, 512, 256, 8, "philox f32 N=256 kk=8",
+                           **psi_only),
+              check_philox(m32, 512, 200, 1, "philox f32 N=200 kk=1",
+                           **psi_only),
+              # the delayed-acceptance path's shape
+              check_philox(m32, 1024, 64, 1, "philox f32 N=64 kk=1 B=1024",
+                           **psi_only),
+              check_philox(m64, 256, 256, 8, "philox f64 N=256 kk=8"),
+              check_philox(m64, 256, 64, 1, "philox f64 N=64 kk=1"),
+              check_philox(sweep_model(bt, "poisson", 4, torch.float32,
+                                       p1=1.0), 256, 40, 3, "philox f32 m=4"),
+              check_philox(sweep_model(bt, "poisson", 4, torch.float32,
+                                       p1=1.0), 256, 32, 1,
+                           "philox f32 m=4 N=32"),
+              check_philox(sweep_model(bt, "poisson", 3, torch.float64,
+                                       p1=1.0), 256, 33, 1, "philox f64 m=3")]
+    t_big = time_big(m32, mb32, 16384, 256, 8, 200, 1024)
+    emit("big_checks", {"runs": big, "philox": philox, "timed": t_big,
+                        "failures": FAILURES})
+    if FAILURES:
+        print(f"chip_smoke: {len(FAILURES)} large-ensemble check(s) failed",
+              file=sys.stderr)
+        return 1
 
-    w = out.flat_weights()
-    ess_frac = bt.ess_is(w) / w.size
-    finite = bool(np.isfinite(out.posterior).all()
-                  and np.isfinite(out.theta).all()
-                  and np.isfinite(out.weights).all())
-    sd = out.flat_theta()
-    post_mean = [float(bt.weighted_mean(sd[:, j], w)) for j in range(2)]
-    main_path = {
-        "model": "bsm_ng poisson level+slope, n=153, m=2, d=2, float32",
-        "chains": CHAINS, "iter": args.iter, "particles": 10,
-        "corr_batch": 16384, "elapsed_s": elapsed, "time": out.time,
-        "samples_per_s": CHAINS * args.iter / elapsed,
-        "acceptance_rate": out.acceptance_rate, "ess_is_fraction": ess_frac,
-        "heads_corrected": out.n_corrected, "finite": finite,
-        "posterior_mean_sd": post_mean, "launches": launches,
-        "peak_memory_bytes": torch.cuda.max_memory_allocated()}
-    problems = []
-    if not finite:
-        problems.append("non-finite posterior values")
-    if not 0.15 <= out.acceptance_rate <= 0.35:
-        problems.append(f"acceptance rate {out.acceptance_rate}")
-    if not ess_frac >= 0.95:
-        problems.append(f"ESS_IS fraction {ess_frac}")
-    for k, v in launches.items():
-        if v <= 0:
-            problems.append(f"kernel {k} was not launched by the main path")
-    if out.theta.shape != (CHAINS, args.iter - args.iter // 2, 2):
-        problems.append(f"theta shape {out.theta.shape}")
-    main_path["problems"] = problems
+    # ---- the paths, each at full width ------------------------------------
+    it_full = args.iter
+    it_half = max(args.iter // 2, 40)
+    lvl_slope = "bsm_ng poisson level+slope, n=153, m=2, d=2, float32"
+    is2 = dict(mcmc_type="is2", sampling_method="psi", store_modes=False,
+               corr_batch=16384)
+    paths = [
+        run_path(bt, ck, m32, "psi_N10", lvl_slope, CHAINS, it_full,
+                 ("laplace_solve", "rts_factors", "psi_logw"), (0.15, 0.35),
+                 0.95, particles=10, **is2),
+        run_path(bt, ck, m32, "psi_N256", lvl_slope, CHAINS, it_full,
+                 ("laplace_solve", "rts_factors", "psi_big_logw"),
+                 (0.15, 0.35), 0.99, particles=256, psi_resample_every=8,
+                 **is2),
+        run_path(bt, ck, m32, "psi_N256_refexact", lvl_slope, CHAINS // 4,
+                 it_full, ("laplace_solve", "rts_factors", "psi_big_logw"),
+                 (0.15, 0.35), 0.99, particles=256, psi_resample_every=1,
+                 **is2),
+        run_path(bt, ck, mb32, "pm_bsf_N200",
+                 "bsm_ng poisson level only, n=153, m=1, d=1, float32",
+                 CHAINS // 4, it_half, ("bsf_big_logw",), (0.10, 0.45), None,
+                 particles=200, mcmc_type="pm", sampling_method="bsf"),
+        run_path(bt, ck, m32, "da_psi_N64", lvl_slope, CHAINS // 4, it_half,
+                 ("laplace_solve", "rts_factors", "psi_big_logw"),
+                 (0.05, 0.35), None, particles=64, mcmc_type="da",
+                 sampling_method="psi")]
+    problems = [p for r in paths for p in r["problems"]]
+    total = {k: sum(r["launches"][k] for r in paths) for k in ck.LAUNCHES}
+    by_path = {k: {r["path"]: r["launches"][k] for r in paths}
+               for k in ck.LAUNCHES}
 
     b = c_16k["bounds"]
     b4 = c_4k["bounds"]
@@ -511,7 +937,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"bssm_tpu_torch/csrc/{f}",
             "replaces": f"bssm_tpu/ops/pallas_kalman.py:{line}",
-            "launches": launches[name], "max_abs_err": worst[name],
+            "launches": total[name], "launches_by_path": by_path[name],
+            "max_abs_err": worst[name],
             "ms": c_16k["ms"][name], "plain_ms": c_16k["plain_ms"][name],
             "bound_ms": b[name]["bound_ms"], "bound_by": b[name]["bound_by"],
             "library_ms": None, "shape": "B=16384 n=153 m=2 N=10 float32"})
@@ -519,13 +946,39 @@ def main() -> int:
     kernels[0]["ms_B4096"] = c_4k["ms"]["laplace_solve"]
     kernels[0]["plain_ms_B4096"] = c_4k["plain_ms"]["laplace_solve"]
     kernels[0]["bound_ms_B4096"] = b4["laplace_solve"]["bound_ms"]
-    main_path["total_s"] = time.time() - t_start
-    emit("main_path", main_path)
+    for name, line in (("psi_big_logw", 2303), ("bsf_big_logw", 2484)):
+        t = t_big[name]
+        err = max([c["max_abs_err"] for run in big_main
+                   if run["dtype"] == "float32" for c in run["checks"]
+                   if c["what"] == name] + [t["check"]["max_abs_err"]])
+        k = {"name": name, "route": "cuda",
+             "source": "bssm_tpu_torch/csrc/particle_big.cu",
+             "replaces": f"bssm_tpu/ops/pallas_kalman.py:{line}",
+             "launches": total[name], "launches_by_path": by_path[name],
+             "max_abs_err": err, "library_ms": None}
+        k.update({key: v for key, v in t.items() if key != "check"})
+        kernels.append(k)
+    for k in kernels:
+        if k["launches"] <= 0:
+            problems.append(f"kernel {k['name']} was launched by no path")
+
+    for r in paths:
+        r["total_s"] = time.time() - t_start
+        emit("main_path" if r["path"] == "psi_N10" else "path", r)
     if args.profile:
-        emit("profile", profile_main_path(bt, m32, run))
+        theta = dict(output_type="theta", seed=1)
+        for label, model, run in (
+                ("psi_N10", m32, dict(particles=10, n_chains=CHAINS, **is2)),
+                ("psi_N256", m32, dict(particles=256, psi_resample_every=8,
+                                       n_chains=CHAINS, **is2)),
+                ("pm_bsf_N200", mb32, dict(particles=200, mcmc_type="pm",
+                                           sampling_method="bsf",
+                                           n_chains=CHAINS // 4))):
+            emit("profile", {"path": label, **profile_main_path(
+                bt, model, {**theta, **run})})
     print(json.dumps({"kernels": kernels}), flush=True)
     if problems:
-        print("chip_smoke: main path failed: " + "; ".join(problems),
+        print("chip_smoke: paths failed: " + "; ".join(problems),
               file=sys.stderr)
         return 1
     print(nvidia_smi_line(), flush=True)

@@ -92,13 +92,13 @@ def test_ram_step_matches_jax_scan():
 
     def t_logdens(theta):
         al = tmcmc.approx_mod.approx_loglik(tm.build(theta))
-        return al.loglik, al.approx.mode
+        return al.loglik, al.loglik, al.approx.mode
 
     th, S = model_state_from_numpy(np.asarray(theta0), np.asarray(S0),
                                    device="cpu", dtype=torch.float64)
     assert th.shape == (1, 2) and S.shape == (1, 2, 2)
-    ll0, mode0 = t_logdens(th)
-    state = tmcmc.ChainState(th, tm.log_prior(th), ll0, mode0, S)
+    ll0, _, mode0 = t_logdens(th)
+    state = tmcmc.ChainState(th, tm.log_prior(th), ll0, mode0, S, ll0)
     for i in range(n_iter):
         state, acc = tmcmc._ram_step(
             t_logdens, tm.log_prior, state, torch.tensor(us[i])[None],
@@ -123,7 +123,7 @@ def test_nonfinite_prior_rows_are_masked():
 
     def logdens(theta):
         calls.append(theta.clone())
-        return theta.sum(-1), None
+        return theta.sum(-1), theta.sum(-1), None
 
     def log_prior(theta):                 # chain 1's proposal is out
         lp = torch.zeros(theta.shape[0], dtype=theta.dtype)
@@ -133,7 +133,7 @@ def test_nonfinite_prior_rows_are_masked():
     th = torch.zeros((3, 2), dtype=torch.float64)
     state = tmcmc.ChainState(th, log_prior(th), th.sum(-1), None,
                              torch.eye(2, dtype=torch.float64).expand(
-                                 3, 2, 2).clone())
+                                 3, 2, 2).clone(), th.sum(-1))
     u = torch.tensor([[1.0, 1.0], [9.0, 0.0], [0.5, 0.5]],
                      dtype=torch.float64)
     new, acc = tmcmc._ram_step(logdens, log_prior, state, u,
@@ -269,10 +269,13 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked_for():
 
 def test_unported_options_raise():
     _, tm = _models(n=20, seed=14)
-    for kw in (dict(mcmc_type="pm"), dict(mcmc_type="is1"),
-               dict(output_type="full"), dict(sampling_method="bsf")):
+    for kw in (dict(mcmc_type="is1"), dict(mcmc_type="is3"),
+               dict(output_type="full"), dict(output_type="summary"),
+               dict(sampling_method="spdk"), dict(particles=513),
+               dict(mcmc_type="pm", output_type="full")):
         with pytest.raises(NotImplementedError):
-            bt.run_mcmc(tm, iter=10, particles=4, device="cpu", **kw)
+            bt.run_mcmc(tm, **{**dict(iter=10, particles=4, device="cpu"),
+                               **kw})
     with pytest.raises(ValueError, match="particles"):
         bt.run_mcmc(tm, iter=10, particles=1, device="cpu")
     with pytest.raises(ValueError, match="float32"):
