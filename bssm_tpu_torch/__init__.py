@@ -5,11 +5,19 @@ The port of the JAX package ``bssm_tpu`` that lives beside it, module for
 module (``core/``, ``ops/``, ``models/``, ``inference/``, ``diagnostics/``).
 It imports torch and numpy and nothing of JAX or of ``bssm_tpu``.
 
-What runs today, on ``bsm_ng`` models with ``output_type="theta"``: IS-MCMC
-(``mcmc_type="is2"``), approximate, pseudo-marginal (``"pm"``) and
-delayed-acceptance (``"da"``) MCMC, with the psi-auxiliary particle filter
-or the bootstrap filter at up to 512 particles.  Entry points run on the
-CUDA device unless the caller passes ``device="cpu"``.
+What runs today:
+
+- on ``bsm_ng`` models with ``output_type="theta"``: IS-MCMC
+  (``mcmc_type="is2"``), approximate, pseudo-marginal (``"pm"``) and
+  delayed-acceptance (``"da"``) MCMC, with the psi-auxiliary particle
+  filter or the bootstrap filter at up to 512 particles;
+- on the linear-Gaussian ``bsm_lg`` and ``ar1_lg``: marginal MCMC
+  (``mcmc_type="gaussian"``) with ``output_type`` "theta", "summary" or
+  "full", and ``logLik``, ``fast_smoother``, ``smoother`` and
+  ``sim_smoother``.
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -28,10 +36,15 @@ from .core.spec import (LGSpec, NGSpec, SVM, POISSON, BINOMIAL,  # noqa: E402
 from .core.priors import (uniform_prior, halfnormal_prior,       # noqa: E402
                           normal_prior, tnormal_prior, gamma_prior,
                           PriorStack)
-from .models.bsm import bsm_ng                                   # noqa: E402
+from .models.bsm import bsm_lg, bsm_ng                           # noqa: E402
+from .models.ar1 import ar1_lg                                   # noqa: E402
 from .inference.mcmc import run_mcmc, McmcOutput                 # noqa: E402
 from .inference.approx import approximate, approx_loglik         # noqa: E402
+from .inference.smoothers import (fast_smoother, smoother,       # noqa: E402
+                                  sim_smoother)
+from .inference.loglik import logLik                             # noqa: E402
 from .inference.particle import (psi_logw, bsf_logw,             # noqa: E402
                                  psi_logw_scan, bsf_logw_scan)
 from .diagnostics.summary import (weighted_mean, weighted_var,   # noqa: E402
                                   ess_is)
+from .utils.datasets import airquality                           # noqa: E402

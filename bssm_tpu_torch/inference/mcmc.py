@@ -1,5 +1,11 @@
-"""MCMC engines for non-Gaussian (``kind == "ng"``) models with
-``output_type="theta"``.  Counterpart of ``bssm_tpu/inference/mcmc.py`` for
+"""MCMC engines.  Counterpart of ``bssm_tpu/inference/mcmc.py`` for
+
+- ``mcmc_type="gaussian"`` (linear-Gaussian models, ``kind == "lg"``): RAM
+  Metropolis on the exact Kalman log-likelihood, with ``output_type``
+  "theta", "summary" (posterior mean and covariance of the states) or
+  "full" (one simulation-smoother draw of the states per stored theta);
+
+and, for non-Gaussian models (``kind == "ng"``) with ``output_type="theta"``:
 
 - ``mcmc_type="approx"``: RAM Metropolis on the Gaussian approximation;
 - ``mcmc_type="is2"``: the same chain followed by an importance-sampling
@@ -14,12 +20,16 @@ All chains advance together as one batch in a Python loop over iterations:
 every proposal costs one launch of each kernel on its path plus elementwise
 tensor code.  A proposal whose prior is not finite is masked out, not
 branched around.  Kernels per evaluation (``ops/cuda_kalman.py``):
-``laplace_solve`` for the approximation; ``rts_factors`` and ``psi_logw``
+``log_likelihood`` for the linear-Gaussian target, ``fast_smoother_ll``
+for the conditional means of its state draws; ``laplace_solve`` for the
+approximation; ``rts_factors`` and ``psi_logw``
 (up to 32 particles) or ``psi_big_logw`` (up to 512) for the psi filter;
 ``bsf_big_logw`` for the bootstrap filter.
 
 The is2 correction processes the heads in chunks of ``corr_batch`` rows,
-which only bounds memory; duplicate slots share their head's result.  The
+and the state draws or smoothing of linear-Gaussian output the stored
+thetas; the chunks only bound memory.  Duplicate slots share their head's
+result.  The
 filters of pm and da resample at every step; ``psi_resample_every`` sets the
 period of the is2 correction's filter above 32 particles.
 
@@ -39,6 +49,9 @@ import torch
 
 from ..core.config import resolve_device
 from ..models.base import Model
+from ..ops import cuda_kalman
+from ..ops import kalman as kalman_mod
+from ..ops.simsmooth import simulate_states_single
 from . import approx as approx_mod
 from . import particle as pf_mod
 from .ram import adapt_S
@@ -168,6 +181,9 @@ class McmcOutput:
     iter: int
     burnin: int
     thin: int
+    alpha: Optional[np.ndarray] = None       # (chains, S, n+1, m) draws
+    alphahat: Optional[np.ndarray] = None    # (n+1, m) posterior mean
+    Vt: Optional[np.ndarray] = None          # (n+1, m, m)
     weights: Optional[np.ndarray] = None     # (chains, S) IS weights
     modes: Optional[np.ndarray] = None       # (chains, S, n) Laplace modes
     approx_loglik: Optional[np.ndarray] = None
@@ -199,6 +215,74 @@ class McmcOutput:
                             "iter"):
                 parts.append(f"{f.name}={v!r}")
         return f"McmcOutput({', '.join(parts)})"
+
+
+# --------------------------------------------------------------------------
+# linear-Gaussian marginal MCMC
+# --------------------------------------------------------------------------
+
+def _gaussian_chain(model: Model, n_iter, burnin, thin, target, gamma,
+                    end_ram):
+    """RAM Metropolis on the exact Kalman log-likelihood, all chains
+    batched: one launch of the log-likelihood kernel per iteration."""
+
+    def logdens(theta):
+        ll = cuda_kalman.log_likelihood(model.build(theta))
+        return ll, ll, None
+
+    def chain(generator, theta0, S0):
+        final, thetas, lps, lls, accepted, _, acc_rate = _ram_scan(
+            logdens, model.log_prior, theta0, S0, generator, n_iter, burnin,
+            thin, target, gamma, end_ram, store_aux=False)
+        return dict(theta=thetas, prior=lps, ll=lls, accepted=accepted,
+                    S=final.S, acc_rate=acc_rate)
+
+    return chain
+
+
+def _state_draws(model: Model, thetas: torch.Tensor, generator,
+                 batch_size: int) -> np.ndarray:
+    """``output_type="full"``: one simulation-smoother draw of the states at
+    every stored theta ``(C, S, d)``, returned on the host as
+    ``(C, S, n+1, m)``.  Drawn on the device in chunks of ``batch_size``
+    rows, each copied to the host before the next."""
+    C, Sn, d = thetas.shape
+    flat = thetas.reshape(C * Sn, d)
+    out = None
+    for lo in range(0, C * Sn, batch_size):
+        a = simulate_states_single(model.build(flat[lo:lo + batch_size]),
+                                   generator).cpu().numpy()
+        if out is None:
+            out = np.empty((C * Sn,) + a.shape[1:], dtype=a.dtype)
+        out[lo:lo + a.shape[0]] = a
+    return out.reshape((C, Sn) + out.shape[1:])
+
+
+def _state_summary(model: Model, thetas: torch.Tensor, batch_size: int):
+    """``output_type="summary"``: the posterior mean of the states and
+    their covariance by the law of total variance over the stored thetas,
+    mean of the smoothed covariances plus covariance of the smoothed means.
+    The JAX package pools per chain and then across chains; every chain
+    stores as many draws, so that equals pooling all rows at once, which is
+    done here in chunks of ``batch_size`` rows, summed in float64 around
+    the first row's smoothed means."""
+    flat = thetas.reshape(-1, thetas.shape[-1])
+    N = flat.shape[0]
+    ref = s1 = s2 = sv = None
+    for lo in range(0, N, batch_size):
+        sm = kalman_mod.smoother(model.build(flat[lo:lo + batch_size]))
+        ah = sm.alphahat.double()
+        if ref is None:
+            ref = ah[0]
+            s1, s2 = torch.zeros_like(ref), torch.zeros_like(sm.Vt[0]).double()
+            sv = torch.zeros_like(s2)
+        dev = ah - ref
+        s1 = s1 + dev.sum(0)
+        s2 = s2 + torch.einsum('bti,btj->tij', dev, dev)
+        sv = sv + sm.Vt.double().sum(0)
+    mean_dev = s1 / N
+    Vt = sv / N + s2 / N - mean_dev.unsqueeze(-1) * mean_dev.unsqueeze(-2)
+    return (ref + mean_dev).to(model.dtype), Vt.to(model.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -422,6 +506,19 @@ def _da_step(full_eval: Callable, log_prior: Callable, state: DaState,
     return new, accept
 
 
+def _da_init(model: Model, theta0, S0, pf_generator, nsim: int,
+             sampling_method: str, conv_tol: float, max_iter: int) -> DaState:
+    """The initial state of delayed acceptance.  As in the JAX package,
+    ``ll_approx`` starts at the second value of ``_pf_loglik``: the
+    approximation's log-likelihood for psi, the bootstrap estimate itself
+    for bsf (which changes only the first stage-1 ratio)."""
+    dt = theta0.dtype
+    ll0, all0 = _pf_loglik(model, theta0, pf_generator, nsim,
+                           sampling_method, conv_tol, max_iter)
+    return DaState(theta0, model.log_prior(theta0), ll0.to(dt), all0.to(dt),
+                   S0)
+
+
 def _da_chain(model: Model, n_iter, burnin, thin, target, gamma, end_ram,
               nsim, sampling_method, conv_tol, max_iter, pf_generator):
     """Delayed-acceptance RAM Metropolis, all chains batched; stores the
@@ -440,9 +537,8 @@ def _da_chain(model: Model, n_iter, burnin, thin, target, gamma, end_ram,
     def chain(generator, theta0, S0):
         C, d = theta0.shape
         dt, dev = theta0.dtype, theta0.device
-        ll0, all0 = full_eval(theta0)
-        state = DaState(theta0, model.log_prior(theta0), ll0.to(dt),
-                        all0.to(dt), S0)
+        state = _da_init(model, theta0, S0, pf_generator, nsim,
+                         sampling_method, conv_tol, max_iter)
         Sn = len(range(burnin, n_iter, thin))
         thetas = torch.empty((C, Sn, d), dtype=dt, device=dev)
         lps = torch.empty((C, Sn), dtype=dt, device=dev)
@@ -497,15 +593,21 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
              corr_batch: Optional[int] = None, store_modes: bool = True,
              psi_resample_every: int = 1,
              device=None, dtype: Optional[torch.dtype] = None) -> McmcOutput:
-    """Bayesian inference via adaptive MCMC for non-Gaussian models.
+    """Bayesian inference via adaptive MCMC.
 
-    mcmc_type: "is2" (default), "approx", "pm" or "da".  sampling_method:
-    "psi" (default) or "bsf".  output_type: "theta".  ``particles``: 2 to
-    512.  ``psi_resample_every``: the stratified-resampling period of the
+    Linear-Gaussian models (``kind == "lg"``): mcmc_type "gaussian" (the
+    default), output_type "theta" (the default; the JAX package defaults to
+    "full"), "summary" (``alphahat``, ``Vt``) or "full" (``alpha``).
+    Non-Gaussian models: mcmc_type "is2" (default), "approx", "pm" or
+    "da"; sampling_method "psi" (default) or "bsf"; output_type "theta".
+    ``particles``: 2 to 512.  ``psi_resample_every``: the stratified-resampling period of the
     is2 correction's particle filter above 32 particles; 1 (default)
     resamples at every step, k > 1 at every k-th step only, which keeps the
     likelihood estimate unbiased for a fixed schedule (check ESS_IS when
     raising it).  The filters of pm and da always resample at every step.
+    ``corr_batch``: rows per chunk of the work after the chain, the is2
+    correction (default 256) or the state draws and smoothing of
+    linear-Gaussian output (default 65536); it only bounds memory.
     ``device=None`` means the CUDA device and raises when there is none; it
     must agree with the device the model was built on.  ``dtype`` defaults
     to the model's."""
@@ -517,22 +619,33 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
             f"the model lives on {model.device} as {model.dtype}; run_mcmc "
             f"was asked for {device} and {dtype}.  Build the model with the "
             "same device and dtype.")
-    if model.kind != "ng":
-        raise NotImplementedError(f"model kind {model.kind!r} is not ported")
-    mcmc_type = mcmc_type or "is2"
-    sampling_method = sampling_method or "psi"
-    if mcmc_type not in ("approx", "is2", "pm", "da"):
-        raise NotImplementedError(
-            f"mcmc_type={mcmc_type!r}: only 'approx', 'is2', 'pm' and 'da' "
-            "are ported")
-    if output_type != "theta":
-        raise NotImplementedError(
-            f"output_type={output_type!r}: only 'theta' is ported")
-    _check_method(model, sampling_method)
-    if mcmc_type != "approx":
-        if particles < 2:
-            raise ValueError("particles >= 2 required for non-approx MCMC")
-        pf_mod._check_particles(particles)
+    if model.kind == "lg":
+        mcmc_type = mcmc_type or "gaussian"
+        if mcmc_type != "gaussian":
+            raise NotImplementedError(
+                f"mcmc_type={mcmc_type!r}: linear-Gaussian models run "
+                "'gaussian'")
+        if output_type not in ("theta", "summary", "full"):
+            raise NotImplementedError(
+                f"output_type={output_type!r}: 'theta', 'summary' and "
+                "'full' are ported")
+    else:
+        mcmc_type = mcmc_type or "is2"
+        sampling_method = sampling_method or "psi"
+        if mcmc_type not in ("approx", "is2", "pm", "da"):
+            raise NotImplementedError(
+                f"mcmc_type={mcmc_type!r}: only 'approx', 'is2', 'pm' and "
+                "'da' are ported")
+        if output_type != "theta":
+            raise NotImplementedError(
+                f"output_type={output_type!r}: only 'theta' is ported for "
+                "non-Gaussian models")
+        _check_method(model, sampling_method)
+        if mcmc_type != "approx":
+            if particles < 2:
+                raise ValueError(
+                    "particles >= 2 required for non-approx MCMC")
+            pf_mod._check_particles(particles)
     if int(psi_resample_every) < 1:
         raise ValueError("psi_resample_every must be >= 1")
     if burnin is None:
@@ -549,18 +662,21 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
     S0 = dev(model.initial_S() if S is None else S)
     if S0.dim() == 2:
         S0 = S0.expand(n_chains, -1, -1).contiguous()
-    # gen1: proposals and accept tests; gen2: the particle filters
+    # gen1: proposals and accept tests; gen2: the particle filters or the
+    # state draws
     gen1, gen2 = _generators(seed, device)
 
     # fail fast on a non-finite initial prior
     if not bool(torch.isfinite(model.log_prior(theta0)).all()):
         raise ValueError("Initial prior probability is not finite.")
 
-    common = dict(n_iter=iter, burnin=burnin, thin=thin,
-                  target=target_acceptance, gamma=gamma,
-                  end_ram=end_adaptive_phase, conv_tol=conv_tol,
-                  max_iter=max_iter)
-    if mcmc_type in ("pm", "da"):
+    base = dict(n_iter=iter, burnin=burnin, thin=thin,
+                target=target_acceptance, gamma=gamma,
+                end_ram=end_adaptive_phase)
+    common = dict(base, conv_tol=conv_tol, max_iter=max_iter)
+    if mcmc_type == "gaussian":
+        chain = _gaussian_chain(model, **base)
+    elif mcmc_type in ("pm", "da"):
         make = _pm_chain if mcmc_type == "pm" else _da_chain
         chain = make(model, nsim=particles, sampling_method=sampling_method,
                      pf_generator=gen2, **common)
@@ -584,6 +700,15 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
         S=host(res["S"]), theta_names=model.theta_names, mcmc_type=mcmc_type,
         output_type=output_type, iter=iter, burnin=burnin, thin=thin,
         prior=host(res["prior"]), time={"mcmc": t_mcmc})
+    if mcmc_type == "gaussian" and output_type != "theta":
+        t1 = _time.time()
+        rows = int(corr_batch or 65536)
+        if output_type == "full":
+            out.alpha = _state_draws(model, res["theta"], gen2, rows)
+        else:
+            alphahat, Vt = _state_summary(model, res["theta"], rows)
+            out.alphahat, out.Vt = host(alphahat), host(Vt)
+        out.time["states"] = _time.time() - t1
     if mcmc_type in ("approx", "is2"):
         out.approx_loglik = host(res["approx_ll"])
         if store_modes:

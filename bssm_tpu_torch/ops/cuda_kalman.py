@@ -1,19 +1,26 @@
 """Hand-written CUDA kernels of the state-space hot paths, their build and
 their wrappers.  Counterpart of ``bssm_tpu/ops/pallas_kalman.py``.
 
-Four sources in ``bssm_tpu_torch/csrc/`` (CUDA C++ for sm_90a), six wrappers:
+Five sources in ``bssm_tpu_torch/csrc/`` (CUDA C++ for sm_90a), eight
+wrappers:
 
-===============  ======================  ====================================
-wrapper          source                  plain version
-===============  ======================  ====================================
-laplace_solve    csrc/laplace_solve.cu   inference/approx.laplace_solve_plain
-rts_factors      csrc/rts_factors.cu     ops/kalman.smoother_bwd_factors
-psi_logw         csrc/psi_logw.cu        inference/particle.psi_logw_scan
-psi_big_logw     csrc/particle_big.cu    inference/particle.psi_logw_scan
-                                         (with ``resample_every``)
-bsf_big_logw     csrc/particle_big.cu    inference/particle.bsf_logw_scan
-philox_fill      csrc/particle_big.cu    philox_fill_plain (this module)
-===============  ======================  ====================================
+================  ======================  ===================================
+wrapper           source                  plain version
+================  ======================  ===================================
+log_likelihood    csrc/kalman_filter.cu   ops/kalman.log_likelihood
+fast_smoother_ll  csrc/kalman_filter.cu   ops/kalman.fast_smoother_ll
+laplace_solve     csrc/laplace_solve.cu   inference/approx.laplace_solve_plain
+rts_factors       csrc/rts_factors.cu     ops/kalman.smoother_bwd_factors
+psi_logw          csrc/psi_logw.cu        inference/particle.psi_logw_scan
+psi_big_logw      csrc/particle_big.cu    inference/particle.psi_logw_scan
+                                          (with ``resample_every``)
+bsf_big_logw      csrc/particle_big.cu    inference/particle.bsf_logw_scan
+philox_fill       csrc/particle_big.cu    philox_fill_plain (this module)
+================  ======================  ===================================
+
+``log_likelihood`` and ``fast_smoother_ll`` serve linear-Gaussian models:
+the Kalman log-likelihood (the target of linear-Gaussian MCMC) and the
+smoothed means with it (the conditional means of the simulation smoother).
 
 ``psi_logw`` serves N <= 32 particles from injected randomness.
 ``psi_big_logw`` and ``bsf_big_logw`` are the two modes of one kernel for
@@ -65,8 +72,9 @@ THREADS_PER_ROW_BLOCK = 32
 THREADS_PSI_BLOCK = 128
 
 # launches of each kernel since the last reset_launch_counts()
-LAUNCHES = {"laplace_solve": 0, "rts_factors": 0, "psi_logw": 0,
-            "psi_big_logw": 0, "bsf_big_logw": 0, "philox_fill": 0}
+LAUNCHES = {"log_likelihood": 0, "fast_smoother_ll": 0, "laplace_solve": 0,
+            "rts_factors": 0, "psi_logw": 0, "psi_big_logw": 0,
+            "bsf_big_logw": 0, "philox_fill": 0}
 
 # seconds the last build took (None: library was already built or not loaded)
 build_seconds: Optional[float] = None
@@ -170,6 +178,15 @@ def _load():
     lib = ctypes.CDLL(str(build()))
     P, L, I, Dbl = (ctypes.c_void_p, ctypes.c_long, ctypes.c_int,
                     ctypes.c_double)
+    for fn in (lib.bssm_kalman_ll, lib.bssm_fast_smoother_ll):
+        fn.restype = I
+    series = [P, L, L] * 3        # y, h2, D, each with batch and time stride
+    lib.bssm_kalman_ll.argtypes = [
+        I, I, L, I, *series,      # is_double, m, B, n
+        P, P, I, P]               # sys, ll, threads, stream
+    lib.bssm_fast_smoother_ll.argtypes = [
+        I, I, L, I, *series,
+        P, P, P, P, I, P]         # sys, alpha, ll, scratch, threads, stream
     lib.bssm_laplace_solve.restype = I
     lib.bssm_laplace_solve.argtypes = [
         I, I, I, L, I,            # is_double, m, dist, B, n
@@ -282,6 +299,15 @@ def _dense(x: torch.Tensor, shape, name: str) -> torch.Tensor:
     return x
 
 
+def _series_time_major(x: torch.Tensor, B: int, name: str):
+    """As ``_series``, with a series that varies over rows and time laid out
+    time-major ``(n, B)`` (batch stride 1, time stride B)."""
+    x, bs, ts = _series(x, B, name)
+    if bs and ts:
+        return x.T.contiguous(), 1, B
+    return x, bs, ts
+
+
 def _zphi(spec, B: int) -> torch.Tensor:
     """``(B, m + 1)`` rows [Z, phi] of the time-invariant observation
     vector and the family's auxiliary parameter."""
@@ -292,6 +318,69 @@ def _zphi(spec, B: int) -> torch.Tensor:
 
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# K6 / K7: Kalman log-likelihood and fast smoother of linear-Gaussian models
+# ---------------------------------------------------------------------------
+
+def _lg_launch(name: str, g: LGSpec, smooth: bool):
+    """Checks, packs and launches one of the two linear-Gaussian kernels;
+    returns ``ll`` or ``(alpha, ll)``, the log-likelihood before the
+    degenerate-model rule."""
+    _check_system(g)
+    B, n, m = _batch(g), g.n, g.m
+    dt, dev = g.y.dtype, g.y.device
+    _check_tensors([("H", g.H), ("D", g.D), ("Z", g.Z), ("T", g.T),
+                    ("R", g.R), ("a1", g.a1), ("P1", g.P1), ("C", g.C)], g.y)
+    series = []
+    for nm, x in (("y", g.y), ("H^2", g.HH), ("D", g.D)):
+        x, bs, ts = _series_time_major(x, B, nm)
+        series += [x, bs, ts]
+    args = [a.data_ptr() if torch.is_tensor(a) else a for a in series]
+    sys_t = pack_system(g, B, with_phi=False)
+    ll = torch.empty((B,), dtype=dt, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        if smooth:
+            alpha = torch.empty((B, n + 1, m), dtype=dt, device=dev)
+            scratch = torch.empty((n, 3 + m + m * m, B), dtype=dt, device=dev)
+            code = lib.bssm_fast_smoother_ll(
+                int(dt == torch.float64), m, B, n, *args, sys_t.data_ptr(),
+                alpha.data_ptr(), ll.data_ptr(), scratch.data_ptr(),
+                THREADS_PER_ROW_BLOCK, _stream(dev))
+        else:
+            code = lib.bssm_kalman_ll(
+                int(dt == torch.float64), m, B, n, *args, sys_t.data_ptr(),
+                ll.data_ptr(), THREADS_PER_ROW_BLOCK, _stream(dev))
+    _check_launch(lib, code, name)
+    LAUNCHES[name] += 1
+    return (alpha, ll) if smooth else ll
+
+
+def log_likelihood(g: LGSpec) -> torch.Tensor:
+    """Kalman log-likelihood ``(B,)`` of every batch row of the
+    linear-Gaussian model ``g``: the target of linear-Gaussian MCMC.  A row
+    is degenerate (-inf) by the rule of the JAX package's kernel wrapper,
+    ``ops/kalman.degenerate_h2rr``, on either device."""
+    from . import kalman
+    if not g.y.is_cuda:
+        return kalman.log_likelihood(g, degenerate=kalman.degenerate_h2rr)
+    ll = _lg_launch("log_likelihood", g, smooth=False)
+    return torch.where(kalman.degenerate_h2rr(g),
+                       torch.full_like(ll, -torch.inf), ll)
+
+
+def fast_smoother_ll(g: LGSpec):
+    """``(alpha (B, n+1, m), ll (B,))``: smoothed state means by the moment
+    identity alphahat_t = a_t + P_t r_{t-1}, and the Kalman log-likelihood
+    under the rule of ``log_likelihood``."""
+    from . import kalman
+    if not g.y.is_cuda:
+        return kalman.fast_smoother_ll(g, degenerate=kalman.degenerate_h2rr)
+    alpha, ll = _lg_launch("fast_smoother_ll", g, smooth=True)
+    return alpha, torch.where(kalman.degenerate_h2rr(g),
+                              torch.full_like(ll, -torch.inf), ll)
 
 
 # ---------------------------------------------------------------------------

@@ -4,10 +4,13 @@ Counterpart of ``bssm_tpu/ops/kalman.py``: the same masked, Joseph-form
 recursions, written as a Python loop over time with every batch row
 advanced together by broadcasting tensor operations.  These functions are
 the PLAIN versions of the hand-written kernels in ``ops/cuda_kalman.py``
-(``log_likelihood``/``fast_smoother_ll`` of the Laplace solve,
-``smoother_bwd_factors`` of the RTS-factor kernel): the CPU tests compare
-them with the JAX package, and on the GPU they serve only as the yardstick
-the kernels are held against.
+(``log_likelihood`` of the Kalman log-likelihood kernel and of the Laplace
+solve, ``fast_smoother_ll`` of the fast-smoother kernel and of the Laplace
+solve, ``smoother_bwd_factors`` of the RTS-factor kernel): the CPU tests
+compare them with the JAX package, and on the GPU they serve only as the
+yardstick the kernels are held against.  ``fast_smoother`` (the classic
+two-pass form, optionally reusing the gains of another series) and
+``smoother`` (J-form, with variances) have no kernel.
 
   F_t = Z' P Z + H^2               (innovation variance)
   K_t = P Z / F
@@ -105,6 +108,19 @@ def _degenerate(spec: LGSpec) -> torch.Tensor:
     return (hh + rr) < ZERO_TOL
 
 
+def degenerate_h2rr(spec: LGSpec) -> torch.Tensor:
+    """The degenerate-model rule of the JAX package's fused-kernel wrappers,
+    which its linear-Gaussian MCMC target follows on the TPU: H^2 summed
+    over time (a time-invariant H counts n times) plus sum |R R'|, below
+    ZERO_TOL.  ``_degenerate`` sums H^2 once and |R| instead, so with state
+    sds near 1e-5 and a tiny observation sd the two rules disagree."""
+    n = spec.n
+    hh = with_batch(spec.HH, 1)
+    hh = hh.expand(-1, n) if hh.shape[1] == 1 else hh
+    rr = with_batch(spec.RR, 3).abs().sum((-1, -2, -3))
+    return (hh.sum(-1) + rr) < ZERO_TOL
+
+
 def _steps(s: _Sys):
     n = s.y.shape[1]
     for t in range(n):
@@ -112,14 +128,15 @@ def _steps(s: _Sys):
                at_t(s.T, t), at_t(s.RR, t), at_t(s.D, t), at_t(s.C, t))
 
 
-def log_likelihood(spec: LGSpec) -> torch.Tensor:
-    """Marginal log-likelihood via the Kalman filter, ``(B,)``."""
+def log_likelihood(spec: LGSpec, degenerate=_degenerate) -> torch.Tensor:
+    """Marginal log-likelihood via the Kalman filter, ``(B,)``; -inf where
+    ``degenerate(spec)`` calls the model degenerate."""
     s = _sys(spec)
     a, P, acc = s.a1, s.P1, 0.0
     for xs in _steps(s):
         a, P, _, _, _, _, _, ll, _ = _update(a, P, *xs)
         acc = acc + ll
-    return torch.where(_degenerate(spec), torch.full_like(acc, -torch.inf),
+    return torch.where(degenerate(spec), torch.full_like(acc, -torch.inf),
                        acc)
 
 
@@ -148,10 +165,11 @@ def kfilter(spec: LGSpec) -> FilterResult:
                         st(Ft), st(Kt))
 
 
-def fast_smoother_ll(spec: LGSpec):
+def fast_smoother_ll(spec: LGSpec, degenerate=_degenerate):
     """(smoothed means ``(B, n+1, m)``, filter log-likelihood ``(B,)``) from
     one shared forward pass.  Means come from the moment identity
-    alphahat_t = a_t + P_t r_{t-1} (Durbin-Koopman eq. 4.44)."""
+    alphahat_t = a_t + P_t r_{t-1} (Durbin-Koopman eq. 4.44); the
+    log-likelihood is -inf where ``degenerate(spec)``."""
     r = kfilter(spec)
     s = _sys(spec)
     n, m = s.y.shape[1], s.a1.shape[-1]
@@ -171,9 +189,76 @@ def fast_smoother_ll(spec: LGSpec):
     rprev = torch.stack(rprev, dim=1)                        # (B, n, m)
     alphas = r.at[:, :-1] + _mv(r.Pt[:, :-1], rprev)
     alpha = torch.cat([alphas, r.at[:, -1:]], dim=1)
-    ll = torch.where(_degenerate(spec),
+    ll = torch.where(degenerate(spec),
                      torch.full_like(r.logLik, -torch.inf), r.logLik)
     return alpha, ll
+
+
+class SmootherStats(NamedTuple):
+    """Forward-pass quantities reused by every smoothing variant."""
+    vt: torch.Tensor    # (B, n)
+    Ft: torch.Tensor    # (B, n)   (1 where masked)
+    Kt: torch.Tensor    # (B, n, m) (0 where masked)
+    ok: torch.Tensor    # (B, n)   update mask
+    at: torch.Tensor    # (B, n+1, m)
+    Pt: torch.Tensor    # (B, n+1, m, m)
+
+
+def forward_stats(spec: LGSpec) -> SmootherStats:
+    r = kfilter(spec)
+    ok = _sys(spec).obs & (r.Ft > ZERO_TOL)
+    return SmootherStats(r.vt, r.Ft, r.Kt, ok, r.at, r.Pt)
+
+
+def fast_smoother(spec: LGSpec,
+                  stats: SmootherStats | None = None) -> torch.Tensor:
+    """Mean-only two-pass smoother, E[alpha_t | y], ``(B, n+1, m)``.
+
+    Given ``stats`` (of a model with the same system), the y-independent
+    gains (Ft, Kt) are reused and only the O(n m) mean recursions run
+    against ``spec.y``: what a simulation smoother needs for each synthetic
+    series."""
+    if stats is None:
+        return _mean_passes(spec, forward_stats(spec))
+    s = _sys(spec)
+    a, vt = s.a1, []
+    for t in range(s.y.shape[1]):
+        F, K = stats.Ft[:, t], stats.Kt[:, t]
+        ok = s.obs[:, t] & (F > ZERO_TOL)
+        v = s.y[:, t] - at_t(s.D, t) - (at_t(s.Z, t) * a).sum(-1)
+        v = torch.where(ok, v, torch.zeros_like(v))
+        a = at_t(s.C, t) + _mv(at_t(s.T, t), a + K * v.unsqueeze(-1))
+        vt.append(v)
+    vt = torch.stack(vt, dim=1)
+    return _mean_passes(spec, stats._replace(
+        vt=vt, ok=s.obs & (stats.Ft > ZERO_TOL)))
+
+
+def _mean_passes(spec: LGSpec, stats: SmootherStats) -> torch.Tensor:
+    """Backward r-recursion (r_{n-1} = 0) and forward mean pass
+    alpha_0 = a1 + P1 r_{-1}, alpha_{t+1} = C + T alpha_t + R R' r_t of the
+    fast smoother."""
+    s = _sys(spec)
+    n, m = s.y.shape[1], s.a1.shape[-1]
+    dt = stats.vt.dtype
+    eye = torch.eye(m, dtype=dt, device=stats.vt.device)
+    r = torch.zeros(stats.vt.shape[0], m, dtype=dt, device=stats.vt.device)
+    rt = [None] * n
+    for t in range(n - 1, -1, -1):
+        rt[t] = r
+        Z, T = at_t(s.Z, t), at_t(s.T, t)
+        okf = stats.ok[:, t].to(dt).unsqueeze(-1)
+        K, v, F = stats.Kt[:, t], stats.vt[:, t], stats.Ft[:, t]
+        L = T @ (eye - K.unsqueeze(-1) * Z.unsqueeze(-2))
+        r_obs = Z * (v / F).unsqueeze(-1) + _mv(L.transpose(-1, -2), r)
+        r = okf * r_obs + (1 - okf) * _mv(T.transpose(-1, -2), r)
+    alpha = s.a1 + _mv(s.P1, r)
+    alphas = [alpha]
+    for t in range(n):
+        alpha = at_t(s.C, t) + _mv(at_t(s.T, t), alpha) \
+            + _mv(at_t(s.RR, t), rt[t])
+        alphas.append(alpha)
+    return torch.stack(alphas, dim=1)
 
 
 def smoother_bwd_factors(spec: LGSpec):
@@ -213,3 +298,36 @@ def smoother_bwd_factors(spec: LGSpec):
         ahat[t], Lb[t], Ab[t] = ahat_next, _psd_factor(Sig), J
     st = lambda xs: torch.stack(xs, dim=1)                   # noqa: E731
     return st(ahat), st(Lb), st(Ab)
+
+
+class SmoothResult(NamedTuple):
+    alphahat: torch.Tensor  # (B, n+1, m)
+    Vt: torch.Tensor        # (B, n+1, m, m)
+    ccov: torch.Tensor      # (B, n+1, m, m) Cov(alpha_t, alpha_{t+1} | y); [n]=0
+    logLik: torch.Tensor    # (B,)
+
+
+def smoother(spec: LGSpec) -> SmoothResult:
+    """Smoothed means, variances and lag-one cross-covariances by the
+    J-form recursion
+        J_t = Ptt_t T_t' P_{t+1|t}^+,
+        alphahat_t = att_t + J_t (alphahat_{t+1} - a_{t+1}),
+        V_t = Ptt_t + J_t (V_{t+1} - P_{t+1|t}) J_t',
+    which float32 keeps where the N-recursion V = P - P N P cancels a
+    diffuse P1 away."""
+    from .chol import _psd_pinv
+    r = kfilter(spec)
+    s = _sys(spec)
+    n, m = s.y.shape[1], s.a1.shape[-1]
+    ahat_next, V_next = r.at[:, -1], r.Pt[:, -1]
+    ahat, Vt, ccov = [None] * (n + 1), [None] * (n + 1), [None] * (n + 1)
+    ahat[n], Vt[n], ccov[n] = ahat_next, V_next, torch.zeros_like(V_next)
+    for t in range(n - 1, -1, -1):
+        T, Ptt, P_next = at_t(s.T, t), r.Ptt[:, t], r.Pt[:, t + 1]
+        J = Ptt @ T.transpose(-1, -2) @ _psd_pinv(P_next)
+        ccov[t] = J @ V_next
+        ahat_next = r.att[:, t] + _mv(J, ahat_next - r.at[:, t + 1])
+        V_next = _sym(Ptt + J @ (V_next - P_next) @ J.transpose(-1, -2))
+        ahat[t], Vt[t] = ahat_next, V_next
+    st = lambda xs: torch.stack(xs, dim=1)                   # noqa: E731
+    return SmoothResult(st(ahat), st(Vt), st(ccov), r.logLik)

@@ -22,17 +22,31 @@ What it does, in order:
    ``philox_fill`` wrote, the filled tensors against their plain version
    and their moments, at the shapes the paths give the kernel; and times
    both modes at B = 16384 against the plain versions on the same tensors;
-4. drives five paths through the public entry points and gates each (finite
-   values, acceptance rate, ESS_IS fraction where there are weights, the
-   path's kernels launched by that very run):
+4. holds the two linear-Gaussian kernels (``log_likelihood``,
+   ``fast_smoother_ll``) against their plain versions: the airquality
+   ``bsm_lg`` model (n = 153, m = 2, Wind and Temp as regressors, so D varies
+   over time and rows; 37 missing y) at B = 4096 / 16384, with four rows
+   whose sds make the model degenerate, and a sweep over m = 1..4 with
+   missing y and time-varying D at n = 40, plus ``ar1_lg`` (initial state
+   and C vary over rows), float32 and float64; times both kernels and their
+   plain versions;
+5. drives eight paths through the public entry points and gates each
+   (finite values, acceptance rate, ESS_IS fraction where there are
+   weights, the path's kernels launched by that very run):
    ``psi_N10`` / ``psi_N256`` (resampling period 8) / ``psi_N256_refexact``
    (period 1): IS-MCMC (``mcmc_type="is2"``) on a level + slope ``bsm_ng``
    Poisson model, n = 153, 4096 / 4096 / 1024 chains; ``pm_bsf_N200``:
    pseudo-marginal MCMC with a 200-particle bootstrap filter on a level-only
    model, 1024 chains; ``da_psi_N64``: delayed acceptance, 1024 chains;
-5. prints one JSON object per line: ``card``, ``checks``, ``big_checks``,
-   one ``path`` line each (``main_path`` for ``psi_N10``), ``kernels``, the
-   card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+   ``lg_theta`` / ``lg_summary`` / ``lg_full``: linear-Gaussian marginal
+   MCMC on the airquality ``bsm_lg`` with ``output_type`` "theta" (4096
+   chains), "summary" and "full" (1024 chains, the same seed, so the same
+   theta chains); the full draws must average to the summary's means within
+   6 sqrt(Vt / draws) at every (t, j);
+6. prints one JSON object per line: ``card``, ``checks``, ``big_checks``,
+   ``lg_checks``, one ``path`` line each (``main_path`` for ``psi_N10``),
+   ``kernels``, the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check ends the run with a non-zero exit code and without the last
 line.  Tolerances (|a - b| <= tol (1 + |b|)):
@@ -66,6 +80,9 @@ line.  Tolerances (|a - b| <= tol (1 + |b|)):
   standard errors of zero: flips are draws, not a bias.  The share of rows
   outside the tight tolerance ("flipped") is printed.  Philox mode against
   stream mode: 1e-6 (float32) / 1e-12 (float64) scaled, every row.
+  Linear-Gaussian kernels, every entry: float64 1e-9 (1 + |ref|); float32
+  as the JAX package's kernel tests (tests/test_pallas.py): log-likelihood
+  1e-5 + 2e-5 |ref|, smoothed means 3e-4 (1 + the row's largest |ref|).
 """
 from __future__ import annotations
 
@@ -86,6 +103,13 @@ PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 
 CHAINS = 4096                    # the main path's width; only depth is cut
+
+# theta posterior means of the JAX package's bsm_lg airquality run at 20000
+# iterations (PARITY_r05.json, test_airquality_bsm_lg_parity), printed
+# beside the lg paths' for reading, not gated on
+LG_PARITY = {"sd_y": 20.923603950767504, "sd_level": 6.30421305925652,
+             "sd_slope": 0.33842104627228353, "Wind": -2.5523095236378777,
+             "Temp": 1.032753090402032}
 
 FAILURES: list = []
 
@@ -222,6 +246,47 @@ def sweep_model(bt, family: str, m: int, dtype, n: int = 40,
     return bt.bsm_ng(y, **kw)
 
 
+def airquality_model(bt, dtype):
+    """bssm's README example as the JAX package's zoo benchmark sets it up:
+    ``bsm_lg`` level + slope on airquality Ozone with Wind and Temp as
+    regressors, n = 153, m = 2, d = 5."""
+    aq = bt.airquality()
+    return bt.bsm_lg(aq["Ozone"], xreg=np.column_stack([aq["Wind"],
+                                                         aq["Temp"]]),
+                     beta=bt.normal_prior(np.zeros(2), 0.0, 1.0),
+                     sd_y=bt.gamma_prior(1.0, 2.0, 0.01),
+                     sd_level=bt.gamma_prior(1.0, 2.0, 0.01),
+                     sd_slope=bt.gamma_prior(1.0, 2.0, 0.01),
+                     dtype=dtype, device="cuda")
+
+
+def lg_sweep_model(bt, m: int, dtype, n: int = 40):
+    """A small bsm_lg with state dimension ``m`` (1: level, 2: level +
+    slope, 3: level + seasonal(3), 4: level + slope + seasonal(3)), three
+    missing observations and two regressors (time-varying D); m = 0 gives
+    an ar1_lg, whose initial state and C vary over rows."""
+    rng = np.random.default_rng(200 + m)
+    y = np.cumsum(rng.normal(0, 0.3, n)) + rng.normal(0, 0.5, n)
+    y[[3, n // 2, n - 1]] = np.nan
+    if m == 0:
+        return bt.ar1_lg(y, rho=bt.uniform_prior(0.7, -0.999, 0.999),
+                         sigma=bt.halfnormal_prior(0.3, 1.0),
+                         mu=bt.normal_prior(0.0, 0.0, 2.0),
+                         sd_y=bt.halfnormal_prior(0.5, 1.0), dtype=dtype,
+                         device="cuda")
+    kw = dict(sd_y=bt.halfnormal_prior(0.5, 1.0),
+              sd_level=bt.halfnormal_prior(0.3, 1.0),
+              xreg=rng.normal(0, 1.0, (n, 2)),
+              beta=bt.normal_prior(np.zeros(2), 0.0, 1.0), dtype=dtype,
+              device="cuda")
+    if m in (2, 4):
+        kw["sd_slope"] = bt.halfnormal_prior(0.05, 0.1)
+    if m in (3, 4):
+        kw["sd_seasonal"] = bt.halfnormal_prior(0.2, 1.0)
+        kw["period"] = 3
+    return bt.bsm_lg(y, **kw)
+
+
 def thetas_around_init(model, B: int, seed: int, spread: float = 0.5):
     g = torch.Generator(device="cuda").manual_seed(seed)
     t0 = torch.as_tensor(model.theta_init, dtype=model.dtype, device="cuda")
@@ -334,6 +399,29 @@ def check_kernels(model, B: int, N: int, label: str, timed: bool,
     return out
 
 
+def kf_step_ops(m: int) -> int:
+    """Floating-point operations of one masked Joseph-form Kalman step with
+    its prediction (``kf_step`` of csrc/kalman_common.cuh), a multiply-add
+    counted as 2, divide, log and the mask as 12."""
+    mm = m * m
+    return 2 * mm + 4 * m + 3 * m + 2 * (2 * m ** 3 + mm) + 3 * mm \
+        + 2 * (2 * m ** 3) + 2 * mm + 2 * mm + 12
+
+
+def bwd_mean_ops(m: int) -> int:
+    """Operations of one step of the fast smoother's backward mean pass
+    (``bwd_mean_step``): the gain again, T K, L' r and T' r, a_t + P_t r."""
+    mm = m * m
+    return 2 * mm + 2 * mm + 6 * mm + 2 * mm + 4 * m
+
+
+def roofline(byts: float, ops: float) -> dict:
+    t_b = byts / PEAK_BYTES_PER_S * 1e3
+    t_o = ops / PEAK_F32_FLOPS * 1e3
+    return {"bytes": byts, "operations": ops, "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
 def bounds(B: int, n: int, m: int, N: int, dt, total_passes: float) -> dict:
     """Least time the card could take for each kernel's work on these
     inputs: the larger of (bytes each input is read and each output is
@@ -344,11 +432,9 @@ def bounds(B: int, n: int, m: int, N: int, dt, total_passes: float) -> dict:
     it = torch.finfo(dt).bits // 8
     mm = m * m
     sys_rows = 3 * m + 3 * mm
-    # one masked Joseph-form Kalman step with prediction
-    kf = 2 * mm + 4 * m + 3 * m + 2 * (2 * m ** 3 + mm) + 3 * mm \
-        + 2 * (2 * m ** 3) + 2 * mm + 2 * mm + 12
+    kf = kf_step_ops(m)
     match = 12                               # exp, divide and a few products
-    bwd_mean = 2 * mm + 2 * mm + 6 * mm + 2 * mm + 4 * m
+    bwd_mean = bwd_mean_ops(m)
     k1_ops = total_passes * n * (kf + match + bwd_mean + 2 * m + 3)
     k1_bytes = it * (3 * n + 1 + (sys_rows + 1) * B + 2 * B * n + 2 * B) \
         + 4 * B
@@ -365,16 +451,108 @@ def bounds(B: int, n: int, m: int, N: int, dt, total_passes: float) -> dict:
     k3_bytes = it * (B * (n + 1) * N * m + B * n * N
                      + B * (n + 1) * (m + 2 * mm) + 3 * B * n + 2 * n + 1
                      + B * (m + 1) + B)
-    res = {}
-    for name, ops, byts in (("laplace_solve", k1_ops, k1_bytes),
-                            ("rts_factors", k2_ops, k2_bytes),
-                            ("psi_logw", k3_ops, k3_bytes)):
-        t_b = byts / PEAK_BYTES_PER_S * 1e3
-        t_o = ops / PEAK_F32_FLOPS * 1e3
-        res[name] = {"bytes": byts, "operations": ops,
-                     "bound_ms": max(t_b, t_o),
-                     "bound_by": "bytes" if t_b >= t_o else "operations"}
+    return {name: roofline(byts, ops)
+            for name, ops, byts in (("laplace_solve", k1_ops, k1_bytes),
+                                    ("rts_factors", k2_ops, k2_bytes),
+                                    ("psi_logw", k3_ops, k3_bytes))}
+
+
+# ---------------------------------------------------------------------------
+# the linear-Gaussian kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def compare_lg(name: str, got: torch.Tensor, ref: torch.Tensor,
+               atol, rtol: float) -> dict:
+    """Every entry inside atol + rtol |ref| (``atol`` may be per entry);
+    -inf, +inf and NaN in the same places."""
+    got, ref = got.double(), ref.double()
+    same = bool((torch.isnan(got) == torch.isnan(ref)).all()
+                and (torch.isinf(got) == torch.isinf(ref)).all()
+                and (got[torch.isinf(got)] == ref[torch.isinf(ref)]).all())
+    fin = torch.isfinite(got) & torch.isfinite(ref)
+    diff = torch.where(fin, (got - ref).abs(), torch.zeros_like(ref))
+    lim = atol + rtol * torch.where(fin, ref.abs(), torch.zeros_like(ref))
+    ok = same and bool((diff <= lim).all())
+    res = {"what": name, "max_abs_err": float(diff.max()),
+           "max_err_over_tol": float((diff / lim).max()),
+           "infinite_rows": int((~fin).sum()), "ok": ok}
+    if not ok:
+        FAILURES.append(res)
     return res
+
+
+def check_lg(model, B: int, label: str, timed: bool, degenerate_rows: int = 0,
+             seed: int = 29) -> dict:
+    """The Kalman log-likelihood and fast-smoother kernels against their
+    plain versions on the same spec on the card.  ``degenerate_rows`` rows
+    get sds of 1e-6 (the kernel wrapper's degenerate rule makes them -inf on
+    both sides)."""
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    from bssm_tpu_torch.ops import kalman
+    dt = model.dtype
+    f64 = dt == torch.float64
+    th = thetas_around_init(model, B, seed, spread=0.3)
+    if degenerate_rows:
+        is_log = torch.as_tensor(model.transforms == 1,  # log-sampled
+                                 device="cuda")
+        th[:degenerate_rows] = torch.where(
+            is_log, torch.full_like(th[0], float(np.log(1e-6))),
+            th[:degenerate_rows])
+    spec = model.build(th)
+    out = {"label": label, "B": B, "n": spec.n, "m": spec.m,
+           "dtype": str(dt).replace("torch.", ""), "checks": []}
+    rule = kalman.degenerate_h2rr
+    k_ll = ck.log_likelihood(spec)
+    p_ll = kalman.log_likelihood(spec, degenerate=rule)
+    k_a, k_l = ck.fast_smoother_ll(spec)
+    p_a, p_l = kalman.fast_smoother_ll(spec, degenerate=rule)
+    torch.cuda.synchronize()
+    row_scale = p_a.double().abs().flatten(1).max(1).values[:, None, None]
+    if f64:
+        tols = {"ll": (F64_TOL, F64_TOL), "alpha": (F64_TOL, F64_TOL)}
+    else:
+        tols = {"ll": (1e-5, 2e-5), "alpha": (3e-4 * (1.0 + row_scale), 0.0)}
+    # a degenerate row's means divide by innovation variances near 1e-12:
+    # its log-likelihood is -inf on both sides, its means are not compared
+    keep = slice(degenerate_rows, None)
+    if not f64:
+        tols["alpha"] = (tols["alpha"][0][keep], 0.0)
+    out["checks"] += [
+        compare_lg("log_likelihood", k_ll, p_ll, *tols["ll"]),
+        compare_lg("fast_smoother_ll.ll", k_l, p_l, *tols["ll"]),
+        compare_lg("fast_smoother_ll.alpha", k_a[keep], p_a[keep],
+                   *tols["alpha"])]
+    if int(torch.isneginf(p_ll).sum()) != degenerate_rows:
+        FAILURES.append({"what": "degenerate rows", "label": label,
+                         "got": int(torch.isneginf(p_ll).sum())})
+    if timed:
+        out["ms"] = {"log_likelihood": time_ms(lambda: ck.log_likelihood(spec)),
+                     "fast_smoother_ll": time_ms(
+                         lambda: ck.fast_smoother_ll(spec))}
+        out["plain_ms"] = {
+            "log_likelihood": time_ms(lambda: kalman.log_likelihood(
+                spec, degenerate=rule), reps=1, warmup=0),
+            "fast_smoother_ll": time_ms(lambda: kalman.fast_smoother_ll(
+                spec, degenerate=rule), reps=1, warmup=0)}
+        out["bounds"] = lg_bounds(spec, B, dt)
+    return out
+
+
+def lg_bounds(spec, B: int, dt) -> dict:
+    """Least time of the two linear-Gaussian kernels on this spec: bytes of
+    the y, H^2 and D series as the wrapper hands them over (a shared series
+    once, a batched one B times), the packed system and the outputs;
+    operations B n kf_step_ops(m), plus B n bwd_mean_ops(m) for the
+    smoother."""
+    it = torch.finfo(dt).bits // 8
+    n, m = spec.n, spec.m
+    series = sum(x.numel() for x in (spec.y, spec.HH, spec.D))
+    inputs = series + (3 * m + 3 * m * m) * B
+    kf = B * n * kf_step_ops(m)
+    return {"log_likelihood": roofline(it * (inputs + B), kf),
+            "fast_smoother_ll": roofline(
+                it * (inputs + B + B * (n + 1) * m),
+                kf + B * n * bwd_mean_ops(m))}
 
 
 # ---------------------------------------------------------------------------
@@ -717,11 +895,12 @@ def profile_main_path(bt, model, run: dict, iters: int = 60) -> dict:
 # ---------------------------------------------------------------------------
 
 def run_path(bt, ck, model, label: str, desc: str, chains: int, iters: int,
-             required, acc_range, ess_min, **run) -> dict:
+             required, acc_range, ess_min, **run):
     """Drives one ``run_mcmc`` path at full width: a short warm-up, launch
     counts set to 0 just before the run and read just after, then the
-    gates.  Returns the path's JSON object with its ``problems``."""
-    kw = dict(output_type="theta", n_chains=chains, seed=1, **run)
+    gates.  Returns the path's JSON object with its ``problems``, and the
+    run's output."""
+    kw = {"output_type": "theta", "n_chains": chains, "seed": 1, **run}
     bt.run_mcmc(model, iter=20, **kw)                     # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -738,7 +917,7 @@ def run_path(bt, ck, model, label: str, desc: str, chains: int, iters: int,
                   and np.isfinite(out.theta).all() and np.isfinite(w).all())
     sd = out.flat_theta()
     res = {"path": label, "model": desc, "chains": chains, "iter": iters,
-           "mcmc_type": run.get("mcmc_type"),
+           "mcmc_type": out.mcmc_type, "output_type": out.output_type,
            "sampling_method": run.get("sampling_method"),
            "particles": run.get("particles"),
            "psi_resample_every": run.get("psi_resample_every", 1),
@@ -764,7 +943,33 @@ def run_path(bt, ck, model, label: str, desc: str, chains: int, iters: int,
             problems.append(f"kernel {k} was not launched by this path")
     if out.theta.shape != (chains, iters - iters // 2, d):
         problems.append(f"theta shape {out.theta.shape}")
+    for name in ("alpha", "alphahat", "Vt"):
+        x = getattr(out, name)
+        if x is not None and not np.isfinite(x).all():
+            problems.append(f"non-finite {name}")
     res["problems"] = [f"{label}: {p}" for p in problems]
+    return res, out
+
+
+def lg_states_check(summary, full) -> dict:
+    """The lg_full draws against the lg_summary moments of the same theta
+    chains: at every (t, j), |mean of alpha - alphahat| < 6 sqrt(Vt_tjj /
+    draws).  The state draws are independent given theta, so their mean
+    scatters around the exact mean of the smoothed means with a variance of
+    at most Vt / draws."""
+    a = full.alpha.reshape((-1,) + full.alpha.shape[2:]).astype(np.float64)
+    draws = a.shape[0]
+    sd = np.sqrt(np.diagonal(summary.Vt, axis1=-2, axis2=-1) / draws)
+    z = np.abs(a.mean(0) - summary.alphahat) / sd
+    res = {"draws": draws, "max_z": float(z.max()),
+           "mean_z": float(z.mean()),
+           "same_theta_chains": bool(np.array_equal(full.theta,
+                                                    summary.theta)),
+           "alphahat_154": summary.alphahat[-1].tolist(),
+           "sd_154": np.sqrt(np.diagonal(summary.Vt[-1])).tolist()}
+    res["ok"] = bool(res["same_theta_chains"] and z.max() < 6.0
+                     and (np.diagonal(summary.Vt, axis1=-2,
+                                      axis2=-1) > 0).all())
     return res
 
 
@@ -775,7 +980,7 @@ def main() -> int:
                          "pseudo-marginal and delayed-acceptance paths run "
                          "half as many)")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace short runs of three paths with "
+                    help="also trace short runs of four paths with "
                          "torch.profiler and print device time by kernel")
     args = ap.parse_args()
 
@@ -893,13 +1098,39 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    # ---- the linear-Gaussian kernels ---------------------------------------
+    a32 = airquality_model(bt, torch.float32)
+    a64 = airquality_model(bt, torch.float64)
+    l_16k = check_lg(a32, 16384, "airquality f32 B=16384", timed=True,
+                     degenerate_rows=4)
+    l_4k = check_lg(a32, 4096, "airquality f32 B=4096", timed=True,
+                    degenerate_rows=4)
+    # the lg_full path gives the fast smoother chunks of 65536 rows
+    l_64k = check_lg(a32, 65536, "airquality f32 B=65536", timed=True)
+    lg = [l_16k, l_4k, l_64k,
+          check_lg(a64, 16384, "airquality f64 B=16384", timed=False,
+                   degenerate_rows=4),
+          check_lg(a64, 4096, "airquality f64 B=4096", timed=False,
+                   degenerate_rows=4),
+          check_lg(a32, 1024, "airquality f32 B=1024", timed=False)]
+    for dtype in (torch.float64, torch.float32):
+        for m in (0, 1, 2, 3, 4):
+            lg.append(check_lg(lg_sweep_model(bt, m, dtype), 256,
+                               f"sweep {'ar1_lg' if m == 0 else f'm={m}'}",
+                               timed=False))
+    emit("lg_checks", {"runs": lg, "failures": FAILURES})
+    if FAILURES:
+        print(f"chip_smoke: {len(FAILURES)} linear-Gaussian check(s) failed",
+              file=sys.stderr)
+        return 1
+
     # ---- the paths, each at full width ------------------------------------
     it_full = args.iter
     it_half = max(args.iter // 2, 40)
     lvl_slope = "bsm_ng poisson level+slope, n=153, m=2, d=2, float32"
     is2 = dict(mcmc_type="is2", sampling_method="psi", store_modes=False,
                corr_batch=16384)
-    paths = [
+    runs = [
         run_path(bt, ck, m32, "psi_N10", lvl_slope, CHAINS, it_full,
                  ("laplace_solve", "rts_factors", "psi_logw"), (0.15, 0.35),
                  0.95, particles=10, **is2),
@@ -919,7 +1150,27 @@ def main() -> int:
                  ("laplace_solve", "rts_factors", "psi_big_logw"),
                  (0.05, 0.35), None, particles=64, mcmc_type="da",
                  sampling_method="psi")]
+    aq = "bsm_lg airquality Ozone ~ Wind + Temp, level+slope, n=153, m=2, " \
+        "d=5, float32"
+    runs += [run_path(bt, ck, a32, "lg_" + ot, aq,
+                      CHAINS if ot == "theta" else CHAINS // 4, it_full,
+                      req, (0.15, 0.6), None, output_type=ot)
+             for ot, req in (("theta", ("log_likelihood",)),
+                             ("summary", ("log_likelihood",)),
+                             ("full", ("log_likelihood", "fast_smoother_ll")))]
+    paths = [r for r, _ in runs]
+    outs = {r["path"]: o for r, o in runs}
     problems = [p for r in paths for p in r["problems"]]
+    for r in paths:
+        if r["path"].startswith("lg_"):
+            r["parity_r05_posterior_mean"] = LG_PARITY
+            r["posterior_mean"] = dict(zip(
+                outs[r["path"]].theta_names,
+                outs[r["path"]].flat_theta().mean(0).tolist()))
+    states = lg_states_check(outs["lg_summary"], outs["lg_full"])
+    next(r for r in paths if r["path"] == "lg_full")["states_check"] = states
+    if not states["ok"]:
+        problems.append(f"lg_full: draws disagree with lg_summary {states}")
     total = {k: sum(r["launches"][k] for r in paths) for k in ck.LAUNCHES}
     by_path = {k: {r["path"]: r["launches"][k] for r in paths}
                for k in ck.LAUNCHES}
@@ -946,6 +1197,23 @@ def main() -> int:
     kernels[0]["ms_B4096"] = c_4k["ms"]["laplace_solve"]
     kernels[0]["plain_ms_B4096"] = c_4k["plain_ms"]["laplace_solve"]
     kernels[0]["bound_ms_B4096"] = b4["laplace_solve"]["bound_ms"]
+    for name, line in (("log_likelihood", 386), ("fast_smoother_ll", 487)):
+        lb = l_16k["bounds"][name]
+        k = {"name": name, "route": "cuda",
+             "source": "bssm_tpu_torch/csrc/kalman_filter.cu",
+             "replaces": f"bssm_tpu/ops/pallas_kalman.py:{line}",
+             "launches": total[name], "launches_by_path": by_path[name],
+             "max_abs_err": max(c["max_abs_err"] for run in lg[:3]
+                                for c in run["checks"]
+                                if c["what"].startswith(name)),
+             "ms": l_16k["ms"][name], "plain_ms": l_16k["plain_ms"][name],
+             "bound_ms": lb["bound_ms"], "bound_by": lb["bound_by"],
+             "library_ms": None, "shape": "B=16384 n=153 m=2 float32"}
+        for tag, run in (("_B4096", l_4k), ("_B65536", l_64k)):
+            k["ms" + tag] = run["ms"][name]
+            k["plain_ms" + tag] = run["plain_ms"][name]
+            k["bound_ms" + tag] = run["bounds"][name]["bound_ms"]
+        kernels.append(k)
     for name, line in (("psi_big_logw", 2303), ("bsf_big_logw", 2484)):
         t = t_big[name]
         err = max([c["max_abs_err"] for run in big_main
@@ -973,7 +1241,8 @@ def main() -> int:
                                        n_chains=CHAINS, **is2)),
                 ("pm_bsf_N200", mb32, dict(particles=200, mcmc_type="pm",
                                            sampling_method="bsf",
-                                           n_chains=CHAINS // 4))):
+                                           n_chains=CHAINS // 4)),
+                ("lg_theta", a32, dict(n_chains=CHAINS))):
             emit("profile", {"path": label, **profile_main_path(
                 bt, model, {**theta, **run})})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -252,6 +252,41 @@ def test_approx_mcmc_runs_without_correction():
     np.testing.assert_allclose(out.theta, np.exp(out.theta_sampled))
 
 
+@pytest.mark.parametrize("method", ["bsf", "psi"])
+def test_da_initial_state_takes_the_second_value_of_pf_loglik(method):
+    """The JAX package starts delayed acceptance at ``_pf_loglik``'s second
+    value: the bootstrap estimate itself for bsf (its ``_pf_loglik`` returns
+    that estimate twice), the approximation's log-likelihood for psi.  With
+    the generator state fixed, the port's initial ``ll_approx`` is that
+    value; for bsf it differs from the approximation's log-likelihood, which
+    is where the chain used to start."""
+    y = _series(24, 9)
+    kw = dict(distribution="poisson", a1=np.array([1.0]), P1=np.array([[1.0]]))
+    jm = jbsm_ng(y, sd_level=j_halfnormal(0.1, 1.0), dtype=jnp.float64, **kw)
+    tm = bt.bsm_ng(y, sd_level=bt.halfnormal_prior(0.1, 1.0),
+                   dtype=torch.float64, device="cpu", **kw)
+    theta0 = jnp.asarray(jm.theta_init)
+    j_ll, j_all, _ = jmcmc._pf_loglik(jm, theta0, jax.random.PRNGKey(2), 16,
+                                      method, 1e-8, 100, need_states=False)
+    assert (float(j_ll) == float(j_all)) == (method == "bsf")
+    th = torch.as_tensor(np.array(jm.theta_init)).expand(5, -1)
+    S0 = torch.as_tensor(np.asarray(tm.initial_S())).expand(5, -1, -1)
+    state = tmcmc._da_init(tm, th, S0, torch.Generator().manual_seed(7), 16,
+                           method, 1e-8, 100)
+    want_ll, want_all = tmcmc._pf_loglik(
+        tm, th, torch.Generator().manual_seed(7), 16, method, 1e-8, 100)
+    approx_ll = bt.approx_loglik(tm.build(th)).loglik
+    assert torch.equal(state.ll, want_ll)
+    assert torch.equal(state.ll_approx, want_all)
+    assert torch.equal(state.lp_prior, tm.log_prior(th))
+    if method == "bsf":
+        assert torch.equal(state.ll_approx, state.ll)
+        assert (state.ll_approx - approx_ll).abs().min() > 1e-6
+    else:
+        np.testing.assert_allclose(state.ll_approx.numpy(),
+                                   approx_ll.numpy(), rtol=1e-12)
+
+
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked_for():
     """No silent move to the CPU: without a CUDA device, ``device=None``
     raises in the constructor and in run_mcmc."""
