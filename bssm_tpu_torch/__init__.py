@@ -7,10 +7,15 @@ It imports torch and numpy and nothing of JAX or of ``bssm_tpu``.
 
 What runs today:
 
-- on ``bsm_ng`` models with ``output_type="theta"``: IS-MCMC
-  (``mcmc_type="is2"``), approximate, pseudo-marginal (``"pm"``) and
-  delayed-acceptance (``"da"``) MCMC, with the psi-auxiliary particle
-  filter or the bootstrap filter at up to 512 particles;
+- on ``bsm_ng`` models: IS-MCMC (``mcmc_type`` "is1", "is2", "is3") with
+  ``output_type`` "theta", "summary" or "full", approximate MCMC
+  ("approx", theta or full output), pseudo-marginal (``"pm"``) and
+  delayed-acceptance (``"da"``) MCMC with theta output, with the
+  psi-auxiliary particle filter or the bootstrap filter at up to 512
+  particles; ``post_correct`` and ``suggest_N``; and on one model
+  ``gaussian_approx``, ``logLik`` (approximate or particle estimate),
+  ``kfilter``, ``bootstrap_filter``, ``particle_smoother`` and the
+  smoothers through the Gaussian approximation;
 - on the linear-Gaussian ``bsm_lg`` and ``ar1_lg``: marginal MCMC
   (``mcmc_type="gaussian"``) with ``output_type`` "theta", "summary" or
   "full", and ``logLik``, ``fast_smoother``, ``smoother`` and
@@ -38,13 +43,20 @@ from .core.priors import (uniform_prior, halfnormal_prior,       # noqa: E402
                           PriorStack)
 from .models.bsm import bsm_lg, bsm_ng                           # noqa: E402
 from .models.ar1 import ar1_lg                                   # noqa: E402
-from .inference.mcmc import run_mcmc, McmcOutput                 # noqa: E402
-from .inference.approx import approximate, approx_loglik         # noqa: E402
+from .inference.mcmc import (run_mcmc, McmcOutput,               # noqa: E402
+                             is_correction_generator)
+from .inference.approx import (approximate, approx_loglik,       # noqa: E402
+                               gaussian_approx)
 from .inference.smoothers import (fast_smoother, smoother,       # noqa: E402
                                   sim_smoother)
 from .inference.loglik import logLik                             # noqa: E402
+from .inference.filters import (kfilter, bootstrap_filter,       # noqa: E402
+                                particle_smoother)
+from .inference.postcorrect import post_correct, suggest_N       # noqa: E402
 from .inference.particle import (psi_logw, bsf_logw,             # noqa: E402
-                                 psi_logw_scan, bsf_logw_scan)
+                                 psi_logw_scan, bsf_logw_scan,
+                                 psi_filter, bsf_filter, PFResult)
+from .ops.resample import ancestor_trace                         # noqa: E402
 from .diagnostics.summary import (weighted_mean, weighted_var,   # noqa: E402
                                   ess_is)
 from .utils.datasets import airquality                           # noqa: E402

@@ -162,3 +162,22 @@ class NGSpec:
         """The approximating LG model sharing this model's state dynamics."""
         return LGSpec(y=ytilde, Z=self.Z, H=Htilde, T=self.T, R=self.R,
                       a1=self.a1, P1=self.P1, D=self.D, C=self.C)
+
+
+def drop_batch(spec):
+    """The one model of a spec with a batch of one, every leaf's batch axis
+    dropped: the unbatched form in which the single-model functions take
+    it (the JAX package hands them one model the same way)."""
+    fields = LGSpec._fields if isinstance(spec, LGSpec) \
+        else [f.name for f in dataclasses.fields(spec)]
+    names = [f for f in fields if f in CORE_NDIM and f != "initial_mode"]
+    if spec.batch not in (None, 1):
+        raise ValueError(f"a batch of {spec.batch} models is not one model")
+    new = {}
+    for f in names:
+        x = getattr(spec, f)
+        if x.dim() == CORE_NDIM[f] + 1:
+            new[f] = x[0]
+    if isinstance(spec, LGSpec):
+        return spec._replace(**new)
+    return dataclasses.replace(spec, **new)

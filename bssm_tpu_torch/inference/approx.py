@@ -7,9 +7,13 @@ iteration of Durbin-Koopman / Shephard-Pitt: iterate
 until the mean-squared signal change drops below ``conv_tol`` (at most
 ``max_iter`` passes), always started cold from ``spec.initial_mode``.
 
-On a CUDA device the whole iteration is one launch of the hand-written
-``laplace_solve`` kernel (``ops/cuda_kalman.py``); ``laplace_solve_plain``
-below is its plain version.  Both stop row by row.
+Two routes, chosen by the call site as in the JAX package's
+``get_laplace_solver``: a batched spec (the chains, the stored draws of the
+correction) goes to the ``laplace_solve`` kernel, the whole iteration in one
+launch; an unbatched spec (one model: the public API, ``suggest_N``) goes to
+``laplace_solve_steps``, a host loop over the ``laplace_step`` kernel that
+tests convergence after every pass.  ``laplace_solve_plain`` is the plain
+version of both (``ops/cuda_kalman.py``); all stop row by row.
 """
 from __future__ import annotations
 
@@ -72,12 +76,12 @@ def _laplace_step(spec: NGSpec, mode: torch.Tensor):
     return new_mode, ll, diff
 
 
-def laplace_solve_plain(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
-                        max_iter: int):
-    """Plain version of the ``laplace_solve`` kernel: the batched loop over
-    ``_laplace_step`` with per-row stopping (a converged row keeps its
-    values while the others go on).  Returns (mode, prev, niter, diff, ll)."""
-    B, n = spec.batch or 1, spec.n
+def _solve(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
+           max_iter: int, step):
+    """The batched loop over a Laplace ``step`` with per-row stopping (a
+    converged row keeps its values while the others go on), one host
+    synchronisation a pass.  Returns (mode, prev, niter, diff, ll)."""
+    B, n = spec.batch or with_batch(mode0, 1).shape[0], spec.n
     dt, dev = spec.y.dtype, spec.y.device
     mode = with_batch(mode0, 1).expand(B, n).clone()
     prev = mode.clone()
@@ -88,7 +92,7 @@ def laplace_solve_plain(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
         active = diff > conv_tol
         if not bool(active.any()):
             break
-        new_mode, new_ll, new_diff = _laplace_step(spec, mode)
+        new_mode, new_ll, new_diff = step(spec, mode)
         a2 = active.unsqueeze(-1)
         prev = torch.where(a2, mode, prev)
         mode = torch.where(a2, new_mode, mode)
@@ -98,9 +102,28 @@ def laplace_solve_plain(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
     return mode, prev, niter, diff, ll
 
 
+def laplace_solve_plain(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
+                        max_iter: int):
+    """Plain version of the ``laplace_solve`` kernel and of
+    ``laplace_solve_steps``: the loop over ``_laplace_step``."""
+    return _solve(spec, mode0, conv_tol, max_iter, _laplace_step)
+
+
+def laplace_solve_steps(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
+                        max_iter: int):
+    """The single-model solve, the counterpart of the JAX package's
+    ``_laplace_solve_base``: the loop over ``cuda_kalman.laplace_step``
+    (the ``laplace_step`` kernel on the card), testing convergence between
+    launches.  It serves any batch, row by row.  Returns (mode, prev,
+    niter, diff, ll) as ``cuda_kalman.laplace_solve``."""
+    return _solve(spec, mode0, conv_tol, max_iter, cuda_kalman.laplace_step)
+
+
 def approximate(spec: NGSpec, conv_tol: float = CONV_TOL,
                 max_iter: int = MAX_ITER, mode0=None) -> ApproxResult:
-    """Full Laplace iteration from ``spec.initial_mode`` (or ``mode0``).
+    """Full Laplace iteration from ``spec.initial_mode`` (or ``mode0``): an
+    unbatched spec through ``laplace_solve_steps``, a batched one through
+    the ``laplace_solve`` kernel.
 
     The (ytilde, Htilde) returned are re-derived from the penultimate mode,
     exactly the pair the last smoother pass consumed, and ``gloglik`` is
@@ -111,8 +134,9 @@ def approximate(spec: NGSpec, conv_tol: float = CONV_TOL,
     # a conv_tol below the dtype's noise floor would always exhaust max_iter
     # (float32 eps ~1e-7); clamp to a resolvable tolerance
     conv_tol = max(conv_tol, 50.0 * float(torch.finfo(spec.y.dtype).eps))
-    mode, prev, niter, diff, gll = cuda_kalman.laplace_solve(
-        spec, mode0, conv_tol, max_iter)
+    solve = laplace_solve_steps if spec.batch is None \
+        else cuda_kalman.laplace_solve
+    mode, prev, niter, diff, gll = solve(spec, mode0, conv_tol, max_iter)
     yt, H = _one_match(spec, prev)
     return ApproxResult(mode, yt, H, niter, diff, gll)
 
@@ -157,3 +181,15 @@ def approx_loglik(spec: NGSpec, approx: Optional[ApproxResult] = None,
     ct = fam.const_term(spec.distribution, spec.y, spec.u, _col(spec.phi),
                         approx.ytilde, approx.Htilde)
     return ApproxLoglik(approx, sc, gll + ct + sc.sum(-1), gll)
+
+
+def gaussian_approx(model_or_spec, conv_tol: float = CONV_TOL,
+                    max_iter: int = MAX_ITER, theta=None) -> LGSpec:
+    """The approximating linear-Gaussian model of a non-Gaussian model
+    (built at ``theta``, by default its initial value) or ``NGSpec``."""
+    from .filters import spec_of
+    spec = spec_of(model_or_spec, theta)
+    if not isinstance(spec, NGSpec):
+        raise TypeError(f"gaussian_approx takes a non-Gaussian model, got "
+                        f"{type(spec).__name__}")
+    return approximate(spec, conv_tol, max_iter).gaussian(spec)

@@ -1,0 +1,117 @@
+"""Public filtering API: the Kalman filter, the bootstrap filter and the
+particle smoother.
+
+Counterpart of ``bssm_tpu/inference/filters.py`` for univariate models.
+Every function takes a model (built at ``theta``, by default its initial
+value) or a spec.  A model is handed on as ONE unbatched model, as the JAX
+package hands it to its functions, so its Gaussian approximation is the
+single-model solve (``inference/approx.laplace_solve_steps``, the
+``laplace_step`` kernel on the card); a spec passes as it is, so a batched
+spec is filtered row by row in one pass.  Results keep a leading batch axis
+(of one for a model).  The randomness of the particle filters comes from
+``generator`` (default: one seeded with ``seed`` on the model's device) or
+is injected as ``eps``/``us`` (see ``inference/particle``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..core.spec import NGSpec, drop_batch
+from ..models.base import Model
+from ..ops import kalman
+from ..ops.resample import ancestor_trace
+from . import approx as approx_mod
+from . import particle as pf_mod
+
+
+def theta_of(model: Model, theta=None) -> torch.Tensor:
+    """``theta`` (array or tensor; default: the model's initial value) as a
+    tensor on the model's device and dtype."""
+    th = model.theta_init if theta is None else theta
+    if not torch.is_tensor(th):
+        th = np.asarray(th)
+    return torch.as_tensor(th, dtype=model.dtype, device=model.device)
+
+
+def spec_of(model_or_spec, theta=None):
+    """The spec of a model at ``theta`` (default: its initial value), as one
+    unbatched model; a spec is returned as it is."""
+    if not isinstance(model_or_spec, Model):
+        return model_or_spec
+    th = theta_of(model_or_spec, theta)
+    if th.dim() != 1:
+        raise ValueError("theta must be one parameter vector (d,)")
+    return drop_batch(model_or_spec.build(th))
+
+
+def generator_for(spec, generator: Optional[torch.Generator], seed: int):
+    if generator is not None:
+        return generator
+    return torch.Generator(device=spec.y.device).manual_seed(int(seed))
+
+
+def kfilter(model_or_spec, theta=None) -> kalman.FilterResult:
+    """Kalman filter; a non-Gaussian model is filtered through its Gaussian
+    approximation."""
+    spec = spec_of(model_or_spec, theta)
+    if isinstance(spec, NGSpec):
+        spec = approx_mod.approximate(spec).gaussian(spec)
+    return kalman.kfilter(spec)
+
+
+def bootstrap_filter(model_or_spec, particles: int,
+                     generator: Optional[torch.Generator] = None,
+                     seed: int = 1, theta=None, eps=None,
+                     us=None) -> pf_mod.PFResult:
+    """Bootstrap particle filter of a non-Gaussian model, trajectories
+    untraced (``ops/resample.ancestor_trace``)."""
+    spec = spec_of(model_or_spec, theta)
+    if not isinstance(spec, NGSpec):
+        raise NotImplementedError(
+            "bootstrap_filter is ported for non-Gaussian models")
+    return pf_mod.bsf_filter(spec, particles,
+                             generator_for(spec, generator, seed), eps=eps,
+                             us=us)
+
+
+class ParticleSmootherResult(NamedTuple):
+    alphahat: torch.Tensor  # (B, n+1, m) weighted smoothed mean
+    Vt: torch.Tensor        # (B, n+1, m, m)
+    alpha: torch.Tensor     # (B, N, n+1, m) traced trajectories
+    weights: torch.Tensor   # (B, N) final weights, normalised
+    logLik: torch.Tensor    # (B,)
+
+
+def particle_smoother(model_or_spec, particles: int, method: str = "psi",
+                      generator: Optional[torch.Generator] = None,
+                      seed: int = 1, theta=None, eps=None, us=None,
+                      conv_tol: float = approx_mod.CONV_TOL,
+                      max_iter: int = approx_mod.MAX_ITER
+                      ) -> ParticleSmootherResult:
+    """Filter-smoother state estimates of a non-Gaussian model by the
+    psi-auxiliary (``method="psi"``) or the bootstrap (``"bsf"``) particle
+    filter: the weighted mean and covariance of the traced trajectories."""
+    spec = spec_of(model_or_spec, theta)
+    if not isinstance(spec, NGSpec):
+        raise NotImplementedError(
+            "particle_smoother is ported for non-Gaussian models")
+    gen = generator_for(spec, generator, seed)
+    if method == "psi":
+        al = approx_mod.approx_loglik(spec, conv_tol=conv_tol,
+                                      max_iter=max_iter)
+        pf = pf_mod.psi_filter(spec, al, particles, gen, eps=eps, us=us)
+    elif method == "bsf":
+        pf = pf_mod.bsf_filter(spec, particles, gen, eps=eps, us=us)
+    else:
+        raise NotImplementedError(f"method={method!r}: 'psi' and 'bsf' are "
+                                  "ported")
+    traced = ancestor_trace(pf.alpha, pf.indices)
+    w = pf.weights[..., -1]
+    w = w / w.sum(-1, keepdim=True)
+    mean = torch.einsum('bi,bitm->btm', w, traced)
+    dev = traced - mean[:, None]
+    Vt = torch.einsum('bi,bitm,bitk->btmk', w, dev, dev)
+    return ParticleSmootherResult(mean, Vt, traced, w, pf.loglik)

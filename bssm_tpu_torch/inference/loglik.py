@@ -1,24 +1,51 @@
-"""Log-likelihood API for linear-Gaussian models.
+"""Log-likelihood API.
 
-Counterpart of the linear-Gaussian part of ``bssm_tpu/inference/loglik.py``.
-The exact log-likelihood goes through ``ops/cuda_kalman.log_likelihood``:
-the Kalman log-likelihood kernel on the GPU, its plain version on the CPU,
-with the kernel wrapper's degenerate-model rule (see
-``ops/kalman.degenerate_h2rr``) on both.  Non-Gaussian models wait.
+Counterpart of ``bssm_tpu/inference/loglik.py`` for univariate models.  A
+linear-Gaussian model's exact log-likelihood goes through
+``ops/cuda_kalman.log_likelihood`` (the Kalman log-likelihood kernel on the
+GPU, its plain version on the CPU, with the kernel wrapper's degenerate-model
+rule, ``ops/kalman.degenerate_h2rr``, on both).  A non-Gaussian model's is
+the approximate log-likelihood of its Laplace approximation
+(``particles=0``) or a particle filter's estimate: the psi-auxiliary filter
+(``method="psi"``) or the bootstrap filter (``"bsf"``).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from ..core.spec import NGSpec
 from ..ops import cuda_kalman
-from .smoothers import _spec_of
+from . import approx as approx_mod
+from . import particle as pf_mod
+from .filters import generator_for, spec_of
 
 
-def logLik(model_or_spec, particles: int = 0, theta=None) -> torch.Tensor:
-    """Exact log-likelihood ``(B,)`` of a linear-Gaussian model (built at
-    ``theta``, by default its initial value) or spec.  ``particles`` must
-    be 0: a linear-Gaussian likelihood needs no particle filter."""
-    if particles:
-        raise NotImplementedError(
-            "particle estimates of the likelihood are not ported")
-    return cuda_kalman.log_likelihood(_spec_of(model_or_spec, theta))
+def logLik(model_or_spec, particles: int = 0, method: str = "psi",
+           generator: Optional[torch.Generator] = None, seed: int = 1,
+           theta=None, conv_tol: float = approx_mod.CONV_TOL,
+           max_iter: int = approx_mod.MAX_ITER, eps=None,
+           us=None) -> torch.Tensor:
+    """Log-likelihood ``(B,)`` of a model (built at ``theta``, by default
+    its initial value) or spec: exact for a linear-Gaussian one (then
+    ``particles`` must be 0), else approximate (``particles=0``) or the
+    estimate of a ``particles``-particle filter, whose randomness comes from
+    ``generator`` (default: seeded with ``seed``) or ``eps``/``us``."""
+    spec = spec_of(model_or_spec, theta)
+    if not isinstance(spec, NGSpec):
+        if particles:
+            raise NotImplementedError(
+                "a linear-Gaussian likelihood needs no particle filter")
+        return cuda_kalman.log_likelihood(spec)
+    if particles == 0:
+        return approx_mod.approx_loglik(spec, conv_tol=conv_tol,
+                                        max_iter=max_iter).loglik
+    gen = generator_for(spec, generator, seed)
+    if method == "bsf":
+        return pf_mod.bsf_filter(spec, particles, gen, eps=eps, us=us).loglik
+    if method != "psi":
+        raise NotImplementedError(f"method={method!r}: 'psi' and 'bsf' are "
+                                  "ported")
+    al = approx_mod.approx_loglik(spec, conv_tol=conv_tol, max_iter=max_iter)
+    return pf_mod.psi_filter(spec, al, particles, gen, eps=eps, us=us).loglik

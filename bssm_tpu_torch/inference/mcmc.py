@@ -5,16 +5,22 @@
   "theta", "summary" (posterior mean and covariance of the states) or
   "full" (one simulation-smoother draw of the states per stored theta);
 
-and, for non-Gaussian models (``kind == "ng"``) with ``output_type="theta"``:
+and, for non-Gaussian models (``kind == "ng"``):
 
-- ``mcmc_type="approx"``: RAM Metropolis on the Gaussian approximation;
+- ``mcmc_type="approx"``: RAM Metropolis on the Gaussian approximation, with
+  ``output_type`` "theta" or "full" (one draw of the states from the
+  approximating Gaussian model per stored theta);
 - ``mcmc_type="is2"``: the same chain followed by an importance-sampling
   correction of each jump-chain head, by the psi-auxiliary particle filter
   (``sampling_method="psi"``) or the bootstrap filter (``"bsf"``);
+  ``"is1"`` corrects every stored slot and averages each jump-chain
+  segment's estimates, ``"is3"`` corrects every slot on its own; all three
+  with ``output_type`` "theta", "summary" (weighted posterior mean and
+  covariance of the states) or "full" (one filter trajectory per slot);
 - ``mcmc_type="pm"``: pseudo-marginal Metropolis on a particle-filter
-  estimate of the likelihood (psi or bsf);
+  estimate of the likelihood (psi or bsf), ``output_type="theta"``;
 - ``mcmc_type="da"``: delayed acceptance, stage 1 on the approximation and
-  stage 2 on the particle-filter estimate.
+  stage 2 on the particle-filter estimate, ``output_type="theta"``.
 
 All chains advance together as one batch in a Python loop over iterations:
 every proposal costs one launch of each kernel on its path plus elementwise
@@ -24,9 +30,12 @@ branched around.  Kernels per evaluation (``ops/cuda_kalman.py``):
 for the conditional means of its state draws; ``laplace_solve`` for the
 approximation; ``rts_factors`` and ``psi_logw``
 (up to 32 particles) or ``psi_big_logw`` (up to 512) for the psi filter;
-``bsf_big_logw`` for the bootstrap filter.
+``bsf_big_logw`` for the bootstrap filter.  Summary and full output of the
+IS correction run the filters with trajectories (``particle.psi_filter`` /
+``bsf_filter``, batched tensor code; the psi factors from ``rts_factors``),
+and the approx full output the simulation smoother (``fast_smoother_ll``).
 
-The is2 correction processes the heads in chunks of ``corr_batch`` rows,
+The IS correction processes its rows in chunks of ``corr_batch`` rows,
 and the state draws or smoothing of linear-Gaussian output the stored
 thetas; the chunks only bound memory.  Duplicate slots share their head's
 result.  The
@@ -51,6 +60,7 @@ from ..core.config import resolve_device
 from ..models.base import Model
 from ..ops import cuda_kalman
 from ..ops import kalman as kalman_mod
+from ..ops.resample import ancestor_trace
 from ..ops.simsmooth import simulate_states_single
 from . import approx as approx_mod
 from . import particle as pf_mod
@@ -190,7 +200,11 @@ class McmcOutput:
     prior: Optional[np.ndarray] = None
     time: Optional[dict] = None
     theta_sampled: Optional[np.ndarray] = None  # (chains, S, d) sampled space
-    n_corrected: Optional[int] = None        # jump-chain heads corrected
+    n_corrected: Optional[int] = None        # rows the IS correction ran
+    # approximate and IS runs: whether every evaluation used the local
+    # (cold-started) Laplace approximation, which post_correct may
+    # recompute when the modes were not stored
+    local_approx: Optional[bool] = None
 
     @property
     def counts(self) -> np.ndarray:
@@ -339,83 +353,225 @@ def _psi_al(spec, ar):
 
 def _make_correct_rows(model: Model, nsim: int, sampling_method: str,
                        conv_tol: float = 1e-8, max_iter: int = 100,
-                       psi_resample_every: int = 1):
-    """The log-weight-only correction of a batch of stored draws (the
-    counterpart of the JAX package's per-draw ``_make_correct_one``,
-    theta-output branches).
+                       psi_resample_every: int = 1,
+                       want_states: bool = False,
+                       want_moments: bool = False):
+    """The correction of a batch of stored draws (the counterpart of the
+    JAX package's per-draw ``_make_correct_one``).
 
     ``correct_rows(theta (B, d), modes (B, n) or None, generator, eps=None,
-    us=None) -> {"log_w": (B,)}``.  psi: the psi-APF log-weight; without
-    stored modes the Laplace approximation is recomputed cold, which
-    reproduces phase 1's (it cold starts too).  bsf: the bootstrap filter's
-    log-likelihood estimate, from which ``_is_finish`` subtracts the stored
-    approximate log-likelihood; the modes are not used."""
+    us=None) -> dict``.  Without states or moments it returns
+    ``{"log_w": (B,)}`` from the log-weight-only estimators: psi, the
+    psi-APF log-weight (without stored modes the Laplace approximation is
+    recomputed cold, which reproduces phase 1's: it cold starts too); bsf,
+    the bootstrap filter's log-likelihood estimate, from which
+    ``_is_finish`` subtracts the stored approximate log-likelihood (the
+    modes are not used).  ``eps``/``us`` inject the filter's randomness.
+
+    With ``want_states`` / ``want_moments`` the filter keeps its
+    trajectories (``psi_filter`` / ``bsf_filter``, resampling at every
+    step) and the dict adds ``alpha (B, n+1, m)``, one trajectory per row
+    drawn from the final weights (by a uniform from ``generator``, after
+    the filter's draws), and ``mean (B, n+1, m)`` / ``Vt (B, n+1, m, m)``,
+    the weighted moments of the row's trajectories."""
     _check_method(model, sampling_method)
     kk = int(psi_resample_every)
 
-    def correct_rows(theta, modes=None, generator=None, eps=None, us=None):
-        spec = model.build(theta)
-        if sampling_method == "bsf":
-            return {"log_w": pf_mod.bsf_logw(
-                spec, nsim, generator, resample_every=kk, eps=eps, us=us)}
+    def approximation(spec, modes):
         if modes is None:
             ar = approx_mod.approximate(spec, conv_tol, max_iter)
         else:
             ar = approx_mod.approximate_for_is(spec, modes)
-        return {"log_w": pf_mod.psi_logw(spec, _psi_al(spec, ar), nsim,
-                                         generator, eps=eps, us=us,
-                                         resample_every=kk)}
+        return _psi_al(spec, ar)
+
+    def correct_rows(theta, modes=None, generator=None, eps=None, us=None):
+        spec = model.build(theta)
+        if not (want_states or want_moments):
+            if sampling_method == "bsf":
+                return {"log_w": pf_mod.bsf_logw(
+                    spec, nsim, generator, resample_every=kk, eps=eps,
+                    us=us)}
+            return {"log_w": pf_mod.psi_logw(
+                spec, approximation(spec, modes), nsim, generator, eps=eps,
+                us=us, resample_every=kk)}
+        if sampling_method == "bsf":
+            pf = pf_mod.bsf_filter(spec, nsim, generator, eps=eps, us=us)
+            traced = ancestor_trace(pf.alpha, pf.indices)
+        else:       # psi_filter returns its trajectories traced
+            pf = pf_mod.psi_filter(spec, approximation(spec, modes), nsim,
+                                   generator, eps=eps, us=us)
+            traced = pf.alpha
+        w = pf.weights[..., -1]                                   # (B, N)
+        out = {"log_w": pf.loglik}
+        if want_states:
+            cw = torch.cumsum(w, dim=-1)
+            u = torch.rand(w.shape[0], dtype=w.dtype, device=w.device,
+                           generator=generator)
+            pick = torch.searchsorted(cw, (u * cw[:, -1])[:, None],
+                                      right=True)
+            pick = torch.clamp(pick, max=w.shape[-1] - 1)
+            out["alpha"] = torch.gather(
+                traced, 1, pick[:, :, None, None].expand(
+                    -1, 1, *traced.shape[2:]))[:, 0]
+        if want_moments:
+            sw = w.sum(-1)[:, None, None]
+            mean = torch.einsum('bi,bitm->btm', w, traced) / sw
+            dev = traced - mean[:, None]
+            out["mean"] = mean
+            out["Vt"] = torch.einsum('bi,bitm,bitk->btmk', w, dev,
+                                     dev) / sw[..., None]
+        return out
 
     return correct_rows
 
 
 def _is_correction_flat(model: Model, thetas, modes, generator, nsim,
                         sampling_method, batch_size, conv_tol=1e-8,
-                        max_iter=100, psi_resample_every=1):
+                        max_iter=100, psi_resample_every=1,
+                        want_states=False, want_moments=False):
     """IS correction over a flat axis of stored draws, in chunks of
     ``batch_size`` rows.  thetas ``(Ns, d)``; modes ``(Ns, n)`` or None.
-    Returns ``{"log_w": (Ns,)}``."""
+    Returns the dict of ``_make_correct_rows`` with leading axis Ns."""
     correct_rows = _make_correct_rows(model, nsim, sampling_method, conv_tol,
-                                      max_iter, psi_resample_every)
+                                      max_iter, psi_resample_every,
+                                      want_states, want_moments)
     parts = []
     for lo in range(0, thetas.shape[0], batch_size):
         mo = None if modes is None else modes[lo:lo + batch_size]
         parts.append(correct_rows(thetas[lo:lo + batch_size], mo,
-                                  generator)["log_w"])
-    return {"log_w": torch.cat(parts)}
+                                  generator))
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
 def _is_postprocess(model: Model, thetas, modes, accepted, approx_ll,
                     generator, *, nsim, sampling_method, batch_size,
+                    is_type=2, want_states=False, want_moments=False,
                     conv_tol=1e-8, max_iter=100, psi_resample_every=1):
-    """is2: correct each jump-chain head once with ``nsim`` particles;
-    duplicate slots share the head's result.  thetas ``(C, S, d)``,
-    approx_ll ``(C, S)``; returns ``({"log_w": (C, S)}, number of heads)``."""
+    """The IS correction of a stored approximate run.  thetas ``(C, S, d)``,
+    approx_ll ``(C, S)``.
+
+    is2: correct each jump-chain head once with ``nsim`` particles;
+    duplicate slots share the head's result.  is1: correct every stored
+    slot and average each jump-chain segment's estimates in probability
+    space (``_is_finish``).  is3: correct every slot on its own.  Returns
+    (the dict of ``_is_finish``, the number of rows corrected)."""
     C, Sn = thetas.shape[:2]
     hmask = accepted.clone()
     hmask[:, 0] = True                      # slot 0 of a chain is a head
     hmask = hmask.reshape(-1)
-    hidx = torch.nonzero(hmask).squeeze(-1)
-    th_rows = thetas.reshape(C * Sn, -1)[hidx]
-    mo_rows = None if modes is None else modes.reshape(C * Sn, -1)[hidx]
+    th_rows = thetas.reshape(C * Sn, -1)
+    mo_rows = None if modes is None else modes.reshape(C * Sn, -1)
+    if is_type == 2:
+        hidx = torch.nonzero(hmask).squeeze(-1)
+        th_rows = th_rows[hidx]
+        mo_rows = None if mo_rows is None else mo_rows[hidx]
     corr = _is_correction_flat(model, th_rows, mo_rows, generator, nsim,
                                sampling_method, batch_size, conv_tol,
-                               max_iter, psi_resample_every)
-    return (_is_finish(corr, hmask, (C, Sn), approx_ll, sampling_method),
-            int(hidx.shape[0]))
+                               max_iter, psi_resample_every, want_states,
+                               want_moments)
+    return (_is_finish(corr, hmask, (C, Sn), approx_ll, sampling_method,
+                       is_type, generator),
+            int(th_rows.shape[0]))
 
 
-def _is_finish(corr, hmask, shape, approx_ll=None, sampling_method="psi"):
-    """Assembly pass of is2: jump-chain fill of the heads' log-weights.  The
-    bootstrap filter estimates the full likelihood, so its weight is the
-    ratio to the stored approximate likelihood ``approx_ll``."""
-    src = torch.cumsum(hmask.to(torch.int64), 0) - 1   # head ordinal per slot
-    log_w = corr["log_w"][src]
+def _segment_max(x: torch.Tensor, seg: torch.Tensor, fill) -> torch.Tensor:
+    out = torch.full(x.shape, fill, dtype=x.dtype, device=x.device)
+    return out.scatter_reduce(0, seg, x, reduce="amax", include_self=True)
+
+
+def _segment_sum(x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    return torch.zeros_like(x).index_add(0, seg, x)
+
+
+def _is_finish(corr, hmask, shape, approx_ll=None, sampling_method="psi",
+               is_type=2, generator=None, gumbel=None):
+    """Assembly pass: jump-chain fill of is2's head results, is1's segment
+    mixture, and the global weighted moments of summary output.
+
+    The bootstrap filter estimates the full likelihood, so its weight is
+    the ratio to the stored approximate likelihood ``approx_ll``.  is1: a
+    segment's log-weight is the log of the mean of its slots' weights; its
+    trajectory is one slot's, drawn with probability proportional to the
+    weight by the Gumbel-max rule (noise ``gumbel (C S,)``, drawn from
+    ``generator`` unless given); its moments are the weight-mixture of its
+    slots' moments.  Returns ``{"log_w": (C, S)}`` plus ``alpha (C, S, n+1,
+    m)`` for full output or ``alphahat (n+1, m)`` / ``Vt (n+1, m, m)`` for
+    summary output."""
+    C, Sn = shape
+    CS = C * Sn
+    if is_type == 2:
+        src = torch.cumsum(hmask.to(torch.int64), 0) - 1  # head ordinal
+        corr = {k: v[src] for k, v in corr.items()}
+    log_w = corr["log_w"]
     if sampling_method == "bsf":
         log_w = log_w - approx_ll.reshape(-1)
-    log_w = torch.where(torch.isfinite(log_w), log_w,
-                        torch.full_like(log_w, -torch.inf))
-    return {"log_w": log_w.reshape(shape)}
+    ninf = torch.full_like(log_w, -torch.inf)
+    log_w = torch.where(torch.isfinite(log_w), log_w, ninf)
+    alpha, mean_s, vt_s = corr.get("alpha"), corr.get("mean"), corr.get("Vt")
+
+    if is_type == 1:
+        seg = torch.cumsum(hmask.to(torch.int64), 0) - 1  # segment ids
+        M = _segment_max(log_w, seg, -torch.inf)
+        Ms = torch.where(torch.isfinite(M), M, torch.zeros_like(M))[seg]
+        p = torch.where(torch.isfinite(log_w), torch.exp(log_w - Ms),
+                        torch.zeros_like(log_w))
+        psum = _segment_sum(p, seg)
+        cnt = torch.clamp(_segment_sum(torch.ones_like(p), seg), min=1.0)
+        log_w = (M + torch.log(psum) - torch.log(cnt))[seg]
+        pn = p / torch.where(psum[seg] > 0, psum[seg], torch.ones_like(p))
+        if alpha is not None:
+            if gumbel is None:
+                gumbel = -torch.log(torch.empty_like(p).exponential_(
+                    generator=generator))
+            val = torch.where(p > 0, torch.log(p) + gumbel, ninf)
+            vmax = _segment_max(val, seg, -torch.inf)[seg]
+            slot = torch.arange(CS, device=p.device)
+            cand = torch.where(val >= vmax, slot, torch.full_like(slot, -1))
+            sel = _segment_max(cand, seg, -1)
+            alpha = alpha[torch.clamp(sel, min=0)[seg]]
+        if mean_s is not None:
+            mbar = _segment_sum(pn[:, None, None] * mean_s, seg)
+            e2 = vt_s + mean_s.unsqueeze(-1) * mean_s.unsqueeze(-2)
+            e2bar = _segment_sum(pn[:, None, None, None] * e2, seg)
+            vbar = e2bar - mbar.unsqueeze(-1) * mbar.unsqueeze(-2)
+            mean_s, vt_s = mbar[seg], vbar[seg]
+
+    out = {"log_w": log_w.reshape(C, Sn)}
+    if alpha is not None:
+        out["alpha"] = alpha.reshape((C, Sn) + alpha.shape[1:])
+    if mean_s is not None:
+        # global weighted moments over all slots (law of total variance,
+        # the between-draw deviation term included)
+        mx = log_w.max()
+        w = torch.exp(log_w - torch.where(torch.isfinite(mx), mx,
+                                          torch.zeros_like(mx)))
+        sw = torch.clamp(w.sum(), min=torch.finfo(w.dtype).tiny)
+        mean = torch.einsum('s,stm->tm', w, mean_s) / sw
+        dev = mean_s - mean
+        out["alphahat"] = mean
+        out["Vt"] = (torch.einsum('s,stmk->tmk', w, vt_s)
+                     + torch.einsum('s,stm,stk->tmk', w, dev, dev)) / sw
+    return out
+
+
+def _approx_state_draws(model: Model, thetas, modes, generator,
+                        batch_size: int) -> np.ndarray:
+    """``mcmc_type="approx"`` with ``output_type="full"``: one draw of the
+    states from the approximating Gaussian model (rebuilt from the stored
+    mode) at every stored theta, by the simulation smoother; ``(C, S, n+1,
+    m)`` on the host.  Drawn in chunks of ``batch_size`` rows."""
+    C, Sn, d = thetas.shape
+    flat, fmodes = thetas.reshape(C * Sn, d), modes.reshape(C * Sn, -1)
+    out = None
+    for lo in range(0, C * Sn, batch_size):
+        spec = model.build(flat[lo:lo + batch_size])
+        ar = approx_mod.approximate_for_is(spec, fmodes[lo:lo + batch_size])
+        a = simulate_states_single(ar.gaussian(spec),
+                                   generator).cpu().numpy()
+        if out is None:
+            out = np.empty((C * Sn,) + a.shape[1:], dtype=a.dtype)
+        out[lo:lo + a.shape[0]] = a
+    return out.reshape((C, Sn) + out.shape[1:])
 
 
 # --------------------------------------------------------------------------
@@ -582,6 +738,30 @@ def _generators(seed: int, device: torch.device):
     return g1, g2
 
 
+def is_correction_generator(seed: int, device) -> torch.Generator:
+    """The phase-2 generator ``run_mcmc`` derives from ``seed``, in its
+    initial state: ``post_correct(generator=...)`` with it replays a stored
+    run's IS correction."""
+    return _generators(seed, torch.device(device))[1]
+
+
+def _store_correction(out: McmcOutput, post: dict, base_lp: torch.Tensor,
+                      host) -> None:
+    """Weights, posterior and states of an IS correction into ``out``.
+    Weights are stored shifted by the global max so exp never overflows (IS
+    averages are scale invariant)."""
+    log_w = post["log_w"]
+    mx = log_w.max()
+    shift = torch.clamp(torch.where(torch.isfinite(mx), mx,
+                                    torch.zeros_like(mx)), min=0.0)
+    out.weights = host(torch.exp(log_w - shift))
+    out.posterior = host(base_lp + log_w)
+    if "alpha" in post:
+        out.alpha = host(post["alpha"])
+    if "alphahat" in post:
+        out.alphahat, out.Vt = host(post["alphahat"]), host(post["Vt"])
+
+
 def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
              thin: int = 1, particles: int = 0,
              mcmc_type: Optional[str] = None,
@@ -598,16 +778,20 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
     Linear-Gaussian models (``kind == "lg"``): mcmc_type "gaussian" (the
     default), output_type "theta" (the default; the JAX package defaults to
     "full"), "summary" (``alphahat``, ``Vt``) or "full" (``alpha``).
-    Non-Gaussian models: mcmc_type "is2" (default), "approx", "pm" or
-    "da"; sampling_method "psi" (default) or "bsf"; output_type "theta".
-    ``particles``: 2 to 512.  ``psi_resample_every``: the stratified-resampling period of the
-    is2 correction's particle filter above 32 particles; 1 (default)
-    resamples at every step, k > 1 at every k-th step only, which keeps the
-    likelihood estimate unbiased for a fixed schedule (check ESS_IS when
-    raising it).  The filters of pm and da always resample at every step.
-    ``corr_batch``: rows per chunk of the work after the chain, the is2
-    correction (default 256) or the state draws and smoothing of
-    linear-Gaussian output (default 65536); it only bounds memory.
+    Non-Gaussian models: mcmc_type "is2" (default), "is1", "is3",
+    "approx", "pm" or "da"; sampling_method "psi" (default) or "bsf";
+    output_type "theta" (the default; the JAX package defaults to "full"),
+    for is1/is2/is3 also "summary" (``alphahat``, ``Vt``) or "full"
+    (``alpha``), for approx also "full".  ``particles``: 2 to 512.
+    ``psi_resample_every``: the stratified-resampling period of the
+    theta-output correction's particle filter above 32 particles; 1
+    (default) resamples at every step, k > 1 at every k-th step only, which
+    keeps the likelihood estimate unbiased for a fixed schedule (check
+    ESS_IS when raising it).  The filters of pm and da and those of the
+    state outputs always resample at every step.
+    ``corr_batch``: rows per chunk of the work after the chain, the IS
+    correction (default 256) or the state draws and smoothing (default
+    65536); it only bounds memory.
     ``device=None`` means the CUDA device and raises when there is none; it
     must agree with the device the model was built on.  ``dtype`` defaults
     to the model's."""
@@ -632,14 +816,17 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
     else:
         mcmc_type = mcmc_type or "is2"
         sampling_method = sampling_method or "psi"
-        if mcmc_type not in ("approx", "is2", "pm", "da"):
+        if mcmc_type not in ("approx", "is1", "is2", "is3", "pm", "da"):
             raise NotImplementedError(
-                f"mcmc_type={mcmc_type!r}: only 'approx', 'is2', 'pm' and "
-                "'da' are ported")
-        if output_type != "theta":
+                f"mcmc_type={mcmc_type!r}: only 'approx', 'is1', 'is2', "
+                "'is3', 'pm' and 'da' are ported")
+        outputs = {"approx": ("theta", "full"), "pm": ("theta",),
+                   "da": ("theta",)}.get(mcmc_type,
+                                         ("theta", "summary", "full"))
+        if output_type not in outputs:
             raise NotImplementedError(
-                f"output_type={output_type!r}: only 'theta' is ported for "
-                "non-Gaussian models")
+                f"output_type={output_type!r}: mcmc_type={mcmc_type!r} "
+                f"takes {outputs}")
         _check_method(model, sampling_method)
         if mcmc_type != "approx":
             if particles < 2:
@@ -681,8 +868,11 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
         chain = make(model, nsim=particles, sampling_method=sampling_method,
                      pf_generator=gen2, **common)
     else:
-        # "approx" keeps the modes when asked (later state draws replay them)
-        chain = _approx_chain(model, scan_modes=bool(store_modes), **common)
+        # the modes are kept when asked, and always for the approx full
+        # output, whose state draws replay them
+        chain = _approx_chain(
+            model, scan_modes=bool(store_modes) or (
+                mcmc_type == "approx" and output_type == "full"), **common)
     res = chain(gen1, theta0, S0)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -709,33 +899,32 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
             alphahat, Vt = _state_summary(model, res["theta"], rows)
             out.alphahat, out.Vt = host(alphahat), host(Vt)
         out.time["states"] = _time.time() - t1
-    if mcmc_type in ("approx", "is2"):
+    if mcmc_type == "approx" or mcmc_type.startswith("is"):
         out.approx_loglik = host(res["approx_ll"])
+        out.theta_sampled = host(res["theta"])
+        out.local_approx = True
         if store_modes:
             out.modes = host(res["modes"])
-            out.theta_sampled = host(res["theta"])
-
-    if mcmc_type == "is2":
+    if mcmc_type == "approx" and output_type == "full":
         t1 = _time.time()
-        post, n_heads = _is_postprocess(
+        out.alpha = _approx_state_draws(model, res["theta"], res["modes"],
+                                        gen2, int(corr_batch or 65536))
+        out.time["states"] = _time.time() - t1
+
+    if mcmc_type.startswith("is"):
+        t1 = _time.time()
+        post, n_rows = _is_postprocess(
             model, res["theta"], res["modes"], res["accepted"],
             res["approx_ll"], gen2, nsim=particles,
             sampling_method=sampling_method,
-            batch_size=int(corr_batch or 256), conv_tol=conv_tol,
+            batch_size=int(corr_batch or 256), is_type=int(mcmc_type[-1]),
+            want_states=output_type == "full",
+            want_moments=output_type == "summary", conv_tol=conv_tol,
             max_iter=max_iter, psi_resample_every=psi_resample_every)
-        log_w = post["log_w"]
-        # weights are stored shifted by the global max so exp never
-        # overflows (IS averages are scale invariant)
-        mx = log_w.max()
-        shift = torch.clamp(torch.where(torch.isfinite(mx), mx,
-                                        torch.zeros_like(mx)), min=0.0)
-        weights = torch.exp(log_w - shift)
-        posterior = res["prior"] + res["approx_ll"] + log_w
+        _store_correction(out, post, res["prior"] + res["approx_ll"], host)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        out.weights = host(weights)
-        out.posterior = host(posterior)
-        out.n_corrected = n_heads
+        out.n_corrected = n_rows
         out.time["correction"] = _time.time() - t1
 
     if out.acceptance_rate == 0.0:

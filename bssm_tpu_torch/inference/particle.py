@@ -1,9 +1,13 @@
-"""Particle-filter log-likelihood estimates, batched: the psi-auxiliary
-particle filter's log-weight and the bootstrap filter's log-likelihood.
+"""Particle filters, batched: the psi-auxiliary particle filter and the
+bootstrap filter, as log-likelihood estimates alone and as filters that keep
+their trajectories.
 
-Counterpart of ``bssm_tpu/inference/particle.py`` for the estimators that
-need no trajectories (IS-MCMC correction, pseudo-marginal and
-delayed-acceptance MCMC with ``output_type="theta"``).
+Counterpart of ``bssm_tpu/inference/particle.py``.  The estimators without
+trajectories (``psi_logw``, ``bsf_logw``) serve IS-MCMC with
+``output_type="theta"`` and pseudo-marginal / delayed-acceptance MCMC; the
+filters with trajectories (``psi_filter``, ``bsf_filter``, returning a
+``PFResult``) serve the state outputs of the IS correction,
+``particle_smoother`` and the particle ``logLik``.
 
 psi-APF: the proposal is the smoothing law of the approximating Gaussian
 model in its BACKWARD (FFBS) factorisation, so generation runs t = n..0,
@@ -29,18 +33,27 @@ kernel takes a Philox key drawn from the caller's generator and makes its
 own normals and uniforms, or injected tensors for the checks.  The plain
 versions ``psi_logw_scan`` and ``bsf_logw_scan`` below consume injected
 tensors.
+
+The JAX package has no TPU kernel for the filters with trajectories:
+``psi_filter`` and ``bsf_filter`` are batched tensor code on the card too,
+with the proposal factors of ``psi_filter`` from the ``rts_factors``
+kernel.  Each takes injected normals and uniforms (stream mode) or draws
+them from a ``torch.Generator``, and resamples at every step, as the JAX
+package's filters do.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..core import distributions as fam
 from ..core.spec import NGSpec, SVM, at_t, with_batch
 from ..ops import cuda_kalman
-from ..ops.resample import stratified_gather_from_uniforms
+from ..ops.chol import psd_chol
+from ..ops.resample import (ancestor_trace, stratified_gather_from_uniforms,
+                            stratified_indices_from_uniforms)
 from .approx import ApproxLoglik, _col
 
 
@@ -268,3 +281,170 @@ def bsf_logw(spec: NGSpec, nsim: int,
     return const + cuda_kalman.bsf_big_logw(
         spec, resample_every, nsim=nsim,
         seed=cuda_kalman.philox_key(generator, spec.y.device))
+
+
+# ---------------------------------------------------------------------------
+# filters with trajectories
+# ---------------------------------------------------------------------------
+
+class PFResult(NamedTuple):
+    """Particle-filter output, batch first.  ORDER CONTRACT (as the JAX
+    package's): ``alpha`` is in time order (``alpha[:, :, t]`` is time t).
+    ``weights`` columns are in GENERATION order: time order for the
+    forward ``bsf_filter``, reverse time order for the backward-factorised
+    ``psi_filter`` (column 0 is t = n).  Either way ``weights[..., -1]``
+    are the final importance weights of the complete trajectories, the only
+    column downstream consumers may use."""
+    loglik: torch.Tensor    # (B,)
+    alpha: torch.Tensor     # (B, N, n+1, m) particle trajectories
+    weights: torch.Tensor   # (B, N, n+1) normalised weights, generation order
+    indices: torch.Tensor   # (B, N, n) resampling ancestors (int64)
+
+
+def _draws(name, B, steps, N, w, dt, dev, generator, eps, us):
+    """The filter's normals ``(B, steps, N, w)`` and uniforms
+    ``(B, steps - 1, N)``: the injected ones, or fresh ones from
+    ``generator``, normals first."""
+    if (eps is None) != (us is None):
+        raise ValueError(f"{name}: give both eps and us, or neither")
+    if eps is None:
+        eps = torch.randn((B, steps, N, w), dtype=dt, device=dev,
+                          generator=generator)
+        us = torch.rand((B, steps - 1, N), dtype=dt, device=dev,
+                        generator=generator)
+    if eps.shape[:2] != (B, steps) or eps.shape[-1] != w \
+            or tuple(us.shape) != (B, steps - 1, eps.shape[2]):
+        raise ValueError(f"{name}: eps must be (B, {steps}, N, {w}) and us "
+                         f"(B, {steps - 1}, N) with B = {B}")
+    return eps, us
+
+
+def _weigh(lw: torch.Tensor, ok: torch.Tensor):
+    """Normalised weights and the log-likelihood increment of one step from
+    the particles' log-weights; a missing y contributes nothing and leaves
+    uniform weights."""
+    N = lw.shape[-1]
+    inc, nw = _lse_update(torch.where(ok, lw, torch.zeros_like(lw)))
+    return (torch.where(ok[:, 0], inc, torch.zeros_like(inc)),
+            torch.where(ok, nw, torch.full_like(nw, 1.0 / N)))
+
+
+def _pick(alpha: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return torch.gather(alpha, 1,
+                        idx.unsqueeze(-1).expand(*idx.shape, alpha.shape[-1]))
+
+
+def psi_filter(spec: NGSpec, al: ApproxLoglik, nsim: int,
+               generator: Optional[torch.Generator] = None,
+               eps: Optional[torch.Tensor] = None,
+               us: Optional[torch.Tensor] = None) -> PFResult:
+    """psi-auxiliary particle filter twisted by the Gaussian approximation
+    ``al``, with trajectories.  The proposal is the smoothing law of the
+    approximating model in its backward (FFBS) factorisation; generation
+    runs t = n..0 and resamples before every step.  Randomness: ``eps
+    (B, n+1, N, m)`` (``eps[:, 0]`` draws alpha_n, ``eps[:, s]`` the state
+    of generation step s) and ``us (B, n, N)``, or drawn from
+    ``generator``.  ``loglik`` is ``al.loglik`` plus the log-weight.
+
+    The trajectories come back already traced, in time order, with
+    identity indices, and ``weights[..., -1]`` are the final weights (those
+    of the t = 0 step), as in the JAX package."""
+    n, m = spec.n, spec.m
+    B = al.approx.mode.shape[0]
+    dt, dev = spec.y.dtype, spec.y.device
+    eps, us = _draws("psi_filter", B, n + 1, nsim, m, dt, dev, generator,
+                     eps, us)
+    N = eps.shape[2]
+    ahat, Lb, Ab = cuda_kalman.rts_factors(al.approx.gaussian(spec))
+    y = with_batch(spec.y, 1)
+    u = with_batch(spec.u, 1)
+    Z = with_batch(spec.Z, 2)
+    D = with_batch(spec.D, 1).to(dt)
+    phi = _col(spec.phi)
+    yt, Ht, scl = al.approx.ytilde, al.approx.Htilde, al.scales
+    tr = lambda A: A.transpose(-1, -2)                       # noqa: E731
+
+    alpha = ahat[:, n, None, :] + eps[:, 0] @ tr(Lb[:, n])   # no observation
+    nw = torch.full((B, N), 1.0 / N, dtype=dt, device=dev)
+    ll = torch.zeros(B, dtype=dt, device=dev) + al.loglik
+    alphas, nws, idxs = [alpha], [nw], []
+    for s in range(1, n + 1):
+        t = n - s
+        idx = stratified_indices_from_uniforms(nw, us[:, s - 1])
+        anc = _pick(alpha, idx)
+        alpha = (ahat[:, t, None, :]
+                 + (anc - ahat[:, t + 1, None, :]) @ tr(Ab[:, t])
+                 + eps[:, s] @ tr(Lb[:, t]))
+        y_t = y[:, t, None]
+        lw = fam.log_weights(spec.distribution, y_t, u[:, t, None], phi,
+                             _signal(spec, alpha, Z, D, t), yt[:, t, None],
+                             Ht[:, t, None]) - scl[:, t, None]
+        inc, nw = _weigh(lw, torch.isfinite(y_t))
+        ll = ll + inc
+        alphas.append(alpha)
+        nws.append(nw)
+        idxs.append(idx)
+    # generation-order cloud (step 0 is t = n), traced, then time-flipped
+    traced = ancestor_trace(torch.stack(alphas, dim=2),
+                            torch.stack(idxs, dim=2)).flip(2)
+    identity = torch.arange(N, device=dev)[:, None].expand(B, N, n)
+    return PFResult(ll, traced, torch.stack(nws, dim=2), identity)
+
+
+def bsf_filter(spec: NGSpec, nsim: int,
+               generator: Optional[torch.Generator] = None,
+               eps: Optional[torch.Tensor] = None,
+               us: Optional[torch.Tensor] = None) -> PFResult:
+    """Bootstrap particle filter with trajectories: particles start from
+    N(a1, P1), move forwards through the state equation and are weighted by
+    the observation density, resampling before every step; the last step
+    predicts alpha_n beyond the data (uniform weights).  Randomness: ``eps
+    (B, n+1, N, m)`` (``eps[:, 0]`` the initial draws, the first k entries
+    of ``eps[:, s]`` the state disturbances of step s) and ``us (B, n, N)``,
+    or drawn from ``generator``.  ``loglik`` includes the exact observation
+    constants.  The trajectories are untraced: ``ancestor_trace(alpha,
+    indices)`` gives the paths."""
+    n, m, k = spec.n, spec.m, spec.k
+    if k > m:
+        raise NotImplementedError(
+            f"bsf_filter: R has {k} columns, more than the {m} states")
+    B = eps.shape[0] if eps is not None else (spec.batch or 1)
+    dt, dev = spec.y.dtype, spec.y.device
+    eps, us = _draws("bsf_filter", B, n + 1, nsim, m, dt, dev, generator,
+                     eps, us)
+    N = eps.shape[2]
+    y = with_batch(spec.y, 1)
+    u = with_batch(spec.u, 1)
+    Z = with_batch(spec.Z, 2)
+    D = with_batch(spec.D, 1).to(dt)
+    T, R, C = with_batch(spec.T, 3), with_batch(spec.R, 3), \
+        with_batch(spec.C, 2)
+    phi = _col(spec.phi)
+    tr = lambda A: A.transpose(-1, -2)                       # noqa: E731
+
+    def weigh(alpha, t):
+        y_t = y[:, t, None]
+        lw = fam.log_obs_density(spec.distribution, y_t, u[:, t, None], phi,
+                                 _signal(spec, alpha, Z, D, t))
+        return _weigh(lw, torch.isfinite(y_t))
+
+    alpha = with_batch(spec.a1, 1)[:, None, :] \
+        + eps[:, 0] @ tr(psd_chol(with_batch(spec.P1, 2)))
+    ll, nw = weigh(alpha, 0)
+    alphas, nws, idxs = [alpha], [nw], []
+    for s in range(1, n + 1):
+        idx = stratified_indices_from_uniforms(nw, us[:, s - 1])
+        alpha = (at_t(C, s - 1)[:, None, :]
+                 + _pick(alpha, idx) @ tr(at_t(T, s - 1))
+                 + eps[:, s, :, :k] @ tr(at_t(R, s - 1)))
+        if s < n:
+            inc, nw = weigh(alpha, s)
+            ll = ll + inc
+        else:
+            nw = torch.full_like(nw, 1.0 / N)
+        alphas.append(alpha)
+        nws.append(nw)
+        idxs.append(idx)
+    ll = ll + fam.obs_log_const(spec.distribution, y, u, phi)
+    return PFResult(ll, torch.stack(alphas, dim=2), torch.stack(nws, dim=2),
+                    torch.stack(idxs, dim=2))

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the state-space hot paths, their build and
 their wrappers.  Counterpart of ``bssm_tpu/ops/pallas_kalman.py``.
 
-Five sources in ``bssm_tpu_torch/csrc/`` (CUDA C++ for sm_90a), eight
+Five sources in ``bssm_tpu_torch/csrc/`` (CUDA C++ for sm_90a), nine
 wrappers:
 
 ================  ======================  ===================================
@@ -10,6 +10,7 @@ wrapper           source                  plain version
 log_likelihood    csrc/kalman_filter.cu   ops/kalman.log_likelihood
 fast_smoother_ll  csrc/kalman_filter.cu   ops/kalman.fast_smoother_ll
 laplace_solve     csrc/laplace_solve.cu   inference/approx.laplace_solve_plain
+laplace_step      csrc/laplace_solve.cu   inference/approx._laplace_step
 rts_factors       csrc/rts_factors.cu     ops/kalman.smoother_bwd_factors
 psi_logw          csrc/psi_logw.cu        inference/particle.psi_logw_scan
 psi_big_logw      csrc/particle_big.cu    inference/particle.psi_logw_scan
@@ -21,6 +22,10 @@ philox_fill       csrc/particle_big.cu    philox_fill_plain (this module)
 ``log_likelihood`` and ``fast_smoother_ll`` serve linear-Gaussian models:
 the Kalman log-likelihood (the target of linear-Gaussian MCMC) and the
 smoothed means with it (the conditional means of the simulation smoother).
+
+``laplace_solve`` runs the whole Laplace iteration of a batch of models
+(the chains, the stored draws); ``laplace_step`` one pass of it, which the
+single-model solve (``inference/approx.laplace_solve_steps``) loops over.
 
 ``psi_logw`` serves N <= 32 particles from injected randomness.
 ``psi_big_logw`` and ``bsf_big_logw`` are the two modes of one kernel for
@@ -73,7 +78,7 @@ THREADS_PSI_BLOCK = 128
 
 # launches of each kernel since the last reset_launch_counts()
 LAUNCHES = {"log_likelihood": 0, "fast_smoother_ll": 0, "laplace_solve": 0,
-            "rts_factors": 0, "psi_logw": 0, "psi_big_logw": 0,
+            "laplace_step": 0, "rts_factors": 0, "psi_logw": 0, "psi_big_logw": 0,
             "bsf_big_logw": 0, "philox_fill": 0}
 
 # seconds the last build took (None: library was already built or not loaded)
@@ -194,6 +199,13 @@ def _load():
         P, L, P,                  # mode0 (+stride), sys
         Dbl, I,                   # conv_tol, max_iter
         P, P, P, P, P, P,         # mode, prev, ll, niter, diff, scratch
+        I, P]                     # threads, stream
+    lib.bssm_laplace_step.restype = I
+    lib.bssm_laplace_step.argtypes = [
+        I, I, I, L, I,            # is_double, m, dist, B, n
+        P, L, P, L, P, L, L,      # y, u, D (+strides)
+        P, L, P,                  # mode (+stride), sys
+        P, P, P, P,               # new mode, ll, diff, scratch
         I, P]                     # threads, stream
     lib.bssm_rts_factors.restype = I
     lib.bssm_rts_factors.argtypes = [
@@ -387,6 +399,32 @@ def fast_smoother_ll(g: LGSpec):
 # K1: whole Laplace mode iteration
 # ---------------------------------------------------------------------------
 
+def _laplace_inputs(name: str, spec: NGSpec, mode: torch.Tensor, B: int):
+    """Checks of the two Laplace kernels; returns the launch arguments of
+    the series y, u, D and the mode (pointer, batch stride [, time stride])
+    and the packed system."""
+    _check_system(spec)
+    if not SVM <= spec.distribution <= GAMMA:
+        raise NotImplementedError(
+            f"{name}: unsupported family {spec.distribution}")
+    if spec.batch not in (None, 1, B):
+        raise ValueError(f"{name}: spec batch {spec.batch} does not match "
+                         f"the {B} rows of the mode")
+    _check_tensors([("u", spec.u), ("D", spec.D), ("mode", mode),
+                    ("Z", spec.Z), ("T", spec.T), ("R", spec.R),
+                    ("a1", spec.a1), ("P1", spec.P1), ("C", spec.C),
+                    ("phi", spec.phi)], spec.y)
+    y, y_bs, _ = _series(spec.y, B, "y")
+    u, u_bs, _ = _series(spec.u, B, "u")
+    D, D_bs, D_ts = _series(spec.D, B, "D")
+    mode, m_bs, _ = _series(mode, B, "mode")
+    if mode.shape[1] != spec.n or u.shape[1] != spec.n:
+        raise ValueError(f"{name}: u and the mode must have the length of y")
+    series = [y.data_ptr(), y_bs, u.data_ptr(), u_bs, D.data_ptr(), D_bs,
+              D_ts, mode.data_ptr(), m_bs]
+    return series, pack_system(spec, B, with_phi=True)
+
+
 def laplace_solve(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
                   max_iter: int):
     """Laplace mode iteration of every batch row, to per-row convergence.
@@ -398,23 +436,9 @@ def laplace_solve(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
     if not spec.y.is_cuda:
         from ..inference.approx import laplace_solve_plain
         return laplace_solve_plain(spec, mode0, conv_tol, max_iter)
-    _check_system(spec)
-    if not SVM <= spec.distribution <= GAMMA:
-        raise NotImplementedError(
-            f"laplace_solve: unsupported family {spec.distribution}")
     B, n, m = _batch(spec), spec.n, spec.m
     dt, dev = spec.y.dtype, spec.y.device
-    _check_tensors([("u", spec.u), ("D", spec.D), ("mode0", mode0),
-                    ("Z", spec.Z), ("T", spec.T), ("R", spec.R),
-                    ("a1", spec.a1), ("P1", spec.P1), ("C", spec.C),
-                    ("phi", spec.phi)], spec.y)
-    y, y_bs, _ = _series(spec.y, B, "y")
-    u, u_bs, _ = _series(spec.u, B, "u")
-    D, D_bs, D_ts = _series(spec.D, B, "D")
-    mode0, m0_bs, _ = _series(mode0, B, "mode0")
-    if mode0.shape[1] != n or u.shape[1] != n:
-        raise ValueError("u and mode0 must have the length of y")
-    sys_t = pack_system(spec, B, with_phi=True)
+    series, sys_t = _laplace_inputs("laplace_solve", spec, mode0, B)
     mode = torch.empty((B, n), dtype=dt, device=dev)
     prev = torch.empty((B, n), dtype=dt, device=dev)
     ll = torch.empty((B,), dtype=dt, device=dev)
@@ -425,14 +449,45 @@ def laplace_solve(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
     with torch.cuda.device(dev):
         code = lib.bssm_laplace_solve(
             int(dt == torch.float64), m, int(spec.distribution), B, n,
-            y.data_ptr(), y_bs, u.data_ptr(), u_bs, D.data_ptr(), D_bs, D_ts,
-            mode0.data_ptr(), m0_bs, sys_t.data_ptr(), float(conv_tol),
-            int(max_iter), mode.data_ptr(), prev.data_ptr(), ll.data_ptr(),
+            *series, sys_t.data_ptr(), float(conv_tol), int(max_iter),
+            mode.data_ptr(), prev.data_ptr(), ll.data_ptr(),
             niter.data_ptr(), diff.data_ptr(), scratch.data_ptr(),
             THREADS_PER_ROW_BLOCK, _stream(dev))
     _check_launch(lib, code, "laplace_solve")
     LAUNCHES["laplace_solve"] += 1
     return mode, prev, niter, diff, ll
+
+
+# ---------------------------------------------------------------------------
+# K8: one pass of the Laplace iteration
+# ---------------------------------------------------------------------------
+
+def laplace_step(spec: NGSpec, mode: torch.Tensor):
+    """One pass of the Laplace iteration at ``mode (B, n)`` for every batch
+    row: ``(new_mode (B, n), ll (B,), diff (B,))``, the new signal mode, the
+    Kalman log-likelihood of the approximating model at the pseudo-
+    observations of ``mode``, and the mean-squared change of the mode.  The
+    spec may be unbatched (one model, B rows of modes) or have B rows."""
+    if not spec.y.is_cuda:
+        from ..inference.approx import _laplace_step
+        return _laplace_step(spec, mode)
+    B, n, m = with_batch(mode, 1).shape[0], spec.n, spec.m
+    dt, dev = spec.y.dtype, spec.y.device
+    series, sys_t = _laplace_inputs("laplace_step", spec, mode, B)
+    new_mode = torch.empty((B, n), dtype=dt, device=dev)
+    ll = torch.empty((B,), dtype=dt, device=dev)
+    diff = torch.empty((B,), dtype=dt, device=dev)
+    scratch = torch.empty((n, 3 + m + m * m, B), dtype=dt, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        code = lib.bssm_laplace_step(
+            int(dt == torch.float64), m, int(spec.distribution), B, n,
+            *series, sys_t.data_ptr(), new_mode.data_ptr(), ll.data_ptr(),
+            diff.data_ptr(), scratch.data_ptr(), THREADS_PER_ROW_BLOCK,
+            _stream(dev))
+    _check_launch(lib, code, "laplace_step")
+    LAUNCHES["laplace_step"] += 1
+    return new_mode, ll, diff
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""Stratified resampling from caller-supplied uniforms, batched.
+"""Stratified resampling from caller-supplied uniforms and ancestor
+tracing, batched.
 
-Counterpart of ``bssm_tpu/ops/resample.py:102-139``.  With normalised
+Counterpart of ``bssm_tpu/ops/resample.py:76-139``.  With normalised
 weights w and uniforms r_p ~ U(0,1), particle p takes the ancestor
 min{q : cumsum(w)_q >= (p + r_p)/N}, with the last cumulative weight set to
 exactly 1.  The JAX package selects with a one-hot matrix product because
@@ -30,3 +31,21 @@ def stratified_gather_from_uniforms(weights: torch.Tensor, r: torch.Tensor,
     idx = stratified_indices_from_uniforms(weights, r)
     return torch.gather(alpha, -2,
                         idx.unsqueeze(-1).expand(*idx.shape, alpha.shape[-1]))
+
+
+def ancestor_trace(alpha: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """Kitagawa's filter-smoother tracing: ``alpha (..., N, n+1, m)`` stored
+    so that ``alpha[..., :, t+1, :]`` are the children of
+    ``alpha[..., indices[..., :, t], t, :]``, ``indices (..., N, n)``.
+    Returns ``(..., N, n+1, m)``: row i is the whole path that ends at
+    particle i at time n.  A reverse loop composes the ancestor maps, then
+    one gather picks every state."""
+    N, n1, m = alpha.shape[-3:]
+    b = torch.arange(N, device=indices.device).expand(indices.shape[:-1])
+    lineage = [b]
+    for t in range(n1 - 2, -1, -1):
+        b = torch.gather(indices[..., t], -1, b)
+        lineage.append(b)
+    idx = torch.stack(lineage[::-1], dim=-1)                  # (..., N, n+1)
+    return torch.gather(alpha, -3, idx.unsqueeze(-1).expand(
+        *idx.shape, m))

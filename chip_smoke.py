@@ -13,7 +13,11 @@ What it does, in order:
    float32 and float64, and at small shapes over the other state dimensions,
    observation families and particle counts; times kernel and plain version
    with CUDA events;
-3. does the same for the large-ensemble kernel in its two modes
+3. does the same for ``laplace_step`` (one Laplace pass) at B = 1 / 4096 /
+   16384 and over the same families and state dimensions, and holds the
+   single-model solve (the host loop over it) against ``laplace_solve`` at
+   B = 4096 in float64;
+4. does the same for the large-ensemble kernel in its two modes
    (``psi_big_logw``, ``bsf_big_logw``): stream mode against the plain
    versions at B = 2048, N in {256, 200}, resampling period in {1, 8}, and
    at B = 256 over families, state dimensions, N in {2, 32, 33, 40, 512};
@@ -22,7 +26,7 @@ What it does, in order:
    ``philox_fill`` wrote, the filled tensors against their plain version
    and their moments, at the shapes the paths give the kernel; and times
    both modes at B = 16384 against the plain versions on the same tensors;
-4. holds the two linear-Gaussian kernels (``log_likelihood``,
+5. holds the two linear-Gaussian kernels (``log_likelihood``,
    ``fast_smoother_ll``) against their plain versions: the airquality
    ``bsm_lg`` model (n = 153, m = 2, Wind and Temp as regressors, so D varies
    over time and rows; 37 missing y) at B = 4096 / 16384, with four rows
@@ -30,7 +34,7 @@ What it does, in order:
    missing y and time-varying D at n = 40, plus ``ar1_lg`` (initial state
    and C vary over rows), float32 and float64; times both kernels and their
    plain versions;
-5. drives eight paths through the public entry points and gates each
+6. drives twelve paths through the public entry points and gates each
    (finite values, acceptance rate, ESS_IS fraction where there are
    weights, the path's kernels launched by that very run):
    ``psi_N10`` / ``psi_N256`` (resampling period 8) / ``psi_N256_refexact``
@@ -42,16 +46,24 @@ What it does, in order:
    MCMC on the airquality ``bsm_lg`` with ``output_type`` "theta" (4096
    chains), "summary" and "full" (1024 chains, the same seed, so the same
    theta chains); the full draws must average to the summary's means within
-   6 sqrt(Vt / draws) at every (t, j);
-6. prints one JSON object per line: ``card``, ``checks``, ``big_checks``,
-   ``lg_checks``, one ``path`` line each (``main_path`` for ``psi_N10``),
-   ``kernels``, the card's name and power limit, and last
+   6 sqrt(Vt / draws) at every (t, j); ``is2_full`` / ``is1_summary`` /
+   ``approx_full``: the level + slope model's state outputs, 1024 chains,
+   one seed (one theta chain): is2 with one filter trajectory per slot, is1
+   with the weighted moments (the draws must average to its alphahat
+   within 6 sqrt(Vt / ESS)), and approx with one simulation-smoother draw
+   per slot, which ``post_correct`` with the run's correction generator
+   must turn into is2_full's weights; ``ng_api``: the non-Gaussian public
+   API on one model (the single-model Laplace solve, K8);
+7. prints one JSON object per line: ``card``, ``checks``, ``step_checks``,
+   ``big_checks``, ``lg_checks``, one ``path`` line each (``main_path`` for
+   ``psi_N10``), ``kernels``, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check ends the run with a non-zero exit code and without the last
 line.  Tolerances (|a - b| <= tol (1 + |b|)):
   float64: 1e-9 on every output of every kernel;
-  float32: laplace_solve mode 1e-4, log-likelihood 1e-3; rts_factors ahat
+  float32: laplace_solve and laplace_step mode (and the step's change)
+  1e-4, log-likelihood 1e-3; rts_factors ahat
   1e-4 (1e-3 for m >= 3), Ab 1e-3, Lb Lb' 5e-3; psi_logw 1e-4.  In float32 a
   kernel and its plain version sum in different orders, and a difference of
   one ulp can flip a discrete decision (an eigenvalue clip, a resampled
@@ -288,10 +300,11 @@ def lg_sweep_model(bt, m: int, dtype, n: int = 40):
 
 
 def thetas_around_init(model, B: int, seed: int, spread: float = 0.5):
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    t0 = torch.as_tensor(model.theta_init, dtype=model.dtype, device="cuda")
+    dev = model.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t0 = torch.as_tensor(model.theta_init, dtype=model.dtype, device=dev)
     return t0 + spread * torch.randn((B, t0.shape[0]), dtype=model.dtype,
-                                     device="cuda", generator=g)
+                                     device=dev, generator=g)
 
 
 # ---------------------------------------------------------------------------
@@ -415,6 +428,14 @@ def bwd_mean_ops(m: int) -> int:
     return 2 * mm + 2 * mm + 6 * mm + 2 * mm + 4 * m
 
 
+def laplace_pass_ops(m: int) -> int:
+    """Operations of one time step of a Laplace pass (``laplace_pass`` of
+    csrc/laplace_solve.cu): the match (exp, divide and a few products, 12),
+    the Kalman step, the backward mean step, the new signal and its squared
+    change."""
+    return kf_step_ops(m) + 12 + bwd_mean_ops(m) + 2 * m + 3
+
+
 def roofline(byts: float, ops: float) -> dict:
     t_b = byts / PEAK_BYTES_PER_S * 1e3
     t_o = ops / PEAK_F32_FLOPS * 1e3
@@ -433,9 +454,7 @@ def bounds(B: int, n: int, m: int, N: int, dt, total_passes: float) -> dict:
     mm = m * m
     sys_rows = 3 * m + 3 * mm
     kf = kf_step_ops(m)
-    match = 12                               # exp, divide and a few products
-    bwd_mean = bwd_mean_ops(m)
-    k1_ops = total_passes * n * (kf + match + bwd_mean + 2 * m + 3)
+    k1_ops = total_passes * n * laplace_pass_ops(m)
     k1_bytes = it * (3 * n + 1 + (sys_rows + 1) * B + 2 * B * n + 2 * B) \
         + 4 * B
     # filter + per step: pinv (eig 2x2 ~ 40), J, Joseph Sigma, factor
@@ -455,6 +474,76 @@ def bounds(B: int, n: int, m: int, N: int, dt, total_passes: float) -> dict:
             for name, ops, byts in (("laplace_solve", k1_ops, k1_bytes),
                                     ("rts_factors", k2_ops, k2_bytes),
                                     ("psi_logw", k3_ops, k3_bytes))}
+
+
+def step_bounds(B: int, n: int, m: int, dt) -> dict:
+    """Least time of one ``laplace_step`` launch: one Laplace pass of every
+    row; bytes of the shared y, u and D series, the packed system, the
+    (B, n) mode in and out and the (B,) log-likelihood and change."""
+    it = torch.finfo(dt).bits // 8
+    sys_rows = 3 * m + 3 * m * m
+    ops = B * n * laplace_pass_ops(m)
+    byts = it * (3 * n + (sys_rows + 1) * B + 2 * B * n + 2 * B)
+    return roofline(byts, ops)
+
+
+def check_step(model, B: int, label: str, timed: bool, seed: int = 31,
+               spread: float = 0.1) -> dict:
+    """K8 (``laplace_step``) against its plain version on the same inputs
+    on the card: one pass at a perturbed initial mode, with the tolerances
+    of K1.  B = 1 hands the kernel one unbatched model, as the single-model
+    solve does."""
+    from bssm_tpu_torch.core.spec import drop_batch
+    from bssm_tpu_torch.inference import approx as amod
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    dt = model.dtype
+    f64 = dt == torch.float64
+    tol = (lambda k: F64_TOL) if f64 else (lambda k: F32_TOL[k])
+    th = thetas_around_init(model, B, seed)
+    spec = drop_batch(model.build(th[0])) if B == 1 else model.build(th)
+    gen = torch.Generator(device=model.device).manual_seed(seed + 1)
+    mode = (spec.initial_mode + spread * torch.randn(
+        (B, spec.n), dtype=dt, device=model.device,
+        generator=gen)).contiguous()
+    got = ck.laplace_step(spec, mode)
+    ref = amod._laplace_step(spec, mode)
+    torch.cuda.synchronize()
+    out = {"label": label, "B": B, "n": spec.n, "m": spec.m,
+           "dtype": str(dt).replace("torch.", ""),
+           "family": spec.distribution, "checks": [
+               compare(f"laplace_step.{k}", g, r, tol(t), f64)
+               for k, t, g, r in zip(("mode", "ll", "diff"),
+                                     ("mode", "ll", "mode"), got, ref)]}
+    if timed:
+        out["ms"] = time_ms(lambda: ck.laplace_step(spec, mode))
+        out["plain_ms"] = time_ms(lambda: amod._laplace_step(spec, mode),
+                                  reps=1, warmup=0)
+        out["bounds"] = step_bounds(B, spec.n, spec.m, dt)
+    return out
+
+
+def check_single_solve(model, B: int, label: str) -> dict:
+    """The single-model solve (the host loop over K8 with per-row masking,
+    ``laplace_solve_steps``) against K1 on the same batch, float64: mode,
+    previous mode and log-likelihood inside K1's float64 tolerance, the
+    pass count of every row equal."""
+    from bssm_tpu_torch.inference import approx as amod
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    spec = model.build(thetas_around_init(model, B, 37))
+    steps = amod.laplace_solve_steps(spec, spec.initial_mode, 1e-8, 100)
+    k1 = ck.laplace_solve(spec, spec.initial_mode, 1e-8, 100)
+    torch.cuda.synchronize()
+    out = {"label": label, "B": B, "checks": [
+        compare(f"laplace_solve_steps.{k} vs laplace_solve", a, b, F64_TOL,
+                True)
+        for k, a, b in zip(("mode", "prev"), steps[:2], k1[:2])]}
+    out["checks"].append(compare("laplace_solve_steps.ll vs laplace_solve",
+                                 steps[4], k1[4], F64_TOL, True))
+    out["niter_equal"] = bool(torch.equal(steps[2], k1[2]))
+    out["niter_mean"] = float(k1[2].double().mean())
+    if not out["niter_equal"]:
+        FAILURES.append({"what": "laplace_solve_steps.niter", "label": label})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -973,6 +1062,128 @@ def lg_states_check(summary, full) -> dict:
     return res
 
 
+def lineage_ess(alpha: torch.Tensor, w: torch.Tensor) -> np.ndarray:
+    """Effective number of distinct states at every t of a particle
+    smoother's traced trajectories ``alpha (N, n+1, m)`` with weights ``w
+    (N,)``: trajectories that share an ancestor at t share its state, so the
+    weights are pooled by distinct state before 1 / sum w^2."""
+    a, w = alpha.double().cpu().numpy(), w.double().cpu().numpy()
+    ess = []
+    for t in range(a.shape[1]):
+        _, inv = np.unique(a[:, t, :], axis=0, return_inverse=True)
+        W = np.bincount(inv.reshape(-1), weights=w / w.sum())
+        ess.append(1.0 / (W ** 2).sum())
+    return np.array(ess)
+
+
+def ng_api_path(bt, ck, model, model_proper) -> dict:
+    """The non-Gaussian public API on one model at its initial theta, which
+    reaches the Laplace approximation through the single-model solve (K8):
+    gaussian_approx, logLik (approximate, psi N = 10, bsf N = 200),
+    kfilter, smoother, particle_smoother (psi N = 10, bsf N = 200) and
+    suggest_N (default grid, 100 replications).  Gates: laplace_step
+    launched, every output finite, suggest_N finds a candidate with sd < 1,
+    and the psi and bsf particle smoothers agree at every (t, j) within 6
+    combined Monte-Carlo standard errors sqrt(V_t (1 / ESS_psi,t + 1 /
+    ESS_bsf,t)), V_t the approximating model's smoothed variance and ESS
+    the lineage ESS of each run.  That last check runs on
+    ``model_proper``, the same series with a proper initial state: from the
+    main model's diffuse one (P1 = 100 I) a 200-particle bootstrap filter
+    collapses (log-likelihoods of -1e3 to -1e4 against the psi filter's
+    -300, seen in float32 on the CPU)."""
+    from bssm_tpu_torch.inference import approx as amod
+    from bssm_tpu_torch.inference.filters import spec_of
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.time()
+    g = bt.gaussian_approx(model)
+    lls = {"approx": bt.logLik(model), "psi_N10": bt.logLik(model, 10),
+           "bsf_N200": bt.logLik(model, 200, method="bsf")}
+    kf = bt.kfilter(model)
+    sm = bt.smoother(model)
+    ps = {"psi": bt.particle_smoother(model, 10),
+          "bsf": bt.particle_smoother(model, 200, method="bsf")}
+    sug = bt.suggest_N(model)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    launches = dict(ck.LAUNCHES)
+    tensors = [g.H, g.y[torch.isfinite(g.y)], kf.at, kf.Pt, kf.logLik,
+               sm.alphahat, sm.Vt, *lls.values()]
+    for r in ps.values():
+        tensors += [r.alphahat, r.Vt, r.logLik]
+    finite = all(bool(torch.isfinite(x).all()) for x in tensors)
+    # the single-model solve alone: passes, and milliseconds on the host
+    # clock (one K8 launch and one host synchronisation a pass)
+    spec1 = spec_of(model)
+    one = amod.approximate(spec1)
+    solve_ms = time_ms(lambda: amod.approximate(spec1))
+    # psi against bsf on the proper initial state
+    V = np.diagonal(bt.smoother(model_proper).Vt[0].double().cpu().numpy(),
+                    axis1=-2, axis2=-1)
+    pp = bt.particle_smoother(model_proper, 10, seed=2)
+    pb = bt.particle_smoother(model_proper, 200, method="bsf", seed=2)
+    e_p, e_b = (lineage_ess(r.alpha[0], r.weights[0]) for r in (pp, pb))
+    se = np.sqrt(V * (1.0 / e_p + 1.0 / e_b)[:, None])
+    z = np.abs(pp.alphahat[0].double().cpu().numpy()
+               - pb.alphahat[0].double().cpu().numpy()) / se
+    res = {"path": "ng_api",
+           "model": "bsm_ng poisson level+slope, n=153, m=2, float32, at "
+                    "theta_init; the psi/bsf agreement on the same series "
+                    "with a1 = (1, 0), P1 = diag(1, 0.01)",
+           "elapsed_s": elapsed, "launches": launches, "finite": finite,
+           "logLik": {k: float(v[0]) for k, v in lls.items()},
+           "particle_smoother_logLik": {k: float(r.logLik[0])
+                                        for k, r in ps.items()},
+           "suggest_N": sug, "single_solve_niter": int(one.niter[0]),
+           "single_solve_ms": solve_ms,
+           "psi_vs_bsf": {"max_z": float(z.max()), "mean_z": float(z.mean()),
+                          "min_ess_psi": float(e_p.min()),
+                          "min_ess_bsf": float(e_b.min()),
+                          "logLik_psi": float(pp.logLik[0]),
+                          "logLik_bsf": float(pb.logLik[0])}}
+    problems = []
+    if launches["laplace_step"] <= 0:
+        problems.append("kernel laplace_step was not launched by this path")
+    if not finite:
+        problems.append("non-finite outputs")
+    if not sug["sd"] < 1.0:
+        problems.append(f"suggest_N found no candidate with sd < 1: {sug}")
+    if not z.max() < 6.0:
+        problems.append(f"psi and bsf smoothers disagree, max z {z.max()}")
+    res["problems"] = [f"ng_api: {p}" for p in problems]
+    return res
+
+
+def segment_ess(out) -> float:
+    """Effective number of independent trajectories of is2 full output:
+    the slots of a jump-chain segment share their head's trajectory."""
+    w = out.weights.reshape(-1).astype(np.float64)
+    hm = out.accepted.copy()
+    hm[:, 0] = True
+    W = np.bincount(np.cumsum(hm.reshape(-1)) - 1, weights=w)
+    return float(W.sum() ** 2 / (W ** 2).sum())
+
+
+def is_states_check(summary, full) -> dict:
+    """is2_full's trajectories against is1_summary's moments (one theta
+    chain, one seed): at every (t, j) the weighted mean of the draws meets
+    alphahat within 6 sqrt(Vt_tjj / ESS), ESS the effective number of
+    independent trajectories of the draws, as lg_states_check does."""
+    w = full.weights.reshape(-1).astype(np.float64)
+    a = full.alpha.reshape((-1,) + full.alpha.shape[2:])
+    mean = np.einsum('s,stm->tm', w, a, dtype=np.float64) / w.sum()
+    ess = segment_ess(full)
+    sd = np.sqrt(np.diagonal(summary.Vt, axis1=-2, axis2=-1) / ess)
+    z = np.abs(mean - summary.alphahat) / sd
+    res = {"ess": ess, "max_z": float(z.max()), "mean_z": float(z.mean()),
+           "same_theta_chains": bool(np.array_equal(full.theta,
+                                                    summary.theta)),
+           "alphahat_154": summary.alphahat[-1].tolist(),
+           "sd_154": np.sqrt(np.diagonal(summary.Vt[-1])).tolist()}
+    res["ok"] = bool(res["same_theta_chains"] and z.max() < 6.0)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iter", type=int, default=1000,
@@ -980,7 +1191,7 @@ def main() -> int:
                          "pseudo-marginal and delayed-acceptance paths run "
                          "half as many)")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace short runs of four paths with "
+                    help="also trace short runs of five paths with "
                          "torch.profiler and print device time by kernel")
     args = ap.parse_args()
 
@@ -1035,6 +1246,30 @@ def main() -> int:
     emit("checks", {"runs": checks, "failures": FAILURES})
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} kernel check(s) failed",
+              file=sys.stderr)
+        return 1
+
+    # ---- K8, one Laplace pass, and the single-model solve ----------------
+    s_16k = check_step(m32, 16384, "main f32 B=16384", timed=True)
+    s_4k = check_step(m32, 4096, "main f32 B=4096", timed=True)
+    s_1 = check_step(m32, 1, "main f32 B=1", timed=True)
+    step = [s_16k, s_4k, s_1]
+    for B in (16384, 4096, 1):
+        step.append(check_step(m64, B, f"main f64 B={B}", timed=False))
+    for dtype in (torch.float64, torch.float32):
+        for fam in ("svm", "binomial", "negative binomial", "gamma"):
+            step.append(check_step(sweep_model(bt, fam, 2, dtype), 256,
+                                   f"sweep {fam}", timed=False))
+        step.append(check_step(sweep_model(bt, "gamma", 2, dtype, xreg=True),
+                               256, "sweep gamma + xreg", timed=False))
+        for m in (1, 3, 4):
+            step.append(check_step(sweep_model(bt, "poisson", m, dtype), 256,
+                                   f"sweep m={m}", timed=False))
+    single = check_single_solve(m64, 4096, "main f64 B=4096")
+    emit("step_checks", {"runs": step, "single_solve": single,
+                         "failures": FAILURES})
+    if FAILURES:
+        print(f"chip_smoke: {len(FAILURES)} laplace_step check(s) failed",
               file=sys.stderr)
         return 1
 
@@ -1158,9 +1393,60 @@ def main() -> int:
              for ot, req in (("theta", ("log_likelihood",)),
                              ("summary", ("log_likelihood",)),
                              ("full", ("log_likelihood", "fast_smoother_ll")))]
+    # the state outputs of the non-Gaussian model: one seed, so one theta
+    # chain for all three runs
+    st_kw = dict(particles=10, sampling_method="psi", store_modes=True,
+                 corr_batch=16384)
+    req = ("laplace_solve", "rts_factors")
+    runs += [
+        run_path(bt, ck, m32, "is2_full", lvl_slope, CHAINS // 4, it_full,
+                 req, (0.15, 0.35), 0.95, mcmc_type="is2",
+                 output_type="full", **st_kw),
+        run_path(bt, ck, m32, "is1_summary", lvl_slope, CHAINS // 4, it_full,
+                 req, (0.15, 0.35), None, mcmc_type="is1",
+                 output_type="summary", **st_kw),
+        run_path(bt, ck, m32, "approx_full", lvl_slope, CHAINS // 4, it_full,
+                 ("laplace_solve", "fast_smoother_ll"), (0.15, 0.35), None,
+                 mcmc_type="approx", output_type="full", store_modes=True)]
     paths = [r for r, _ in runs]
     outs = {r["path"]: o for r, o in runs}
     problems = [p for r in paths for p in r["problems"]]
+    # post_correct replays is2_full's correction on the approx run
+    r_ap = next(r for r in paths if r["path"] == "approx_full")
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.time()
+    pc = bt.post_correct(m32, outs["approx_full"], 10, is_type=2,
+                         output_type="full", corr_batch=16384,
+                         generator=bt.is_correction_generator(1, "cuda"))
+    torch.cuda.synchronize()
+    pc_launches = dict(ck.LAUNCHES)
+    wdiff = float(np.abs(pc.weights.astype(np.float64)
+                         - outs["is2_full"].weights).max())
+    r_ap["post_correct"] = {
+        "elapsed_s": time.time() - t0, "launches": pc_launches,
+        "max_abs_weight_diff_vs_is2_full": wdiff,
+        "alpha_equal_to_is2_full": bool(np.array_equal(
+            pc.alpha, outs["is2_full"].alpha))}
+    r_ap["launches"] = {k: r_ap["launches"][k] + pc_launches[k]
+                        for k in ck.LAUNCHES}
+    if not wdiff <= 1e-6:
+        problems.append(f"approx_full: post_correct weights differ from "
+                        f"is2_full's by {wdiff}")
+    del pc
+    st = is_states_check(outs["is1_summary"], outs["is2_full"])
+    next(r for r in paths if r["path"] == "is1_summary")["states_check"] = st
+    if not st["ok"]:
+        problems.append(f"is1_summary: disagrees with is2_full's draws {st}")
+    proper = bt.bsm_ng(main_path_series(),
+                       sd_level=bt.halfnormal_prior(0.1, 1.0),
+                       sd_slope=bt.halfnormal_prior(0.01, 0.1),
+                       distribution="poisson", a1=np.array([1.0, 0.0]),
+                       P1=np.diag([1.0, 0.01]), dtype=torch.float32,
+                       device="cuda")
+    ng = ng_api_path(bt, ck, m32, proper)
+    paths.append(ng)
+    problems += ng["problems"]
     for r in paths:
         if r["path"].startswith("lg_"):
             r["parity_r05_posterior_mean"] = LG_PARITY
@@ -1214,6 +1500,20 @@ def main() -> int:
             k["plain_ms" + tag] = run["plain_ms"][name]
             k["bound_ms" + tag] = run["bounds"][name]["bound_ms"]
         kernels.append(k)
+    k8 = {"name": "laplace_step", "route": "cuda",
+          "source": "bssm_tpu_torch/csrc/laplace_solve.cu",
+          "replaces": "bssm_tpu/ops/pallas_kalman.py:680",
+          "launches": total["laplace_step"],
+          "launches_by_path": by_path["laplace_step"],
+          "max_abs_err": max(c["max_abs_err"] for run in (s_16k, s_4k, s_1)
+                             for c in run["checks"]),
+          "library_ms": None, "shape": "B=16384 n=153 m=2 float32"}
+    for tag, run in (("", s_16k), ("_B4096", s_4k), ("_B1", s_1)):
+        k8["ms" + tag] = run["ms"]
+        k8["plain_ms" + tag] = run["plain_ms"]
+        k8["bound_ms" + tag] = run["bounds"]["bound_ms"]
+        k8["bound_by" + tag] = run["bounds"]["bound_by"]
+    kernels.append(k8)
     for name, line in (("psi_big_logw", 2303), ("bsf_big_logw", 2484)):
         t = t_big[name]
         err = max([c["max_abs_err"] for run in big_main
@@ -1242,7 +1542,10 @@ def main() -> int:
                 ("pm_bsf_N200", mb32, dict(particles=200, mcmc_type="pm",
                                            sampling_method="bsf",
                                            n_chains=CHAINS // 4)),
-                ("lg_theta", a32, dict(n_chains=CHAINS))):
+                ("lg_theta", a32, dict(n_chains=CHAINS)),
+                ("is2_full", m32, dict(n_chains=CHAINS // 4,
+                                       output_type="full", mcmc_type="is2",
+                                       **st_kw))):
             emit("profile", {"path": label, **profile_main_path(
                 bt, model, {**theta, **run})})
     print(json.dumps({"kernels": kernels}), flush=True)

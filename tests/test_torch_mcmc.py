@@ -304,8 +304,9 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked_for():
 
 def test_unported_options_raise():
     _, tm = _models(n=20, seed=14)
-    for kw in (dict(mcmc_type="is1"), dict(mcmc_type="is3"),
-               dict(output_type="full"), dict(output_type="summary"),
+    for kw in (dict(mcmc_type="approx", output_type="summary"),
+               dict(mcmc_type="da", output_type="summary"),
+               dict(output_type="bogus"),
                dict(sampling_method="spdk"), dict(particles=513),
                dict(mcmc_type="pm", output_type="full")):
         with pytest.raises(NotImplementedError):
