@@ -1,6 +1,6 @@
 // Device functions shared by the state-space kernels of this package
-// (laplace_solve.cu, rts_factors.cu, psi_logw.cu, particle_big.cu), written
-// once.
+// (laplace_solve.cu, kalman_filter.cu, rts_factors.cu, psi_logw.cu,
+// particle_big.cu), written once.
 //
 // Everything is templated on the real type R (float or double) and on the
 // state dimension M (1..4), so the small M x M matrices live in registers
@@ -50,30 +50,99 @@ template <typename R, int M> struct Sys {
   R C[M];
 };
 
-// number of rows of the packed system tensor (rows, B): Z, T, RR, a1, P1, C
-template <int M> __host__ __device__ constexpr int sys_rows() {
-  return 3 * M + 3 * M * M;
+// ---------------------------------------------------------------------------
+// the system and the series read where the spec holds them
+// ---------------------------------------------------------------------------
+// Every kernel but philox_fill takes the spec's own tensors and one packed
+// launch-argument struct.  Every field is 8 bytes wide, so the wrapper packs
+// a whole argument struct with struct.pack ("q" for an integer or a
+// pointer, "d" for a double) and no padding.  Pointers are device pointers;
+// strides count elements.
+
+// a per-time series: value t of row b at x[b * bs + t * ts]
+struct SeriesArg {
+  long long p, bs, ts;
+};
+// a time-invariant leaf: element i of row b at x[b * bs + i], the leaf's
+// core (the axes after batch and time) contiguous; bs = 0 when shared
+struct LeafArg {
+  long long p, bs;
+};
+struct SystemArg {
+  LeafArg Z, T, R, a1, P1, C, phi;  // phi: unused by the linear-Gaussian
+                                    // kernels
+  long long k;                      // columns of R
+};
+
+template <typename R>
+__device__ __forceinline__ const R* leaf_row(const LeafArg& l, long b) {
+  return reinterpret_cast<const R*>(l.p) + b * l.bs;
+}
+template <typename R>
+__device__ __forceinline__ const R* series_row(const SeriesArg& s, long b) {
+  return reinterpret_cast<const R*>(s.p) + b * s.bs;
 }
 
-// The wrapper packs the system column-wise, tensor (rows, B), so that the
-// threads of a warp (neighbouring batch rows) read neighbouring addresses.
+// Row b's system from the leaves; RR = R R' is formed here, in registers.
 template <typename R, int M>
-__device__ __forceinline__ void load_sys(Sys<R, M>& s, const R* sys, long B,
-                                         long b) {
+__device__ __forceinline__ void load_sys_leaves(Sys<R, M>& s,
+                                                const SystemArg& a, long b) {
   constexpr int MM = M * M;
-  int r = 0;
+  const R* Z = leaf_row<R>(a.Z, b);
+  const R* T = leaf_row<R>(a.T, b);
+  const R* Rm = leaf_row<R>(a.R, b);
+  const R* a1 = leaf_row<R>(a.a1, b);
+  const R* P1 = leaf_row<R>(a.P1, b);
+  const R* C = leaf_row<R>(a.C, b);
+  const int k = (int)a.k;
 #pragma unroll
-  for (int i = 0; i < M; ++i) s.Z[i] = sys[(r++) * B + b];
+  for (int i = 0; i < M; ++i) s.Z[i] = Z[i];
 #pragma unroll
-  for (int i = 0; i < MM; ++i) s.T[i] = sys[(r++) * B + b];
+  for (int i = 0; i < MM; ++i) s.T[i] = T[i];
 #pragma unroll
-  for (int i = 0; i < MM; ++i) s.RR[i] = sys[(r++) * B + b];
+  for (int i = 0; i < M; ++i)
 #pragma unroll
-  for (int i = 0; i < M; ++i) s.a1[i] = sys[(r++) * B + b];
+    for (int j = 0; j < M; ++j) {
+      R acc = R(0);
+      for (int l = 0; l < k; ++l) acc += Rm[i * k + l] * Rm[j * k + l];
+      s.RR[i * M + j] = acc;
+    }
 #pragma unroll
-  for (int i = 0; i < MM; ++i) s.P1[i] = sys[(r++) * B + b];
+  for (int i = 0; i < M; ++i) s.a1[i] = a1[i];
 #pragma unroll
-  for (int i = 0; i < M; ++i) s.C[i] = sys[(r++) * B + b];
+  for (int i = 0; i < MM; ++i) s.P1[i] = P1[i];
+#pragma unroll
+  for (int i = 0; i < M; ++i) s.C[i] = C[i];
+}
+
+// The degenerate-model rule of the JAX package's kernel wrappers
+// (ops/kalman.degenerate_h2rr): H^2 summed over the n steps (a constant H
+// counts n times) plus sum |R R'| below kZeroTol makes the log-likelihood
+// -inf.  `hsum` is that sum of H^2, taken before any masking, so a NaN H
+// keeps the row finite as in the plain rule.
+template <typename R, int M>
+__device__ __forceinline__ bool degenerate_h2rr(R hsum, const Sys<R, M>& s) {
+  R rr = R(0);
+#pragma unroll
+  for (int i = 0; i < M * M; ++i) rr += fabs(s.RR[i]);
+  return hsum + rr < R(kZeroTol);
+}
+
+// ---------------------------------------------------------------------------
+// asynchronous copies from device memory to shared memory (sm_80 and later)
+// ---------------------------------------------------------------------------
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(gmem), "n"(BYTES));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most N committed groups of this thread are still in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // a_next = C + T att;  P_next = sym(T Ptt T' + RR)

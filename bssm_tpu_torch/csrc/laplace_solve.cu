@@ -6,7 +6,8 @@
 //   masked Joseph-form Kalman filter + log-likelihood -> backward mean pass
 //   of the fast smoother -> new signal mode and its mean-squared change.
 // `laplace_pass` below is that pass, written once from the device functions
-// of kalman_common.cuh; the two kernels differ only in how often they run it.
+// of kalman_common.cuh; the two kernels differ in how often they run it and
+// where they stage it.
 //
 // laplace_solve_kernel replaces the TPU kernel `_laplace_solve_kernel`
 // (bssm_tpu/ops/pallas_kalman.py:785, called at :920): it repeats the pass
@@ -20,53 +21,148 @@
 // convergence between launches, as the JAX package's `_laplace_solve_base`
 // loops over its step.  Plain version: inference/approx._laplace_step.
 //
-// What bounds them on this card: neither their bytes nor their operations
-// (both bounds are tens of microseconds at 16384 rows) but the latency of one
-// long chain of dependent operations per row (n steps forward, n steps
-// backward, four or five passes for the solve) with m x m matrices in
-// registers.  The batch is the only parallelism, and 4096 rows are 128 warps
-// for 132 SMs.  The design therefore gives one thread one row and uses blocks
-// of one warp so that every SM gets work; a single model (the step's main
-// caller) is one thread of one block, pure latency.  The per-time quantities
-// the backward pass needs (v, F, ok, a_t, P_t: 3 + m + m^2 values a step) do
-// not fit in registers, so they are staged in a scratch tensor the wrapper
-// allocates, laid out time-major (n, rows, B): the threads of a warp touch
-// neighbouring addresses.  At m = 2, n = 153, float32 the solve's scratch is
-// 6.7 KB a row: 27 MB at 4096 rows, inside the 50 MB L2 cache, and 110 MB at
-// 16384 rows, where every pass streams it through device memory and the time
-// per row goes up.  The solve keeps its two mode buffers in the same scratch;
-// the step reads its mode from the input and writes the new one to a
-// separate output.  The solve tests convergence per row, as the JAX
-// package's scan path does; a thread whose row has converged idles until its
-// warp is done.
+// Both read the system where the spec holds it (SystemArg: Z, T, R, a1, P1,
+// C, phi, each with its batch stride, 0 for a leaf shared by all rows) and
+// form R R' in registers, so the wrapper packs nothing and launches once.
+//
+// What bounds laplace_solve on this card: neither its bytes nor its
+// operations (both bounds are tens of microseconds at 16384 rows) but the
+// latency of one long chain of dependent operations per row: n match-and-
+// filter steps forward, n smoother steps backward, four or five passes.
+// The batch is the only parallelism, so one thread owns one row.  That chain
+// is the serial floor of this design: at B <= 4096 every row's thread runs at
+// once (one warp per SM), and the bare kernel is that chain and nothing
+// else.  Going below it needs parallelism within a row (several lanes a row,
+// or a parallel-in-time filter), not a better staging.
+//
+// The backward pass needs v, F, ok, a_t and P_t of every step (3 + m + m^2
+// values), which do not fit in registers, so the forward pass stages them,
+// with the two mode buffers (the mode a pass linearises at, the new one),
+// in one of two places, a template flag of the same kernel:
+//
+// * Shared memory (kShared): a block's own rows.  In values of the real
+//   type (laplace_block_elems):
+//     rows x [(3 + m + m^2) n  pass values, (t, value, row): the threads of
+//                              a warp touch neighbouring banks
+//             + 2 (n | 1)]     the two mode buffers, row-major with an odd
+//                              leading dimension: conflict-free both for a
+//                              thread walking its row and for the block
+//                              copying rows coalesced
+//     + 2 n                    y and u when they are shared by all rows
+//   Rows a block = min(32, what fits in 227 KB less the kernel's 128 static
+//   bytes): 32 (216648 bytes) at the main path's m = 2, n = 153, float32;
+//   17 in float64; 7 at m = 4 float64; none beyond n = 4467 at m = 2
+//   float32 or n = 1075 at m = 4 float64.  One such block fills an SM, so
+//   the chain sees shared memory instead of L2, but only 132 blocks run at
+//   once: past one wave every further wave costs a whole chain.
+// * Device memory: every row of the batch, the pass values (t, value, row)
+//   over align32(B) rows and the two buffers (t, row) behind them
+//   (laplace_row_elems values a row), as the first design staged: an L2
+//   round trip (HBM once the batch outgrows L2) on the chain at every
+//   backward step and mode read, but every row resident at once.
+//
+// The wrapper (ops/cuda_kalman.laplace_staging) takes shared memory only
+// while its blocks run in one wave.  chip_smoke.py --staging-sweep times
+// both over B = 1024..32768, m = 1..4 and both dtypes at n = 153 (H100 SXM,
+// PERF.md): in one wave shared memory wins everywhere (0.38 against 0.59 ms
+// at m = 2, B = 4096, float32); at two waves it wins at m = 2 / 3 and loses
+// at m = 1 / 4, and at three or more it loses, up to 6x in float64.
+//
+// Series shared by all rows (y and u on the main path) are copied into
+// shared memory once, before the passes, in the shared staging: a broadcast
+// read of shared memory costs a few cycles on the chain, where a read of
+// device memory, even from L1, costs more and one warp an SM has nothing to
+// hide it behind.  A series that varies over rows is read where it lies.
+// The modes come in and go out coalesced: with shared staging the block
+// copies its rows, consecutive threads on consecutive t; with device
+// staging each thread copies its own row, the warp one line a step.
+//
+// The solve tests convergence per row, as the JAX package's scan path does;
+// a thread whose row has converged idles until its warp is done.
+//
+// laplace_step_kernel keeps its first design: one thread a row, blocks of
+// one warp, the pass staged in a device-memory scratch (n, 3 + m + m^2, B)
+// the wrapper allocates.  Its main caller is one model (B = 1), where a
+// thread's latency is all there is.
+#include <string.h>
+
 #include "kalman_common.cuh"
 
 namespace bssm {
 
-// value r of time t of this thread's row in the time-major scratch
-template <typename R> struct Stage {
-  R* p;
-  long B, b;
-  int rows;
-  __device__ __forceinline__ R& operator()(int t, int r) const {
-    return p[((long)t * rows + r) * B + b];
-  }
+// Launch arguments of bssm_laplace_solve, packed by ops/cuda_kalman.py in
+// this order.  `out` is one device buffer: mode (B, n), prev (B, n), ll (B),
+// diff (B), niter (B int32, in the next B values), then, for the
+// device-memory variant, from the next line of 32 values on, the staging of
+// align32(B) rows.
+struct LaplaceArgs {
+  long long is_double, m, dist, B, n;
+  SeriesArg y, u, D, mode;
+  SystemArg sys;
+  double conv_tol;
+  long long max_iter;
+  long long out;
+  long long rows;         // rows of the batch a block takes, one thread each
+  long long shared;       // 1: staging in shared memory, 0: in `out`
+  long long smem;         // dynamic shared memory of a block, bytes
+  long long block_elems;  // staging values of a block (shared) or a row
+  long long stream;
 };
 
-// scratch rows of one time step used by the pass: v, F, ok, a (M), P (MM)
+// Launch arguments of bssm_laplace_step.
+struct StepArgs {
+  long long is_double, m, dist, B, n;
+  SeriesArg y, u, D, mode;
+  SystemArg sys;
+  long long mode_out, ll, diff, scratch;  // scratch: (n, 3 + m + m^2, B)
+  long long stream;
+};
+
+// values of one time step staged by the pass: v, F, ok, a (M), P (MM)
 template <int M> __host__ __device__ constexpr int pass_rows() {
   return 3 + M + M * M;
 }
 
+// staging values of one laplace_solve block of `rows` rows in shared
+// memory, and of one row in device memory (see the head)
+__host__ __device__ inline long long laplace_block_elems(long long rows,
+                                                         long long n,
+                                                         long long m) {
+  return rows * ((3 + m + m * m) * n + 2 * (n | 1)) + 2 * n;
+}
+__host__ __device__ inline long long laplace_row_elems(long long n,
+                                                       long long m) {
+  return (5 + m + m * m) * n;
+}
+
+// k rounded up to whole lines of 32 values: the device-memory staging
+// starts on a line and holds align32(B) rows, so that a warp's 32 values of
+// a step are one line, not two
+__host__ __device__ inline long long align32(long long k) {
+  return (k + 31) / 32 * 32;
+}
+
+// value r of time t of one row, staged time-major: `stride` rows sit between
+// two values of the row, the row is `idx` among them
+template <typename R> struct Stage {
+  R* p;
+  long stride, idx;
+  int nval;
+  __device__ __forceinline__ R& operator()(int t, int r) const {
+    return p[((long)t * nval + r) * stride + idx];
+  }
+};
+
 // One pass at the mode `mode_at(t)`; `emit(t, new_mode_t)` receives the new
 // mode, backwards in time.  Returns the mean-squared change; `ll` gets the
-// Kalman log-likelihood of the approximating model.
+// Kalman log-likelihood of the approximating model.  Value t of a series x
+// is x[t * x_ts].
 template <typename R, int M, typename ModeAt, typename Emit>
 __device__ __forceinline__ R laplace_pass(const Sys<R, M>& s, int dist,
-                                          R phi, int n, const R* y,
-                                          const R* u, const R* D, long D_ts,
-                                          const Stage<R>& sc, ModeAt mode_at,
-                                          Emit emit, R& ll) {
+                                          R phi, int n, const R* y, long y_ts,
+                                          const R* u, long u_ts, const R* D,
+                                          long D_ts, const Stage<R>& sc,
+                                          ModeAt mode_at, Emit emit, R& ll) {
   constexpr int MM = M * M;
   constexpr int kV = 0, kF = 1, kOk = 2, kA = 3, kP = 3 + M;
   // ---- forward: match + Kalman filter, staging the backward pass's needs
@@ -77,9 +173,9 @@ __device__ __forceinline__ R laplace_pass(const Sys<R, M>& s, int dist,
   for (int i = 0; i < MM; ++i) P[i] = s.P1[i];
   ll = R(0);
   for (int t = 0; t < n; ++t) {
-    const R yt_obs = y[t];
+    const R yt_obs = y[t * y_ts];
     R yt, hh;
-    laplace_match<R>(dist, yt_obs, u[t], phi, mode_at(t), yt, hh);
+    laplace_match<R>(dist, yt_obs, u[t * u_ts], phi, mode_at(t), yt, hh);
     hh = (isfinite(hh) && hh > R(0)) ? hh : R(1);
     yt = isfinite(yt_obs) ? yt : R(NAN);
 #pragma unroll
@@ -121,136 +217,192 @@ __device__ __forceinline__ R laplace_pass(const Sys<R, M>& s, int dist,
   return dacc / R(n);
 }
 
-template <typename R, int M>
-__global__ void laplace_solve_kernel(
-    int dist, long B, int n, const R* __restrict__ y, long y_bs,
-    const R* __restrict__ u, long u_bs, const R* __restrict__ D, long D_bs,
-    long D_ts, const R* __restrict__ mode0, long mode0_bs,
-    const R* __restrict__ sys, R conv_tol, int max_iter,
-    R* __restrict__ mode_out, R* __restrict__ prev_out,
-    R* __restrict__ ll_out, int* __restrict__ niter_out,
-    R* __restrict__ diff_out, R* __restrict__ scratch) {
-  const long b = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  // scratch rows per time step: the pass's, then mode buffers 0 and 1
-  constexpr int kMode = pass_rows<M>();
-  const Stage<R> sc{scratch, B, b, kMode + 2};
+template <typename R, int M, bool kShared>
+__global__ void laplace_solve_kernel(const LaplaceArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int cur_of[32];  // which mode buffer holds a row's newest mode
+  constexpr int P = pass_rows<M>();
+  const int rows = blockDim.x, lane = threadIdx.x;
+  const int n = (int)a.n, ldm = n | 1;
+  const long B = a.B, b0 = (long)blockIdx.x * rows, b = b0 + lane;
+  const int nb = B - b0 < rows ? (int)(B - b0) : rows;  // rows of this block
+  R* const out = reinterpret_cast<R*>(a.out);
+  R* const mode_out = out;
+  R* const prev_out = out + B * n;
+  R* const ll_out = out + 2 * B * n;
+  R* const diff_out = ll_out + B;
+  int* const niter_out = reinterpret_cast<int*>(diff_out + B);
+  // The staging: in shared memory the block's own rows, the pass values
+  // (t, value, row), the two mode buffers row-major with leading dimension
+  // n | 1, then y and u; in device memory every row of the batch, the pass
+  // values (t, value, row) over align32(B) rows, then the two mode buffers
+  // (t, row).  Value t of row r of a mode buffer is modes[mi(r, t)], the
+  // second buffer `other` further.
+  const long Bs = align32(B);
+  R* const st = kShared ? reinterpret_cast<R*>(smem_raw)
+                        : out + align32(2 * B * n + 3 * B);
+  R* const modes = st + (long)n * P * (kShared ? rows : Bs);
+  const long other = kShared ? (long)rows * ldm : (long)n * Bs;
+  const auto mi = [&](int r, int t) -> long {
+    return kShared ? (long)r * ldm + t : (long)t * Bs + b0 + r;
+  };
+  R* const ser = modes + 2 * other;
 
-  Sys<R, M> s;
-  load_sys<R, M>(s, sys, B, b);
-  const R phi = sys[(long)sys_rows<M>() * B + b];
-  y += b * y_bs;
-  u += b * u_bs;
-  D += b * D_bs;
-  mode0 += b * mode0_bs;
-
-  for (int t = 0; t < n; ++t) {
-    const R m0 = mode0[t];
-    sc(t, kMode) = m0;
-    sc(t, kMode + 1) = m0;
+  // shared series into shared memory, once
+  const R* y = series_row<R>(a.y, b);
+  const R* u = series_row<R>(a.u, b);
+  long y_ts = a.y.ts, u_ts = a.u.ts;
+  if (kShared && a.y.bs == 0) {
+    for (int t = lane; t < n; t += rows) ser[t] = y[t * y_ts];
+    y = ser;
+    y_ts = 1;
   }
-
-  int cur = 0;  // which mode buffer holds the newest mode
-  int it = 0;
-  R diff = conv_tol + R(1);
-  R ll = R(0);
-  while (it < max_iter && diff > conv_tol) {
-    const int lin = kMode + cur;        // the mode this pass linearises at
-    const int nw = kMode + (1 - cur);  // where the new mode goes
-    diff = laplace_pass<R, M>(
-        s, dist, phi, n, y, u, D, D_ts, sc,
-        [&](int t) { return sc(t, lin); },
-        [&](int t, R v) { sc(t, nw) = v; }, ll);
-    cur = 1 - cur;
-    ++it;
+  if (kShared && a.u.bs == 0) {
+    for (int t = lane; t < n; t += rows) ser[n + t] = u[t * u_ts];
+    u = ser + n;
+    u_ts = 1;
   }
+  // `each(f)` calls f(r, t) for every value of the block's rows of the
+  // modes.  With shared staging the block walks each row, consecutive
+  // threads on consecutive t, so that the reads and writes of the (B, n)
+  // modes in device memory are coalesced.  With device staging each thread
+  // walks its own row: the warp's accesses to the time-major buffers are
+  // then one line, and a thread's to the (B, n) modes share lines.
+  const auto each = [&](auto f) {
+    if (kShared) {
+      for (int r = 0; r < nb; ++r)
+        for (int t = lane; t < n; t += rows) f(r, t);
+    } else if (lane < nb) {
+      for (int t = 0; t < n; ++t) f(lane, t);
+    }
+  };
+  // mode0 into both mode buffers
+  const R* mode0 = reinterpret_cast<const R*>(a.mode.p);
+  each([&](int r, int t) {
+    const R v = mode0[(b0 + r) * a.mode.bs + t * a.mode.ts];
+    modes[mi(r, t)] = v;
+    modes[other + mi(r, t)] = v;
+  });
+  __syncthreads();
 
-  for (int t = 0; t < n; ++t) {
-    mode_out[b * n + t] = sc(t, kMode + cur);
-    prev_out[b * n + t] = sc(t, kMode + (1 - cur));
+  if (b < B) {
+    Sys<R, M> s;
+    load_sys_leaves<R, M>(s, a.sys, b);
+    const R phi = leaf_row<R>(a.sys.phi, b)[0];
+    const R* D = series_row<R>(a.D, b);
+    const Stage<R> sc{st, kShared ? rows : Bs, kShared ? lane : b, P};
+    const R conv_tol = (R)a.conv_tol;
+    int cur = 0;  // which mode buffer holds the newest mode
+    int it = 0;
+    R diff = conv_tol + R(1);
+    R ll = R(0);
+    while (it < a.max_iter && diff > conv_tol) {
+      const R* lin = modes + cur * other;  // the mode this pass linearises at
+      R* nw = modes + (1 - cur) * other;   // where the new mode goes
+      diff = laplace_pass<R, M>(
+          s, (int)a.dist, phi, n, y, y_ts, u, u_ts, D, a.D.ts, sc,
+          [&](int t) { return lin[mi(lane, t)]; },
+          [&](int t, R v) { nw[mi(lane, t)] = v; }, ll);
+      cur = 1 - cur;
+      ++it;
+    }
+    cur_of[lane] = cur;
+    ll_out[b] = ll;
+    niter_out[b] = it;
+    diff_out[b] = diff;
   }
-  ll_out[b] = ll;
-  niter_out[b] = it;
-  diff_out[b] = diff;
+  __syncthreads();
+
+  // the newest and the previous mode out
+  each([&](int r, int t) {
+    const long o = (b0 + r) * n + t;
+    mode_out[o] = modes[cur_of[r] * other + mi(r, t)];
+    prev_out[o] = modes[(1 - cur_of[r]) * other + mi(r, t)];
+  });
 }
 
 template <typename R, int M>
-__global__ void laplace_step_kernel(
-    int dist, long B, int n, const R* __restrict__ y, long y_bs,
-    const R* __restrict__ u, long u_bs, const R* __restrict__ D, long D_bs,
-    long D_ts, const R* __restrict__ mode, long mode_bs,
-    const R* __restrict__ sys, R* __restrict__ mode_out,
-    R* __restrict__ ll_out, R* __restrict__ diff_out,
-    R* __restrict__ scratch) {
+__global__ void laplace_step_kernel(const StepArgs a) {
   const long b = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const Stage<R> sc{scratch, B, b, pass_rows<M>()};
-
+  if (b >= a.B) return;
+  const int n = (int)a.n;
+  const Stage<R> sc{reinterpret_cast<R*>(a.scratch), (long)a.B, b,
+                    pass_rows<M>()};
   Sys<R, M> s;
-  load_sys<R, M>(s, sys, B, b);
-  const R phi = sys[(long)sys_rows<M>() * B + b];
-  y += b * y_bs;
-  u += b * u_bs;
-  D += b * D_bs;
-  mode += b * mode_bs;
-  R* out = mode_out + b * n;
+  load_sys_leaves<R, M>(s, a.sys, b);
+  const R phi = leaf_row<R>(a.sys.phi, b)[0];
+  const R* mode = series_row<R>(a.mode, b);
+  const long m_ts = a.mode.ts;
+  R* out = reinterpret_cast<R*>(a.mode_out) + b * n;
 
   R ll;
   const R diff = laplace_pass<R, M>(
-      s, dist, phi, n, y, u, D, D_ts, sc, [&](int t) { return mode[t]; },
+      s, (int)a.dist, phi, n, series_row<R>(a.y, b), a.y.ts,
+      series_row<R>(a.u, b), a.u.ts, series_row<R>(a.D, b), a.D.ts, sc,
+      [&](int t) { return mode[t * m_ts]; },
       [&](int t, R v) { out[t] = v; }, ll);
-  ll_out[b] = ll;
-  diff_out[b] = diff;
+  reinterpret_cast<R*>(a.ll)[b] = ll;
+  reinterpret_cast<R*>(a.diff)[b] = diff;
+}
+
+template <typename R, int M> int launch_solve(const LaplaceArgs& a) {
+  if (a.rows < 1 || a.rows > 32 ||
+      (a.shared && (a.block_elems != laplace_block_elems(a.rows, a.n, M) ||
+                    a.smem != a.block_elems * (long long)sizeof(R))) ||
+      (!a.shared && a.block_elems != laplace_row_elems(a.n, M)))
+    return -3;
+  const unsigned blocks = (unsigned)((a.B + a.rows - 1) / a.rows);
+  const cudaStream_t stream = (cudaStream_t)a.stream;
+  if (a.shared) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        laplace_solve_kernel<R, M, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
+    if (e != cudaSuccess) return (int)e;
+    laplace_solve_kernel<R, M, true>
+        <<<blocks, (unsigned)a.rows, (size_t)a.smem, stream>>>(a);
+  } else {
+    laplace_solve_kernel<R, M, false>
+        <<<blocks, (unsigned)a.rows, 0, stream>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename R, int M> int launch_step(const StepArgs& a) {
+  constexpr int kThreads = 32;
+  const unsigned blocks = (unsigned)((a.B + kThreads - 1) / kThreads);
+  laplace_step_kernel<R, M>
+      <<<blocks, kThreads, 0, (cudaStream_t)a.stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace bssm
 
-// Plain C entry points.  Pointers are device pointers; *_bs are batch
-// strides in elements (0 for a leaf shared by all rows), D_ts the time stride
-// of D (0 when D is constant in time).  `sys` is the packed (rows + 1, B)
-// system tensor [Z, T, RR, a1, P1, C, phi].  Each returns the launch's
-// cudaError_t, or -1 for an unsupported m.
-extern "C" int bssm_laplace_solve(
-    int is_double, int m, int dist, long B, int n, const void* y, long y_bs,
-    const void* u, long u_bs, const void* D, long D_bs, long D_ts,
-    const void* mode0, long mode0_bs, const void* sys, double conv_tol,
-    int max_iter, void* mode, void* prev, void* ll, void* niter, void* diff,
-    void* scratch, int threads, void* stream) {
-  const unsigned blocks = (unsigned)((B + threads - 1) / threads);
+// Plain C entry points.  `args` points to the packed argument struct and
+// `size` is its length in bytes.  Each returns the launch's cudaError_t, -1
+// for an unsupported m, -2 when `size` is not the struct's, -3 for a
+// staging geometry that disagrees with laplace_block_elems.
+extern "C" int bssm_laplace_solve(const void* args, long long size) {
+  if (size != (long long)sizeof(bssm::LaplaceArgs)) return -2;
+  bssm::LaplaceArgs a;
+  memcpy(&a, args, sizeof a);
+  int code = 0;
   bool known;
-#define LAUNCH(R, M)                                                         \
-  bssm::laplace_solve_kernel<R, M>                                           \
-      <<<blocks, threads, 0, (cudaStream_t)stream>>>(                        \
-          dist, B, n, (const R*)y, y_bs, (const R*)u, u_bs, (const R*)D,     \
-          D_bs, D_ts, (const R*)mode0, mode0_bs, (const R*)sys, (R)conv_tol, \
-          max_iter, (R*)mode, (R*)prev, (R*)ll, (int*)niter, (R*)diff,       \
-          (R*)scratch)
-  BSSM_DISPATCH(is_double, m, known, LAUNCH);
+#define LAUNCH(R, M) code = bssm::launch_solve<R, M>(a)
+  BSSM_DISPATCH(a.is_double, a.m, known, LAUNCH);
 #undef LAUNCH
-  if (!known) return -1;
-  return (int)cudaGetLastError();
+  return known ? code : -1;
 }
 
-// Scratch: (n, 3 + m + m^2, B) of the real type.
-extern "C" int bssm_laplace_step(int is_double, int m, int dist, long B,
-                                 int n, const void* y, long y_bs,
-                                 const void* u, long u_bs, const void* D,
-                                 long D_bs, long D_ts, const void* mode,
-                                 long mode_bs, const void* sys,
-                                 void* mode_out, void* ll, void* diff,
-                                 void* scratch, int threads, void* stream) {
-  const unsigned blocks = (unsigned)((B + threads - 1) / threads);
+extern "C" int bssm_laplace_step(const void* args, long long size) {
+  if (size != (long long)sizeof(bssm::StepArgs)) return -2;
+  bssm::StepArgs a;
+  memcpy(&a, args, sizeof a);
+  int code = 0;
   bool known;
-#define LAUNCH(R, M)                                                       \
-  bssm::laplace_step_kernel<R, M>                                          \
-      <<<blocks, threads, 0, (cudaStream_t)stream>>>(                      \
-          dist, B, n, (const R*)y, y_bs, (const R*)u, u_bs, (const R*)D,   \
-          D_bs, D_ts, (const R*)mode, mode_bs, (const R*)sys,              \
-          (R*)mode_out, (R*)ll, (R*)diff, (R*)scratch)
-  BSSM_DISPATCH(is_double, m, known, LAUNCH);
+#define LAUNCH(R, M) code = bssm::launch_step<R, M>(a)
+  BSSM_DISPATCH(a.is_double, a.m, known, LAUNCH);
 #undef LAUNCH
-  if (!known) return -1;
-  return (int)cudaGetLastError();
+  return known ? code : -1;
 }
 
 extern "C" const char* bssm_error_string(int code) {

@@ -50,6 +50,8 @@
 // stacked or padded copies are made.  The observation family is a run-time
 // switch (uniform over the block) rather than a template parameter, which
 // keeps the number of instantiations at 16.
+#include <string.h>
+
 #include "kalman_common.cuh"
 
 namespace bssm {
@@ -69,14 +71,9 @@ template <typename R> struct BigArgs {
   const R* Ab;    // (B, S+1, M, M)
   // bsf mode: (B, 2M + 3MM) = [a1, chol P1, C, R, T], n = S + 1
   const R* sysb;
-  // both modes
-  const R* y;
-  long y_bs;
-  const R* u;
-  long u_bs;
-  const R* D;
-  long D_bs, D_ts;
-  const R* zphi;  // (B, M + 1) = [Z, phi]
+  // both modes: the series and the leaves where the spec holds them
+  SeriesArg y, u, D;
+  LeafArg Z, phi;
   const R* eps;   // stream mode
   const R* us;
   const long long* key;  // Philox mode: two words, low 32 bits of each
@@ -121,13 +118,14 @@ particle_big_kernel(const BigArgs<R> a) {
   __shared__ R s_alpha[M][kMaxNBig];
   __shared__ R s_max[kMaxWarps], s_sum[kMaxWarps], s_scan[kMaxWarps];
 
-  const R* y = a.y + b * a.y_bs;
-  const R* u = a.u + b * a.u_bs;
-  const R* D = a.D + b * a.D_bs;
+  const R* y = series_row<R>(a.y, b);
+  const R* u = series_row<R>(a.u, b);
+  const R* D = series_row<R>(a.D, b);
   R Z[M];
+  const R* Zb = leaf_row<R>(a.Z, b);
 #pragma unroll
-  for (int i = 0; i < M; ++i) Z[i] = a.zphi[b * (M + 1) + i];
-  const R phi = a.zphi[b * (M + 1) + M];
+  for (int i = 0; i < M; ++i) Z[i] = Zb[i];
+  const R phi = leaf_row<R>(a.phi, b)[0];
   unsigned k0 = 0, k1 = 0;
   if (a.philox) {
     k0 = (unsigned)a.key[0];
@@ -165,10 +163,10 @@ particle_big_kernel(const BigArgs<R> a) {
         const long t = s;
         v = k == 0 ? R(NAN)
             : k == 1 ? R(1)
-            : k == 2 ? y[t]
-            : k == 3 ? u[t]
+            : k == 2 ? y[t * a.y.ts]
+            : k == 3 ? u[t * a.u.ts]
             : k == 4 ? R(0)
-                     : D[t * a.D_ts];
+                     : D[t * a.D.ts];
       } else {
         if (s == 0) {                              // no observation
           v = (k == 0 || k == 2) ? R(NAN) : (k == 1 || k == 3) ? R(1) : R(0);
@@ -177,10 +175,10 @@ particle_big_kernel(const BigArgs<R> a) {
           const long bt = b * (long)S + t;
           v = k == 0 ? a.ytilde[bt]
               : k == 1 ? a.Htilde[bt]
-              : k == 2 ? y[t]
-              : k == 3 ? u[t]
+              : k == 2 ? y[t * a.y.ts]
+              : k == 3 ? u[t * a.u.ts]
               : k == 4 ? a.scales[bt]
-                       : D[t * a.D_ts];
+                       : D[t * a.D.ts];
         }
       }
     }
@@ -359,43 +357,57 @@ __global__ void philox_fill_kernel(long B, int S, int N,
 
 }  // namespace bssm
 
-// Plain C entry point of both modes.  S = generation steps after the initial
-// draw (psi: n, bsf: n - 1).  psi mode (bsf = 0): ytilde, Htilde, scales
-// (B, S); ahat (B, S+1, m); Lb, Ab (B, S+1, m, m); sysb unused.  bsf mode:
-// sysb (B, 2m + 3m^2) = [a1, chol P1, C, R, T]; the psi tensors unused.
-// y, u, D with batch strides as in bssm_laplace_solve; zphi (B, m + 1).
-// Stream mode (philox = 0): eps (B, S+1, N, m), us (B, S, N).  Philox mode:
-// key points to two 64-bit words on the device.  out (B,).  All contiguous.
-extern "C" int bssm_particle_big(
-    int is_double, int m, int dist, int bsf, int philox, int N, long B, int S,
-    int kk, const void* ytilde, const void* Htilde, const void* scales,
-    const void* ahat, const void* Lb, const void* Ab, const void* sysb,
-    const void* y, long y_bs, const void* u, long u_bs, const void* D,
-    long D_bs, long D_ts, const void* zphi, const void* eps, const void* us,
-    const void* key, void* out, void* stream) {
-  if (N < 2 || N > bssm::kMaxNBig || kk < 1 || S < 0 || B < 1) return -2;
+// Launch arguments of bssm_particle_big, packed by ops/cuda_kalman.py in
+// this order (see kalman_common.cuh).  S = generation steps after the
+// initial draw (psi: n, bsf: n - 1).  psi mode (bsf = 0): ytilde, Htilde,
+// scales (B, S); ahat (B, S+1, m); Lb, Ab (B, S+1, m, m); sysb unused.  bsf
+// mode: sysb (B, 2m + 3m^2) = [a1, chol P1, C, R, T]; the psi tensors
+// unused.  y, u, D and the leaves Z, phi where the spec holds them.  Stream
+// mode (philox = 0): eps (B, S+1, N, m), us (B, S, N).  Philox mode: key
+// points to two 64-bit words on the device.  out (B,).  The dense tensors
+// are contiguous.
+struct BigLaunch {
+  long long is_double, m, dist, bsf, philox, N, B, S, kk;
+  long long ytilde, Htilde, scales, ahat, Lb, Ab, sysb;
+  bssm::SeriesArg y, u, D;
+  bssm::LeafArg Z, phi;
+  long long eps, us, key, out, stream;
+};
+
+// Plain C entry point of both modes.  `args` points to the packed BigLaunch
+// and `size` is its length in bytes.  Returns the launch's cudaError_t, -1
+// for an unsupported m, -2 for a struct of another size or arguments
+// outside the kernel's contract.
+extern "C" int bssm_particle_big(const void* args, long long size) {
+  if (size != (long long)sizeof(BigLaunch)) return -2;
+  BigLaunch g;
+  memcpy(&g, args, sizeof g);
+  const int N = (int)g.N;
+  if (N < 2 || N > bssm::kMaxNBig || g.kk < 1 || g.S < 0 || g.B < 1)
+    return -2;
   const int threads = ((N + 31) / 32) * 32;
+  const cudaStream_t stream = (cudaStream_t)g.stream;
   bool known;
 #define LAUNCH(R, M)                                                        \
   do {                                                                      \
+    const auto in = [](long long p) { return (const R*)p; };                \
     bssm::BigArgs<R> a;                                                     \
-    a.dist = dist; a.N = N; a.S = S; a.kk = kk; a.philox = philox;          \
-    a.B = B;                                                                \
-    a.ytilde = (const R*)ytilde; a.Htilde = (const R*)Htilde;               \
-    a.scales = (const R*)scales; a.ahat = (const R*)ahat;                   \
-    a.Lb = (const R*)Lb; a.Ab = (const R*)Ab; a.sysb = (const R*)sysb;      \
-    a.y = (const R*)y; a.y_bs = y_bs; a.u = (const R*)u; a.u_bs = u_bs;     \
-    a.D = (const R*)D; a.D_bs = D_bs; a.D_ts = D_ts;                        \
-    a.zphi = (const R*)zphi; a.eps = (const R*)eps; a.us = (const R*)us;    \
-    a.key = (const long long*)key; a.out = (R*)out;                         \
-    if (bsf)                                                                \
+    a.dist = (int)g.dist; a.N = N; a.S = (int)g.S; a.kk = (int)g.kk;        \
+    a.philox = (int)g.philox; a.B = g.B;                                    \
+    a.ytilde = in(g.ytilde); a.Htilde = in(g.Htilde);                       \
+    a.scales = in(g.scales); a.ahat = in(g.ahat); a.Lb = in(g.Lb);          \
+    a.Ab = in(g.Ab); a.sysb = in(g.sysb);                                   \
+    a.y = g.y; a.u = g.u; a.D = g.D; a.Z = g.Z; a.phi = g.phi;              \
+    a.eps = in(g.eps); a.us = in(g.us);                                     \
+    a.key = (const long long*)g.key; a.out = (R*)g.out;                     \
+    if (g.bsf)                                                              \
       bssm::particle_big_kernel<R, M, true>                                 \
-          <<<(unsigned)B, threads, 0, (cudaStream_t)stream>>>(a);           \
+          <<<(unsigned)g.B, threads, 0, stream>>>(a);                       \
     else                                                                    \
       bssm::particle_big_kernel<R, M, false>                                \
-          <<<(unsigned)B, threads, 0, (cudaStream_t)stream>>>(a);           \
+          <<<(unsigned)g.B, threads, 0, stream>>>(a);                       \
   } while (0)
-  BSSM_DISPATCH(is_double, m, known, LAUNCH);
+  BSSM_DISPATCH(g.is_double, g.m, known, LAUNCH);
 #undef LAUNCH
   if (!known) return -1;
   return (int)cudaGetLastError();

@@ -29,20 +29,29 @@
 // thread, and would read the randomness uncoalesced.  The kernel reads ahat /
 // Lb / Ab in their natural time order and indexes backwards itself: no
 // flipped or padded copies are made.
+#include <string.h>
+
 #include "kalman_common.cuh"
 
 namespace bssm {
 
+// Launch arguments of bssm_psi_logw, packed by ops/cuda_kalman.py in this
+// order (see kalman_common.cuh).  y, u, D and the leaves Z, phi are read
+// where the spec holds them; ytilde, Htilde, scales (B, n); ahat (B, n+1,
+// m); Lb, Ab (B, n+1, m, m); eps (B, n+1, N, m); us (B, n, N); logw (B,),
+// all contiguous.  `threads` is a multiple of 32; one warp serves one row.
+struct PsiArgs {
+  long long is_double, m, dist, N, B, n;
+  SeriesArg y, u, D;
+  LeafArg Z, phi;
+  long long ytilde, Htilde, scales, ahat, Lb, Ab, eps, us, logw;
+  long long threads, stream;
+};
+
 template <typename R, int M>
-__global__ void psi_logw_kernel(
-    int dist, int N, long B, int n, const R* __restrict__ ytilde,
-    const R* __restrict__ Htilde, const R* __restrict__ y, long y_bs,
-    const R* __restrict__ u, long u_bs, const R* __restrict__ scales,
-    const R* __restrict__ D, long D_bs, long D_ts,
-    const R* __restrict__ zphi, const R* __restrict__ ahat,
-    const R* __restrict__ Lb, const R* __restrict__ Ab,
-    const R* __restrict__ eps, const R* __restrict__ us,
-    R* __restrict__ logw) {
+__global__ void psi_logw_kernel(const PsiArgs a) {
+  const long B = a.B;
+  const int N = (int)a.N, n = (int)a.n, dist = (int)a.dist;
   const long b = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (b >= B) return;  // warp-uniform
@@ -52,20 +61,23 @@ __global__ void psi_logw_kernel(
   const R tiny = R(1e-35);
 
   R Z[M];
+  const R* Zb = leaf_row<R>(a.Z, b);
 #pragma unroll
-  for (int i = 0; i < M; ++i) Z[i] = zphi[b * (M + 1) + i];
-  const R phi = zphi[b * (M + 1) + M];
-  ytilde += b * (long)n;
-  Htilde += b * (long)n;
-  scales += b * (long)n;
-  y += b * y_bs;
-  u += b * u_bs;
-  D += b * D_bs;
-  ahat += b * (long)(n + 1) * M;
-  Lb += b * (long)(n + 1) * MM;
-  Ab += b * (long)(n + 1) * MM;
-  eps += b * (long)(n + 1) * N * M;
-  us += b * (long)n * N;
+  for (int i = 0; i < M; ++i) Z[i] = Zb[i];
+  const R phi = leaf_row<R>(a.phi, b)[0];
+  const auto in = [](long long p) { return reinterpret_cast<const R*>(p); };
+  const R* __restrict__ ytilde = in(a.ytilde) + b * (long)n;
+  const R* __restrict__ Htilde = in(a.Htilde) + b * (long)n;
+  const R* __restrict__ scales = in(a.scales) + b * (long)n;
+  const R* __restrict__ y = series_row<R>(a.y, b);
+  const R* __restrict__ u = series_row<R>(a.u, b);
+  const R* __restrict__ D = series_row<R>(a.D, b);
+  const long y_ts = a.y.ts, u_ts = a.u.ts, D_ts = a.D.ts;
+  const R* __restrict__ ahat = in(a.ahat) + b * (long)(n + 1) * M;
+  const R* __restrict__ Lb = in(a.Lb) + b * (long)(n + 1) * MM;
+  const R* __restrict__ Ab = in(a.Ab) + b * (long)(n + 1) * MM;
+  const R* __restrict__ eps = in(a.eps) + b * (long)(n + 1) * N * M;
+  const R* __restrict__ us = in(a.us) + b * (long)n * N;
 
   // ---- step 0: alpha_n ~ N(ahat_n, Lb_n Lb_n'), no observation
   R alpha[M], ah_prev[M];
@@ -122,7 +134,7 @@ __global__ void psi_logw_kernel(
 #pragma unroll
     for (int i = 0; i < M; ++i) ah_prev[i] = ah_t[i];
     // ---- weight
-    const R y_t = y[t];
+    const R y_t = y[t * y_ts];
     if (isfinite(y_t)) {  // warp-uniform
       R sig;
       if (dist == kSvm) {
@@ -132,7 +144,7 @@ __global__ void psi_logw_kernel(
 #pragma unroll
         for (int i = 0; i < M; ++i) sig += Z[i] * alpha[i];
       }
-      const R lw = log_weight<R>(dist, y_t, u[t], phi, sig, ytilde[t],
+      const R lw = log_weight<R>(dist, y_t, u[t * u_ts], phi, sig, ytilde[t],
                                  Htilde[t]) - scales[t];
       const bool alive = active && isfinite(lw);
       const R mx = warp_max<R>(alive ? lw : R(-INFINITY));
@@ -148,36 +160,28 @@ __global__ void psi_logw_kernel(
       nw = inv_n;
     }
   }
-  if (lane == 0) logw[b] = ll;
+  if (lane == 0) reinterpret_cast<R*>(a.logw)[b] = ll;
 }
 
 }  // namespace bssm
 
-// Plain C entry point.  ytilde, Htilde, scales (B, n); y, u, D with batch
-// strides as in bssm_laplace_solve; zphi (B, m + 1) = [Z, phi]; ahat
-// (B, n+1, m); Lb, Ab (B, n+1, m, m); eps (B, n+1, N, m); us (B, n, N);
-// logw (B,).  All contiguous.  `threads` is a multiple of 32; one warp serves
-// one row.
-extern "C" int bssm_psi_logw(int is_double, int m, int dist, int N, long B,
-                             int n, const void* ytilde, const void* Htilde,
-                             const void* y, long y_bs, const void* u,
-                             long u_bs, const void* scales, const void* D,
-                             long D_bs, long D_ts, const void* zphi,
-                             const void* ahat, const void* Lb, const void* Ab,
-                             const void* eps, const void* us, void* logw,
-                             int threads, void* stream) {
-  if (N < 1 || N > 32 || threads % 32 != 0) return -2;
-  const long warps_per_block = threads / 32;
+// Plain C entry point.  `args` points to the packed PsiArgs and `size` is
+// its length in bytes.  Returns the launch's cudaError_t, -1 for an
+// unsupported m, -2 for a struct of another size, N outside 1..32 or a
+// block that is not whole warps.
+extern "C" int bssm_psi_logw(const void* args, long long size) {
+  if (size != (long long)sizeof(bssm::PsiArgs)) return -2;
+  bssm::PsiArgs a;
+  memcpy(&a, args, sizeof a);
+  if (a.N < 1 || a.N > 32 || a.threads % 32 != 0) return -2;
+  const long warps_per_block = a.threads / 32;
   const unsigned blocks =
-      (unsigned)((B + warps_per_block - 1) / warps_per_block);
+      (unsigned)((a.B + warps_per_block - 1) / warps_per_block);
   bool known;
-#define LAUNCH(R, M)                                                         \
-  bssm::psi_logw_kernel<R, M><<<blocks, threads, 0, (cudaStream_t)stream>>>( \
-      dist, N, B, n, (const R*)ytilde, (const R*)Htilde, (const R*)y, y_bs,  \
-      (const R*)u, u_bs, (const R*)scales, (const R*)D, D_bs, D_ts,          \
-      (const R*)zphi, (const R*)ahat, (const R*)Lb, (const R*)Ab,            \
-      (const R*)eps, (const R*)us, (R*)logw)
-  BSSM_DISPATCH(is_double, m, known, LAUNCH);
+#define LAUNCH(R, M)                                                 \
+  bssm::psi_logw_kernel<R, M>                                        \
+      <<<blocks, (unsigned)a.threads, 0, (cudaStream_t)a.stream>>>(a)
+  BSSM_DISPATCH(a.is_double, a.m, known, LAUNCH);
 #undef LAUNCH
   if (!known) return -1;
   return (int)cudaGetLastError();

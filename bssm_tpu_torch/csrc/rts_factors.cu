@@ -16,30 +16,43 @@
 // step) staged time-major in a scratch tensor (coalesced), predicted moments
 // recomputed in the backward pass by the very function the forward pass used
 // (so they agree to the bit), outputs written in place as they are produced.
+#include <string.h>
+
 #include "kalman_common.cuh"
 
 namespace bssm {
 
+// Launch arguments of bssm_rts_factors, packed by ops/cuda_kalman.py in this
+// order (see kalman_common.cuh).  H holds standard deviations.  Outputs ahat
+// (B, n+1, m), Lb and Ab (B, n+1, m, m), contiguous; scratch (n, m + m^2, B).
+struct RtsArgs {
+  long long is_double, m, B, n;
+  SeriesArg y, H, D;
+  SystemArg sys;
+  long long ahat, Lb, Ab, scratch, threads, stream;
+};
+
 template <typename R, int M>
-__global__ void rts_factors_kernel(
-    long B, int n, const R* __restrict__ y, long y_bs,
-    const R* __restrict__ H, long H_bs, long H_ts, const R* __restrict__ D,
-    long D_bs, long D_ts, const R* __restrict__ sys, R* __restrict__ ahat,
-    R* __restrict__ Lb, R* __restrict__ Ab, R* __restrict__ scratch) {
+__global__ void rts_factors_kernel(const RtsArgs g) {
+  const long B = g.B;
+  const int n = (int)g.n;
   const long b = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   constexpr int MM = M * M;
   constexpr int ROWS = M + MM;  // att (M), Ptt (MM)
+  R* const __restrict__ scratch = reinterpret_cast<R*>(g.scratch);
 #define SC(t, r) scratch[((long)(t) * ROWS + (r)) * B + b]
 
   Sys<R, M> s;
-  load_sys<R, M>(s, sys, B, b);
-  y += b * y_bs;
-  H += b * H_bs;
-  D += b * D_bs;
-  ahat += b * (long)(n + 1) * M;
-  Lb += b * (long)(n + 1) * MM;
-  Ab += b * (long)(n + 1) * MM;
+  load_sys_leaves<R, M>(s, g.sys, b);
+  const R* __restrict__ y = series_row<R>(g.y, b);
+  const R* __restrict__ H = series_row<R>(g.H, b);
+  const R* __restrict__ D = series_row<R>(g.D, b);
+  const long y_ts = g.y.ts, H_ts = g.H.ts, D_ts = g.D.ts;
+  const long row = b * (long)(n + 1);  // row b's first step in the outputs
+  R* const __restrict__ ahat = reinterpret_cast<R*>(g.ahat) + row * M;
+  R* const __restrict__ Lb = reinterpret_cast<R*>(g.Lb) + row * MM;
+  R* const __restrict__ Ab = reinterpret_cast<R*>(g.Ab) + row * MM;
 
   // ---- forward filter, staging the filtered moments
   R a[M], P[MM];
@@ -50,8 +63,8 @@ __global__ void rts_factors_kernel(
   for (int t = 0; t < n; ++t) {
     const R h = H[t * H_ts];
     R v, Fs, okf, inc, att[M], Ptt[MM];
-    kf_step<R, M>(s, a, P, y[t], h * h, D[t * D_ts], v, Fs, okf, inc, att,
-                  Ptt);
+    kf_step<R, M>(s, a, P, y[t * y_ts], h * h, D[t * D_ts], v, Fs, okf,
+                  inc, att, Ptt);
 #pragma unroll
     for (int i = 0; i < M; ++i) SC(t, i) = att[i];
 #pragma unroll
@@ -171,23 +184,19 @@ __global__ void rts_factors_kernel(
 
 }  // namespace bssm
 
-// Plain C entry point; strides as in bssm_laplace_solve.  `sys` is the packed
-// (rows, B) system tensor [Z, T, RR, a1, P1, C]; H holds standard deviations.
-// Outputs ahat (B, n+1, m), Lb and Ab (B, n+1, m, m), contiguous.
-extern "C" int bssm_rts_factors(int is_double, int m, long B, int n,
-                                const void* y, long y_bs, const void* H,
-                                long H_bs, long H_ts, const void* D, long D_bs,
-                                long D_ts, const void* sys, void* ahat,
-                                void* Lb, void* Ab, void* scratch, int threads,
-                                void* stream) {
-  const unsigned blocks = (unsigned)((B + threads - 1) / threads);
+// Plain C entry point.  `args` points to the packed RtsArgs and `size` is
+// its length in bytes.  Returns the launch's cudaError_t, -1 for an
+// unsupported m, -2 when `size` is not the struct's.
+extern "C" int bssm_rts_factors(const void* args, long long size) {
+  if (size != (long long)sizeof(bssm::RtsArgs)) return -2;
+  bssm::RtsArgs a;
+  memcpy(&a, args, sizeof a);
+  const unsigned blocks = (unsigned)((a.B + a.threads - 1) / a.threads);
   bool known;
-#define LAUNCH(R, M)                                                        \
-  bssm::rts_factors_kernel<R, M>                                            \
-      <<<blocks, threads, 0, (cudaStream_t)stream>>>(                       \
-          B, n, (const R*)y, y_bs, (const R*)H, H_bs, H_ts, (const R*)D,    \
-          D_bs, D_ts, (const R*)sys, (R*)ahat, (R*)Lb, (R*)Ab, (R*)scratch)
-  BSSM_DISPATCH(is_double, m, known, LAUNCH);
+#define LAUNCH(R, M)                                                  \
+  bssm::rts_factors_kernel<R, M>                                      \
+      <<<blocks, (unsigned)a.threads, 0, (cudaStream_t)a.stream>>>(a)
+  BSSM_DISPATCH(a.is_double, a.m, known, LAUNCH);
 #undef LAUNCH
   if (!known) return -1;
   return (int)cudaGetLastError();

@@ -41,6 +41,17 @@ error and raises, does not synchronise, and adds one to its entry of
 ``LAUNCHES``.  Given tensors on the CPU it calls the plain version; given
 CUDA tensors it launches the kernel or raises.  Nothing falls back.
 
+The kernels read the spec where it lies: every series as (pointer, batch
+stride, time stride) (``_strided``), every time-invariant leaf as (pointer,
+batch stride) (``system_leaves``), so no system is packed and no series is
+transposed or copied; the kernels that need R R' form it themselves, and
+every wrapper but ``philox_fill`` hands its arguments over as one packed
+struct (``_call``).  The bootstrap mode alone gets one host-built tensor,
+the Cholesky factor of P1 with R, T, a1 and C beside it
+(``pack_bootstrap_system``).  The Kalman log-likelihood kernel applies the
+degenerate-model rule itself; on the card ``log_likelihood`` and
+``laplace_solve`` are one allocation and one launch a call.
+
 Build: at the first CUDA call, ``nvcc`` compiles every ``csrc/*.cu`` (one
 process per source, started together) for ``sm_90a`` and links them into
 ``bssm_tpu_torch/_build/libbssm_kernels.so``, which is loaded with
@@ -50,13 +61,15 @@ Importing this module needs neither ``nvcc`` nor a GPU.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -70,11 +83,25 @@ LIB_NAME = "libbssm_kernels.so"
 MAX_M = 4
 MAX_N_PSI = 32
 MAX_N_BIG = 512
-# Threads per block.  The row-per-thread kernels use blocks of one warp so
-# that a few thousand rows still spread over every SM; psi_logw gives each
-# row a warp, four rows to a block.
+# Threads per block.  The row-per-thread kernels use blocks of at most one
+# warp so that a few thousand rows still spread over every SM; psi_logw
+# gives each row a warp, four rows to a block.
 THREADS_PER_ROW_BLOCK = 32
 THREADS_PSI_BLOCK = 128
+# dynamic shared memory a laplace_solve block may use on sm_90 (227 KB less
+# the kernel's own 128 bytes), the shared memory of one SM (228 KB), what a
+# block takes of it beside its dynamic share (the system's 1 KB and those
+# 128 bytes), the most blocks an SM holds, and the budget of the
+# log_likelihood kernel's D tile (inside the default 48 KB)
+SMEM_LIMIT = 232448 - 128
+SMEM_PER_SM = 233472
+SMEM_RESERVED = 1024 + 128
+MAX_BLOCKS_PER_SM = 32
+TILE_BYTES = 48 * 1024
+# laplace_solve: the most waves of shared-staged blocks for which shared
+# memory is chosen over device memory, where every row is resident at once;
+# chip_smoke.py's staging sweep times both (PERF.md)
+SHARED_WAVES = 1
 
 # launches of each kernel since the last reset_launch_counts()
 LAUNCHES = {"log_likelihood": 0, "fast_smoother_ll": 0, "laplace_solve": 0,
@@ -181,52 +208,14 @@ def _load():
     if _lib is not None:
         return _lib
     lib = ctypes.CDLL(str(build()))
-    P, L, I, Dbl = (ctypes.c_void_p, ctypes.c_long, ctypes.c_int,
-                    ctypes.c_double)
-    for fn in (lib.bssm_kalman_ll, lib.bssm_fast_smoother_ll):
+    P, L, I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
+    # the kernels that take a packed argument struct: (bytes, its length)
+    for fn in (lib.bssm_kalman_ll, lib.bssm_fast_smoother_ll,
+               lib.bssm_laplace_solve, lib.bssm_laplace_step,
+               lib.bssm_rts_factors, lib.bssm_psi_logw,
+               lib.bssm_particle_big):
         fn.restype = I
-    series = [P, L, L] * 3        # y, h2, D, each with batch and time stride
-    lib.bssm_kalman_ll.argtypes = [
-        I, I, L, I, *series,      # is_double, m, B, n
-        P, P, I, P]               # sys, ll, threads, stream
-    lib.bssm_fast_smoother_ll.argtypes = [
-        I, I, L, I, *series,
-        P, P, P, P, I, P]         # sys, alpha, ll, scratch, threads, stream
-    lib.bssm_laplace_solve.restype = I
-    lib.bssm_laplace_solve.argtypes = [
-        I, I, I, L, I,            # is_double, m, dist, B, n
-        P, L, P, L, P, L, L,      # y, u, D (+strides)
-        P, L, P,                  # mode0 (+stride), sys
-        Dbl, I,                   # conv_tol, max_iter
-        P, P, P, P, P, P,         # mode, prev, ll, niter, diff, scratch
-        I, P]                     # threads, stream
-    lib.bssm_laplace_step.restype = I
-    lib.bssm_laplace_step.argtypes = [
-        I, I, I, L, I,            # is_double, m, dist, B, n
-        P, L, P, L, P, L, L,      # y, u, D (+strides)
-        P, L, P,                  # mode (+stride), sys
-        P, P, P, P,               # new mode, ll, diff, scratch
-        I, P]                     # threads, stream
-    lib.bssm_rts_factors.restype = I
-    lib.bssm_rts_factors.argtypes = [
-        I, I, L, I,               # is_double, m, B, n
-        P, L, P, L, L, P, L, L,   # y, H, D (+strides)
-        P, P, P, P, P,            # sys, ahat, Lb, Ab, scratch
-        I, P]
-    lib.bssm_psi_logw.restype = I
-    lib.bssm_psi_logw.argtypes = [
-        I, I, I, I, L, I,         # is_double, m, dist, N, B, n
-        P, P, P, L, P, L, P,      # ytilde, Htilde, y, u, scales
-        P, L, L, P,               # D (+strides), zphi
-        P, P, P, P, P, P,         # ahat, Lb, Ab, eps, us, logw
-        I, P]
-    lib.bssm_particle_big.restype = I
-    lib.bssm_particle_big.argtypes = [
-        I, I, I, I, I, I,         # is_double, m, dist, bsf, philox, N
-        L, I, I,                  # B, S, kk
-        P, P, P, P, P, P, P,      # ytilde, Htilde, scales, ahat, Lb, Ab, sysb
-        P, L, P, L, P, L, L,      # y, u, D (+strides)
-        P, P, P, P, P, P]         # zphi, eps, us, key, out, stream
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_longlong]
     lib.bssm_philox_fill.restype = I
     lib.bssm_philox_fill.argtypes = [I, I, L, I, I, P, P, P, P]
     lib.bssm_error_string.restype = ctypes.c_char_p
@@ -258,7 +247,7 @@ def _check_system(spec) -> None:
     if m > MAX_M:
         raise NotImplementedError(f"kernels support m <= {MAX_M}, got {m}")
     for name, nd in (("Z", 2), ("T", 3), ("R", 3), ("C", 2)):
-        if with_batch(getattr(spec, name), nd).shape[1] != 1:
+        if getattr(spec, name).shape[-nd] != 1:
             raise NotImplementedError(
                 f"kernels need a time-invariant {name}")
 
@@ -275,31 +264,92 @@ def _check_tensors(tensors, ref: torch.Tensor) -> None:
                             f"{ref.dtype}")
 
 
-def pack_system(spec, B: int, with_phi: bool) -> torch.Tensor:
-    """The time-invariant system as one ``(rows, B)`` tensor, rows =
-    [Z (m), T (m^2), RR (m^2), a1 (m), P1 (m^2), C (m)] (+ [phi]): batch
-    innermost so that neighbouring threads read neighbouring addresses."""
-    R = with_batch(spec.R, 3)[:, 0]
-    leaves = [with_batch(spec.Z, 2)[:, 0], with_batch(spec.T, 3)[:, 0],
-              R @ R.transpose(-1, -2), with_batch(spec.a1, 1),
-              with_batch(spec.P1, 2), with_batch(spec.C, 2)[:, 0]]
-    if with_phi:
-        leaves.append(with_batch(spec.phi, 0))
-    rows = [x.reshape(x.shape[0], -1).expand(B, -1).T for x in leaves]
-    return torch.cat(rows, dim=0).contiguous()
+# the leaves of the spec the kernels read: field -> (axes after the batch
+# axis, whether the first of them is a time axis of size 1)
+_LEAVES = {"Z": (2, True), "T": (3, True), "R": (3, True), "a1": (1, False),
+           "P1": (2, False), "C": (2, True), "phi": (0, False)}
+SYSTEM = ("Z", "T", "R", "a1", "P1", "C")
 
 
-def _series(x: torch.Tensor, B: int, name: str):
-    """(tensor, batch stride, time stride) of a per-time leaf ``(nt,)`` or
-    ``(b, nt)`` with nt in {1, n}: a shared leaf gets batch stride 0, a
-    constant one time stride 0."""
-    x = with_batch(x, 1)
-    if x.shape[0] not in (1, B):
-        raise ValueError(f"{name}: batch {x.shape[0]} does not match {B}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    nt = x.shape[1]
-    return x, (nt if x.shape[0] > 1 else 0), (1 if nt > 1 else 0)
+def _core_contiguous(shape, stride) -> bool:
+    expect = 1
+    for size, st in zip(reversed(shape), reversed(stride)):
+        if size != 1 and st != expect:
+            return False
+        expect *= size
+    return True
+
+
+def system_leaves(spec, B: int, names=SYSTEM):
+    """The time-invariant leaves ``names`` (default the system Z, T, R, a1,
+    P1, C; ``phi`` may be added) as the kernels read them: ``[(name, tensor,
+    batch stride)]``, the spec's own tensors.  Element i of row b of a leaf
+    is read at ``tensor.data_ptr()`` + (b * stride + i) elements, i running
+    over the leaf's core (the axes after batch and time) in row-major order;
+    a leaf shared by all rows, or an expand view, has stride 0.  A leaf is
+    copied only when its core is not contiguous.  The kernels form R R'
+    from R."""
+    out = []
+    for name in names:
+        core, timed = _LEAVES[name]
+        x = getattr(spec, name)
+        nb = x.dim() - core
+        if nb not in (0, 1):
+            raise ValueError(f"{name}: expected {core} or {core + 1} axes, "
+                             f"got shape {tuple(x.shape)}")
+        b = x.shape[0] if nb else 1
+        if b not in (1, B):
+            raise ValueError(f"{name}: batch {b} does not match {B}")
+        start = nb + int(timed)
+        if not _core_contiguous(x.shape[start:], x.stride()[start:]):
+            x = x.contiguous()
+        out.append((name, x, x.stride(0) if b > 1 else 0))
+    return out
+
+
+def _leaf_args(spec, B: int, names):
+    """The ``LeafArg`` fields (pointer, batch stride) of the leaves
+    ``names``, and the leaves, which the caller keeps alive until the
+    launch."""
+    leaves = system_leaves(spec, B, names)
+    flat = []
+    for _, x, bs in leaves:
+        flat += [x.data_ptr(), bs]
+    return flat, leaves
+
+
+def _system_args(spec, B: int, with_phi: bool):
+    """The ``SystemArg`` fields of ``csrc/kalman_common.cuh`` (the leaves,
+    phi's zero when absent, the columns of R) and the leaves to keep alive
+    until the launch."""
+    flat, leaves = _leaf_args(spec, B, SYSTEM + (("phi",) if with_phi
+                                                 else ()))
+    if not with_phi:
+        flat += [0, 0]
+    return flat + [spec.R.shape[-1]], leaves
+
+
+def _strided(x: torch.Tensor, B: int, n: int, name: str,
+             full: bool = False) -> list:
+    """The ``SeriesArg`` fields ``[pointer, batch stride, time stride]`` of
+    a per-time leaf ``(nt,)`` or ``(b, nt)``, b in {1, B}, nt in {1, n}
+    (``full``: nt = n): the kernel reads value t of row b at
+    ``x[b * bs + t * ts]``, whatever the strides, so nothing is copied; a
+    shared leaf has bs = 0, a constant one ts = 0."""
+    if x.dim() == 1:
+        (nt,), (st_t,) = x.shape, x.stride()
+        b, st_b = 1, 0
+    elif x.dim() == 2:
+        (b, nt), (st_b, st_t) = x.shape, x.stride()
+    else:
+        raise ValueError(f"{name}: expected 1 or 2 axes, got shape "
+                         f"{tuple(x.shape)}")
+    if b not in (1, B):
+        raise ValueError(f"{name}: batch {b} does not match {B}")
+    if nt != n and (full or nt != 1):
+        raise ValueError(f"{name}: {nt} time points, expected {n}"
+                         + ("" if full else " or 1"))
+    return [x.data_ptr(), st_b if b > 1 else 0, st_t if nt > 1 else 0]
 
 
 def _dense(x: torch.Tensor, shape, name: str) -> torch.Tensor:
@@ -311,60 +361,74 @@ def _dense(x: torch.Tensor, shape, name: str) -> torch.Tensor:
     return x
 
 
-def _series_time_major(x: torch.Tensor, B: int, name: str):
-    """As ``_series``, with a series that varies over rows and time laid out
-    time-major ``(n, B)`` (batch stride 1, time stride B)."""
-    x, bs, ts = _series(x, B, name)
-    if bs and ts:
-        return x.T.contiguous(), 1, B
-    return x, bs, ts
-
-
-def _zphi(spec, B: int) -> torch.Tensor:
-    """``(B, m + 1)`` rows [Z, phi] of the time-invariant observation
-    vector and the family's auxiliary parameter."""
-    return torch.cat([with_batch(spec.Z, 2)[:, 0].expand(B, spec.m),
-                      with_batch(spec.phi, 0).expand(B)[:, None]],
-                     dim=1).contiguous()
-
-
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# The argument structs of csrc/ (LaplaceArgs, StepArgs, KalmanArgs, RtsArgs,
+# PsiArgs, BigLaunch), field for field: "q" a 64-bit integer or pointer, "d"
+# a double.
+_SOLVE_ARGS = struct.Struct("=32qd7q")
+_STEP_ARGS = struct.Struct("=37q")
+_KALMAN_ARGS = struct.Struct("=34q")
+_RTS_ARGS = struct.Struct("=34q")
+_PSI_ARGS = struct.Struct("=30q")
+_BIG_ARGS = struct.Struct("=34q")
+
+
+def _call(fn, layout: struct.Struct, *fields) -> int:
+    """Calls a C entry that takes its packed argument struct."""
+    return fn(layout.pack(*fields), layout.size)
 
 
 # ---------------------------------------------------------------------------
 # K6 / K7: Kalman log-likelihood and fast smoother of linear-Gaussian models
 # ---------------------------------------------------------------------------
 
+def kalman_tile(n: int, itemsize: int) -> tuple:
+    """``(chunk, shared bytes)`` of the D tile of the ``log_likelihood``
+    kernel, for an intercept that varies over rows and time: the block's
+    ``THREADS_PER_ROW_BLOCK`` rows of D in shared memory, all n steps at
+    once when that fits in ``TILE_BYTES``, else two buffers of the largest
+    odd chunk that fits (a tile row's leading dimension is the chunk made
+    odd)."""
+    rows = THREADS_PER_ROW_BLOCK
+    whole = rows * (n | 1) * itemsize
+    if whole <= TILE_BYTES:
+        return n, whole
+    chunk = TILE_BYTES // (2 * rows * itemsize)
+    chunk -= 1 - chunk % 2
+    return chunk, 2 * rows * chunk * itemsize
+
+
 def _lg_launch(name: str, g: LGSpec, smooth: bool):
-    """Checks, packs and launches one of the two linear-Gaussian kernels;
-    returns ``ll`` or ``(alpha, ll)``, the log-likelihood before the
-    degenerate-model rule."""
+    """Checks and launches one of the two linear-Gaussian kernels on the
+    spec's own tensors; returns ``ll`` or ``(alpha, ll)``, with the
+    degenerate-model rule applied by the kernel."""
     _check_system(g)
     B, n, m = _batch(g), g.n, g.m
     dt, dev = g.y.dtype, g.y.device
     _check_tensors([("H", g.H), ("D", g.D), ("Z", g.Z), ("T", g.T),
                     ("R", g.R), ("a1", g.a1), ("P1", g.P1), ("C", g.C)], g.y)
-    series = []
-    for nm, x in (("y", g.y), ("H^2", g.HH), ("D", g.D)):
-        x, bs, ts = _series_time_major(x, B, nm)
-        series += [x, bs, ts]
-    args = [a.data_ptr() if torch.is_tensor(a) else a for a in series]
-    sys_t = pack_system(g, B, with_phi=False)
+    D = _strided(g.D, B, n, "D")
+    series = _strided(g.y, B, n, "y", full=True) \
+        + _strided(g.H, B, n, "H") + D
+    sys_args, keep = _system_args(g, B, with_phi=False)
+    chunk, smem = kalman_tile(n, g.y.element_size()) \
+        if D[1] and D[2] and not smooth else (0, 0)
     ll = torch.empty((B,), dtype=dt, device=dev)
+    alpha = scratch = None
+    if smooth:
+        alpha = torch.empty((B, n + 1, m), dtype=dt, device=dev)
+        scratch = torch.empty((n, 3 + m + m * m, B), dtype=dt, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
-        if smooth:
-            alpha = torch.empty((B, n + 1, m), dtype=dt, device=dev)
-            scratch = torch.empty((n, 3 + m + m * m, B), dtype=dt, device=dev)
-            code = lib.bssm_fast_smoother_ll(
-                int(dt == torch.float64), m, B, n, *args, sys_t.data_ptr(),
-                alpha.data_ptr(), ll.data_ptr(), scratch.data_ptr(),
-                THREADS_PER_ROW_BLOCK, _stream(dev))
-        else:
-            code = lib.bssm_kalman_ll(
-                int(dt == torch.float64), m, B, n, *args, sys_t.data_ptr(),
-                ll.data_ptr(), THREADS_PER_ROW_BLOCK, _stream(dev))
+        code = _call(
+            lib.bssm_fast_smoother_ll if smooth else lib.bssm_kalman_ll,
+            _KALMAN_ARGS, int(dt == torch.float64), m, B, n, *series,
+            *sys_args, ll.data_ptr(), 0 if alpha is None else alpha.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), chunk, smem,
+            _stream(dev))
     _check_launch(lib, code, name)
     LAUNCHES[name] += 1
     return (alpha, ll) if smooth else ll
@@ -374,13 +438,12 @@ def log_likelihood(g: LGSpec) -> torch.Tensor:
     """Kalman log-likelihood ``(B,)`` of every batch row of the
     linear-Gaussian model ``g``: the target of linear-Gaussian MCMC.  A row
     is degenerate (-inf) by the rule of the JAX package's kernel wrapper,
-    ``ops/kalman.degenerate_h2rr``, on either device."""
+    ``ops/kalman.degenerate_h2rr``, on either device; on the card the
+    kernel applies it, and a call is one launch."""
     from . import kalman
     if not g.y.is_cuda:
         return kalman.log_likelihood(g, degenerate=kalman.degenerate_h2rr)
-    ll = _lg_launch("log_likelihood", g, smooth=False)
-    return torch.where(kalman.degenerate_h2rr(g),
-                       torch.full_like(ll, -torch.inf), ll)
+    return _lg_launch("log_likelihood", g, smooth=False)
 
 
 def fast_smoother_ll(g: LGSpec):
@@ -390,72 +453,135 @@ def fast_smoother_ll(g: LGSpec):
     from . import kalman
     if not g.y.is_cuda:
         return kalman.fast_smoother_ll(g, degenerate=kalman.degenerate_h2rr)
-    alpha, ll = _lg_launch("fast_smoother_ll", g, smooth=True)
-    return alpha, torch.where(kalman.degenerate_h2rr(g),
-                              torch.full_like(ll, -torch.inf), ll)
+    return _lg_launch("fast_smoother_ll", g, smooth=True)
 
 
 # ---------------------------------------------------------------------------
 # K1: whole Laplace mode iteration
 # ---------------------------------------------------------------------------
 
-def _laplace_inputs(name: str, spec: NGSpec, mode: torch.Tensor, B: int):
-    """Checks of the two Laplace kernels; returns the launch arguments of
-    the series y, u, D and the mode (pointer, batch stride [, time stride])
-    and the packed system."""
+class Staging(NamedTuple):
+    """Where the ``laplace_solve`` kernel stages a pass."""
+    rows: int          # rows of the batch a block takes, one thread each
+    shared: bool       # in shared memory (else in a device-memory scratch)
+    smem_bytes: int    # dynamic shared memory of a block (0: device memory)
+    block_elems: int   # staged values of a block (shared) or of a row
+
+
+def staging_options(n: int, m: int, itemsize: int):
+    """``(shared, device)``: the two stagings of ``csrc/laplace_solve.cu``
+    for series of length n, state dimension m and values of ``itemsize``
+    bytes.  A row stages (3 + m + m^2) n pass values and two mode buffers.
+    In shared memory (``block_elems`` values a block) the buffers have
+    (n | 1) values and a block adds y and u, 2 n values; a block takes
+    min(32, what fits in ``SMEM_LIMIT``) rows (None where not even one row
+    fits).  In device memory (``block_elems`` values a row) the buffers
+    have n values, blocks have 32 rows, and the scratch holds the batch
+    rounded up to 32 rows."""
+    row = (3 + m + m * m) * n + 2 * (n | 1)
+    fixed = 2 * n
+    most = THREADS_PER_ROW_BLOCK
+    rows = min(most, (SMEM_LIMIT // itemsize - fixed) // row)
+    shared = None
+    if rows >= 1:
+        elems = rows * row + fixed
+        shared = Staging(rows, True, elems * itemsize, elems)
+    return shared, Staging(most, False, 0, (5 + m + m * m) * n)
+
+
+def shared_waves(st: Staging, B: int, sms: int) -> int:
+    """Waves in which the blocks of the shared staging ``st`` run over B
+    rows on ``sms`` multiprocessors."""
+    per_sm = min(MAX_BLOCKS_PER_SM,
+                 SMEM_PER_SM // (st.smem_bytes + SMEM_RESERVED))
+    return -(-(-(-B // st.rows)) // (sms * per_sm))
+
+
+def laplace_staging(n: int, m: int, itemsize: int, B: int,
+                    sms: int) -> Staging:
+    """The staging ``laplace_solve`` uses for B rows on a card of ``sms``
+    multiprocessors (``staging_options``): shared memory while its blocks
+    run in at most ``SHARED_WAVES`` waves, else device memory, where every
+    row is resident at once.  Each wave of the shared staging costs a whole
+    dependent chain of passes, so it loses once it needs a second."""
+    shared, device = staging_options(n, m, itemsize)
+    if shared is not None and shared_waves(shared, B, sms) <= SHARED_WAVES:
+        return shared
+    return device
+
+
+def _align32(k: int) -> int:
+    return -(-k // 32) * 32
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _laplace_args(name: str, spec: NGSpec, mode: torch.Tensor, B: int,
+                  batch: Optional[int]):
+    """Checks of the two Laplace kernels (``batch`` is ``spec.batch``);
+    returns the ``SeriesArg`` fields of y, u, D and the mode, the
+    ``SystemArg`` fields, and the leaves to keep alive until the launch."""
     _check_system(spec)
     if not SVM <= spec.distribution <= GAMMA:
         raise NotImplementedError(
             f"{name}: unsupported family {spec.distribution}")
-    if spec.batch not in (None, 1, B):
-        raise ValueError(f"{name}: spec batch {spec.batch} does not match "
+    if batch not in (None, 1, B):
+        raise ValueError(f"{name}: spec batch {batch} does not match "
                          f"the {B} rows of the mode")
     _check_tensors([("u", spec.u), ("D", spec.D), ("mode", mode),
                     ("Z", spec.Z), ("T", spec.T), ("R", spec.R),
                     ("a1", spec.a1), ("P1", spec.P1), ("C", spec.C),
                     ("phi", spec.phi)], spec.y)
-    y, y_bs, _ = _series(spec.y, B, "y")
-    u, u_bs, _ = _series(spec.u, B, "u")
-    D, D_bs, D_ts = _series(spec.D, B, "D")
-    mode, m_bs, _ = _series(mode, B, "mode")
-    if mode.shape[1] != spec.n or u.shape[1] != spec.n:
-        raise ValueError(f"{name}: u and the mode must have the length of y")
-    series = [y.data_ptr(), y_bs, u.data_ptr(), u_bs, D.data_ptr(), D_bs,
-              D_ts, mode.data_ptr(), m_bs]
-    return series, pack_system(spec, B, with_phi=True)
+    n = spec.n
+    series = _strided(spec.y, B, n, "y", full=True) \
+        + _strided(spec.u, B, n, "u", full=True) \
+        + _strided(spec.D, B, n, "D") \
+        + _strided(mode, B, n, "mode", full=True)
+    sys_args, keep = _system_args(spec, B, with_phi=True)
+    return series + sys_args, keep
 
 
 def laplace_solve(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
-                  max_iter: int):
+                  max_iter: int, staging: Optional[Staging] = None):
     """Laplace mode iteration of every batch row, to per-row convergence.
 
     Returns ``(mode (B, n), prev (B, n), niter (B,) int32, diff (B,),
     ll (B,))``: the converged signal mode, the mode the last pass linearised
     at, the passes used, the last mean-squared change and the Kalman
-    log-likelihood of the last pass's approximating model."""
+    log-likelihood of the last pass's approximating model.  On the card the
+    five are views of one allocation, and a call is one launch, staged as
+    ``laplace_staging`` chooses unless ``staging`` says otherwise (the kernel
+    refuses a geometry that does not match n and m)."""
     if not spec.y.is_cuda:
         from ..inference.approx import laplace_solve_plain
         return laplace_solve_plain(spec, mode0, conv_tol, max_iter)
-    B, n, m = _batch(spec), spec.n, spec.m
+    batch = spec.batch
+    B, n, m = batch or 1, spec.n, spec.m
     dt, dev = spec.y.dtype, spec.y.device
-    series, sys_t = _laplace_inputs("laplace_solve", spec, mode0, B)
-    mode = torch.empty((B, n), dtype=dt, device=dev)
-    prev = torch.empty((B, n), dtype=dt, device=dev)
-    ll = torch.empty((B,), dtype=dt, device=dev)
-    diff = torch.empty((B,), dtype=dt, device=dev)
-    niter = torch.empty((B,), dtype=torch.int32, device=dev)
-    scratch = torch.empty((n, 5 + m + m * m, B), dtype=dt, device=dev)
+    args, keep = _laplace_args("laplace_solve", spec, mode0, B, batch)
+    st = staging or laplace_staging(n, m, spec.y.element_size(), B,
+                                    _sm_count(dev.index))
+    Bn = B * n
+    nout = 2 * Bn + 3 * B
+    # device-memory staging: from a line of 32 values on, 32-row aligned
+    size = nout if st.shared \
+        else _align32(nout) + _align32(B) * st.block_elems
+    buf = torch.empty((size,), dtype=dt, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
-        code = lib.bssm_laplace_solve(
-            int(dt == torch.float64), m, int(spec.distribution), B, n,
-            *series, sys_t.data_ptr(), float(conv_tol), int(max_iter),
-            mode.data_ptr(), prev.data_ptr(), ll.data_ptr(),
-            niter.data_ptr(), diff.data_ptr(), scratch.data_ptr(),
-            THREADS_PER_ROW_BLOCK, _stream(dev))
+        code = _call(lib.bssm_laplace_solve, _SOLVE_ARGS,
+                     int(dt == torch.float64), m,
+                     int(spec.distribution), B, n, *args, float(conv_tol),
+                     int(max_iter), buf.data_ptr(), st.rows, int(st.shared),
+                     st.smem_bytes, st.block_elems, _stream(dev))
     _check_launch(lib, code, "laplace_solve")
     LAUNCHES["laplace_solve"] += 1
-    return mode, prev, niter, diff, ll
+    return (buf[:Bn].view(B, n), buf[Bn:2 * Bn].view(B, n),
+            buf[2 * Bn + 2 * B:nout].view(torch.int32)[:B],
+            buf[2 * Bn + B:2 * Bn + 2 * B], buf[2 * Bn:2 * Bn + B])
 
 
 # ---------------------------------------------------------------------------
@@ -473,18 +599,18 @@ def laplace_step(spec: NGSpec, mode: torch.Tensor):
         return _laplace_step(spec, mode)
     B, n, m = with_batch(mode, 1).shape[0], spec.n, spec.m
     dt, dev = spec.y.dtype, spec.y.device
-    series, sys_t = _laplace_inputs("laplace_step", spec, mode, B)
+    args, keep = _laplace_args("laplace_step", spec, mode, B, spec.batch)
     new_mode = torch.empty((B, n), dtype=dt, device=dev)
     ll = torch.empty((B,), dtype=dt, device=dev)
     diff = torch.empty((B,), dtype=dt, device=dev)
     scratch = torch.empty((n, 3 + m + m * m, B), dtype=dt, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
-        code = lib.bssm_laplace_step(
-            int(dt == torch.float64), m, int(spec.distribution), B, n,
-            *series, sys_t.data_ptr(), new_mode.data_ptr(), ll.data_ptr(),
-            diff.data_ptr(), scratch.data_ptr(), THREADS_PER_ROW_BLOCK,
-            _stream(dev))
+        code = _call(lib.bssm_laplace_step, _STEP_ARGS,
+                     int(dt == torch.float64), m,
+                     int(spec.distribution), B, n, *args,
+                     new_mode.data_ptr(), ll.data_ptr(), diff.data_ptr(),
+                     scratch.data_ptr(), _stream(dev))
     _check_launch(lib, code, "laplace_step")
     LAUNCHES["laplace_step"] += 1
     return new_mode, ll, diff
@@ -505,21 +631,19 @@ def rts_factors(g: LGSpec):
     dt, dev = g.y.dtype, g.y.device
     _check_tensors([("H", g.H), ("D", g.D), ("Z", g.Z), ("T", g.T),
                     ("R", g.R), ("a1", g.a1), ("P1", g.P1), ("C", g.C)], g.y)
-    y, y_bs, _ = _series(g.y, B, "y")
-    H, H_bs, H_ts = _series(g.H, B, "H")
-    D, D_bs, D_ts = _series(g.D, B, "D")
-    sys_t = pack_system(g, B, with_phi=False)
+    series = _strided(g.y, B, n, "y", full=True) \
+        + _strided(g.H, B, n, "H") + _strided(g.D, B, n, "D")
+    sys_args, keep = _system_args(g, B, with_phi=False)
     ahat = torch.empty((B, n + 1, m), dtype=dt, device=dev)
     Lb = torch.empty((B, n + 1, m, m), dtype=dt, device=dev)
     Ab = torch.empty((B, n + 1, m, m), dtype=dt, device=dev)
     scratch = torch.empty((n, m + m * m, B), dtype=dt, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
-        code = lib.bssm_rts_factors(
-            int(dt == torch.float64), m, B, n, y.data_ptr(), y_bs,
-            H.data_ptr(), H_bs, H_ts, D.data_ptr(), D_bs, D_ts,
-            sys_t.data_ptr(), ahat.data_ptr(), Lb.data_ptr(), Ab.data_ptr(),
-            scratch.data_ptr(), THREADS_PER_ROW_BLOCK, _stream(dev))
+        code = _call(lib.bssm_rts_factors, _RTS_ARGS,
+                     int(dt == torch.float64), m, B, n, *series, *sys_args,
+                     ahat.data_ptr(), Lb.data_ptr(), Ab.data_ptr(),
+                     scratch.data_ptr(), THREADS_PER_ROW_BLOCK, _stream(dev))
     _check_launch(lib, code, "rts_factors")
     LAUNCHES["rts_factors"] += 1
     return ahat, Lb, Ab
@@ -555,27 +679,21 @@ def psi_logw(spec: NGSpec, al, ahat: torch.Tensor, Lb: torch.Tensor,
                     ("phi", spec.phi), ("ytilde", yt), ("Htilde", Ht),
                     ("scales", sc), ("ahat", ahat), ("Lb", Lb), ("Ab", Ab),
                     ("eps", eps), ("us", us)], spec.y)
-    y, y_bs, _ = _series(spec.y, B, "y")
-    u, u_bs, _ = _series(spec.u, B, "u")
-    D, D_bs, D_ts = _series(spec.D, B, "D")
-    yt = _dense(yt, (B, n), "ytilde")
-    Ht = _dense(Ht, (B, n), "Htilde")
-    sc = _dense(sc, (B, n), "scales")
-    ahat = _dense(ahat, (B, n + 1, m), "ahat")
-    Lb = _dense(Lb, (B, n + 1, m, m), "Lb")
-    Ab = _dense(Ab, (B, n + 1, m, m), "Ab")
-    eps = _dense(eps, (B, n + 1, N, m), "eps")
-    us = _dense(us, (B, n, N), "us")
-    zphi = _zphi(spec, B)
+    series = _strided(spec.y, B, n, "y", full=True) \
+        + _strided(spec.u, B, n, "u", full=True) + _strided(spec.D, B, n, "D")
+    leaf_args, keep = _leaf_args(spec, B, ("Z", "phi"))
+    dense = [_dense(yt, (B, n), "ytilde"), _dense(Ht, (B, n), "Htilde"),
+             _dense(sc, (B, n), "scales"), _dense(ahat, (B, n + 1, m), "ahat"),
+             _dense(Lb, (B, n + 1, m, m), "Lb"),
+             _dense(Ab, (B, n + 1, m, m), "Ab"),
+             _dense(eps, (B, n + 1, N, m), "eps"), _dense(us, (B, n, N), "us")]
     logw = torch.empty((B,), dtype=dt, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
-        code = lib.bssm_psi_logw(
-            int(dt == torch.float64), m, int(spec.distribution), N, B, n,
-            yt.data_ptr(), Ht.data_ptr(), y.data_ptr(), y_bs, u.data_ptr(),
-            u_bs, sc.data_ptr(), D.data_ptr(), D_bs, D_ts, zphi.data_ptr(),
-            ahat.data_ptr(), Lb.data_ptr(), Ab.data_ptr(), eps.data_ptr(),
-            us.data_ptr(), logw.data_ptr(), THREADS_PSI_BLOCK, _stream(dev))
+        code = _call(lib.bssm_psi_logw, _PSI_ARGS, int(dt == torch.float64),
+                     m, int(spec.distribution), N, B, n, *series, *leaf_args,
+                     *[x.data_ptr() for x in dense], logw.data_ptr(),
+                     THREADS_PSI_BLOCK, _stream(dev))
     _check_launch(lib, code, "psi_logw")
     LAUNCHES["psi_logw"] += 1
     return logw
@@ -716,21 +834,20 @@ def _launch_big(name, spec, bsf, B, N, S, kk, psi_t, sysb, eps, us, key):
     ahat, Lb, Ab) or None, ``sysb`` the packed bootstrap system or None."""
     m = spec.m
     dt, dev = spec.y.dtype, spec.y.device
-    y, y_bs, _ = _series(spec.y, B, "y")
-    u, u_bs, _ = _series(spec.u, B, "u")
-    D, D_bs, D_ts = _series(spec.D, B, "D")
-    zphi = _zphi(spec, B)
+    n = spec.n
+    series = _strided(spec.y, B, n, "y", full=True) \
+        + _strided(spec.u, B, n, "u", full=True) + _strided(spec.D, B, n, "D")
+    leaf_args, keep = _leaf_args(spec, B, ("Z", "phi"))
     out = torch.empty((B,), dtype=dt, device=dev)
     ptr = lambda x: 0 if x is None else x.data_ptr()        # noqa: E731
     psi_ptrs = [0] * 6 if psi_t is None else [x.data_ptr() for x in psi_t]
     lib = _load()
     with torch.cuda.device(dev):
-        code = lib.bssm_particle_big(
-            int(dt == torch.float64), m, int(spec.distribution), int(bsf),
-            int(key is not None), N, B, S, int(kk), *psi_ptrs, ptr(sysb),
-            y.data_ptr(), y_bs, u.data_ptr(), u_bs, D.data_ptr(), D_bs, D_ts,
-            zphi.data_ptr(), ptr(eps), ptr(us), ptr(key), out.data_ptr(),
-            _stream(dev))
+        code = _call(lib.bssm_particle_big, _BIG_ARGS,
+                     int(dt == torch.float64), m, int(spec.distribution),
+                     int(bsf), int(key is not None), N, B, S, int(kk),
+                     *psi_ptrs, ptr(sysb), *series, *leaf_args, ptr(eps),
+                     ptr(us), ptr(key), out.data_ptr(), _stream(dev))
     _check_launch(lib, code, name)
     LAUNCHES[name] += 1
     return out

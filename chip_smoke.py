@@ -12,7 +12,14 @@ What it does, in order:
    (n = 153, m = 2, Poisson, B = 4096 / 16384 rows, N = 10 particles) in
    float32 and float64, and at small shapes over the other state dimensions,
    observation families and particle counts; times kernel and plain version
-   with CUDA events;
+   with CUDA events at B = 1024 / 4096 / 16384, and the bare kernel's device
+   time (events around launches with pre-built arguments); a
+   ``laplace_solve`` call must be one device kernel (CUDA-graph capture)
+   and one launch of its own; ``laplace_solve`` again at footprints beyond
+   shared memory (m = 4, n = 1200 float64 and n = 2200 float32), where it
+   stages in device memory, and the staging sweep: both stagings at n = 153,
+   m = 1..4, both dtypes, B = 1024..32768, timed bare and held against each
+   other (``--staging-sweep`` runs only that);
 3. does the same for ``laplace_step`` (one Laplace pass) at B = 1 / 4096 /
    16384 and over the same families and state dimensions, and holds the
    single-model solve (the host loop over it) against ``laplace_solve`` at
@@ -32,8 +39,14 @@ What it does, in order:
    over time and rows; 37 missing y) at B = 4096 / 16384, with four rows
    whose sds make the model degenerate, and a sweep over m = 1..4 with
    missing y and time-varying D at n = 40, plus ``ar1_lg`` (initial state
-   and C vary over rows), float32 and float64; times both kernels and their
-   plain versions;
+   and C vary over rows), float32 and float64; a per-row D over several
+   chunks of the log-likelihood kernel's shared-memory tile (n = 300, 600,
+   with degenerate rows); times both kernels and their plain versions at
+   B = 1024 / 4096 / 16384 / 65536, with the bare kernel's device time and
+   one device kernel a ``log_likelihood`` call; then ``laplace_solve`` and
+   ``log_likelihood`` on three layouts of the same leaves (as built, expand
+   views of stride 0, per-row copies with non-contiguous cores) against the
+   plain versions, timed at B = 4096;
 6. drives twelve paths through the public entry points and gates each
    (finite values, acceptance rate, ESS_IS fraction where there are
    weights, the path's kernels launched by that very run):
@@ -153,6 +166,113 @@ def time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _dev_us(e) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(e, attr):
+            return float(getattr(e, attr))
+    return 0.0
+
+
+def device_rows(prof) -> list:
+    """``(name, count, device us)`` of the device-side events of a trace:
+    kernels, copies and sets.  The host operators that launched them (an
+    ``aten::`` op carries its kernels' time as its own device time), the
+    profiler's step spans and its buffer requests are left out, so that no
+    device time is counted twice."""
+    from torch.autograd import DeviceType
+    return [(e.key, int(e.count), _dev_us(e)) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and _dev_us(e) > 0
+            and not e.key.startswith(("ProfilerStep", "Activity Buffer"))]
+
+
+def graph_nodes(fn) -> list:
+    """The types of the nodes of the CUDA graph that one call of ``fn``
+    records under stream capture (0: kernel): the device work a call
+    enqueues, counted exactly."""
+    import ctypes
+    cudart = ctypes.CDLL("libcudart.so.12")
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        fn()
+    h = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cudart.cudaGraphGetNodes(h, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cudaGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    cudart.cudaGraphGetNodes(h, nodes, ctypes.byref(n))
+    types = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        cudart.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t))
+        types.append(t.value)
+    del g
+    return types
+
+
+def one_kernel(fn, counter: str) -> dict:
+    """A call of ``fn`` enqueues exactly one device operation, a kernel
+    (``graph_nodes`` under stream capture), and over that captured call the
+    wrapper's launch count ``counter`` rises by exactly one: so the one
+    kernel is the wrapper's own.  Otherwise the check fails."""
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    before = dict(ck.LAUNCHES)
+    types = graph_nodes(fn)
+    rise = {k: v - before[k] for k, v in ck.LAUNCHES.items() if v != before[k]}
+    # graph_nodes calls fn twice: once to warm up, once under capture
+    res = {"graph_node_types": types, "launch_count_rise": rise,
+           "ok": types == [0] and rise == {counter: 2}}
+    if not res["ok"]:
+        FAILURES.append({"what": f"one device kernel a call ({counter})",
+                         **res})
+    return res
+
+
+def bare_ms(fn, entry: str, reps: int = 10) -> float:
+    """Device milliseconds of one launch of the kernel behind the C entry
+    ``entry`` with the arguments that one call of the wrapper ``fn`` built:
+    CUDA events around ``reps`` launches with those pre-built arguments, no
+    host work of the wrapper in between (the launches queue faster than the
+    kernels run).  Every tensor whose pointer the wrapper took (outputs,
+    scratch, and copies it made of its inputs) is held until the launches
+    are done, so that none of them reads memory handed back meanwhile."""
+    from unittest import mock
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    lib = ck._load()
+    orig = getattr(lib, entry)
+    seen, held = [], []
+    data_ptr = torch.Tensor.data_ptr
+
+    def spy(*args):
+        seen.append(args)
+        return orig(*args)
+
+    def hold(t):
+        held.append(t)
+        return data_ptr(t)
+
+    setattr(lib, entry, spy)
+    try:
+        with mock.patch.object(torch.Tensor, "data_ptr", hold):
+            fn()
+    finally:
+        setattr(lib, entry, orig)
+    args = seen[-1]
+    for _ in range(2):
+        orig(*args)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        orig(*args)
+    b.record()
+    torch.cuda.synchronize()
+    del held
+    return a.elapsed_time(b) / reps
 
 
 def compare(name: str, got: torch.Tensor, ref: torch.Tensor, tol: float,
@@ -312,9 +432,10 @@ def thetas_around_init(model, B: int, seed: int, spread: float = 0.5):
 # ---------------------------------------------------------------------------
 
 def check_kernels(model, B: int, N: int, label: str, timed: bool,
-                  seed: int = 7) -> dict:
-    """Runs the three kernels and their plain versions on the same inputs on
-    the card; returns errors and (when ``timed``) milliseconds."""
+                  seed: int = 7, k1_only: bool = False) -> dict:
+    """Runs the three kernels (``k1_only``: laplace_solve alone) and their
+    plain versions on the same inputs on the card; returns errors and (when
+    ``timed``) milliseconds."""
     from bssm_tpu_torch.inference import approx as amod
     from bssm_tpu_torch.inference import particle as pmod
     from bssm_tpu_torch.ops import cuda_kalman as ck
@@ -355,6 +476,10 @@ def check_kernels(model, B: int, N: int, label: str, timed: bool,
     if int(k_niter.max()) >= 100:
         FAILURES.append({"what": "laplace_solve did not converge",
                          "label": label})
+    out["staging"] = ck.laplace_staging(
+        spec.n, m, spec.y.element_size(), B, ck._sm_count(0))._asdict()
+    if k1_only:
+        return out
 
     # K2 (both sides get the kernel's approximation) ----------------------
     ar = amod.approximate(spec, conv_tol, 100)
@@ -409,6 +534,15 @@ def check_kernels(model, B: int, N: int, label: str, timed: bool,
         }
         out["bounds"] = bounds(B, spec.n, m, N, dt,
                                float(k_niter.double().sum()))
+        # the bare kernels; a laplace_solve call is one launch
+        k1 = lambda: ck.laplace_solve(spec, mode0, conv_tol, 100)  # noqa
+        out["bare_ms"] = {
+            "laplace_solve": bare_ms(k1, "bssm_laplace_solve"),
+            "rts_factors": bare_ms(lambda: ck.rts_factors(g),
+                                   "bssm_rts_factors"),
+            "psi_logw": bare_ms(lambda: ck.psi_logw(
+                spec, al, k_ahat, k_Lb, k_Ab, eps, us), "bssm_psi_logw")}
+        out["one_kernel"] = one_kernel(k1, "laplace_solve")
     return out
 
 
@@ -519,6 +653,8 @@ def check_step(model, B: int, label: str, timed: bool, seed: int = 31,
         out["plain_ms"] = time_ms(lambda: amod._laplace_step(spec, mode),
                                   reps=1, warmup=0)
         out["bounds"] = step_bounds(B, spec.n, spec.m, dt)
+        out["bare_ms"] = bare_ms(lambda: ck.laplace_step(spec, mode),
+                                 "bssm_laplace_step")
     return out
 
 
@@ -543,6 +679,146 @@ def check_single_solve(model, B: int, label: str) -> dict:
     out["niter_mean"] = float(k1[2].double().mean())
     if not out["niter_equal"]:
         FAILURES.append({"what": "laplace_solve_steps.niter", "label": label})
+    return out
+
+
+def leaf_layouts(spec, B: int, series) -> dict:
+    """The spec as built, every leaf broadcast as an expand view (batch
+    stride 0 where it was shared), and every leaf and the ``series`` a
+    contiguous per-row copy, T and P1 with a non-contiguous core: three
+    layouts of the same values, which the kernels must read alike."""
+    import dataclasses
+    from bssm_tpu_torch.core.spec import CORE_NDIM, NGSpec
+    ng = isinstance(spec, NGSpec)
+    names = ["Z", "T", "R", "a1", "P1", "C"] + (["phi"] if ng else [])
+    expand, per_row = {}, {}
+    for f in names + list(series):
+        x = getattr(spec, f)
+        if x.dim() == CORE_NDIM[f]:
+            x = x.unsqueeze(0)
+        ex = x.expand(B, *x.shape[1:])
+        if f not in series:
+            expand[f] = ex
+        pr = ex.contiguous()
+        if f in ("T", "P1"):
+            pr = pr.transpose(-1, -2).contiguous().transpose(-1, -2)
+        per_row[f] = pr
+    rep = (lambda **kw: dataclasses.replace(spec, **kw)) if ng \
+        else (lambda **kw: spec._replace(**kw))
+    return {"as built": spec, "expanded": rep(**expand),
+            "per row": rep(**per_row)}
+
+
+def check_layouts(ng_model, lg_model, B: int, label: str,
+                  timed: bool) -> dict:
+    """K1 and K6 on the leaf layouts of ``leaf_layouts`` (K1's y and u per
+    row in the last one, which K1 then reads from device memory instead of
+    staging them), each against the plain version on the spec as built,
+    with the tolerances of check_kernels and check_lg."""
+    from bssm_tpu_torch.inference import approx as amod
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    from bssm_tpu_torch.ops import kalman
+    dt = ng_model.dtype
+    f64 = dt == torch.float64
+    tol = (lambda k: F64_TOL) if f64 else (lambda k: F32_TOL[k])
+    spec = ng_model.build(thetas_around_init(ng_model, B, 41))
+    conv_tol = max(1e-8, 50.0 * float(torch.finfo(dt).eps))
+    mode0 = spec.initial_mode
+    ref = amod.laplace_solve_plain(spec, mode0, conv_tol, 100)
+    g = lg_model.build(thetas_around_init(lg_model, B, 43, spread=0.3))
+    ref_ll = kalman.log_likelihood(g, degenerate=kalman.degenerate_h2rr)
+    lg_tol = (F64_TOL, F64_TOL) if f64 else (1e-5, 2e-5)
+    out = {"label": label, "B": B, "dtype": str(dt).replace("torch.", ""),
+           "checks": [], "ms": {}, "bare_ms": {}}
+    lg_lay = leaf_layouts(g, B, ("y", "H"))
+    for name, sp in leaf_layouts(spec, B, ("y", "u")).items():
+        got = ck.laplace_solve(sp, mode0, conv_tol, 100)
+        ll = ck.log_likelihood(lg_lay[name])
+        torch.cuda.synchronize()
+        out["checks"] += [
+            compare(f"laplace_solve.mode [{name}]", got[0], ref[0],
+                    tol("mode"), f64),
+            compare(f"laplace_solve.ll [{name}]", got[4], ref[4], tol("ll"),
+                    f64),
+            compare_lg(f"log_likelihood [{name}]", ll, ref_ll, *lg_tol)]
+        if f64 and not torch.equal(got[2], ref[2]):
+            FAILURES.append({"what": f"laplace_solve.niter [{name}]",
+                             "label": label})
+        if timed:
+            out["ms"][name] = {
+                "laplace_solve": time_ms(lambda: ck.laplace_solve(
+                    sp, mode0, conv_tol, 100)),
+                "log_likelihood": time_ms(
+                    lambda: ck.log_likelihood(lg_lay[name]))}
+            out["bare_ms"][name] = {
+                "laplace_solve": bare_ms(lambda: ck.laplace_solve(
+                    sp, mode0, conv_tol, 100), "bssm_laplace_solve"),
+                "log_likelihood": bare_ms(
+                    lambda: ck.log_likelihood(lg_lay[name]),
+                    "bssm_kalman_ll")}
+    return out
+
+
+SWEEP_B = (1024, 2048, 4096, 8192, 16384, 32768)
+
+
+def staging_sweep(bt) -> list:
+    """``laplace_solve`` at n = 153 over B in ``SWEEP_B``, m = 1..4 (the
+    main path's model at m = 2) and both dtypes: the bare kernel
+    (``bare_ms``) of the staging the wrapper picks, and, where the package
+    has ``staging_options``, of each of the two stagings, the waves of the
+    shared one, and the two held against each other under the strict
+    tolerance of the dtype (F64_TOL, or F32_TOL["mode"] / ["ll"] on every
+    entry): they run the same arithmetic.  On a package without
+    ``staging_options`` (an earlier one) only the picked staging is timed."""
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    both = hasattr(ck, "staging_options")
+    out = []
+    for dt in (torch.float32, torch.float64):
+        f64 = dt == torch.float64
+        conv_tol = max(1e-8, 50.0 * float(torch.finfo(dt).eps))
+        for m in (1, 2, 3, 4):
+            model = main_path_model(bt, dt) if m == 2 \
+                else sweep_model(bt, "poisson", m, dt, n=153)
+            for B in SWEEP_B:
+                spec = model.build(thetas_around_init(model, B, 53))
+                mode0 = spec.initial_mode
+                r = {"dtype": str(dt).replace("torch.", ""), "m": m, "B": B,
+                     "picked_ms": bare_ms(lambda: ck.laplace_solve(
+                         spec, mode0, conv_tol, 100), "bssm_laplace_solve")}
+                if both:
+                    item, sms = spec.y.element_size(), ck._sm_count(0)
+                    shared, device = ck.staging_options(spec.n, m, item)
+                    picked = ck.laplace_staging(spec.n, m, item, B, sms)
+                    r.update(rows_shared=shared.rows,
+                             waves_shared=ck.shared_waves(shared, B, sms),
+                             picked="shared" if picked.shared else "device")
+                    got = {}
+                    for name, st in (("shared", shared), ("device", device)):
+                        got[name] = ck.laplace_solve(spec, mode0, conv_tol,
+                                                     100, staging=st)
+                        r[name + "_ms"] = bare_ms(
+                            lambda: ck.laplace_solve(spec, mode0, conv_tol,
+                                                     100, staging=st),
+                            "bssm_laplace_solve")
+                    torch.cuda.synchronize()
+                    r["faster"] = min(("shared", "device"),
+                                      key=lambda k: r[k + "_ms"])
+                    r["bit_equal"] = all(
+                        torch.equal(a, b) for a, b in
+                        zip(got["shared"][2:4], got["device"][2:4])) and all(
+                        torch.equal(a.nan_to_num(), b.nan_to_num()) for a, b
+                        in zip(got["shared"][:2] + got["shared"][4:],
+                               got["device"][:2] + got["device"][4:]))
+                    tag = f" [{r['dtype']} m={m} B={B}]"
+                    r["checks"] = [
+                        compare("shared vs device mode" + tag,
+                                got["device"][0], got["shared"][0],
+                                F64_TOL if f64 else F32_TOL["mode"], True),
+                        compare("shared vs device ll" + tag,
+                                got["device"][4], got["shared"][4],
+                                F64_TOL if f64 else F32_TOL["ll"], True)]
+                out.append(r)
     return out
 
 
@@ -624,6 +900,17 @@ def check_lg(model, B: int, label: str, timed: bool, degenerate_rows: int = 0,
             "fast_smoother_ll": time_ms(lambda: kalman.fast_smoother_ll(
                 spec, degenerate=rule), reps=1, warmup=0)}
         out["bounds"] = lg_bounds(spec, B, dt)
+        out["bare_ms"] = {
+            "log_likelihood": bare_ms(lambda: ck.log_likelihood(spec),
+                                      "bssm_kalman_ll"),
+            "fast_smoother_ll": bare_ms(lambda: ck.fast_smoother_ll(spec),
+                                        "bssm_fast_smoother_ll")}
+        out["one_kernel"] = one_kernel(lambda: ck.log_likelihood(spec),
+                                       "log_likelihood")
+    D = spec.D if spec.D.dim() == 2 else spec.D[None]
+    if D.shape[0] > 1 and D.shape[1] > 1:
+        out["D_tile"] = dict(zip(("chunk", "smem_bytes"), ck.kalman_tile(
+            spec.n, spec.y.element_size())))
     return out
 
 
@@ -816,10 +1103,12 @@ def check_philox(model, B: int, N: int, kk: int, label: str,
 
 
 def time_big(psi_model, bsf_model, B: int, N_psi: int, kk_psi: int,
-             N_bsf: int, B_bsf: int) -> dict:
-    """Times of both modes at the shapes the paths give them, Philox mode,
-    and of stream mode and the plain versions on the tensors ``philox_fill``
-    wrote for the same key; the comparison at this width rides along."""
+             N_bsf: int, B_bsf: int, N_da: int, B_da: int) -> dict:
+    """Times of both modes at the shapes the paths give them, Philox mode
+    (psi mode also at the delayed-acceptance path's B_da rows and N_da
+    particles, period 1), the bare kernel's device time, and the times of
+    stream mode and the plain versions on the tensors ``philox_fill`` wrote
+    for the same key; the comparison at this width rides along."""
     from bssm_tpu_torch.inference import particle as pmod
     from bssm_tpu_torch.ops import cuda_kalman as ck
     res = {}
@@ -846,8 +1135,25 @@ def time_big(psi_model, bsf_model, B: int, N_psi: int, kk_psi: int,
     r["check"] = compare_big(f"psi_big_logw philox vs plain B={B}", got, ref,
                              dt, -(-n // kk_psi), N_psi, al.scales)
     r.update(big_bounds(B, n, n, m, N_psi, kk_psi, dt, psi=True))
-    res["psi_big_logw"] = r
+    r["bare_ms"] = bare_ms(lambda: ck.psi_big_logw(
+        spec, al, *fac, kk_psi, seed=key, nsim=N_psi), "bssm_particle_big",
+        reps=3)
     del eps, us, got, ref
+    torch.cuda.empty_cache()
+    # the delayed-acceptance path's launches: B_da rows, N_da, period 1
+    spec, al, fac = big_inputs(psi_model, B_da, 19)
+    tag = f"_B{B_da}_N{N_da}_kk1"
+    r["ms" + tag] = time_ms(lambda: ck.psi_big_logw(
+        spec, al, *fac, 1, seed=key, nsim=N_da))
+    r["bare_ms" + tag] = bare_ms(lambda: ck.psi_big_logw(
+        spec, al, *fac, 1, seed=key, nsim=N_da), "bssm_particle_big")
+    eps, us = ck.philox_fill(key, B_da, n + 1, N_da, m, dt)
+    r["plain_ms" + tag] = time_ms(lambda: pmod.psi_logw_scan(
+        spec, al, eps, us, factors=fac, resample_every=1), reps=1, warmup=0)
+    r["bound_ms" + tag] = big_bounds(B_da, n, n, m, N_da, 1, dt,
+                                     psi=True)["bound_ms"]
+    res["psi_big_logw"] = r
+    del eps, us
     torch.cuda.empty_cache()
     # bootstrap mode ----------------------------------------------------------
     m = bsf_model.extra["m"]
@@ -858,6 +1164,8 @@ def time_big(psi_model, bsf_model, B: int, N_psi: int, kk_psi: int,
         n = spec.n
         r["ms" + tag] = time_ms(lambda: ck.bsf_big_logw(
             spec, 1, seed=key, nsim=N_bsf))
+        r["bare_ms" + tag] = bare_ms(lambda: ck.bsf_big_logw(
+            spec, 1, seed=key, nsim=N_bsf), "bssm_particle_big", reps=3)
         eps, us = ck.philox_fill(key, rows, n, N_bsf, m, dt)
         r["ms_stream" + tag] = time_ms(lambda: ck.bsf_big_logw(
             spec, 1, eps=eps, us=us))
@@ -959,14 +1267,7 @@ def profile_main_path(bt, model, run: dict, iters: int = 60) -> dict:
         torch.cuda.synchronize()
         wall_prof = time.time() - t0
 
-    def dev_us(e):
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(e, attr):
-                return float(getattr(e, attr))
-        return 0.0
-
-    rows = [(e.key, int(e.count), dev_us(e)) for e in prof.key_averages()]
-    rows = [r for r in rows if r[2] > 0]
+    rows = device_rows(prof)
     rows.sort(key=lambda r: -r[2])
     total_us = sum(r[2] for r in rows)
     return {"iter": iters, "chains": run["n_chains"],
@@ -1193,6 +1494,10 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace short runs of five paths with "
                          "torch.profiler and print device time by kernel")
+    ap.add_argument("--staging-sweep", action="store_true",
+                    help="only time laplace_solve's stagings over B, m and "
+                         "dtype (staging_sweep), print them and stop; "
+                         "prints no result line")
     args = ap.parse_args()
 
     t_start = time.time()
@@ -1212,6 +1517,10 @@ def main() -> int:
                   "nvcc": nvcc.stdout.strip().splitlines()[-1],
                   "build_seconds": ck.build_seconds,
                   "tf32_matmul": torch.backends.cuda.matmul.allow_tf32})
+    if args.staging_sweep:
+        emit("staging_sweep", {"nvidia_smi": smi, "runs": staging_sweep(bt),
+                               "failures": FAILURES})
+        return 1 if FAILURES else 0
 
     # ---- kernels against their plain versions -----------------------------
     checks = []
@@ -1222,9 +1531,10 @@ def main() -> int:
     checks += [c_16k, c_4k,
                check_kernels(m64, 16384, 10, "main f64 B=16384", timed=True),
                check_kernels(m64, 4096, 10, "main f64 B=4096", timed=False),
-               # the 1024-chain paths give K1 and K2 this batch
-               check_kernels(m32, 1024, 10, "main f32 B=1024", timed=False),
                check_kernels(m64, 1024, 10, "main f64 B=1024", timed=False)]
+    # the 1024-chain paths give K1 and K2 this batch
+    c_1k = check_kernels(m32, 1024, 10, "main f32 B=1024", timed=True)
+    checks.append(c_1k)
     for dtype in (torch.float64, torch.float32):
         for fam in ("svm", "binomial", "negative binomial", "gamma"):
             checks.append(check_kernels(
@@ -1241,9 +1551,26 @@ def main() -> int:
             checks.append(check_kernels(
                 sweep_model(bt, "poisson", 2, dtype), 256, N,
                 f"sweep N={N}", timed=False))
+    # a footprint beyond shared memory: K1 stages in device memory
+    for m, dtype, n in ((4, torch.float64, 1200), (4, torch.float32, 2200)):
+        c = check_kernels(sweep_model(bt, "poisson", m, dtype, n=n), 64, 10,
+                          f"long n={n} m={m}", timed=False,
+                          k1_only=dtype == torch.float32)
+        if c["staging"]["shared"]:
+            FAILURES.append({"what": "device-memory staging not reached",
+                             "label": c["label"]})
+        checks.append(c)
+    if not c_4k["staging"]["shared"]:
+        FAILURES.append({"what": "shared-memory staging not reached"})
     checks.append({"label": "phase 2 on the card vs on the CPU, f64",
                    "checks": [small_reference(bt)]})
-    emit("checks", {"runs": checks, "failures": FAILURES})
+    sweep = staging_sweep(bt)
+    for pick in ("shared", "device"):
+        if not any(r["picked"] == pick for r in sweep):
+            FAILURES.append({"what": f"the wrapper never picked {pick} "
+                                     "staging in the staging sweep"})
+    emit("checks", {"runs": checks, "staging_sweep": sweep,
+                    "failures": FAILURES})
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} kernel check(s) failed",
               file=sys.stderr)
@@ -1325,7 +1652,7 @@ def main() -> int:
                            "philox f32 m=4 N=32"),
               check_philox(sweep_model(bt, "poisson", 3, torch.float64,
                                        p1=1.0), 256, 33, 1, "philox f64 m=3")]
-    t_big = time_big(m32, mb32, 16384, 256, 8, 200, 1024)
+    t_big = time_big(m32, mb32, 16384, 256, 8, 200, 1024, 64, 1024)
     emit("big_checks", {"runs": big, "philox": philox, "timed": t_big,
                         "failures": FAILURES})
     if FAILURES:
@@ -1346,14 +1673,30 @@ def main() -> int:
           check_lg(a64, 16384, "airquality f64 B=16384", timed=False,
                    degenerate_rows=4),
           check_lg(a64, 4096, "airquality f64 B=4096", timed=False,
-                   degenerate_rows=4),
-          check_lg(a32, 1024, "airquality f32 B=1024", timed=False)]
+                   degenerate_rows=4)]
+    # the lg_summary and lg_full chains give K6 this batch
+    l_1k = check_lg(a32, 1024, "airquality f32 B=1024", timed=True)
+    lg.append(l_1k)
     for dtype in (torch.float64, torch.float32):
         for m in (0, 1, 2, 3, 4):
             lg.append(check_lg(lg_sweep_model(bt, m, dtype), 256,
                                f"sweep {'ar1_lg' if m == 0 else f'm={m}'}",
                                timed=False))
-    emit("lg_checks", {"runs": lg, "failures": FAILURES})
+    # a per-row D over more than one chunk of K6's tile
+    for m, dtype, n in ((2, torch.float32, 600), (2, torch.float64, 300),
+                        (4, torch.float64, 300)):
+        c = check_lg(lg_sweep_model(bt, m, dtype, n=n), 256,
+                     f"chunked D n={n} m={m}", timed=False,
+                     degenerate_rows=3)
+        if c.get("D_tile", {}).get("chunk", n) >= n:
+            FAILURES.append({"what": "D tile not chunked", "label":
+                             c["label"]})
+        lg.append(c)
+    layouts = [check_layouts(m32, a32, 4096, "layouts f32 B=4096",
+                             timed=True),
+               check_layouts(m64, a64, 1024, "layouts f64 B=1024",
+                             timed=False)]
+    emit("lg_checks", {"runs": lg, "layouts": layouts, "failures": FAILURES})
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} linear-Gaussian check(s) failed",
               file=sys.stderr)
@@ -1479,8 +1822,17 @@ def main() -> int:
             "ms": c_16k["ms"][name], "plain_ms": c_16k["plain_ms"][name],
             "bound_ms": b[name]["bound_ms"], "bound_by": b[name]["bound_by"],
             "library_ms": None, "shape": "B=16384 n=153 m=2 N=10 float32"})
-    # phase 1 gives laplace_solve B = 4096 rows: that reading too
+    # bare kernels (profiler), and the readings at the 1024 chains of seven
+    # paths; phase 1 gives laplace_solve B = 4096 rows: that reading too
+    for k in kernels:
+        name = k["name"]
+        k["bare_ms"] = c_16k["bare_ms"][name]
+        k["ms_B1024"] = c_1k["ms"][name]
+        k["bare_ms_B1024"] = c_1k["bare_ms"][name]
+        k["plain_ms_B1024"] = c_1k["plain_ms"][name]
+        k["bound_ms_B1024"] = c_1k["bounds"][name]["bound_ms"]
     kernels[0]["ms_B4096"] = c_4k["ms"]["laplace_solve"]
+    kernels[0]["bare_ms_B4096"] = c_4k["bare_ms"]["laplace_solve"]
     kernels[0]["plain_ms_B4096"] = c_4k["plain_ms"]["laplace_solve"]
     kernels[0]["bound_ms_B4096"] = b4["laplace_solve"]["bound_ms"]
     for name, line in (("log_likelihood", 386), ("fast_smoother_ll", 487)):
@@ -1494,9 +1846,12 @@ def main() -> int:
                                 if c["what"].startswith(name)),
              "ms": l_16k["ms"][name], "plain_ms": l_16k["plain_ms"][name],
              "bound_ms": lb["bound_ms"], "bound_by": lb["bound_by"],
-             "library_ms": None, "shape": "B=16384 n=153 m=2 float32"}
-        for tag, run in (("_B4096", l_4k), ("_B65536", l_64k)):
+             "library_ms": None, "shape": "B=16384 n=153 m=2 float32",
+             "bare_ms": l_16k["bare_ms"][name]}
+        for tag, run in (("_B4096", l_4k), ("_B1024", l_1k),
+                         ("_B65536", l_64k)):
             k["ms" + tag] = run["ms"][name]
+            k["bare_ms" + tag] = run["bare_ms"][name]
             k["plain_ms" + tag] = run["plain_ms"][name]
             k["bound_ms" + tag] = run["bounds"][name]["bound_ms"]
         kernels.append(k)
@@ -1510,6 +1865,7 @@ def main() -> int:
           "library_ms": None, "shape": "B=16384 n=153 m=2 float32"}
     for tag, run in (("", s_16k), ("_B4096", s_4k), ("_B1", s_1)):
         k8["ms" + tag] = run["ms"]
+        k8["bare_ms" + tag] = run["bare_ms"]
         k8["plain_ms" + tag] = run["plain_ms"]
         k8["bound_ms" + tag] = run["bounds"]["bound_ms"]
         k8["bound_by" + tag] = run["bounds"]["bound_by"]

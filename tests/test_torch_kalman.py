@@ -222,6 +222,7 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         cuda_kalman._check_system(t)
     with pytest.raises(TypeError, match="dtype"):
         cuda_kalman._check_tensors([("H", t.H.to(torch.float32))], t.y)
-    sys_t = cuda_kalman.pack_system(_both(_lg_arrays(62, 12, 2, 3))[1], 3,
-                                    with_phi=False)
-    assert sys_t.shape == (3 * 2 + 3 * 4, 3) and sys_t.is_contiguous()
+    flat, leaves = cuda_kalman._system_args(
+        _both(_lg_arrays(62, 12, 2, 3))[1], 3, with_phi=False)
+    assert len(flat) == 15 and [nm for nm, _, _ in leaves] == \
+        list(cuda_kalman.SYSTEM)
