@@ -33,303 +33,62 @@
 // Philox (generated in the kernel from (key, row, step, particle), see
 // kalman_common.cuh).  `philox_fill_kernel` writes into eps/us exactly the
 // values the Philox mode consumes, so the two modes can be held against each
-// other.
+// other.  A check-only input `anc` (B, S, N) int32, stream mode only, gives
+// the ancestor of every particle at every resampling step in place of the
+// search, so that the kernel and its plain version can be fed the same
+// ancestors and held together on every row in float32.
 //
-// What bounds it on this card: operations.  In Philox mode a row reads its
-// observation and factor rows once (about 10 KB at n = 153, m = 2) and does
-// some hundreds of operations for each of its (S+1) N particle-steps, the
-// generator included.  The design: one block per row, one particle per
-// thread (block = N rounded up to a warp; lanes >= N are masked out of every
-// reduction), the ensemble in registers between steps.  Block max and sum
-// are warp shuffles plus one shared-memory stage; the prefix sum is a warp
-// shuffle scan plus warp totals; cum and the ensemble go to shared memory
-// only at a resampling step, where each thread binary-searches cum for its
-// u_p and gathers its ancestor's state.  The step's scalars (factor row,
-// observation row) are loaded by the block's threads, one or two entries
-// each, and broadcast through shared memory.  The kernel indexes ahat/Lb/Ab backwards itself: no flipped,
-// stacked or padded copies are made.  The observation family is a run-time
-// switch (uniform over the block) rather than a template parameter, which
-// keeps the number of instantiations at 16.
+// What bounds it on this card: operations.  A row reads its observation and
+// factor rows once (about 10 KB at n = 153, m = 2 in psi mode, 1.8 KB of
+// series in bsf mode) and does some hundreds of operations for each of its
+// (S+1) N particle-steps, the generator included.  The design (template and
+// launchers in particle_big.cuh, instantiated per mode and real type in
+// particle_big_{psi,bsf}_{f32,f64}.cu, which nvcc builds side by side):
+//
+// - A row takes `T` = 32 w threads (w = 1 up to N = 256, else 2 warps);
+//   thread r holds the consecutive particles [r N / T, (r+1) N / T) in P
+//   register slots between steps (P the fewest instantiated that hold them:
+//   2, 7 or 8 for float32 at m <= 2, else 2 or 8).  With w = 1 a row is one
+//   warp, several rows share a block, and nothing waits on a block barrier:
+//   a row synchronises with __syncwarp.  Particle p keeps its Philox
+//   counter (key, row, step, p) whichever thread holds it.  Threads a row
+//   follow N alone: on an H100 two warps a row were 38-64% slower than one
+//   at the paths' shapes, and at N = 200 seven slots 6% faster than eight
+//   (chip_smoke.py --geometry-sweep, PERF.md).
+// - Every loop over a thread's slots is one straight line, with no branch
+//   on the slot: a slot past the thread's count works on a clamped index
+//   and is masked out of the weights and the stores, and the family switch
+//   sits outside the slot loop.  So the slots' independent chains
+//   (generator, Box-Muller, propagation, log-weight, loads) overlap, and a
+//   warp hides its own latencies where few warps share an SM.
+// - The row's input is copied into shared memory with cp.async before the
+//   steps that read it, in chunks of kChunk steps, double-buffered: chunk
+//   c + 1 is in flight while chunk c is read, so no step waits on device
+//   memory.  bsf mode keeps its system (C, T, R) in registers, read where
+//   the spec holds it (R by its own column count).
+// - One reduction a step: each warp forms its (max, sum of exp(lt - max))
+//   pair with two shuffle butterflies over its threads' own particles (max
+//   first, then the sum of each particle's exp against the warp's max), and
+//   with w > 1 one shared stage (double-buffered by step parity) and one
+//   barrier give every thread the warps' pairs, combined with online
+//   rescaling into the row's pair, hence inc and lnw.  The cumulative weights of the next resampling come from
+//   the same partials: a thread's own prefix, a warp shuffle scan of thread
+//   totals, and the earlier warps' totals from the staged pairs; no serial
+//   warp loop.  Block barriers a step: the reduction's (w > 1 only) and, at
+//   a resampling step or a chunk boundary, one at the top of the step that
+//   publishes the cumulative weights, the ensemble and the chunk: at most
+//   two.
+// - The search is monotone: u_p rises with p, so a thread bisects for its
+//   first and last particles (two chains side by side) and then for the
+//   others only between those two answers, all slots in one loop whose
+//   count depends on the range alone.
+// - The next step's Philox words are computed before the step's reduction,
+//   so that integer work fills the reduction's latency.
 #include <string.h>
 
-#include "kalman_common.cuh"
+#include "particle_big.cuh"
 
 namespace bssm {
-
-constexpr int kMaxNBig = 512;
-constexpr int kMaxWarps = kMaxNBig / 32;
-
-template <typename R> struct BigArgs {
-  int dist, N, S, kk, philox;
-  long B;
-  // psi mode, (B, n) dense with n = S
-  const R* ytilde;
-  const R* Htilde;
-  const R* scales;
-  const R* ahat;  // (B, S+1, M)
-  const R* Lb;    // (B, S+1, M, M)
-  const R* Ab;    // (B, S+1, M, M)
-  // bsf mode: (B, 2M + 3MM) = [a1, chol P1, C, R, T], n = S + 1
-  const R* sysb;
-  // both modes: the series and the leaves where the spec holds them
-  SeriesArg y, u, D;
-  LeafArg Z, phi;
-  const R* eps;   // stream mode
-  const R* us;
-  const long long* key;  // Philox mode: two words, low 32 bits of each
-  R* out;         // (B,)
-};
-
-template <typename R>
-__device__ __forceinline__ R block_max(R x, R* stage, int lane, int warp,
-                                       int nwarps) {
-  x = warp_max<R>(x);
-  if (lane == 0) stage[warp] = x;
-  __syncthreads();
-  return warp_max<R>(lane < nwarps ? stage[lane] : R(-INFINITY));
-}
-
-template <typename R>
-__device__ __forceinline__ R block_sum(R x, R* stage, int lane, int warp,
-                                       int nwarps) {
-  x = warp_sum<R>(x);
-  if (lane == 0) stage[warp] = x;
-  __syncthreads();
-  return warp_sum<R>(lane < nwarps ? stage[lane] : R(0));
-}
-
-template <typename R, int M, bool BSF>
-__global__ void __launch_bounds__(kMaxNBig)
-particle_big_kernel(const BigArgs<R> a) {
-  constexpr int MM = M * M;
-  constexpr int F = M + 2 * MM;     // [ah (M), L (MM), A (MM)]
-  constexpr int ROW = F + 6;        // + [ytilde, Htilde, y, u, scales, D]
-  const long b = blockIdx.x;
-  const int p = threadIdx.x;
-  const int lane = p & 31, warp = p >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int N = a.N, S = a.S;
-  const bool active = p < N;
-  const R neg_log_n = -log(R(N));
-  const R tiny = R(1e-35);
-
-  __shared__ R s_row[2][ROW];
-  __shared__ R s_cum[kMaxNBig];
-  __shared__ R s_alpha[M][kMaxNBig];
-  __shared__ R s_max[kMaxWarps], s_sum[kMaxWarps], s_scan[kMaxWarps];
-
-  const R* y = series_row<R>(a.y, b);
-  const R* u = series_row<R>(a.u, b);
-  const R* D = series_row<R>(a.D, b);
-  R Z[M];
-  const R* Zb = leaf_row<R>(a.Z, b);
-#pragma unroll
-  for (int i = 0; i < M; ++i) Z[i] = Zb[i];
-  const R phi = leaf_row<R>(a.phi, b)[0];
-  unsigned k0 = 0, k1 = 0;
-  if (a.philox) {
-    k0 = (unsigned)a.key[0];
-    k1 = (unsigned)a.key[1];
-  }
-  const R* eps = a.philox ? nullptr : a.eps + b * (long)(S + 1) * N * M;
-  const R* us = a.philox ? nullptr : a.us + b * (long)S * N;
-
-  // The threads fetch the ROW scalars of step s into s_row[s & 1]: thread p
-  // entry p and, where the block is narrower than the row (32 threads, 42
-  // scalars at m = 4), entry p + blockDim.x too.  A buffer is rewritten two
-  // steps later, after the __syncthreads at the top of the step in between.
-  auto load_entry = [&](int s, int i) -> R {
-    R v;
-    if (i < F) {
-      if constexpr (BSF) {
-        const R* sys = a.sysb + b * (long)(2 * M + 3 * MM);
-        if (s == 0)
-          v = i < M + MM ? sys[i] : R(0);          // [a1, chol P1, 0]
-        else
-          v = sys[M + MM + i];                     // [C, R, T]
-      } else {
-        const long t = S - s;                      // state index of step s
-        const long base = b * (long)(S + 1) + t;
-        if (i < M)
-          v = a.ahat[base * M + i];
-        else if (i < M + MM)
-          v = a.Lb[base * MM + (i - M)];
-        else
-          v = a.Ab[base * MM + (i - M - MM)];
-      }
-    } else {
-      const int k = i - F;
-      if constexpr (BSF) {
-        const long t = s;
-        v = k == 0 ? R(NAN)
-            : k == 1 ? R(1)
-            : k == 2 ? y[t * a.y.ts]
-            : k == 3 ? u[t * a.u.ts]
-            : k == 4 ? R(0)
-                     : D[t * a.D.ts];
-      } else {
-        if (s == 0) {                              // no observation
-          v = (k == 0 || k == 2) ? R(NAN) : (k == 1 || k == 3) ? R(1) : R(0);
-        } else {
-          const long t = S - s;
-          const long bt = b * (long)S + t;
-          v = k == 0 ? a.ytilde[bt]
-              : k == 1 ? a.Htilde[bt]
-              : k == 2 ? y[t * a.y.ts]
-              : k == 3 ? u[t * a.u.ts]
-              : k == 4 ? a.scales[bt]
-                       : D[t * a.D.ts];
-        }
-      }
-    }
-    return v;
-  };
-  auto load_row = [&](int s) {
-    if (p < ROW) s_row[s & 1][p] = load_entry(s, p);
-    if constexpr (ROW > 32) {       // the narrowest block has 32 threads
-      const int i = p + blockDim.x;
-      if (i < ROW) s_row[s & 1][i] = load_entry(s, i);
-    }
-  };
-
-  // Randomness of step s.  In Philox mode the generator runs once at the
-  // top of the step (integer work only); its words wait in registers for
-  // the resampling uniform and, after the resampling, for the normals.
-  unsigned w[4] = {0u, 0u, 0u, 0u};
-  auto words = [&](int s) {
-    if (a.philox)
-      philox_words(k0, k1, (unsigned)b, (unsigned)s, (unsigned)p, w);
-  };
-  auto uniform = [&](int s) -> R {
-    if (a.philox)
-      return philox_uniform<R, M>(w, k0, k1, (unsigned)b, (unsigned)s,
-                                  (unsigned)p);
-    return active ? us[(long)(s - 1) * N + p] : R(0);
-  };
-  auto normals = [&](int s, R (&e)[M]) {
-    if (a.philox) {
-      philox_normals<R, M>(w, e);
-    } else {
-#pragma unroll
-      for (int j = 0; j < M; ++j)
-        e[j] = active ? eps[((long)s * N + p) * M + j] : R(0);
-    }
-  };
-
-  R alpha[M], ah_prev[M];
-  R lnw = neg_log_n;
-  R ll = R(0);
-
-  // alpha' = ah + A (anc - ah_prev) + L e from the row in shared memory
-  auto propagate = [&](const R* row, const R (&anc)[M], const R (&e)[M]) {
-    R dv[M];
-#pragma unroll
-    for (int j = 0; j < M; ++j) dv[j] = anc[j] - ah_prev[j];
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      R acc = row[i];
-#pragma unroll
-      for (int j = 0; j < M; ++j)
-        acc += row[M + MM + i * M + j] * dv[j] + row[M + i * M + j] * e[j];
-      alpha[i] = acc;
-    }
-    if constexpr (!BSF) {
-#pragma unroll
-      for (int i = 0; i < M; ++i) ah_prev[i] = row[i];
-    }
-  };
-
-  auto weight = [&](const R* row) {
-    const R* ob = row + F;
-    const R y_t = ob[2];
-    const bool oky = isfinite(y_t);
-    R lw = R(0);
-    if (oky) {
-      R sig;
-      if (a.dist == kSvm) {
-        sig = alpha[0];
-      } else {
-        sig = ob[5];
-#pragma unroll
-        for (int i = 0; i < M; ++i) sig += Z[i] * alpha[i];
-      }
-      lw = log_weight<R>(a.dist, y_t, ob[3], phi, sig, ob[0], ob[1]) - ob[4];
-    }
-    R lt = lnw + lw;
-    const bool fin = active && isfinite(lt);
-    lt = fin ? lt : R(-INFINITY);
-    const R mx = block_max<R>(lt, s_max, lane, warp, nwarps);
-    const bool mx_ok = isfinite(mx);
-    const R mxs = mx_ok ? mx : R(0);
-    const R w = fin ? exp(lt - mxs) : R(0);
-    const R sw = block_sum<R>(w, s_sum, lane, warp, nwarps);
-    const bool ok2 = (sw > R(0)) && mx_ok;
-    const R inc = ok2 ? mxs + log(fmax(sw, tiny)) : R(-INFINITY);
-    if (oky) ll += inc;
-    lnw = ok2 ? lt - inc : neg_log_n;
-  };
-
-  // ---- step 0: the initial ensemble
-  load_row(0);
-  __syncthreads();
-  {
-    R e[M];
-    words(0);
-    normals(0, e);
-    const R* row = s_row[0];
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      R acc = row[i];
-#pragma unroll
-      for (int j = 0; j < M; ++j) acc += row[M + i * M + j] * e[j];
-      alpha[i] = acc;
-      ah_prev[i] = BSF ? R(0) : row[i];
-    }
-    if constexpr (BSF) {
-      weight(row);
-    }
-  }
-
-  for (int s = 1; s <= S; ++s) {
-    load_row(s);
-    words(s);
-    R anc[M];
-    if ((s - 1) % a.kk == 0) {
-      // ---- stratified resampling
-      const R r = uniform(s);
-      const R nw = (active && isfinite(lnw)) ? exp(lnw) : R(0);
-      R c = warp_inclusive_scan<R>(nw, lane);
-      if (lane == 31) s_scan[warp] = c;
-#pragma unroll
-      for (int j = 0; j < M; ++j) s_alpha[j][p] = alpha[j];
-      __syncthreads();              // also publishes s_row[s & 1]
-      R off = R(0);
-      for (int wq = 0; wq < warp; ++wq) off += s_scan[wq];
-      c += off;
-      s_cum[p] = (p >= N - 1) ? R(1) : c;
-      __syncthreads();
-      const R u_p = (R(p) + r) / R(N);
-      int lo = 0, hi = N - 1;       // first q in [0, N-1] with cum[q] >= u_p
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (s_cum[mid] >= u_p) hi = mid; else lo = mid + 1;
-      }
-      const int q = active ? lo : 0;
-#pragma unroll
-      for (int j = 0; j < M; ++j) anc[j] = s_alpha[j][q];
-      lnw = neg_log_n;
-    } else {
-#pragma unroll
-      for (int j = 0; j < M; ++j) anc[j] = alpha[j];
-      __syncthreads();              // publishes s_row[s & 1]
-    }
-    R e[M];
-    normals(s, e);
-    propagate(s_row[s & 1], anc, e);
-    weight(s_row[s & 1]);
-  }
-  if (p == 0) a.out[b] = ll;
-}
 
 // eps (B, S+1, N, M) and us (B, S, N) as the Philox mode consumes them
 template <typename R, int M>
@@ -357,22 +116,6 @@ __global__ void philox_fill_kernel(long B, int S, int N,
 
 }  // namespace bssm
 
-// Launch arguments of bssm_particle_big, packed by ops/cuda_kalman.py in
-// this order (see kalman_common.cuh).  S = generation steps after the
-// initial draw (psi: n, bsf: n - 1).  psi mode (bsf = 0): ytilde, Htilde,
-// scales (B, S); ahat (B, S+1, m); Lb, Ab (B, S+1, m, m); sysb unused.  bsf
-// mode: sysb (B, 2m + 3m^2) = [a1, chol P1, C, R, T]; the psi tensors
-// unused.  y, u, D and the leaves Z, phi where the spec holds them.  Stream
-// mode (philox = 0): eps (B, S+1, N, m), us (B, S, N).  Philox mode: key
-// points to two 64-bit words on the device.  out (B,).  The dense tensors
-// are contiguous.
-struct BigLaunch {
-  long long is_double, m, dist, bsf, philox, N, B, S, kk;
-  long long ytilde, Htilde, scales, ahat, Lb, Ab, sysb;
-  bssm::SeriesArg y, u, D;
-  bssm::LeafArg Z, phi;
-  long long eps, us, key, out, stream;
-};
 
 // Plain C entry point of both modes.  `args` points to the packed BigLaunch
 // and `size` is its length in bytes.  Returns the launch's cudaError_t, -1
@@ -382,35 +125,17 @@ extern "C" int bssm_particle_big(const void* args, long long size) {
   if (size != (long long)sizeof(BigLaunch)) return -2;
   BigLaunch g;
   memcpy(&g, args, sizeof g);
-  const int N = (int)g.N;
+  const long long N = g.N, T = g.threads_per_row, rows = g.rows_per_block;
   if (N < 2 || N > bssm::kMaxNBig || g.kk < 1 || g.S < 0 || g.B < 1)
     return -2;
-  const int threads = ((N + 31) / 32) * 32;
-  const cudaStream_t stream = (cudaStream_t)g.stream;
-  bool known;
-#define LAUNCH(R, M)                                                        \
-  do {                                                                      \
-    const auto in = [](long long p) { return (const R*)p; };                \
-    bssm::BigArgs<R> a;                                                     \
-    a.dist = (int)g.dist; a.N = N; a.S = (int)g.S; a.kk = (int)g.kk;        \
-    a.philox = (int)g.philox; a.B = g.B;                                    \
-    a.ytilde = in(g.ytilde); a.Htilde = in(g.Htilde);                       \
-    a.scales = in(g.scales); a.ahat = in(g.ahat); a.Lb = in(g.Lb);          \
-    a.Ab = in(g.Ab); a.sysb = in(g.sysb);                                   \
-    a.y = g.y; a.u = g.u; a.D = g.D; a.Z = g.Z; a.phi = g.phi;              \
-    a.eps = in(g.eps); a.us = in(g.us);                                     \
-    a.key = (const long long*)g.key; a.out = (R*)g.out;                     \
-    if (g.bsf)                                                              \
-      bssm::particle_big_kernel<R, M, true>                                 \
-          <<<(unsigned)g.B, threads, 0, stream>>>(a);                       \
-    else                                                                    \
-      bssm::particle_big_kernel<R, M, false>                                \
-          <<<(unsigned)g.B, threads, 0, stream>>>(a);                       \
-  } while (0)
-  BSSM_DISPATCH(g.is_double, g.m, known, LAUNCH);
-#undef LAUNCH
-  if (!known) return -1;
-  return (int)cudaGetLastError();
+  if (T < 32 || T % 32 != 0 || T > 32 * bssm::kMaxWarpsRow || rows < 1 ||
+      (T > 32 && rows != 1) || T * rows > bssm::kMaxThreadsBig)
+    return -2;
+  if (g.pmax < 1 || g.pmax > 8 || (N + T - 1) / T > g.pmax) return -2;
+  if (g.bsf && (g.k < 1 || g.k > g.m)) return -2;
+  if (g.anc != 0 && g.philox) return -2;
+  if (g.bsf) return g.is_double ? bssm_big_bsf_f64(g) : bssm_big_bsf_f32(g);
+  return g.is_double ? bssm_big_psi_f64(g) : bssm_big_psi_f32(g);
 }
 
 // eps (B, S+1, N, m) and us (B, S, N) filled with the values the Philox mode

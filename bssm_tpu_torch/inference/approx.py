@@ -13,7 +13,9 @@ correction) goes to the ``laplace_solve`` kernel, the whole iteration in one
 launch; an unbatched spec (one model: the public API, ``suggest_N``) goes to
 ``laplace_solve_steps``, a host loop over the ``laplace_step`` kernel that
 tests convergence after every pass.  ``laplace_solve_plain`` is the plain
-version of both (``ops/cuda_kalman.py``); all stop row by row.
+version of both (``ops/cuda_kalman.py``), and what runs, on either device,
+for a model the kernels do not take (``cuda_kalman.kernel_takes``: m > 4,
+a time-varying system); all stop row by row.
 """
 from __future__ import annotations
 
@@ -115,8 +117,11 @@ def laplace_solve_steps(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
     ``_laplace_solve_base``: the loop over ``cuda_kalman.laplace_step``
     (the ``laplace_step`` kernel on the card), testing convergence between
     launches.  It serves any batch, row by row.  Returns (mode, prev,
-    niter, diff, ll) as ``cuda_kalman.laplace_solve``."""
-    return _solve(spec, mode0, conv_tol, max_iter, cuda_kalman.laplace_step)
+    niter, diff, ll) as ``cuda_kalman.laplace_solve``.  A model the kernel
+    does not take loops over the plain pass instead."""
+    step = cuda_kalman.laplace_step \
+        if cuda_kalman.route("laplace_step", spec) else _laplace_step
+    return _solve(spec, mode0, conv_tol, max_iter, step)
 
 
 def approximate(spec: NGSpec, conv_tol: float = CONV_TOL,
@@ -134,8 +139,12 @@ def approximate(spec: NGSpec, conv_tol: float = CONV_TOL,
     # a conv_tol below the dtype's noise floor would always exhaust max_iter
     # (float32 eps ~1e-7); clamp to a resolvable tolerance
     conv_tol = max(conv_tol, 50.0 * float(torch.finfo(spec.y.dtype).eps))
-    solve = laplace_solve_steps if spec.batch is None \
-        else cuda_kalman.laplace_solve
+    if spec.batch is None:
+        solve = laplace_solve_steps
+    elif cuda_kalman.route("laplace_solve", spec):
+        solve = cuda_kalman.laplace_solve
+    else:
+        solve = laplace_solve_plain
     mode, prev, niter, diff, gll = solve(spec, mode0, conv_tol, max_iter)
     yt, H = _one_match(spec, prev)
     return ApproxResult(mode, yt, H, niter, diff, gll)

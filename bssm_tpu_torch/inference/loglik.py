@@ -3,8 +3,9 @@
 Counterpart of ``bssm_tpu/inference/loglik.py`` for univariate models.  A
 linear-Gaussian model's exact log-likelihood goes through
 ``ops/cuda_kalman.log_likelihood`` (the Kalman log-likelihood kernel on the
-GPU, its plain version on the CPU, with the kernel wrapper's degenerate-model
-rule, ``ops/kalman.degenerate_h2rr``, on both).  A non-Gaussian model's is
+GPU, its plain version on the CPU and for models the kernel does not take,
+with the kernel wrapper's degenerate-model rule, ``ops/kalman.degenerate_h2rr``,
+on both), whatever ``particles`` is.  A non-Gaussian model's is
 the approximate log-likelihood of its Laplace approximation
 (``particles=0``) or a particle filter's estimate: the psi-auxiliary filter
 (``method="psi"``) or the bootstrap filter (``"bsf"``).
@@ -28,16 +29,14 @@ def logLik(model_or_spec, particles: int = 0, method: str = "psi",
            max_iter: int = approx_mod.MAX_ITER, eps=None,
            us=None) -> torch.Tensor:
     """Log-likelihood ``(B,)`` of a model (built at ``theta``, by default
-    its initial value) or spec: exact for a linear-Gaussian one (then
-    ``particles`` must be 0), else approximate (``particles=0``) or the
-    estimate of a ``particles``-particle filter, whose randomness comes from
-    ``generator`` (default: seeded with ``seed``) or ``eps``/``us``."""
+    its initial value) or spec: exact for a linear-Gaussian one, whatever
+    ``particles`` is (as in the JAX package), else approximate
+    (``particles=0``) or the estimate of a ``particles``-particle filter,
+    whose randomness comes from ``generator`` (default: seeded with
+    ``seed``) or ``eps``/``us``."""
     spec = spec_of(model_or_spec, theta)
     if not isinstance(spec, NGSpec):
-        if particles:
-            raise NotImplementedError(
-                "a linear-Gaussian likelihood needs no particle filter")
-        return cuda_kalman.log_likelihood(spec)
+        return cuda_kalman.routed_log_likelihood(spec)
     if particles == 0:
         return approx_mod.approx_loglik(spec, conv_tol=conv_tol,
                                         max_iter=max_iter).loglik

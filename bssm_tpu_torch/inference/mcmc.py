@@ -34,6 +34,9 @@ approximation; ``rts_factors`` and ``psi_logw``
 IS correction run the filters with trajectories (``particle.psi_filter`` /
 ``bsf_filter``, batched tensor code; the psi factors from ``rts_factors``),
 and the approx full output the simulation smoother (``fast_smoother_ll``).
+A model the kernels do not take (m > 4, a time-varying system: a seasonal
+model with period 12, say) runs the same chains through their plain
+versions on the card (``cuda_kalman.route``).
 
 The IS correction processes its rows in chunks of ``corr_batch`` rows,
 and the state draws or smoothing of linear-Gaussian output the stored
@@ -241,7 +244,7 @@ def _gaussian_chain(model: Model, n_iter, burnin, thin, target, gamma,
     batched: one launch of the log-likelihood kernel per iteration."""
 
     def logdens(theta):
-        ll = cuda_kalman.log_likelihood(model.build(theta))
+        ll = cuda_kalman.routed_log_likelihood(model.build(theta))
         return ll, ll, None
 
     def chain(generator, theta0, S0):

@@ -30,9 +30,11 @@ N > 512        not ported              not ported
 
 ``psi_logw`` takes its randomness injected as tensors; the large-ensemble
 kernel takes a Philox key drawn from the caller's generator and makes its
-own normals and uniforms, or injected tensors for the checks.  The plain
-versions ``psi_logw_scan`` and ``bsf_logw_scan`` below consume injected
-tensors.
+own normals and uniforms, or injected tensors (and, as a check, injected
+ancestors) for the checks.  The plain versions ``psi_logw_scan`` and
+``bsf_logw_scan`` below consume injected tensors; they also serve, on
+either device, the models the kernels do not take (``cuda_kalman.route``),
+a seed then standing for the tensors ``philox_fill_plain`` draws.
 
 The JAX package has no TPU kernel for the filters with trajectories:
 ``psi_filter`` and ``bsf_filter`` are batched tensor code on the card too,
@@ -52,8 +54,10 @@ from ..core import distributions as fam
 from ..core.spec import NGSpec, SVM, at_t, with_batch
 from ..ops import cuda_kalman
 from ..ops.chol import psd_chol
-from ..ops.resample import (ancestor_trace, stratified_gather_from_uniforms,
-                            stratified_indices_from_uniforms)
+from ..ops.kalman import smoother_bwd_factors
+from ..ops.resample import (  # noqa: F401 (the gather is re-exported)
+    ancestor_trace, stratified_gather_from_uniforms,
+    stratified_indices_from_uniforms)
 from .approx import ApproxLoglik, _col
 
 
@@ -101,12 +105,28 @@ def _carry_update(lnw: torch.Tensor, lw: torch.Tensor, ok: torch.Tensor):
     return inc.squeeze(-1), lnw_new
 
 
-def _resample(lnw: torch.Tensor, r: torch.Tensor, alpha: torch.Tensor):
-    """Stratified resampling of ``alpha (B, N, m)`` by the normalised
-    log-weights ``lnw`` and uniforms ``r``."""
+def _ancestors(lnw: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Stratified ancestors ``(B, N)`` from the normalised log-weights
+    ``lnw`` and uniforms ``r``."""
     nw = torch.where(torch.isfinite(lnw), torch.exp(lnw),
                      torch.zeros_like(lnw))
-    return stratified_gather_from_uniforms(nw, r, alpha)
+    return stratified_indices_from_uniforms(nw, r)
+
+
+class _AncestorLog:
+    """The ancestors a scan used, ``(B, S, N)`` int32: identity at the steps
+    that do not resample.  With ``anc`` given they are read from it instead
+    of searched for (the kernels' check-only input of the same layout)."""
+
+    def __init__(self, anc, B: int, S: int, N: int, dev):
+        self.given = anc
+        self.log = torch.arange(N, dtype=torch.int32, device=dev).expand(
+            B, S, N).clone()
+
+    def pick(self, s: int, search) -> torch.Tensor:
+        idx = search() if self.given is None else self.given[:, s - 1].long()
+        self.log[:, s - 1] = idx.to(torch.int32)
+        return idx
 
 
 def _signal(spec: NGSpec, alpha: torch.Tensor, Z, D, t: int) -> torch.Tensor:
@@ -117,8 +137,9 @@ def _signal(spec: NGSpec, alpha: torch.Tensor, Z, D, t: int) -> torch.Tensor:
 
 
 def psi_logw_scan(spec: NGSpec, al: ApproxLoglik, eps: torch.Tensor,
-                  us: torch.Tensor, factors=None,
-                  resample_every: int = 1) -> torch.Tensor:
+                  us: torch.Tensor, factors=None, resample_every: int = 1,
+                  anc: Optional[torch.Tensor] = None,
+                  return_ancestors: bool = False):
     """Plain version of the ``psi_logw`` and ``psi_big_logw`` kernels: the
     psi-APF log-weight ``(B,)`` as a Python loop over time with injected
     randomness ``eps (B, n+1, N, m)`` and ``us (B, n, N)``.  ``factors`` are
@@ -131,14 +152,14 @@ def psi_logw_scan(spec: NGSpec, al: ApproxLoglik, eps: torch.Tensor,
     that kernel's tests pin, to the bit; with weights that restart from 1/N
     at every step the two recursions are the same function, and the float64
     checks on the card hold the large-ensemble kernel at kk = 1 to this
-    branch at 1e-9."""
+    branch at 1e-9.  ``anc (B, n, N)`` replaces the search at the resampling
+    steps (the large-ensemble kernel's check-only input);
+    ``return_ancestors`` returns ``(logw, ancestors used (B, n, N) int32)``."""
     n = spec.n
     B, _, N, _ = eps.shape
     dt = spec.y.dtype
     kk = int(resample_every)
-    if factors is None:
-        factors = cuda_kalman.rts_factors(al.approx.gaussian(spec))
-    ahat, Lb, Ab = factors
+    ahat, Lb, Ab = _factors(spec, al) if factors is None else factors
     y = with_batch(spec.y, 1)
     u = with_batch(spec.u, 1)
     Z = with_batch(spec.Z, 2)
@@ -146,6 +167,7 @@ def psi_logw_scan(spec: NGSpec, al: ApproxLoglik, eps: torch.Tensor,
     phi = _col(spec.phi)
     yt, Ht, scl = al.approx.ytilde, al.approx.Htilde, al.scales
     tr = lambda A: A.transpose(-1, -2)                       # noqa: E731
+    log = _AncestorLog(anc, B, n, N, eps.device)
 
     alpha = ahat[:, n, None, :] + eps[:, 0] @ tr(Lb[:, n])   # no observation
     nw = torch.full((B, N), 1.0 / N, dtype=dt, device=eps.device)
@@ -153,15 +175,17 @@ def psi_logw_scan(spec: NGSpec, al: ApproxLoglik, eps: torch.Tensor,
     ll = torch.zeros(B, dtype=dt, device=eps.device)
     for s in range(1, n + 1):
         t = n - s
+        r = us[:, s - 1]
         if kk == 1:
-            anc = stratified_gather_from_uniforms(nw, us[:, s - 1], alpha)
+            anc_s = _pick(alpha, log.pick(
+                s, lambda: stratified_indices_from_uniforms(nw, r)))
         elif (s - 1) % kk == 0:
-            anc = _resample(lnw, us[:, s - 1], alpha)
+            anc_s = _pick(alpha, log.pick(s, lambda: _ancestors(lnw, r)))
             lnw = torch.full_like(lnw, -math.log(N))
         else:
-            anc = alpha
+            anc_s = alpha
         alpha = (ahat[:, t, None, :]
-                 + (anc - ahat[:, t + 1, None, :]) @ tr(Ab[:, t])
+                 + (anc_s - ahat[:, t + 1, None, :]) @ tr(Ab[:, t])
                  + eps[:, s] @ tr(Lb[:, t]))
         sig = _signal(spec, alpha, Z, D, t)
         y_t = y[:, t, None]
@@ -175,17 +199,20 @@ def psi_logw_scan(spec: NGSpec, al: ApproxLoglik, eps: torch.Tensor,
         else:
             inc, lnw = _carry_update(lnw, lw, ok)
         ll = ll + torch.where(ok[:, 0], inc, torch.zeros_like(inc))
-    return ll
+    return (ll, log.log) if return_ancestors else ll
 
 
 def bsf_logw_scan(spec: NGSpec, eps: torch.Tensor, us: torch.Tensor,
-                  resample_every: int = 1) -> torch.Tensor:
+                  resample_every: int = 1,
+                  anc: Optional[torch.Tensor] = None,
+                  return_ancestors: bool = False):
     """Plain version of the ``bsf_big_logw`` kernel: the bootstrap-filter
     log-likelihood ``(B,)`` less the observation constants, as a Python loop
     over time with injected randomness ``eps (B, n, N, m)`` (``eps[:, 0]``
     draws the initial ensemble; the state noise is ``R`` zero-padded to m
     columns times ``eps[:, s]``) and ``us (B, n-1, N)`` (``us[:, s-1]``
-    resamples before step s)."""
+    resamples before step s).  ``anc`` and ``return_ancestors`` as in
+    ``psi_logw_scan``, ``(B, n-1, N)``."""
     n, m = spec.n, spec.m
     B, _, N, _ = eps.shape
     dt = spec.y.dtype
@@ -198,6 +225,7 @@ def bsf_logw_scan(spec: NGSpec, eps: torch.Tensor, us: torch.Tensor,
     sysb = cuda_kalman.pack_bootstrap_system(spec, B)
     a1, L1, C, R, T = torch.split(sysb, [m, m * m, m, m * m, m * m], dim=1)
     mat = lambda A: A.reshape(B, m, m).transpose(-1, -2)     # noqa: E731
+    log = _AncestorLog(anc, B, n - 1, N, eps.device)
 
     def weigh(alpha, lnw, ll, t):
         y_t = y[:, t, None]
@@ -213,11 +241,12 @@ def bsf_logw_scan(spec: NGSpec, eps: torch.Tensor, us: torch.Tensor,
                     0)
     for s in range(1, n):
         if (s - 1) % kk == 0:
-            alpha = _resample(lnw, us[:, s - 1], alpha)
+            alpha = _pick(alpha, log.pick(
+                s, lambda: _ancestors(lnw, us[:, s - 1])))
             lnw = torch.full_like(lnw, -math.log(N))
         alpha = C[:, None, :] + alpha @ mat(T) + eps[:, s] @ mat(R)
         lnw, ll = weigh(alpha, lnw, ll, s)
-    return ll
+    return (ll, log.log) if return_ancestors else ll
 
 
 def _check_particles(nsim: int) -> None:
@@ -226,6 +255,25 @@ def _check_particles(nsim: int) -> None:
             f"{nsim} particles: the kernels serve at most "
             f"{cuda_kalman.MAX_N_BIG}; the scan tier for larger ensembles "
             "is not ported yet.")
+
+
+def _factors(spec: NGSpec, al: ApproxLoglik):
+    """The proposal factors of ``al``'s approximating model: the
+    ``rts_factors`` kernel where it takes the model, else its plain
+    version."""
+    g = al.approx.gaussian(spec)
+    if cuda_kalman.route("rts_factors", g):
+        return cuda_kalman.rts_factors(g)
+    return smoother_bwd_factors(g)
+
+
+def _plain_draws(key, B, steps, N, m, dt, eps, us):
+    """The injected tensors, or those a Philox key stands for
+    (``philox_fill_plain``): the randomness of a plain route in seed mode,
+    as the wrappers' own CPU branches draw it."""
+    if eps is not None:
+        return eps, us
+    return cuda_kalman.philox_fill_plain(key, B, steps, N, m, dt)
 
 
 def psi_logw(spec: NGSpec, al: ApproxLoglik, nsim: int,
@@ -242,26 +290,36 @@ def psi_logw(spec: NGSpec, al: ApproxLoglik, nsim: int,
     ``resample_every``; unless ``eps`` and ``us`` are given it draws a
     Philox key from ``generator`` and the kernel makes its own randomness
     (the injected tensors of one 16384-row chunk at n = 153, N = 256 would
-    be gigabytes)."""
+    be gigabytes).  A model the kernels do not take
+    (``cuda_kalman.kernel_takes``) runs the plain version,
+    ``psi_logw_scan``, on the same randomness."""
     _check_particles(nsim)
     n, m = spec.n, spec.m
     B = al.approx.mode.shape[0]
     dt, dev = spec.y.dtype, spec.y.device
-    ahat, Lb, Ab = cuda_kalman.rts_factors(al.approx.gaussian(spec))
+    ahat, Lb, Ab = _factors(spec, al)
     if nsim > cuda_kalman.MAX_N_PSI:
-        if eps is not None:
+        key = None if eps is not None \
+            else cuda_kalman.philox_key(generator, dev)
+        if cuda_kalman.route("psi_big_logw", spec):
             return al.loglik + cuda_kalman.psi_big_logw(
-                spec, al, ahat, Lb, Ab, resample_every, eps=eps, us=us)
-        return al.loglik + cuda_kalman.psi_big_logw(
-            spec, al, ahat, Lb, Ab, resample_every,
-            seed=cuda_kalman.philox_key(generator, dev), nsim=nsim)
+                spec, al, ahat, Lb, Ab, resample_every, eps=eps, us=us,
+                seed=key, nsim=None if key is None else nsim)
+        eps, us = _plain_draws(key, B, n + 1, nsim, m, dt, eps, us)
+        return al.loglik + psi_logw_scan(spec, al, eps, us,
+                                         factors=(ahat, Lb, Ab),
+                                         resample_every=resample_every)
     if eps is None:
         eps = torch.randn((B, n + 1, nsim, m), dtype=dt, device=dev,
                           generator=generator)
     if us is None:
         us = torch.rand((B, n, nsim), dtype=dt, device=dev,
                         generator=generator)
-    return al.loglik + cuda_kalman.psi_logw(spec, al, ahat, Lb, Ab, eps, us)
+    if cuda_kalman.route("psi_logw", spec):
+        return al.loglik + cuda_kalman.psi_logw(spec, al, ahat, Lb, Ab, eps,
+                                                us)
+    return al.loglik + psi_logw_scan(spec, al, eps, us,
+                                     factors=(ahat, Lb, Ab))
 
 
 def bsf_logw(spec: NGSpec, nsim: int,
@@ -271,16 +329,21 @@ def bsf_logw(spec: NGSpec, nsim: int,
     """The bootstrap-filter log-likelihood estimate only, ``(B,)``, with
     ``nsim`` <= 512 particles: the ``bsf_big_logw`` kernel plus the exact
     observation constants.  Randomness as in ``psi_logw``'s large-ensemble
-    branch."""
+    branch, and a model the kernel does not take likewise runs the plain
+    version, ``bsf_logw_scan``."""
     _check_particles(nsim)
     const = fam.obs_log_const(spec.distribution, with_batch(spec.y, 1),
                               with_batch(spec.u, 1), _col(spec.phi))
-    if eps is not None:
-        return const + cuda_kalman.bsf_big_logw(spec, resample_every,
-                                                eps=eps, us=us)
-    return const + cuda_kalman.bsf_big_logw(
-        spec, resample_every, nsim=nsim,
-        seed=cuda_kalman.philox_key(generator, spec.y.device))
+    key = None if eps is not None \
+        else cuda_kalman.philox_key(generator, spec.y.device)
+    if cuda_kalman.route("bsf_big_logw", spec):
+        return const + cuda_kalman.bsf_big_logw(
+            spec, resample_every, eps=eps, us=us, seed=key,
+            nsim=None if key is None else nsim)
+    eps, us = _plain_draws(key, spec.batch or 1, spec.n, nsim, spec.m,
+                           spec.y.dtype, eps, us)
+    return const + bsf_logw_scan(spec, eps, us,
+                                 resample_every=resample_every)
 
 
 # ---------------------------------------------------------------------------
@@ -355,7 +418,7 @@ def psi_filter(spec: NGSpec, al: ApproxLoglik, nsim: int,
     eps, us = _draws("psi_filter", B, n + 1, nsim, m, dt, dev, generator,
                      eps, us)
     N = eps.shape[2]
-    ahat, Lb, Ab = cuda_kalman.rts_factors(al.approx.gaussian(spec))
+    ahat, Lb, Ab = _factors(spec, al)
     y = with_batch(spec.y, 1)
     u = with_batch(spec.u, 1)
     Z = with_batch(spec.Z, 2)

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from .cuda_kalman import MAX_M
+
 _EPS = 2.220446049250313e-16  # double eps; threshold semantics of the ref
 
 
@@ -76,12 +78,21 @@ def _eigh2x2(Vs: torch.Tensor):
 
 
 def _sym_eigh(Vs: torch.Tensor):
-    """eigh with closed forms for the m <= 2 shapes of the main models."""
+    """eigh with closed forms for the m <= 2 shapes of the main models.  On
+    the card a float32 batch of more states than the kernels take
+    (``cuda_kalman.MAX_M``) is solved in float64 and rounded back: the
+    batched float32 Jacobi solver of cuSOLVER fails to converge on the many
+    repeated zero eigenvalues of a seasonal model's covariances (period 12,
+    m = 12), which the plain versions meet on the card for models the
+    kernels do not take."""
     m = Vs.shape[-1]
     if m == 1:
         return Vs[..., 0], torch.ones_like(Vs)
     if m == 2:
         return _eigh2x2(Vs)
+    if m > MAX_M and Vs.is_cuda and Vs.dtype == torch.float32:
+        w, U = torch.linalg.eigh(Vs.double())
+        return w.float(), U.float()
     return torch.linalg.eigh(Vs)
 
 

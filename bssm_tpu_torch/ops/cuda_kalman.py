@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels of the state-space hot paths, their build and
 their wrappers.  Counterpart of ``bssm_tpu/ops/pallas_kalman.py``.
 
-Five sources in ``bssm_tpu_torch/csrc/`` (CUDA C++ for sm_90a), nine
-wrappers:
+Sources in ``bssm_tpu_torch/csrc/`` (CUDA C++ for sm_90a; the large-
+ensemble kernel is one template, ``particle_big.cuh``, instantiated in four
+sources beside its entry points), nine wrappers:
 
 ================  ======================  ===================================
 wrapper           source                  plain version
@@ -33,7 +34,9 @@ single-model solve (``inference/approx.laplace_solve_steps``) loops over.
 randomness either injected (``eps``, ``us``: stream mode) or from a Philox
 key that the kernel expands itself (``seed``), which is what the MCMC paths
 use.  ``philox_fill`` writes the tensors the Philox mode would consume, so
-that the two modes can be compared.
+that the two modes can be compared; in stream mode a check may also inject
+the ancestors (``anc``), so that the kernel and its plain version resample
+alike.
 
 Each wrapper checks its inputs, allocates outputs and scratch with
 ``torch.empty``, launches on PyTorch's current stream, checks the launch
@@ -41,16 +44,28 @@ error and raises, does not synchronise, and adds one to its entry of
 ``LAUNCHES``.  Given tensors on the CPU it calls the plain version; given
 CUDA tensors it launches the kernel or raises.  Nothing falls back.
 
+Routing.  The kernels take m <= ``MAX_M`` states and a time-invariant Z,
+T, R and C (the bootstrap mode also no more columns of R than states),
+as the JAX package's kernels do.  The call sites decide before any
+wrapper, from the spec's shape alone (``kernel_takes``, through
+``route``): a spec the kernel takes goes to the wrapper, any other to the
+plain version on the tensors it already holds, on either device; a plain
+route taken on the card adds one to ``PLAIN_ROUTES``, beside ``LAUNCHES``.
+So a seasonal model with period 12 (m = 12 or 13) runs on the card through
+the plain versions, as it runs through the JAX package's scans, and a
+path that the kernels serve shows no plain route.
+
 The kernels read the spec where it lies: every series as (pointer, batch
 stride, time stride) (``_strided``), every time-invariant leaf as (pointer,
 batch stride) (``system_leaves``), so no system is packed and no series is
 transposed or copied; the kernels that need R R' form it themselves, and
 every wrapper but ``philox_fill`` hands its arguments over as one packed
-struct (``_call``).  The bootstrap mode alone gets one host-built tensor,
-the Cholesky factor of P1 with R, T, a1 and C beside it
-(``pack_bootstrap_system``).  The Kalman log-likelihood kernel applies the
-degenerate-model rule itself; on the card ``log_likelihood`` and
-``laplace_solve`` are one allocation and one launch a call.
+struct (``_call``).  The bootstrap mode, too, reads a1, C, T and R (by its
+own column count) as leaves, with chol(P1) taken once per distinct P1
+(``_p1_chol``); ``pack_bootstrap_system`` serves only its plain version.
+The Kalman log-likelihood kernel applies the degenerate-model rule itself;
+on the card ``log_likelihood`` and ``laplace_solve`` are one allocation and
+one launch a call.
 
 Build: at the first CUDA call, ``nvcc`` compiles every ``csrc/*.cu`` (one
 process per source, started together) for ``sm_90a`` and links them into
@@ -107,6 +122,9 @@ SHARED_WAVES = 1
 LAUNCHES = {"log_likelihood": 0, "fast_smoother_ll": 0, "laplace_solve": 0,
             "laplace_step": 0, "rts_factors": 0, "psi_logw": 0, "psi_big_logw": 0,
             "bsf_big_logw": 0, "philox_fill": 0}
+# plain versions run on the card in place of each wrapper's kernel, for
+# specs outside the kernels' contract (``route``), since the same reset
+PLAIN_ROUTES = {k: 0 for k in LAUNCHES if k != "philox_fill"}
 
 # seconds the last build took (None: library was already built or not loaded)
 build_seconds: Optional[float] = None
@@ -115,8 +133,10 @@ _lib = None
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Sets ``LAUNCHES`` and ``PLAIN_ROUTES`` to 0."""
+    for counts in (LAUNCHES, PLAIN_ROUTES):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -242,14 +262,60 @@ def _batch(spec) -> int:
     return spec.batch or 1
 
 
-def _check_system(spec) -> None:
+def _outside_system(spec) -> Optional[str]:
+    """Why the kernels cannot take the system of ``spec`` (its state
+    dimension or a time-varying Z, T, R or C), or None."""
     m = spec.m
     if m > MAX_M:
-        raise NotImplementedError(f"kernels support m <= {MAX_M}, got {m}")
+        return f"kernels support m <= {MAX_M}, got {m}"
     for name, nd in (("Z", 2), ("T", 3), ("R", 3), ("C", 2)):
         if getattr(spec, name).shape[-nd] != 1:
-            raise NotImplementedError(
-                f"kernels need a time-invariant {name}")
+            return f"kernels need a time-invariant {name}"
+    return None
+
+
+def _check_system(spec) -> None:
+    why = _outside_system(spec)
+    if why is not None:
+        raise NotImplementedError(why)
+
+
+# the wrappers that take a non-Gaussian spec: they serve its five families
+NG_WRAPPERS = ("laplace_solve", "laplace_step", "psi_logw", "psi_big_logw",
+               "bsf_big_logw")
+
+
+def kernel_takes(spec, wrapper: str) -> bool:
+    """Whether the kernel behind ``wrapper`` takes ``spec``, decided from the
+    spec's shape alone, before any wrapper is called: m <= ``MAX_M``, a
+    time-invariant Z, T, R and C, for ``bsf_big_logw`` no more columns of R
+    than states, and for the wrappers of non-Gaussian specs a non-Gaussian
+    spec of one of the families they serve.  It mirrors the JAX package's decline of its
+    kernels (``_batched_inputs``, ``fused_laplace_solve_batched``), after
+    which that package runs its scans.  The wrappers' own refusal
+    (``_check_system``) stays: a wrapper never falls back."""
+    if wrapper not in PLAIN_ROUTES:
+        raise ValueError(f"unknown kernel wrapper {wrapper!r}")
+    if _outside_system(spec) is not None:
+        return False
+    if wrapper == "bsf_big_logw" and spec.k > spec.m:
+        return False
+    family = getattr(spec, "distribution", None)   # None: linear-Gaussian
+    return wrapper not in NG_WRAPPERS or (family is not None
+                                          and SVM <= family <= GAMMA)
+
+
+def route(wrapper: str, spec) -> bool:
+    """The call sites' dispatch: True where the kernel behind ``wrapper``
+    takes ``spec`` (``kernel_takes``), so the caller calls the wrapper;
+    False where it does not, so the caller runs the plain version on the
+    tensors the spec already holds, and a spec on the card adds one to
+    ``PLAIN_ROUTES[wrapper]``."""
+    if kernel_takes(spec, wrapper):
+        return True
+    if spec.y.is_cuda:
+        PLAIN_ROUTES[wrapper] += 1
+    return False
 
 
 def _check_tensors(tensors, ref: torch.Tensor) -> None:
@@ -373,7 +439,7 @@ _STEP_ARGS = struct.Struct("=37q")
 _KALMAN_ARGS = struct.Struct("=34q")
 _RTS_ARGS = struct.Struct("=34q")
 _PSI_ARGS = struct.Struct("=30q")
-_BIG_ARGS = struct.Struct("=34q")
+_BIG_ARGS = struct.Struct("=48q")
 
 
 def _call(fn, layout: struct.Struct, *fields) -> int:
@@ -454,6 +520,25 @@ def fast_smoother_ll(g: LGSpec):
     if not g.y.is_cuda:
         return kalman.fast_smoother_ll(g, degenerate=kalman.degenerate_h2rr)
     return _lg_launch("fast_smoother_ll", g, smooth=True)
+
+
+def routed_log_likelihood(g: LGSpec) -> torch.Tensor:
+    """``log_likelihood`` at a call site: the kernel where it takes ``g``
+    (``route``), else the plain version on ``g``'s own tensors, under the
+    same degenerate-model rule."""
+    from . import kalman
+    if route("log_likelihood", g):
+        return log_likelihood(g)
+    return kalman.log_likelihood(g, degenerate=kalman.degenerate_h2rr)
+
+
+def routed_fast_smoother_ll(g: LGSpec):
+    """``fast_smoother_ll`` at a call site, routed as
+    ``routed_log_likelihood``."""
+    from . import kalman
+    if route("fast_smoother_ll", g):
+        return fast_smoother_ll(g)
+    return kalman.fast_smoother_ll(g, degenerate=kalman.degenerate_h2rr)
 
 
 # ---------------------------------------------------------------------------
@@ -758,7 +843,9 @@ def philox_fill_plain(key: torch.Tensor, B: int, steps: int, N: int, m: int,
     step, row, which) in tensor code.  Words 0 and 1 of the call with
     which = 0 feed normals 0 and 1.  For m <= 2 its word 2 feeds the
     resampling uniform; for m > 2 words 2 and 3 feed normals 2 and 3 and the
-    uniform is word 0 of a second call, which = 1."""
+    uniform is word 0 of a second call, which = 1.  Beyond the kernels'
+    m <= 4 (the plain routes of larger models), normals 4j..4j+3 come from
+    the call with which = j + 1 in the same way."""
     dev = key.device
     k = (key[0] & 0xFFFFFFFF, key[1] & 0xFFFFFFFF)
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=dev)  # noqa: E731
@@ -766,14 +853,16 @@ def philox_fill_plain(key: torch.Tensor, B: int, steps: int, N: int, m: int,
         ar(N)[None, None, :]
     zero = torch.zeros((B, steps, N), dtype=torch.int64, device=dev)
     ctr = [part + zero, step + zero, row + zero]
-    w = philox4x32_10(ctr + [zero], k)
+    call = lambda which: philox4x32_10(ctr + [zero + which], k)  # noqa
+    groups = [call(0)] + [call(j + 1) for j in range(1, (m + 3) // 4)]
     zs = []
-    for a, b in ((w[0], w[1]), (w[2], w[3]))[:(m + 1) // 2]:
-        rad = torch.sqrt(-2.0 * torch.log(_u01(a, dtype)))
-        ang = 2.0 * torch.pi * _u01(b, dtype)
+    for j in range((m + 1) // 2):
+        w = groups[j // 2]
+        rad = torch.sqrt(-2.0 * torch.log(_u01(w[2 * (j % 2)], dtype)))
+        ang = 2.0 * torch.pi * _u01(w[2 * (j % 2) + 1], dtype)
         zs += [rad * torch.cos(ang), rad * torch.sin(ang)]
     eps = torch.stack(zs[:m], dim=-1).contiguous()
-    wu = w[2] if m <= 2 else philox4x32_10(ctr + [zero + 1], k)[0]
+    wu = groups[0][2] if m <= 2 else call(1)[0]
     us = _u01(wu, dtype)[:, 1:].contiguous()
     return eps, us
 
@@ -808,17 +897,74 @@ def philox_fill(key: torch.Tensor, B: int, steps: int, N: int, m: int,
 # K4 / K5: the large-ensemble particle kernel, psi mode and bootstrap mode
 # ---------------------------------------------------------------------------
 
-def _randomness(name, B, steps, m, dev, eps, us, seed, nsim):
+class BigGeometry(NamedTuple):
+    """How ``csrc/particle_big.cu`` lays a launch out."""
+    threads_per_row: int   # 32 or 64: one or two warps a row
+    rows_per_block: int    # several rows only where a row is one warp
+    pmax: int              # register slots of a thread: its most particles
+    smem_bytes: int        # dynamic shared memory of a block
+
+
+BIG_CHUNK = 16             # steps of row input a shared chunk holds
+BIG_MAX_WARPS = 2          # warps a row may take
+BIG_MAX_THREADS = 128      # threads a block may have
+SMEM_DEFAULT = 48 * 1024   # dynamic shared memory without an opt-in
+
+
+def big_pmax_choices(itemsize: int, m: int) -> tuple:
+    """The slot counts the kernel is instantiated for (``big_all_p`` of
+    ``csrc/particle_big.cuh``): 2 and 8, and 7 for float32 at m <= 2, the
+    paths' shapes (N = 200 on one warp)."""
+    return (2, 7, 8) if itemsize == 4 and m <= 2 else (2, 8)
+
+
+def big_row_elems(N: int, m: int, bsf: bool) -> int:
+    """Shared values of one row of the large-ensemble kernel (the kernel's
+    ``big_row_elems``): two chunks of ``BIG_CHUNK`` steps of row input (psi:
+    m + 2 m^2 + 6 scalars a step, bsf: 3), the ensemble (m N), the
+    cumulative weights (N) and the reduction stage, rounded up to even."""
+    row = 3 if bsf else m + 2 * m * m + 6
+    e = 2 * BIG_CHUNK * row + m * N + N + 4 * BIG_MAX_WARPS
+    return (e + 1) & ~1
+
+
+@functools.lru_cache(maxsize=None)
+def big_geometry(N: int, m: int, itemsize: int, bsf: bool) -> BigGeometry:
+    """The launch of ``N`` particles: one warp a row up to N = 256 (no block
+    barrier at all), two above; a thread's slots are the fewest instantiated
+    (``big_pmax_choices``) that hold ceil(N / threads) particles; one-warp
+    rows share blocks of up to four, as many as fit in ``SMEM_DEFAULT``.
+    Cached: a chain asks for the same launch at every iteration."""
+    w = 1 if N <= 256 else 2
+    threads = 32 * w
+    per = -(-N // threads)
+    pmax = next((p for p in big_pmax_choices(itemsize, m) if p >= per), None)
+    if pmax is None:
+        raise ValueError(f"{N} particles need more than {w} warps a row")
+    row_bytes = big_row_elems(N, m, bsf) * itemsize
+    rows = 1 if w > 1 else max(1, min(BIG_MAX_THREADS // 32,
+                                      SMEM_DEFAULT // row_bytes))
+    return BigGeometry(threads, rows, pmax, rows * row_bytes)
+
+
+def _randomness(name, B, steps, m, dev, eps, us, seed, nsim, anc):
     """Checks the randomness arguments of the large-ensemble wrappers.
-    Returns ``(N, eps, us, key)`` with either the stream tensors or the key
-    set.  ``steps`` counts the initial draw."""
+    Returns ``(N, eps, us, key, anc)`` with either the stream tensors (and
+    the injected ancestors, if any) or the key set.  ``steps`` counts the
+    initial draw."""
     if (eps is None) != (us is None) or (eps is None) == (seed is None):
         raise ValueError(f"{name}: give either eps and us, or seed")
+    if anc is not None and eps is None:
+        raise ValueError(f"{name}: injected ancestors need eps and us")
     if eps is not None:
         N = eps.shape[2]
         eps = _dense(eps, (B, steps, N, m), "eps")
         us = _dense(us, (B, steps - 1, N), "us")
         key = None
+        if anc is not None:
+            anc = _dense(anc, (B, steps - 1, N), "anc")
+            if anc.dtype != torch.int32 or anc.device != eps.device:
+                raise TypeError(f"{name}: anc must be int32 beside eps")
     else:
         if nsim is None:
             raise ValueError(f"{name}: seed needs nsim, the particle count")
@@ -826,18 +972,25 @@ def _randomness(name, B, steps, m, dev, eps, us, seed, nsim):
     if not 2 <= N <= MAX_N_BIG:
         raise NotImplementedError(
             f"{name} handles 2 <= N <= {MAX_N_BIG} particles, got {N}")
-    return N, eps, us, key
+    return N, eps, us, key, anc
 
 
-def _launch_big(name, spec, bsf, B, N, S, kk, psi_t, sysb, eps, us, key):
+def _launch_big(name, spec, bsf, B, N, S, kk, psi_t, eps, us, anc, key):
     """Shared launch of the two modes; ``psi_t`` = (ytilde, Htilde, scales,
-    ahat, Lb, Ab) or None, ``sysb`` the packed bootstrap system or None."""
+    ahat, Lb, Ab) or None.  The bootstrap mode hands over a1, chol(P1), C, T
+    and R as leaves where the spec holds them (``_bootstrap_leaves``)."""
     m = spec.m
     dt, dev = spec.y.dtype, spec.y.device
     n = spec.n
     series = _strided(spec.y, B, n, "y", full=True) \
         + _strided(spec.u, B, n, "u", full=True) + _strided(spec.D, B, n, "D")
-    leaf_args, keep = _leaf_args(spec, B, ("Z", "phi"))
+    if bsf:
+        leaf_args, keep = _bootstrap_leaves(spec, B)
+        k = spec.k
+    else:
+        leaf_args, keep = _leaf_args(spec, B, ("Z", "phi"))
+        leaf_args, k = leaf_args + [0] * 10, 0
+    geo = big_geometry(N, m, spec.y.element_size(), bsf)
     out = torch.empty((B,), dtype=dt, device=dev)
     ptr = lambda x: 0 if x is None else x.data_ptr()        # noqa: E731
     psi_ptrs = [0] * 6 if psi_t is None else [x.data_ptr() for x in psi_t]
@@ -846,8 +999,10 @@ def _launch_big(name, spec, bsf, B, N, S, kk, psi_t, sysb, eps, us, key):
         code = _call(lib.bssm_particle_big, _BIG_ARGS,
                      int(dt == torch.float64), m, int(spec.distribution),
                      int(bsf), int(key is not None), N, B, S, int(kk),
-                     *psi_ptrs, ptr(sysb), *series, *leaf_args, ptr(eps),
-                     ptr(us), ptr(key), out.data_ptr(), _stream(dev))
+                     geo.threads_per_row, geo.rows_per_block, geo.pmax,
+                     *psi_ptrs, *series, *leaf_args, k, ptr(eps),
+                     ptr(us), ptr(anc), ptr(key), out.data_ptr(),
+                     _stream(dev))
     _check_launch(lib, code, name)
     LAUNCHES[name] += 1
     return out
@@ -864,24 +1019,27 @@ def _check_big(name, spec, kk) -> None:
 
 def psi_big_logw(spec: NGSpec, al, ahat: torch.Tensor, Lb: torch.Tensor,
                  Ab: torch.Tensor, kk: int, *, eps=None, us=None, seed=None,
-                 nsim: Optional[int] = None) -> torch.Tensor:
+                 nsim: Optional[int] = None, anc=None) -> torch.Tensor:
     """psi-APF log-weight ``(B,)`` of every batch row with 2 <= N <= 512
     particles, resampling at every ``kk``-th step.  Randomness: either
     injected ``eps (B, n+1, N, m)`` and ``us (B, n, N)``, or ``seed``, a
-    Philox key (``philox_key``), together with ``nsim`` = N."""
+    Philox key (``philox_key``), together with ``nsim`` = N.  ``anc
+    (B, n, N)`` int32, with the injected tensors only, gives the ancestors
+    of every resampling step in place of the search (a check: the plain
+    version takes the same tensor)."""
     B, n, m = al.approx.mode.shape[0], spec.n, spec.m
-    N, eps, us, key = _randomness("psi_big_logw", B, n + 1, m,
-                                  spec.y.device, eps, us, seed, nsim)
+    N, eps, us, key, anc = _randomness("psi_big_logw", B, n + 1, m,
+                                       spec.y.device, eps, us, seed, nsim,
+                                       anc)
     if not spec.y.is_cuda:
         from ..inference.particle import psi_logw_scan
         if eps is None:
             eps, us = philox_fill_plain(key, B, n + 1, N, m, spec.y.dtype)
         return psi_logw_scan(spec, al, eps, us, factors=(ahat, Lb, Ab),
-                             resample_every=kk)
+                             resample_every=kk, anc=anc)
     _check_big("psi_big_logw", spec, kk)
     if spec.batch not in (None, 1, B):
         raise ValueError("spec batch does not match the approximation")
-    dt, dev = spec.y.dtype, spec.y.device
     yt, Ht, sc = al.approx.ytilde, al.approx.Htilde, al.scales
     named = [("u", spec.u), ("D", spec.D), ("Z", spec.Z), ("phi", spec.phi),
              ("ytilde", yt), ("Htilde", Ht), ("scales", sc), ("ahat", ahat),
@@ -894,14 +1052,15 @@ def psi_big_logw(spec: NGSpec, al, ahat: torch.Tensor, Lb: torch.Tensor,
              _dense(ahat, (B, n + 1, m), "ahat"),
              _dense(Lb, (B, n + 1, m, m), "Lb"),
              _dense(Ab, (B, n + 1, m, m), "Ab"))
-    return _launch_big("psi_big_logw", spec, False, B, N, n, kk, psi_t, None,
-                       eps, us, key)
+    return _launch_big("psi_big_logw", spec, False, B, N, n, kk, psi_t, eps,
+                       us, anc, key)
 
 
 def pack_bootstrap_system(spec: NGSpec, B: int) -> torch.Tensor:
     """``(B, 2m + 3m^2)`` rows [a1, chol(P1), C, R, T] of the time-invariant
     system, R zero-padded to m columns (more columns than states are not
-    served)."""
+    served): the system of the plain version ``bsf_logw_scan``.  The kernel
+    reads the leaves where they lie (``_bootstrap_leaves``)."""
     from .chol import psd_chol
     m = spec.m
     R = with_batch(spec.R, 3)[:, 0]
@@ -917,32 +1076,63 @@ def pack_bootstrap_system(spec: NGSpec, B: int) -> torch.Tensor:
                       for x in leaves], dim=1).contiguous()
 
 
+# the last P1 whose Cholesky factor the bootstrap mode took, its version and
+# the factor: a model's P1 is one tensor from build to build, so a chain
+# factors it once
+_P1_CHOL: list = [None, -1, None]
+
+
+def _p1_chol(P1: torch.Tensor) -> torch.Tensor:
+    """``psd_chol(P1)``, taken once per distinct P1 (the same tensor at the
+    same version gives the factor taken before): one matrix when P1 has no
+    batch axis."""
+    from .chol import psd_chol
+    if _P1_CHOL[0] is not P1 or _P1_CHOL[1] != P1._version:
+        _P1_CHOL[:] = [P1, P1._version, psd_chol(P1)]
+    return _P1_CHOL[2]
+
+
+def _bootstrap_leaves(spec: NGSpec, B: int):
+    """``LeafArg`` fields of Z, phi, a1, L1 = chol(P1), C, T and R (its own
+    k columns) for the bootstrap mode, and the tensors to keep alive."""
+    flat, keep = _leaf_args(spec, B, ("Z", "phi", "a1", "C", "T", "R"))
+    L1 = _p1_chol(spec.P1)
+    b = L1.shape[0] if L1.dim() == 3 else 1
+    if b not in (1, B):
+        raise ValueError(f"P1: batch {b} does not match {B}")
+    l1 = [L1.data_ptr(), L1.stride(0) if b > 1 else 0]
+    return flat[:6] + l1 + flat[6:], (keep, L1)
+
+
 def bsf_big_logw(spec: NGSpec, kk: int, *, eps=None, us=None, seed=None,
-                 nsim: Optional[int] = None) -> torch.Tensor:
+                 nsim: Optional[int] = None, anc=None) -> torch.Tensor:
     """Bootstrap-filter log-likelihood ``(B,)`` less the observation
     constants, 2 <= N <= 512 particles, resampling at every ``kk``-th step.
-    Randomness: either injected ``eps (B, n, N, m)`` and ``us (B, n-1, N)``,
-    or ``seed`` (a Philox key) with ``nsim``; B is then the batch size of
-    ``spec``."""
+    Randomness: either injected ``eps (B, n, N, m)`` and ``us (B, n-1, N)``
+    (and, as a check, ``anc (B, n-1, N)``), or ``seed`` (a Philox key) with
+    ``nsim``; B is then the batch size of ``spec``.  R may have fewer
+    columns than states."""
     n, m = spec.n, spec.m
     B = eps.shape[0] if eps is not None else _batch(spec)
-    N, eps, us, key = _randomness("bsf_big_logw", B, n, m, spec.y.device,
-                                  eps, us, seed, nsim)
+    N, eps, us, key, anc = _randomness("bsf_big_logw", B, n, m,
+                                       spec.y.device, eps, us, seed, nsim,
+                                       anc)
     if not spec.y.is_cuda:
         from ..inference.particle import bsf_logw_scan
         if eps is None:
             eps, us = philox_fill_plain(key, B, n, N, m, spec.y.dtype)
-        return bsf_logw_scan(spec, eps, us, resample_every=kk)
+        return bsf_logw_scan(spec, eps, us, resample_every=kk, anc=anc)
     _check_big("bsf_big_logw", spec, kk)
+    if spec.k > m:
+        raise NotImplementedError(
+            f"bsf_big_logw: R has {spec.k} columns, more than the {m} states")
     if spec.batch not in (None, 1, B):
         raise ValueError("spec batch does not match eps")
-    dt, dev = spec.y.dtype, spec.y.device
     named = [("u", spec.u), ("D", spec.D), ("Z", spec.Z), ("phi", spec.phi),
              ("T", spec.T), ("R", spec.R), ("a1", spec.a1), ("P1", spec.P1),
              ("C", spec.C)]
     if eps is not None:
         named += [("eps", eps), ("us", us)]
     _check_tensors(named, spec.y)
-    sysb = pack_bootstrap_system(spec, B)
-    return _launch_big("bsf_big_logw", spec, True, B, N, n - 1, kk, None,
-                       sysb, eps, us, key)
+    return _launch_big("bsf_big_logw", spec, True, B, N, n - 1, kk, None, eps,
+                       us, anc, key)

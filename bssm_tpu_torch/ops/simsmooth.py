@@ -10,7 +10,8 @@ observations and ``eta (B, n, k)`` for the state disturbances, or a
 ``torch.Generator`` from which they are drawn in that order.  The smoothed
 means of all draws go through ``ops/cuda_kalman.fast_smoother_ll``: one
 launch of the fast-smoother kernel for the whole batch on the GPU, its plain
-version on the CPU.  Its moment-identity means equal the classic
+version on the CPU and for models the kernel does not take
+(``cuda_kalman.routed_fast_smoother_ll``).  Its moment-identity means equal the classic
 ``kalman.fast_smoother``'s, which the JAX package uses here, up to
 roundoff.
 """
@@ -73,7 +74,7 @@ def simulate_states_single(spec: LGSpec, generator=None, *,
     aplus, ysim = _simulate_prior_and_obs(spec, True, um, eps, eta)
     y = with_batch(spec.y, 1)
     ystar = torch.where(torch.isfinite(y), y - ysim, y)
-    cond, _ = cuda_kalman.fast_smoother_ll(spec._replace(y=ystar))
+    cond, _ = cuda_kalman.routed_fast_smoother_ll(spec._replace(y=ystar))
     return cond + aplus
 
 
@@ -91,13 +92,13 @@ def simulate_states(spec: LGSpec, nsim: int, generator=None,
     if nsim == 1:
         return simulate_states_single(spec, generator, um=um, eps=eps,
                                       eta=eta)
-    alphahat, _ = cuda_kalman.fast_smoother_ll(spec)
+    alphahat, _ = cuda_kalman.routed_fast_smoother_ll(spec)
     n_base = (nsim + 1) // 2 if use_antithetic else nsim
     um, eps, eta = _normals(spec, n_base, generator, um, eps, eta)
     aplus, ysim = _simulate_prior_and_obs(spec, False, um, eps, eta)
     y = with_batch(spec.y, 1)
     ystar = torch.where(torch.isfinite(y), ysim, y)
-    cond, _ = cuda_kalman.fast_smoother_ll(spec._replace(y=ystar))
+    cond, _ = cuda_kalman.routed_fast_smoother_ll(spec._replace(y=ystar))
     base = alphahat - cond + aplus
     if use_antithetic:
         base = torch.cat([base, 2.0 * alphahat - base], dim=0)

@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py            # full run, needs one CUDA device
     python3 chip_smoke.py --iter 200 # shorter main path
+    python3 chip_smoke.py --big-only # the large-ensemble kernel alone
+    python3 chip_smoke.py --big-ab DIR   # its A/B against the package in DIR
+    python3 chip_smoke.py --geometry-sweep   # its launch geometries, timed
 
 What it does, in order:
 
@@ -31,8 +34,16 @@ What it does, in order:
    Philox
    mode against stream mode and against the plain versions on tensors that
    ``philox_fill`` wrote, the filled tensors against their plain version
-   and their moments, at the shapes the paths give the kernel; and times
-   both modes at B = 16384 against the plain versions on the same tensors;
+   and their moments, at the shapes the paths give the kernel; in float32
+   the kernel fed the ancestors the plain version's own search chose
+   (``check_anc``) at the shapes of ``pm_bsf_N200``, ``da_psi_N64`` and
+   ``psi_N256``'s correction, and at N = 300 and 512 (two warps a row),
+   every row at the tight tolerance; two warps a row at N = 300 in float64
+   against the plain versions; and times both modes at B = 16384 against
+   the plain versions on the same tensors (``--big-only`` runs only this
+   step; ``--big-ab DIR`` only the A/B of this kernel against the package
+   checked out in DIR, ``big_ab``; ``--geometry-sweep`` only its times
+   under launch geometries the rule does not pick, ``geometry_sweep``);
 5. holds the two linear-Gaussian kernels (``log_likelihood``,
    ``fast_smoother_ll``) against their plain versions: the airquality
    ``bsm_lg`` model (n = 153, m = 2, Wind and Temp as regressors, so D varies
@@ -47,9 +58,10 @@ What it does, in order:
    ``log_likelihood`` on three layouts of the same leaves (as built, expand
    views of stride 0, per-row copies with non-contiguous cores) against the
    plain versions, timed at B = 4096;
-6. drives twelve paths through the public entry points and gates each
+6. drives fourteen paths through the public entry points and gates each
    (finite values, acceptance rate, ESS_IS fraction where there are
-   weights, the path's kernels launched by that very run):
+   weights, the path's kernels launched by that very run, and no plain
+   route taken on the card, ``cuda_kalman.PLAIN_ROUTES``):
    ``psi_N10`` / ``psi_N256`` (resampling period 8) / ``psi_N256_refexact``
    (period 1): IS-MCMC (``mcmc_type="is2"``) on a level + slope ``bsm_ng``
    Poisson model, n = 153, 4096 / 4096 / 1024 chains; ``pm_bsf_N200``:
@@ -67,6 +79,12 @@ What it does, in order:
    per slot, which ``post_correct`` with the run's correction generator
    must turn into is2_full's weights; ``ng_api``: the non-Gaussian public
    API on one model (the single-model Laplace solve, K8);
+   ``seasonal_ng_is2`` / ``seasonal_lg_gaussian``: models outside the
+   kernels' contract on a simulated monthly series (n = 144, seed 12),
+   is2/psi with 10 particles on a Poisson level + seasonal(12) ``bsm_ng``
+   (m = 12, 256 chains) and ``gaussian`` summary output on a level + slope
+   + seasonal(12) ``bsm_lg`` (m = 13, 1024 chains): they must take the
+   plain versions on the card (plain routes > 0) and launch no kernel;
 7. prints one JSON object per line: ``card``, ``checks``, ``step_checks``,
    ``big_checks``, ``lg_checks``, one ``path`` line each (``main_path`` for
    ``psi_N10``), ``kernels``, the card's name and power limit, and last
@@ -103,8 +121,10 @@ line.  Tolerances (|a - b| <= tol (1 + |b|)):
   the estimate by its Monte-Carlo spread; also about ten times the largest
   seen), and the mean difference over the rows must lie within 5 of its
   standard errors of zero: flips are draws, not a bias.  The share of rows
-  outside the tight tolerance ("flipped") is printed.  Philox mode against
-  stream mode: 1e-6 (float32) / 1e-12 (float64) scaled, every row.
+  outside the tight tolerance ("flipped") is printed.  With the plain
+  version's own ancestors injected into the kernel no ancestor can flip, and
+  float32 must hold every row inside the tight tolerance.  Philox mode
+  against stream mode: 1e-6 (float32) / 1e-12 (float64) scaled, every row.
   Linear-Gaussian kernels, every entry: float64 1e-9 (1 + |ref|); float32
   as the JAX package's kernel tests (tests/test_pallas.py): log-likelihood
   1e-5 + 2e-5 |ref|, smoothed means 3e-4 (1 + the row's largest |ref|).
@@ -417,6 +437,39 @@ def lg_sweep_model(bt, m: int, dtype, n: int = 40):
         kw["sd_seasonal"] = bt.halfnormal_prior(0.2, 1.0)
         kw["period"] = 3
     return bt.bsm_lg(y, **kw)
+
+
+def monthly_series():
+    """A simulated monthly series, n = 144 (twelve years), numpy seed 12: a
+    slowly drifting level with a yearly cycle; Poisson counts around its
+    exponential, and a Gaussian series of the same shape with a slope."""
+    rng = np.random.default_rng(12)
+    n = 144
+    t = np.arange(n)
+    level = np.cumsum(rng.normal(0, 0.03, n))
+    season = 0.4 * np.sin(2 * np.pi * t / 12) \
+        + 0.2 * np.cos(4 * np.pi * t / 12)
+    counts = rng.poisson(np.exp(1.5 + level + season)).astype(float)
+    gauss = 20.0 + 0.02 * t + 5.0 * level + 3.0 * season \
+        + rng.normal(0, 1.0, n)
+    return counts, gauss
+
+
+def seasonal_models(bt, dtype, device="cuda"):
+    """The two models outside the kernels' contract: ``bsm_ng`` Poisson
+    level + seasonal with period 12 (m = 12, d = 2) and ``bsm_lg`` level +
+    slope + seasonal with period 12 (m = 13, d = 4), on the monthly
+    series."""
+    counts, gauss = monthly_series()
+    ng = bt.bsm_ng(counts, sd_level=bt.halfnormal_prior(0.05, 1.0),
+                   sd_seasonal=bt.halfnormal_prior(0.05, 1.0), period=12,
+                   distribution="poisson", dtype=dtype, device=device)
+    lg = bt.bsm_lg(gauss, sd_y=bt.halfnormal_prior(1.0, 5.0),
+                   sd_level=bt.halfnormal_prior(0.1, 1.0),
+                   sd_slope=bt.halfnormal_prior(0.01, 0.1),
+                   sd_seasonal=bt.halfnormal_prior(0.1, 1.0), period=12,
+                   dtype=dtype, device=device)
+    return ng, lg
 
 
 def thetas_around_init(model, B: int, seed: int, spread: float = 0.5):
@@ -1011,10 +1064,13 @@ def check_big(model, B: int, N: int, kk: int, label: str, timed: bool,
                       generator=gen)
     us = torch.rand((B, n, N), dtype=dt, device="cuda", generator=gen)
     eps_b, us_b = eps[:, :n].contiguous(), us[:, :n - 1].contiguous()
+    geo = {mode: ck.big_geometry(N, m, spec.y.element_size(), mode == "bsf")
+           for mode in ("psi", "bsf")}
     out = {"label": label, "B": B, "n": n, "m": m, "N": N, "kk": kk,
            "dtype": str(dt).replace("torch.", ""),
            "family": spec.distribution, "checks": [], "ms": {},
-           "plain_ms": {}}
+           "plain_ms": {}, "geometry": {k: g._asdict() for k, g in geo.items()
+                                        if k in modes}}
     calls = {
         "psi": ("psi_big_logw", -(-n // kk), al.scales,
                 lambda: ck.psi_big_logw(spec, al, *fac, kk, eps=eps, us=us),
@@ -1099,6 +1155,60 @@ def check_philox(model, B: int, N: int, kk: int, label: str,
             out["checks"].append(compare_big(
                 f"{name} philox vs plain", a, scan(), dt, resamplings, N,
                 scales))
+    return out
+
+
+def check_anc(model, B: int, N: int, kk: int, mode: str, label: str,
+              seed: int = 15) -> dict:
+    """Float32 check of the large-ensemble kernel that holds every row: the
+    plain version runs with its own search and returns the ancestors it
+    chose; the kernel is fed those ancestors (``anc``, stream mode) on the
+    same tensors, so that no near-tie can flip a resampled ancestor, and
+    every row must agree at the tight tolerance of ``compare_big`` (psi:
+    2e-4 + 2e-6 sum|scales|, bsf: 2e-4 (1 + |ref|)).  The plain version,
+    fed its own ancestors, must give its own result to the bit."""
+    from bssm_tpu_torch.inference import particle as pmod
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    dt, m = model.dtype, model.extra["m"]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    if mode == "psi":
+        spec, al, fac = big_inputs(model, B, seed)
+        n = spec.n
+        eps = torch.randn((B, n + 1, N, m), dtype=dt, device="cuda",
+                          generator=gen)
+        us = torch.rand((B, n, N), dtype=dt, device="cuda", generator=gen)
+        ref, anc = pmod.psi_logw_scan(spec, al, eps, us, factors=fac,
+                                      resample_every=kk,
+                                      return_ancestors=True)
+        again = pmod.psi_logw_scan(spec, al, eps, us, factors=fac,
+                                   resample_every=kk, anc=anc)
+        geo = ck.big_geometry(N, m, spec.y.element_size(), False)
+        got = ck.psi_big_logw(spec, al, *fac, kk, eps=eps, us=us, anc=anc)
+        atol = 2e-4 + 2e-6 * al.scales.double().abs().sum(-1)
+        name = "psi_big_logw"
+    else:
+        spec = model.build(thetas_around_init(model, B, seed))
+        n = spec.n
+        eps = torch.randn((B, n, N, m), dtype=dt, device="cuda",
+                          generator=gen)
+        us = torch.rand((B, n - 1, N), dtype=dt, device="cuda",
+                        generator=gen)
+        ref, anc = pmod.bsf_logw_scan(spec, eps, us, resample_every=kk,
+                                      return_ancestors=True)
+        again = pmod.bsf_logw_scan(spec, eps, us, resample_every=kk, anc=anc)
+        geo = ck.big_geometry(N, m, spec.y.element_size(), True)
+        got = ck.bsf_big_logw(spec, kk, eps=eps, us=us, anc=anc)
+        atol = 2e-4 * (1.0 + ref.double().abs())
+        name = "bsf_big_logw"
+    torch.cuda.synchronize()
+    out = {"label": label, "B": B, "n": n, "m": m, "N": N, "kk": kk,
+           "dtype": str(dt).replace("torch.", ""), "geometry": geo._asdict(),
+           "checks": [compare_rows(f"{name} injected ancestors", got, ref,
+                                   atol, atol, 1.0)],
+           "plain_own_ancestors_bit_equal": bool(torch.equal(again, ref))}
+    if not out["plain_own_ancestors_bit_equal"]:
+        FAILURES.append({"what": f"{name}: plain version fed its own "
+                                 "ancestors differs", "label": label})
     return out
 
 
@@ -1224,6 +1334,231 @@ def big_bounds(B: int, n: int, S: int, m: int, N: int, kk: int, dt,
             "bound_by": "bytes" if t_b >= t_o else "operations"}
 
 
+def big_section(bt, m32, m64):
+    """The large-ensemble kernel's checks and times (step 4 of the module
+    docstring); emits the ``big_checks`` line.  Returns ``(every run, the
+    runs at the paths' shapes, time_big's readings)``."""
+    big = []
+    big_main = []
+    mb32, mb64 = calm_model(bt, torch.float32), calm_model(bt, torch.float64)
+    for psi_model, bsf_model in ((m32, mb32), (m64, mb64)):
+        for N in (256, 200):
+            for kk in (1, 8):
+                big_main.append(check_big(
+                    psi_model, 2048, N, kk, f"main psi N={N} kk={kk}",
+                    timed=True, modes=("psi",)))
+                big_main.append(check_big(
+                    bsf_model, 2048, N, kk, f"main bsf N={N} kk={kk}",
+                    timed=True, modes=("bsf",)))
+        # the delayed-acceptance path's shape
+        big_main.append(check_big(psi_model, 1024, 64, 1,
+                                  "main psi N=64 kk=1 B=1024", timed=True,
+                                  modes=("psi",)))
+    big += big_main
+    # the sweeps start the bootstrap filter from a proper initial variance:
+    # under the diffuse one some rows sit in the far tail, where a float32
+    # estimate is of the order 1e13 and so is the effect of a flip
+    for dtype in (torch.float64, torch.float32):
+        def sweep(label, B, N, kk, *a, **kw):
+            big.append(check_big(sweep_model(bt, *a, dtype, p1=1.0, **kw),
+                                 B, N, kk, label, timed=False))
+        for fam in ("svm", "binomial", "negative binomial", "gamma"):
+            sweep(f"sweep {fam} (2 missing y)", 256, 40, 2, fam, 2)
+        for m in (1, 3, 4):
+            sweep(f"sweep m={m}", 256, 40, 3, "poisson", m)
+        for N, kk in ((33, 1), (512, 1), (512, 5)):
+            sweep(f"sweep N={N}", 256, N, kk, "poisson", 2)
+        # a block of 32 threads is narrower than the step's 42 scalars
+        for N in (2, 32):
+            sweep(f"sweep m=4 N={N}", 256, N, 1, "poisson", 4)
+        sweep("sweep gamma + xreg", 256, 64, 4, "gamma", 2, xreg=True)
+    psi_only = dict(plain=("psi",))
+    philox = [check_philox(m32, 512, 256, 8, "philox f32 N=256 kk=8",
+                           **psi_only),
+              check_philox(m32, 512, 200, 1, "philox f32 N=200 kk=1",
+                           **psi_only),
+              # the delayed-acceptance path's shape
+              check_philox(m32, 1024, 64, 1, "philox f32 N=64 kk=1 B=1024",
+                           **psi_only),
+              check_philox(m64, 256, 256, 8, "philox f64 N=256 kk=8"),
+              check_philox(m64, 256, 64, 1, "philox f64 N=64 kk=1"),
+              check_philox(sweep_model(bt, "poisson", 4, torch.float32,
+                                       p1=1.0), 256, 40, 3, "philox f32 m=4"),
+              check_philox(sweep_model(bt, "poisson", 4, torch.float32,
+                                       p1=1.0), 256, 32, 1,
+                           "philox f32 m=4 N=32"),
+              check_philox(sweep_model(bt, "poisson", 3, torch.float64,
+                                       p1=1.0), 256, 33, 1, "philox f64 m=3")]
+    # float32, every row: both sides fed the plain search's ancestors, at
+    # the shapes of pm_bsf_N200, da_psi_N64 and psi_N256's correction
+    anc = [check_anc(mb32, 1024, 200, 1, "bsf", "anc bsf N=200 kk=1 B=1024"),
+           check_anc(m32, 1024, 64, 1, "psi", "anc psi N=64 kk=1 B=1024"),
+           check_anc(m32, 16384, 256, 8, "psi",
+                     "anc psi N=256 kk=8 B=16384")]
+    # two warps a row, which the rule picks above N = 256, with a thread's
+    # slots partly empty (N = 300) and full (N = 512): float32 every row
+    # with injected ancestors, float64 every row
+    anc += [check_anc(m32, 512, 300, 2, "psi", "anc psi N=300 kk=2"),
+            check_anc(mb32, 512, 512, 1, "bsf", "anc bsf N=512 kk=1")]
+    torch.cuda.empty_cache()
+    two_warps = [check_big(m64, 256, 300, 3, "f64 N=300 kk=3", timed=False,
+                           modes=("psi",)),
+                 check_big(mb64, 256, 300, 3, "f64 bsf N=300 kk=3",
+                           timed=False, modes=("bsf",))]
+    t_big = time_big(m32, mb32, 16384, 256, 8, 200, 1024, 64, 1024)
+    emit("big_checks", {"runs": big, "philox": philox, "ancestors": anc,
+                        "two_warps": two_warps, "timed": t_big,
+                        "failures": FAILURES})
+    return big, big_main, t_big
+
+
+
+AB_SHAPES = (("K5 pm_bsf_N200", "bsf", 1024, 200, 1),
+             ("K4 da_psi_N64", "psi", 1024, 64, 1),
+             ("K4 psi_N256 chunk", "psi", 16384, 256, 8))
+
+
+def big_ab_readings(bt) -> dict:
+    """The readings of the large-ensemble kernel's A/B, on whichever package
+    ``bt`` is (this one, or an earlier one with the same wrapper calls):
+    wrapper and bare milliseconds in Philox mode at the three shapes of
+    ``AB_SHAPES`` (float32, the paths' models), then the chain seconds of
+    ``pm_bsf_N200`` and ``da_psi_N64`` and the phase-2 seconds of
+    ``psi_N256`` and ``psi_N256_refexact`` as ``main`` runs them."""
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    m32 = main_path_model(bt, torch.float32)
+    mb32 = calm_model(bt, torch.float32)
+    key = ck.philox_key(torch.Generator(device="cuda").manual_seed(17),
+                        "cuda")
+    res = {"kernels": {}, "paths": {}}
+    for label, mode, B, N, kk in AB_SHAPES:
+        if mode == "psi":
+            spec, al, fac = big_inputs(m32, B, 19)
+            fn = lambda: ck.psi_big_logw(spec, al, *fac, kk,  # noqa: E731
+                                         seed=key, nsim=N)
+        else:
+            spec = mb32.build(thetas_around_init(mb32, B, 23))
+            fn = lambda: ck.bsf_big_logw(spec, kk, seed=key,  # noqa: E731
+                                         nsim=N)
+        res["kernels"][label] = {"ms": time_ms(fn, reps=20),
+                                 "bare_ms": bare_ms(fn, "bssm_particle_big",
+                                                    reps=20)}
+        torch.cuda.empty_cache()
+    is2 = dict(mcmc_type="is2", sampling_method="psi", store_modes=False,
+               corr_batch=16384)
+    for label, model, chains, iters, kw in (
+            ("pm_bsf_N200", mb32, CHAINS // 4, 500,
+             dict(particles=200, mcmc_type="pm", sampling_method="bsf")),
+            ("da_psi_N64", m32, CHAINS // 4, 500,
+             dict(particles=64, mcmc_type="da", sampling_method="psi")),
+            ("psi_N256", m32, CHAINS, 1000,
+             dict(particles=256, psi_resample_every=8, **is2)),
+            ("psi_N256_refexact", m32, CHAINS // 4, 1000,
+             dict(particles=256, psi_resample_every=1, **is2))):
+        kw = dict(output_type="theta", seed=1, n_chains=chains, **kw)
+        bt.run_mcmc(model, iter=20, **kw)                 # warm-up
+        torch.cuda.synchronize()
+        out = bt.run_mcmc(model, iter=iters, **kw)
+        res["paths"][label] = {"chain_s": out.time["mcmc"],
+                               "phase2_s": out.time.get("correction"),
+                               "acceptance_rate": out.acceptance_rate}
+        del out
+        torch.cuda.empty_cache()
+    return res
+
+
+def geometry_sweep(bt) -> list:
+    """Bare milliseconds of the large-ensemble kernel (Philox mode, float32)
+    at the three shapes of ``AB_SHAPES`` under launch geometries the rule
+    (``big_geometry``) does or does not pick: one warp a row against two,
+    and at the bootstrap shape (N = 200, one warp) a thread's seven slots
+    against eight.  Each pair is timed in turns (first, second, second,
+    first) so that the pair's spread shows; under every geometry at least
+    half the rows must agree with the rule's on the same key at
+    ``compare_big``'s tight tolerance (another layout sums in another
+    order, so float32 near-ties differ).  The readings the rule is chosen
+    from; the wrappers always take the rule's geometry, so the sweep forces
+    another by replacing ``big_geometry`` for the call."""
+    from unittest import mock
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    m32 = main_path_model(bt, torch.float32)
+    mb32 = calm_model(bt, torch.float32)
+    key = ck.philox_key(torch.Generator(device="cuda").manual_seed(29),
+                        "cuda")
+    out = []
+    for label, mode, B, N, kk in AB_SHAPES:
+        bsf = mode == "bsf"
+        model = mb32 if bsf else m32
+        m = model.extra["m"]
+        if bsf:
+            spec = model.build(thetas_around_init(model, B, 23))
+            call = lambda: ck.bsf_big_logw(  # noqa: E731
+                spec, kk, seed=key, nsim=N)
+        else:
+            spec, al, fac = big_inputs(model, B, 19)
+            call = lambda: ck.psi_big_logw(  # noqa: E731
+                spec, al, *fac, kk, seed=key, nsim=N)
+        rule = ck.big_geometry(N, m, 4, bsf)
+        row = ck.big_row_elems(N, m, bsf) * 4
+        p2 = next(p for p in ck.big_pmax_choices(4, m) if p >= -(-N // 64))
+        two = ck.BigGeometry(64, 1, p2, row)
+        one = ck.BigGeometry(32, rule.rows_per_block, rule.pmax,
+                             rule.smem_bytes) if rule.threads_per_row == 32 \
+            else None
+        pairs = [("1 warp", one, "2 warps", two)] if one else []
+        if bsf and one and one.pmax < 8:
+            pairs.append((f"P={one.pmax}", one, "P=8", one._replace(pmax=8)))
+        ref = call()
+        for na, ga, nb, gb in pairs:
+            r = {"shape": label, "pair": [na, nb], "geometry":
+                 [ga._asdict(), gb._asdict()], "picked": [ga == rule,
+                                                          gb == rule],
+                 "bare_ms": [[], []], "max_abs_err": [0.0, 0.0]}
+            for i in (0, 1, 1, 0):
+                geo = (ga, gb)[i]
+                with mock.patch.object(ck, "big_geometry",
+                                       lambda *_, g=geo: g):
+                    got = call()
+                    r["bare_ms"][i].append(
+                        bare_ms(call, "bssm_particle_big", reps=20))
+                err = float((got - ref).abs().max())
+                r["max_abs_err"][i] = max(r["max_abs_err"][i], err)
+                if float(((got - ref).abs() <= 2e-4 * (1 + ref.abs()))
+                         .double().mean()) < 0.5:
+                    FAILURES.append({"what": "geometry_sweep", "shape": label,
+                                     "geometry": geo._asdict()})
+            out.append(r)
+        torch.cuda.empty_cache()
+    return out
+
+
+def big_ab(parent: str, smi: str) -> int:
+    """The one-card A/B of the large-ensemble kernel against an earlier
+    package: ``parent`` is a checkout of it (``git archive <rev> | tar -x -C
+    <dir>``).  The script copies itself there and runs
+    ``big_ab_readings`` in four processes, parent, change, change, parent,
+    each building its own kernels; prints one ``big_ab`` line."""
+    import shutil
+    from pathlib import Path
+    here = Path(__file__).resolve()
+    there = Path(parent).resolve() / "_ab_chip_smoke.py"
+    shutil.copy(here, there)
+    runs = []
+    for side in ("parent", "change", "change", "parent"):
+        script = there if side == "parent" else here
+        p = subprocess.run([sys.executable, str(script), "--big-ab-side"],
+                           cwd=str(script.parent), capture_output=True,
+                           text=True, timeout=900)
+        lines = [json.loads(ln) for ln in p.stdout.splitlines()
+                 if ln.startswith('{"big_ab_side"')]
+        if p.returncode != 0 or not lines:
+            print(p.stdout[-4000:], p.stderr[-4000:], file=sys.stderr)
+            return 1
+        runs.append({"side": side, **lines[-1]["big_ab_side"]})
+    emit("big_ab", {"nvidia_smi": smi, "parent": str(parent), "runs": runs})
+    return 0
+
+
 def small_reference(bt) -> dict:
     """The phase-2 correction on the card (kernels) against the same rows on
     the CPU (plain versions), float64, same injected randomness."""
@@ -1285,11 +1620,14 @@ def profile_main_path(bt, model, run: dict, iters: int = 60) -> dict:
 # ---------------------------------------------------------------------------
 
 def run_path(bt, ck, model, label: str, desc: str, chains: int, iters: int,
-             required, acc_range, ess_min, **run):
+             required, acc_range, ess_min, plain=(), **run):
     """Drives one ``run_mcmc`` path at full width: a short warm-up, launch
-    counts set to 0 just before the run and read just after, then the
-    gates.  Returns the path's JSON object with its ``problems``, and the
-    run's output."""
+    and plain-route counts set to 0 just before the run and read just
+    after, then the gates.  ``plain``: the wrappers whose plain versions a
+    model outside the kernels' contract must take on the card; such a path
+    must launch no kernel, and every other path must take no plain route.
+    Returns the path's JSON object with its ``problems``, and the run's
+    output."""
     kw = {"output_type": "theta", "n_chains": chains, "seed": 1, **run}
     bt.run_mcmc(model, iter=20, **kw)                     # warm-up
     torch.cuda.synchronize()
@@ -1300,6 +1638,7 @@ def run_path(bt, ck, model, label: str, desc: str, chains: int, iters: int,
     torch.cuda.synchronize()
     elapsed = time.time() - t0
     launches = dict(ck.LAUNCHES)
+    plain_routes = dict(ck.PLAIN_ROUTES)
 
     d = out.theta.shape[-1]
     w = out.flat_weights()
@@ -1319,9 +1658,18 @@ def run_path(bt, ck, model, label: str, desc: str, chains: int, iters: int,
            "heads_corrected": out.n_corrected, "finite": finite,
            "posterior_mean_sd": [float(bt.weighted_mean(sd[:, j], w))
                                  for j in range(d)],
-           "launches": launches,
+           "launches": launches, "plain_routes": plain_routes,
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     problems = []
+    for k in plain:
+        if plain_routes[k] <= 0:
+            problems.append(f"no plain route of {k} in this path")
+    if plain and any(launches.values()):
+        problems.append(f"kernels launched on a model they cannot take: "
+                        f"{launches}")
+    if not plain and any(plain_routes.values()):
+        problems.append(f"plain routes on a model the kernels take: "
+                        f"{plain_routes}")
     if not finite:
         problems.append("non-finite posterior values")
     if not acc_range[0] <= out.acceptance_rate <= acc_range[1]:
@@ -1408,6 +1756,7 @@ def ng_api_path(bt, ck, model, model_proper) -> dict:
     torch.cuda.synchronize()
     elapsed = time.time() - t0
     launches = dict(ck.LAUNCHES)
+    plain_routes = dict(ck.PLAIN_ROUTES)
     tensors = [g.H, g.y[torch.isfinite(g.y)], kf.at, kf.Pt, kf.logLik,
                sm.alphahat, sm.Vt, *lls.values()]
     for r in ps.values():
@@ -1431,7 +1780,8 @@ def ng_api_path(bt, ck, model, model_proper) -> dict:
            "model": "bsm_ng poisson level+slope, n=153, m=2, float32, at "
                     "theta_init; the psi/bsf agreement on the same series "
                     "with a1 = (1, 0), P1 = diag(1, 0.01)",
-           "elapsed_s": elapsed, "launches": launches, "finite": finite,
+           "elapsed_s": elapsed, "launches": launches,
+           "plain_routes": plain_routes, "finite": finite,
            "logLik": {k: float(v[0]) for k, v in lls.items()},
            "particle_smoother_logLik": {k: float(r.logLik[0])
                                         for k, r in ps.items()},
@@ -1445,6 +1795,9 @@ def ng_api_path(bt, ck, model, model_proper) -> dict:
     problems = []
     if launches["laplace_step"] <= 0:
         problems.append("kernel laplace_step was not launched by this path")
+    if any(plain_routes.values()):
+        problems.append(f"plain routes on a model the kernels take: "
+                        f"{plain_routes}")
     if not finite:
         problems.append("non-finite outputs")
     if not sug["sd"] < 1.0:
@@ -1498,6 +1851,20 @@ def main() -> int:
                     help="only time laplace_solve's stagings over B, m and "
                          "dtype (staging_sweep), print them and stop; "
                          "prints no result line")
+    ap.add_argument("--big-only", action="store_true",
+                    help="only run the large-ensemble kernel's checks and "
+                         "times (big_section) and stop; prints no result "
+                         "line")
+    ap.add_argument("--big-ab", metavar="DIR",
+                    help="only the large-ensemble kernel's A/B against the "
+                         "package checked out in DIR (big_ab); prints no "
+                         "result line")
+    ap.add_argument("--big-ab-side", action="store_true",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--geometry-sweep", action="store_true",
+                    help="only time the large-ensemble kernel under launch "
+                         "geometries the rule does not pick "
+                         "(geometry_sweep); prints no result line")
     args = ap.parse_args()
 
     t_start = time.time()
@@ -1520,6 +1887,22 @@ def main() -> int:
     if args.staging_sweep:
         emit("staging_sweep", {"nvidia_smi": smi, "runs": staging_sweep(bt),
                                "failures": FAILURES})
+        return 1 if FAILURES else 0
+    if args.big_ab_side:
+        emit("big_ab_side", {"nvidia_smi": smi,
+                             "build_seconds": ck.build_seconds,
+                             **big_ab_readings(bt)})
+        return 0
+    if args.big_ab:
+        return big_ab(args.big_ab, smi)
+    if args.geometry_sweep:
+        emit("geometry_sweep", {"nvidia_smi": smi,
+                                "runs": geometry_sweep(bt),
+                                "failures": FAILURES})
+        return 1 if FAILURES else 0
+    if args.big_only:
+        big_section(bt, main_path_model(bt, torch.float32),
+                    main_path_model(bt, torch.float64))
         return 1 if FAILURES else 0
 
     # ---- kernels against their plain versions -----------------------------
@@ -1601,60 +1984,8 @@ def main() -> int:
         return 1
 
     # ---- the large-ensemble kernel ----------------------------------------
-    big = []
-    big_main = []
-    mb32, mb64 = calm_model(bt, torch.float32), calm_model(bt, torch.float64)
-    for psi_model, bsf_model in ((m32, mb32), (m64, mb64)):
-        for N in (256, 200):
-            for kk in (1, 8):
-                big_main.append(check_big(
-                    psi_model, 2048, N, kk, f"main psi N={N} kk={kk}",
-                    timed=True, modes=("psi",)))
-                big_main.append(check_big(
-                    bsf_model, 2048, N, kk, f"main bsf N={N} kk={kk}",
-                    timed=True, modes=("bsf",)))
-        # the delayed-acceptance path's shape
-        big_main.append(check_big(psi_model, 1024, 64, 1,
-                                  "main psi N=64 kk=1 B=1024", timed=True,
-                                  modes=("psi",)))
-    big += big_main
-    # the sweeps start the bootstrap filter from a proper initial variance:
-    # under the diffuse one some rows sit in the far tail, where a float32
-    # estimate is of the order 1e13 and so is the effect of a flip
-    for dtype in (torch.float64, torch.float32):
-        def sweep(label, B, N, kk, *a, **kw):
-            big.append(check_big(sweep_model(bt, *a, dtype, p1=1.0, **kw),
-                                 B, N, kk, label, timed=False))
-        for fam in ("svm", "binomial", "negative binomial", "gamma"):
-            sweep(f"sweep {fam} (2 missing y)", 256, 40, 2, fam, 2)
-        for m in (1, 3, 4):
-            sweep(f"sweep m={m}", 256, 40, 3, "poisson", m)
-        for N, kk in ((33, 1), (512, 1), (512, 5)):
-            sweep(f"sweep N={N}", 256, N, kk, "poisson", 2)
-        # a block of 32 threads is narrower than the step's 42 scalars
-        for N in (2, 32):
-            sweep(f"sweep m=4 N={N}", 256, N, 1, "poisson", 4)
-        sweep("sweep gamma + xreg", 256, 64, 4, "gamma", 2, xreg=True)
-    psi_only = dict(plain=("psi",))
-    philox = [check_philox(m32, 512, 256, 8, "philox f32 N=256 kk=8",
-                           **psi_only),
-              check_philox(m32, 512, 200, 1, "philox f32 N=200 kk=1",
-                           **psi_only),
-              # the delayed-acceptance path's shape
-              check_philox(m32, 1024, 64, 1, "philox f32 N=64 kk=1 B=1024",
-                           **psi_only),
-              check_philox(m64, 256, 256, 8, "philox f64 N=256 kk=8"),
-              check_philox(m64, 256, 64, 1, "philox f64 N=64 kk=1"),
-              check_philox(sweep_model(bt, "poisson", 4, torch.float32,
-                                       p1=1.0), 256, 40, 3, "philox f32 m=4"),
-              check_philox(sweep_model(bt, "poisson", 4, torch.float32,
-                                       p1=1.0), 256, 32, 1,
-                           "philox f32 m=4 N=32"),
-              check_philox(sweep_model(bt, "poisson", 3, torch.float64,
-                                       p1=1.0), 256, 33, 1, "philox f64 m=3")]
-    t_big = time_big(m32, mb32, 16384, 256, 8, 200, 1024, 64, 1024)
-    emit("big_checks", {"runs": big, "philox": philox, "timed": t_big,
-                        "failures": FAILURES})
+    big, big_main, t_big = big_section(bt, m32, m64)
+    mb32 = calm_model(bt, torch.float32)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} large-ensemble check(s) failed",
               file=sys.stderr)
@@ -1751,6 +2082,23 @@ def main() -> int:
         run_path(bt, ck, m32, "approx_full", lvl_slope, CHAINS // 4, it_full,
                  ("laplace_solve", "fast_smoother_ll"), (0.15, 0.35), None,
                  mcmc_type="approx", output_type="full", store_modes=True)]
+    # models outside the kernels' contract (period-12 seasonal, m = 12 and
+    # 13): the plain versions on the card, every plain route counted; the
+    # is2 chain runs 300 iterations: at 200 its acceptance read 0.348 on an
+    # H100, inside the band's upper edge by 0.002 (PERF.md)
+    s_ng, s_lg = seasonal_models(bt, torch.float32)
+    runs += [
+        run_path(bt, ck, s_ng, "seasonal_ng_is2",
+                 "bsm_ng poisson level+seasonal(12), n=144, m=12, d=2, "
+                 "float32", CHAINS // 16, max(args.iter * 3 // 10, 40), (),
+                 (0.15, 0.35), 0.9,
+                 plain=("laplace_solve", "rts_factors", "psi_logw"),
+                 particles=10, **is2),
+        run_path(bt, ck, s_lg, "seasonal_lg_gaussian",
+                 "bsm_lg level+slope+seasonal(12), n=144, m=13, d=4, "
+                 "float32", CHAINS // 4, it_half, (), (0.15, 0.6), None,
+                 plain=("log_likelihood",), output_type="summary",
+                 corr_batch=8192)]
     paths = [r for r, _ in runs]
     outs = {r["path"]: o for r, o in runs}
     problems = [p for r in paths for p in r["problems"]]
@@ -1764,6 +2112,7 @@ def main() -> int:
                          generator=bt.is_correction_generator(1, "cuda"))
     torch.cuda.synchronize()
     pc_launches = dict(ck.LAUNCHES)
+    pc_plain = dict(ck.PLAIN_ROUTES)
     wdiff = float(np.abs(pc.weights.astype(np.float64)
                          - outs["is2_full"].weights).max())
     r_ap["post_correct"] = {
@@ -1773,6 +2122,10 @@ def main() -> int:
             pc.alpha, outs["is2_full"].alpha))}
     r_ap["launches"] = {k: r_ap["launches"][k] + pc_launches[k]
                         for k in ck.LAUNCHES}
+    r_ap["post_correct"]["plain_routes"] = pc_plain
+    if any(pc_plain.values()):
+        problems.append(f"approx_full: post_correct took plain routes "
+                        f"{pc_plain}")
     if not wdiff <= 1e-6:
         problems.append(f"approx_full: post_correct weights differ from "
                         f"is2_full's by {wdiff}")

@@ -11,7 +11,9 @@ On the CPU the wrappers run the kernel's plain versions
   injected stream tensors, carried across by ``convert``'s layout function.
 
 The Philox generator's tensor version is held against the published
-known-answer vectors of Philox-4x32-10.
+known-answer vectors of Philox-4x32-10.  The plain versions fed the
+ancestors their own search chose (the kernel's check-only ``anc`` input)
+reproduce themselves bit for bit.
 """
 import jax
 import jax.numpy as jnp
@@ -302,6 +304,61 @@ def test_missing_observation_carries_the_weights():
     inc, new = tpf._carry_update(dead, lw[:1], torch.tensor([[True]]))
     assert torch.isneginf(inc[0])
     np.testing.assert_allclose(new[0].numpy(), np.full(4, -np.log(4.0)))
+
+
+# ---------------------------------------------------------------------------
+# injected ancestors (the kernel's check-only input)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode,kk,dtype", [
+    ("psi", 1, torch.float64), ("psi", 3, torch.float64),
+    ("psi", 1, torch.float32), ("psi", 4, torch.float32),
+    ("bsf", 1, torch.float64), ("bsf", 3, torch.float32)])
+def test_injected_ancestors_reproduce_the_search(mode, kk, dtype):
+    """A scan fed the ancestors its own search chose returns, bit for bit,
+    what it returns without them; the ancestors are int32 (B, S, N), the
+    identity at the steps that do not resample; the wrapper on CPU tensors
+    passes them through; another set of ancestors gives another value."""
+    n, B, N = 14, 5, 40
+    jspec, jal = _jax_batch("poisson", True, n, B, 51,
+                            jnp.float64 if dtype == torch.float64
+                            else jnp.float32, proper=True)
+    spec, al = _to_port(jspec, jal, dtype)
+    rng = np.random.default_rng(52)
+    steps = n + 1 if mode == "psi" else n
+    eps = torch.as_tensor(rng.normal(size=(B, steps, N, 2)), dtype=dtype)
+    us = torch.as_tensor(rng.uniform(size=(B, steps - 1, N)), dtype=dtype)
+    if mode == "psi":
+        fac = ck.rts_factors(al.approx.gaussian(spec))
+        scan = lambda **kw: tpf.psi_logw_scan(            # noqa: E731
+            spec, al, eps, us, factors=fac, resample_every=kk, **kw)
+        wrap = lambda a: ck.psi_big_logw(spec, al, *fac, kk,  # noqa: E731
+                                         eps=eps, us=us, anc=a)
+    else:
+        scan = lambda **kw: tpf.bsf_logw_scan(            # noqa: E731
+            spec, eps, us, resample_every=kk, **kw)
+        wrap = lambda a: ck.bsf_big_logw(spec, kk, eps=eps,  # noqa: E731
+                                         us=us, anc=a)
+    ref, anc = scan(return_ancestors=True)
+    assert anc.dtype == torch.int32 and anc.shape == (B, steps - 1, N)
+    assert torch.equal(ref, scan())
+    assert torch.equal(scan(anc=anc), ref)
+    assert torch.equal(wrap(anc), ref)
+    still = [s for s in range(steps - 1) if s % kk != 0]
+    ident = torch.arange(N, dtype=torch.int32)
+    assert all(torch.equal(anc[:, s], ident.expand(B, N)) for s in still)
+    assert int(anc.min()) >= 0 and int(anc.max()) < N
+    other = anc.roll(1, dims=-1)
+    assert not torch.equal(scan(anc=other), ref)
+    with pytest.raises(ValueError, match="ancestors need"):
+        if mode == "psi":
+            ck.psi_big_logw(spec, al, *fac, kk, seed=ck.philox_key(
+                None, "cpu"), nsim=N, anc=anc)
+        else:
+            ck.bsf_big_logw(spec, kk, seed=ck.philox_key(None, "cpu"),
+                            nsim=N, anc=anc)
+    with pytest.raises(TypeError, match="int32"):
+        wrap(anc.long())
 
 
 # ---------------------------------------------------------------------------

@@ -291,6 +291,103 @@ def test_leaves_read_back_reproduce_the_packed_system(kind, dtype):
                                        equal_nan=True)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind", ["bsm_ng", "bsm_ng_negbin_seasonal"])
+def test_bootstrap_leaves_read_back_the_plain_system(kind, dtype):
+    """The bootstrap mode's leaves (Z, phi, a1, L1 = chol(P1), C, T, R in the
+    order of ``BigLaunch``), read as the kernel reads them, give the system
+    of its plain version (``pack_bootstrap_system``: R zero-padded to m
+    columns) exactly, on the three layouts; R is read by its own k
+    columns, and chol(P1) is taken once per distinct P1."""
+    model = _model(kind, dtype)
+    B, m = 5, model.extra["m"]
+    rng = np.random.default_rng(4)
+    th = np.asarray(model.theta_init)[None] + 0.2 * rng.normal(
+        size=(B, len(model.theta_init)))
+    spec0 = model.build(torch.as_tensor(th, dtype=dtype))
+    want = ck.pack_bootstrap_system(spec0, B)
+    for label, spec in _layouts(spec0, B).items():
+        flat, keep = ck._bootstrap_leaves(spec, B)
+        assert len(flat) == 14
+        leaves, L1 = keep              # what the pointers point into
+        tensors = {nm: x for nm, x, _ in leaves}
+        tensors["L1"] = L1
+        order = ("Z", "phi", "a1", "L1", "C", "T", "R")
+        rows = {}
+        for i, nm in enumerate(order):
+            x, (p, bs) = tensors[nm], flat[2 * i:2 * i + 2]
+            assert p == x.data_ptr(), nm
+            k = {"Z": m, "phi": 1, "a1": m, "L1": m * m, "C": m, "T": m * m,
+                 "R": m * spec.k}[nm]
+            rows[nm] = torch.as_strided(x, (B, k), (bs, 1),
+                                        x.storage_offset())
+        R = rows["R"].reshape(B, m, spec.k)
+        R = torch.cat([R, R.new_zeros(B, m, m - spec.k)], dim=-1)
+        got = torch.cat([rows["a1"], rows["L1"], rows["C"],
+                         R.reshape(B, -1), rows["T"]], dim=1)
+        torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                   msg=f"{kind} {label}")
+    # one factor per distinct P1: the same tensor gives the same factor,
+    # an edit in place (a new version) a new one
+    P1 = spec0.P1.clone()
+    a = ck._p1_chol(P1)
+    assert ck._p1_chol(P1) is a
+    P1.mul_(4.0)
+    b = ck._p1_chol(P1)
+    assert b is not a
+    torch.testing.assert_close(b, 2.0 * a, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("N,m,item,bsf,want", [
+    (200, 1, 4, True, (32, 4, 7)),      # pm_bsf_N200
+    (64, 2, 4, False, (32, 4, 2)),      # da_psi_N64
+    (256, 2, 4, False, (32, 4, 8)),     # psi_N256's correction
+    (512, 2, 4, False, (64, 1, 8)),
+    (300, 2, 4, False, (64, 1, 7)),
+    (257, 2, 8, False, (64, 1, 8)),
+    (300, 1, 4, True, (64, 1, 7)),
+    (40, 4, 8, False, (32, 3, 2)),      # 12.5 KB a row: 3 a block
+    (33, 3, 4, True, (32, 4, 2)),
+    (2, 4, 8, True, (32, 4, 2)),
+    (512, 4, 8, True, (64, 1, 8))])
+def test_big_geometry_holds_every_particle(N, m, item, bsf, want):
+    """The launch of the large-ensemble kernel: threads a row, rows a block
+    and slots a thread as the rule picks them, every particle held by one
+    thread's consecutive slots and no thread holding more than its slots,
+    an instantiated slot count, at most 128 threads a block, and several
+    rows a block only inside the default 48 KB of shared memory."""
+    geo = ck.big_geometry(N, m, item, bsf)
+    assert geo[:3] == want
+    T, rows, pmax, smem = geo
+    lo = [r * N // T for r in range(T + 1)]
+    assert lo[0] == 0 and lo[-1] == N
+    assert all(0 <= lo[r + 1] - lo[r] <= pmax for r in range(T))
+    assert pmax in ck.big_pmax_choices(item, m)
+    assert T * rows <= ck.BIG_MAX_THREADS and (T == 32 or rows == 1)
+    assert smem == rows * ck.big_row_elems(N, m, bsf) * item
+    assert rows == 1 or smem <= ck.SMEM_DEFAULT
+
+
+def test_big_geometry_refuses_and_matches_the_kernel_constants():
+    """More particles than two warps' slots are refused; the constants the geometry is computed from are the kernel's
+    (read from csrc/particle_big.cuh)."""
+    import re
+    with pytest.raises(ValueError, match="more than"):
+        ck.big_geometry(513, 2, 4, False)
+    src = (ck.CSRC / "particle_big.cuh").read_text()
+    const = dict(re.findall(r"constexpr int (k\w+) = ([\d *]+);", src))
+    assert eval(const["kChunk"]) == ck.BIG_CHUNK
+    assert eval(const["kMaxWarpsRow"]) == ck.BIG_MAX_WARPS
+    assert eval(const["kMaxThreadsBig"]) == ck.BIG_MAX_THREADS
+    assert eval(const["kSmemDefault"]) == ck.SMEM_DEFAULT
+    assert eval(const["kMaxNBig"]) == ck.MAX_N_BIG
+    for p in (2, 7, 8):
+        assert f"case {p}: return launch_big<R, M, BSF, {p}>" in src
+    assert "sizeof(R) == 4 && M <= 2" in src
+    assert ck.big_pmax_choices(4, 2) == (2, 7, 8)
+    assert ck.big_pmax_choices(8, 2) == ck.big_pmax_choices(4, 3) == (2, 8)
+
+
 def test_strided_refuses_what_the_kernels_do_not_take():
     x = torch.zeros(3, 7)
     with pytest.raises(ValueError, match="batch 3 does not match 4"):
