@@ -145,19 +145,28 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// a_next = C + T att
+template <typename R, int M>
+__device__ __forceinline__ void predict_mean(const R (&C)[M],
+                                             const R (&T)[M * M],
+                                             const R (&att)[M],
+                                             R (&a_next)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    R acc = C[i];
+#pragma unroll
+    for (int j = 0; j < M; ++j) acc += T[i * M + j] * att[j];
+    a_next[i] = acc;
+  }
+}
+
 // a_next = C + T att;  P_next = sym(T Ptt T' + RR)
 template <typename R, int M>
 __device__ __forceinline__ void predict(const Sys<R, M>& s, const R (&att)[M],
                                         const R (&Ptt)[M * M], R (&a_next)[M],
                                         R (&P_next)[M * M]) {
   constexpr int MM = M * M;
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    R acc = s.C[i];
-#pragma unroll
-    for (int j = 0; j < M; ++j) acc += s.T[i * M + j] * att[j];
-    a_next[i] = acc;
-  }
+  predict_mean<R, M>(s.C, s.T, att, a_next);
   R TP[MM];
 #pragma unroll
   for (int i = 0; i < M; ++i)

@@ -64,8 +64,8 @@ struct (``_call``).  The bootstrap mode, too, reads a1, C, T and R (by its
 own column count) as leaves, with chol(P1) taken once per distinct P1
 (``_p1_chol``); ``pack_bootstrap_system`` serves only its plain version.
 The Kalman log-likelihood kernel applies the degenerate-model rule itself;
-on the card ``log_likelihood`` and ``laplace_solve`` are one allocation and
-one launch a call.
+on the card ``log_likelihood``, ``laplace_solve`` and ``rts_factors`` (in
+its shared-memory staging) are one allocation and one launch a call.
 
 Build: at the first CUDA call, ``nvcc`` compiles every ``csrc/*.cu`` (one
 process per source, started together) for ``sm_90a`` and links them into
@@ -100,7 +100,8 @@ MAX_N_PSI = 32
 MAX_N_BIG = 512
 # Threads per block.  The row-per-thread kernels use blocks of at most one
 # warp so that a few thousand rows still spread over every SM; psi_logw
-# gives each row a warp, four rows to a block.
+# gives each row a segment of a warp (``psi_segment``), four warps to a
+# block.
 THREADS_PER_ROW_BLOCK = 32
 THREADS_PSI_BLOCK = 128
 # dynamic shared memory a laplace_solve block may use on sm_90 (227 KB less
@@ -346,7 +347,8 @@ def _core_contiguous(shape, stride) -> bool:
     return True
 
 
-def system_leaves(spec, B: int, names=SYSTEM):
+def system_leaves(spec, B: int, names=SYSTEM,
+                  ref: Optional[torch.Tensor] = None):
     """The time-invariant leaves ``names`` (default the system Z, T, R, a1,
     P1, C; ``phi`` may be added) as the kernels read them: ``[(name, tensor,
     batch stride)]``, the spec's own tensors.  Element i of row b of a leaf
@@ -354,11 +356,15 @@ def system_leaves(spec, B: int, names=SYSTEM):
     over the leaf's core (the axes after batch and time) in row-major order;
     a leaf shared by all rows, or an expand view, has stride 0.  A leaf is
     copied only when its core is not contiguous.  The kernels form R R'
-    from R."""
+    from R.  With ``ref`` each leaf's device and dtype are checked against
+    it (``_check_tensors``)."""
     out = []
     for name in names:
         core, timed = _LEAVES[name]
         x = getattr(spec, name)
+        if ref is not None and (x.dtype != ref.dtype
+                                or x.device != ref.device):
+            _check_tensors([(name, x)], ref)
         nb = x.dim() - core
         if nb not in (0, 1):
             raise ValueError(f"{name}: expected {core} or {core + 1} axes, "
@@ -366,30 +372,32 @@ def system_leaves(spec, B: int, names=SYSTEM):
         b = x.shape[0] if nb else 1
         if b not in (1, B):
             raise ValueError(f"{name}: batch {b} does not match {B}")
-        start = nb + int(timed)
-        if not _core_contiguous(x.shape[start:], x.stride()[start:]):
-            x = x.contiguous()
+        if not x.is_contiguous():       # else its core is contiguous too
+            start = nb + int(timed)
+            if not _core_contiguous(x.shape[start:], x.stride()[start:]):
+                x = x.contiguous()
         out.append((name, x, x.stride(0) if b > 1 else 0))
     return out
 
 
-def _leaf_args(spec, B: int, names):
+def _leaf_args(spec, B: int, names, ref: Optional[torch.Tensor] = None):
     """The ``LeafArg`` fields (pointer, batch stride) of the leaves
     ``names``, and the leaves, which the caller keeps alive until the
-    launch."""
-    leaves = system_leaves(spec, B, names)
+    launch; ``ref`` as for ``system_leaves``."""
+    leaves = system_leaves(spec, B, names, ref)
     flat = []
     for _, x, bs in leaves:
         flat += [x.data_ptr(), bs]
     return flat, leaves
 
 
-def _system_args(spec, B: int, with_phi: bool):
+def _system_args(spec, B: int, with_phi: bool,
+                 ref: Optional[torch.Tensor] = None):
     """The ``SystemArg`` fields of ``csrc/kalman_common.cuh`` (the leaves,
     phi's zero when absent, the columns of R) and the leaves to keep alive
-    until the launch."""
+    until the launch; ``ref`` as for ``system_leaves``."""
     flat, leaves = _leaf_args(spec, B, SYSTEM + (("phi",) if with_phi
-                                                 else ()))
+                                                 else ()), ref)
     if not with_phi:
         flat += [0, 0]
     return flat + [spec.R.shape[-1]], leaves
@@ -418,17 +426,39 @@ def _strided(x: torch.Tensor, B: int, n: int, name: str,
     return [x.data_ptr(), st_b if b > 1 else 0, st_t if nt > 1 else 0]
 
 
-def _dense(x: torch.Tensor, shape, name: str) -> torch.Tensor:
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
-                         f"{tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def _dense(x: torch.Tensor, shape: tuple, name: str,
+           ref: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x`` after checking its shape and contiguity, and with ``ref`` its
+    device and dtype (``_check_tensors``)."""
+    if x.shape != shape or not x.is_contiguous() or ref is not None and (
+            x.dtype != ref.dtype or x.device != ref.device):
+        if x.shape != shape:
+            raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                             f"{tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        _check_tensors([(name, x)], ref)
     return x
 
 
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# the current stream of a device index as an integer, without a Stream
+# object where this PyTorch offers it
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+
+def _launch(fn, layout: struct.Struct, dev, *fields) -> int:
+    """Calls a C entry that takes its packed argument struct, whose last
+    field is the stream: the current stream of ``dev``, with ``dev`` the
+    current device during the call."""
+    if dev.index == torch.cuda.current_device():
+        return fn(layout.pack(*fields, _raw_stream(dev.index)), layout.size)
+    with torch.cuda.device(dev):
+        return fn(layout.pack(*fields, _raw_stream(dev.index)), layout.size)
 
 
 # The argument structs of csrc/ (LaplaceArgs, StepArgs, KalmanArgs, RtsArgs,
@@ -437,7 +467,7 @@ def _stream(device) -> int:
 _SOLVE_ARGS = struct.Struct("=32qd7q")
 _STEP_ARGS = struct.Struct("=37q")
 _KALMAN_ARGS = struct.Struct("=34q")
-_RTS_ARGS = struct.Struct("=34q")
+_RTS_ARGS = struct.Struct("=35q")
 _PSI_ARGS = struct.Struct("=30q")
 _BIG_ARGS = struct.Struct("=48q")
 
@@ -705,38 +735,135 @@ def laplace_step(spec: NGSpec, mode: torch.Tensor):
 # K2: Kalman filter + backward (FFBS) proposal factors
 # ---------------------------------------------------------------------------
 
+THREADS_RTS = 128          # threads of a rts_factors block
+RTS_ROWS_SHARED = 8        # rows of a block, staging in shared memory
+RTS_ROWS_DEVICE = 32       # rows of a block, staging in device memory
+RTS_BLOCKS_PER_SM = 8      # the most shared-staging blocks an SM holds
+# the most waves of shared-staging blocks for which shared memory is chosen
+# over device memory (chip_smoke.py's rts staging sweep, PERF.md)
+RTS_SHARED_WAVES = 3.5
+
+
+def rts_step_elems(m: int) -> int:
+    """Values ``csrc/rts_factors.cu`` stages a step: att (m) and the upper
+    triangle of Ptt (m (m + 1) / 2)."""
+    return m + m * (m + 1) // 2
+
+
+def rts_row_elems(n: int, m: int) -> int:
+    """Values the kernel stages for one row in shared memory: n steps, made
+    odd."""
+    return (rts_step_elems(m) * n) | 1
+
+
+def rts_scratch_elems(B: int, n: int, m: int) -> int:
+    """Values of the kernel's device-memory staging: n steps a row for B
+    rows rounded up to whole blocks of ``RTS_ROWS_DEVICE``."""
+    return -(-B // RTS_ROWS_DEVICE) * RTS_ROWS_DEVICE * rts_step_elems(m) * n
+
+
+def rts_sys_elems(m: int) -> int:
+    """Values of one row's T, R R' and C in the kernel's shared memory."""
+    return 2 * m * m + m
+
+
+def rts_layout(B: int, n: int, m: int) -> tuple:
+    """``(Lb offset, Ab offset, length)`` in values of the one buffer that
+    holds the kernel's three outputs: ahat from 0, Lb from the first line
+    of 32 values after it, Ab right behind Lb."""
+    k = B * (n + 1)
+    lb = -(-k * m // 32) * 32
+    return lb, lb + k * m * m, lb + 2 * k * m * m
+
+
+class RtsGeometry(NamedTuple):
+    """How ``csrc/rts_factors.cu`` lays a launch out."""
+    rows: int          # rows of the batch a block takes
+    shared: bool       # staging in shared memory (else a device scratch)
+    smem_bytes: int    # dynamic shared memory of a block
+
+
+def rts_shared_rows(n: int, m: int, itemsize: int, sms: int) -> int:
+    """Rows that one wave of ``rts_factors`` blocks staged in shared memory
+    (``RTS_ROWS_SHARED`` rows each, as many an SM as its shared memory
+    holds, at most ``RTS_BLOCKS_PER_SM``) takes on ``sms`` multiprocessors;
+    0 where such a block does not fit in ``SMEM_LIMIT``."""
+    rows = RTS_ROWS_SHARED
+    smem = rows * (rts_sys_elems(m) + rts_row_elems(n, m)) * itemsize
+    if smem > SMEM_LIMIT:
+        return 0
+    return rows * sms * min(RTS_BLOCKS_PER_SM,
+                            SMEM_PER_SM // (smem + SMEM_RESERVED))
+
+
+@functools.lru_cache(maxsize=None)
+def rts_geometry(n: int, m: int, itemsize: int, B: int,
+                 sms: int) -> RtsGeometry:
+    """The launch of ``rts_factors`` for B rows on a card of ``sms``
+    multiprocessors: ``RTS_ROWS_SHARED`` rows a block staged in shared
+    memory while those blocks run in at most ``RTS_SHARED_WAVES`` waves
+    (``rts_shared_rows``: each further wave costs a whole forward chain),
+    else ``RTS_ROWS_DEVICE`` rows a block staged in a device scratch,
+    every row resident at once.  Shared memory also holds each row's T,
+    R R' and C in both.  Cached: a chain asks for the same launch at every
+    iteration."""
+    if B <= RTS_SHARED_WAVES * rts_shared_rows(n, m, itemsize, sms):
+        rows = RTS_ROWS_SHARED
+        row = rts_sys_elems(m) + rts_row_elems(n, m)
+        return RtsGeometry(rows, True, rows * row * itemsize)
+    rows = RTS_ROWS_DEVICE
+    return RtsGeometry(rows, False, rows * rts_sys_elems(m) * itemsize)
+
+
 def rts_factors(g: LGSpec):
     """``(ahat (B, n+1, m), Lb (B, n+1, m, m), Ab (B, n+1, m, m))`` of the
-    linear-Gaussian model ``g``; see ``ops/kalman.smoother_bwd_factors``."""
+    linear-Gaussian model ``g``; see ``ops/kalman.smoother_bwd_factors``.
+    On the card the three are views of one allocation, and a call is one
+    launch laid out as ``rts_geometry`` chooses."""
     if not g.y.is_cuda:
         from .kalman import smoother_bwd_factors
         return smoother_bwd_factors(g)
     _check_system(g)
-    B, n, m = _batch(g), g.n, g.m
-    dt, dev = g.y.dtype, g.y.device
-    _check_tensors([("H", g.H), ("D", g.D), ("Z", g.Z), ("T", g.T),
-                    ("R", g.R), ("a1", g.a1), ("P1", g.P1), ("C", g.C)], g.y)
-    series = _strided(g.y, B, n, "y", full=True) \
+    y = g.y
+    B, n, m = _batch(g), y.shape[-1], g.a1.shape[-1]
+    dt, dev = y.dtype, y.device
+    _check_tensors([("H", g.H), ("D", g.D)], y)
+    series = _strided(y, B, n, "y", full=True) \
         + _strided(g.H, B, n, "H") + _strided(g.D, B, n, "D")
-    sys_args, keep = _system_args(g, B, with_phi=False)
-    ahat = torch.empty((B, n + 1, m), dtype=dt, device=dev)
-    Lb = torch.empty((B, n + 1, m, m), dtype=dt, device=dev)
-    Ab = torch.empty((B, n + 1, m, m), dtype=dt, device=dev)
-    scratch = torch.empty((n, m + m * m, B), dtype=dt, device=dev)
+    sys_args, keep = _system_args(g, B, with_phi=False, ref=y)
+    item = y.element_size()
+    geo = rts_geometry(n, m, item, B, _sm_count(dev.index))
+    lb, ab, total = rts_layout(B, n, m)
+    out = torch.empty((total,), dtype=dt, device=dev)
+    scratch = None if geo.shared else torch.empty(
+        (rts_scratch_elems(B, n, m),), dtype=dt, device=dev)
     lib = _load()
-    with torch.cuda.device(dev):
-        code = _call(lib.bssm_rts_factors, _RTS_ARGS,
-                     int(dt == torch.float64), m, B, n, *series, *sys_args,
-                     ahat.data_ptr(), Lb.data_ptr(), Ab.data_ptr(),
-                     scratch.data_ptr(), THREADS_PER_ROW_BLOCK, _stream(dev))
+    code = _launch(lib.bssm_rts_factors, _RTS_ARGS, dev,
+                   int(dt == torch.float64), m, B, n, *series, *sys_args,
+                   out.data_ptr(),
+                   0 if scratch is None else scratch.data_ptr(), geo.rows,
+                   THREADS_RTS, int(geo.shared), geo.smem_bytes)
     _check_launch(lib, code, "rts_factors")
     LAUNCHES["rts_factors"] += 1
-    return ahat, Lb, Ab
+    n1 = n + 1
+    return (out.as_strided((B, n1, m), (n1 * m, m, 1)),
+            out.as_strided((B, n1, m, m), (n1 * m * m, m * m, m, 1), lb),
+            out.as_strided((B, n1, m, m), (n1 * m * m, m * m, m, 1), ab))
 
 
 # ---------------------------------------------------------------------------
 # K3: psi-APF log-weight, N <= 32
 # ---------------------------------------------------------------------------
+
+def psi_segment(N: int) -> tuple:
+    """``(w, rows a warp)`` of the ``psi_logw`` kernel for N particles: a
+    row takes w lanes, the least power of two >= N, so a warp serves
+    32 / w rows."""
+    w = 1
+    while w < N:
+        w *= 2
+    return w, 32 // w
+
 
 def psi_logw(spec: NGSpec, al, ahat: torch.Tensor, Lb: torch.Tensor,
              Ab: torch.Tensor, eps: torch.Tensor,
@@ -751,34 +878,30 @@ def psi_logw(spec: NGSpec, al, ahat: torch.Tensor, Lb: torch.Tensor,
     if not SVM <= spec.distribution <= GAMMA:
         raise NotImplementedError(
             f"psi_logw: unsupported family {spec.distribution}")
-    B, n, m = eps.shape[0], spec.n, spec.m
+    y = spec.y
+    B, n, m = eps.shape[0], y.shape[-1], spec.a1.shape[-1]
     N = eps.shape[2]
     if N > MAX_N_PSI:
         raise NotImplementedError(
             f"psi_logw handles N <= {MAX_N_PSI} particles, got {N}")
-    if spec.batch not in (None, 1, B):
-        raise ValueError("spec batch does not match eps")
-    dt, dev = spec.y.dtype, spec.y.device
+    # every tensor the kernel reads is checked against B below
+    dt, dev = y.dtype, y.device
     yt, Ht, sc = al.approx.ytilde, al.approx.Htilde, al.scales
-    _check_tensors([("u", spec.u), ("D", spec.D), ("Z", spec.Z),
-                    ("phi", spec.phi), ("ytilde", yt), ("Htilde", Ht),
-                    ("scales", sc), ("ahat", ahat), ("Lb", Lb), ("Ab", Ab),
-                    ("eps", eps), ("us", us)], spec.y)
-    series = _strided(spec.y, B, n, "y", full=True) \
+    _check_tensors([("u", spec.u), ("D", spec.D)], y)
+    dense = [_dense(x, shape, name, y) for name, x, shape in (
+        ("ytilde", yt, (B, n)), ("Htilde", Ht, (B, n)),
+        ("scales", sc, (B, n)), ("ahat", ahat, (B, n + 1, m)),
+        ("Lb", Lb, (B, n + 1, m, m)), ("Ab", Ab, (B, n + 1, m, m)),
+        ("eps", eps, (B, n + 1, N, m)), ("us", us, (B, n, N)))]
+    series = _strided(y, B, n, "y", full=True) \
         + _strided(spec.u, B, n, "u", full=True) + _strided(spec.D, B, n, "D")
-    leaf_args, keep = _leaf_args(spec, B, ("Z", "phi"))
-    dense = [_dense(yt, (B, n), "ytilde"), _dense(Ht, (B, n), "Htilde"),
-             _dense(sc, (B, n), "scales"), _dense(ahat, (B, n + 1, m), "ahat"),
-             _dense(Lb, (B, n + 1, m, m), "Lb"),
-             _dense(Ab, (B, n + 1, m, m), "Ab"),
-             _dense(eps, (B, n + 1, N, m), "eps"), _dense(us, (B, n, N), "us")]
+    leaf_args, keep = _leaf_args(spec, B, ("Z", "phi"), ref=y)
     logw = torch.empty((B,), dtype=dt, device=dev)
     lib = _load()
-    with torch.cuda.device(dev):
-        code = _call(lib.bssm_psi_logw, _PSI_ARGS, int(dt == torch.float64),
-                     m, int(spec.distribution), N, B, n, *series, *leaf_args,
-                     *[x.data_ptr() for x in dense], logw.data_ptr(),
-                     THREADS_PSI_BLOCK, _stream(dev))
+    code = _launch(lib.bssm_psi_logw, _PSI_ARGS, dev,
+                   int(dt == torch.float64), m, int(spec.distribution), N, B,
+                   n, *series, *leaf_args, *[x.data_ptr() for x in dense],
+                   logw.data_ptr(), THREADS_PSI_BLOCK)
     _check_launch(lib, code, "psi_logw")
     LAUNCHES["psi_logw"] += 1
     return logw

@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # full run, needs one CUDA device
     python3 chip_smoke.py --iter 200 # shorter main path
     python3 chip_smoke.py --big-only # the large-ensemble kernel alone
-    python3 chip_smoke.py --big-ab DIR   # its A/B against the package in DIR
-    python3 chip_smoke.py --geometry-sweep   # its launch geometries, timed
+    python3 chip_smoke.py --ab DIR   # A/B of K2, K3 against the package in DIR
+    python3 chip_smoke.py --ab DIR --ab-set big   # the same for K4 / K5
+    python3 chip_smoke.py --geometry-sweep   # K4 / K5 launch geometries
 
 What it does, in order:
 
@@ -22,7 +23,14 @@ What it does, in order:
    shared memory (m = 4, n = 1200 float64 and n = 2200 float32), where it
    stages in device memory, and the staging sweep: both stagings at n = 153,
    m = 1..4, both dtypes, B = 1024..32768, timed bare and held against each
-   other (``--staging-sweep`` runs only that);
+   other, and the same for ``rts_factors``' two stagings at B = 1024,
+   4096, 16384 (``--staging-sweep`` runs only those); ``rts_factors`` on both
+   sides of each limit of its staging rule (``check_rts_staging``: the wave
+   limit at the main path's model in float64, the shared-memory footprint
+   at m = 2 float32 and m = 4 float64, m = 1 and 3 at small shapes), each
+   against the plain version and the other staging, forced, against the
+   rule's to the bit; ``psi_logw`` at N in {1, 7, 8, 10, 16, 17, 32} (every
+   width of a row's segment of lanes) at B = 1024 in float32 and float64;
 3. does the same for ``laplace_step`` (one Laplace pass) at B = 1 / 4096 /
    16384 and over the same families and state dimensions, and holds the
    single-model solve (the host loop over it) against ``laplace_solve`` at
@@ -41,9 +49,8 @@ What it does, in order:
    every row at the tight tolerance; two warps a row at N = 300 in float64
    against the plain versions; and times both modes at B = 16384 against
    the plain versions on the same tensors (``--big-only`` runs only this
-   step; ``--big-ab DIR`` only the A/B of this kernel against the package
-   checked out in DIR, ``big_ab``; ``--geometry-sweep`` only its times
-   under launch geometries the rule does not pick, ``geometry_sweep``);
+   step; ``--geometry-sweep`` only its times under launch geometries the
+   rule does not pick, ``geometry_sweep``);
 5. holds the two linear-Gaussian kernels (``log_likelihood``,
    ``fast_smoother_ll``) against their plain versions: the airquality
    ``bsm_lg`` model (n = 153, m = 2, Wind and Temp as regressors, so D varies
@@ -58,7 +65,7 @@ What it does, in order:
    ``log_likelihood`` on three layouts of the same leaves (as built, expand
    views of stride 0, per-row copies with non-contiguous cores) against the
    plain versions, timed at B = 4096;
-6. drives fourteen paths through the public entry points and gates each
+6. drives fifteen paths through the public entry points and gates each
    (finite values, acceptance rate, ESS_IS fraction where there are
    weights, the path's kernels launched by that very run, and no plain
    route taken on the card, ``cuda_kalman.PLAIN_ROUTES``):
@@ -67,6 +74,11 @@ What it does, in order:
    Poisson model, n = 153, 4096 / 4096 / 1024 chains; ``pm_bsf_N200``:
    pseudo-marginal MCMC with a 200-particle bootstrap filter on a level-only
    model, 1024 chains; ``da_psi_N64``: delayed acceptance, 1024 chains;
+   ``gamma_airquality_N10``: the JAX package's gamma bench row (bench.py:
+   205-219), is2/psi with 10 particles on a gamma level + slope ``bsm_ng``
+   on airquality Ozone with Wind and Temp, 4096 chains, its ESS_IS fraction
+   within 4 sqrt(2) jackknife standard errors of the reference's 0.8918
+   (``BENCH_r05.json``);
    ``lg_theta`` / ``lg_summary`` / ``lg_full``: linear-Gaussian marginal
    MCMC on the airquality ``bsm_lg`` with ``output_type`` "theta" (4096
    chains), "summary" and "full" (1024 chains, the same seed, so the same
@@ -89,6 +101,17 @@ What it does, in order:
    ``big_checks``, ``lg_checks``, one ``path`` line each (``main_path`` for
    ``psi_N10``), ``kernels``, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
+
+``--ab DIR`` runs only the one-card A/B of this package against an earlier
+one checked out in DIR (``git archive <rev> | tar -x -C DIR``): four
+processes, parent, change, change, parent, each building its kernels and
+printing the readings of ``--ab-set`` (``k2k3``: wrapper and bare
+milliseconds of ``rts_factors`` and ``psi_logw`` at B = 1024, 4096 and
+16384, digests of their outputs on fixed inputs, so that the ``ab`` line
+says where the two packages agree to the bit, ``psi_N10``'s phase 2 and
+``da_psi_N64``'s chain; ``big``: the
+large-ensemble kernel at its three path shapes and the four paths it
+paces), then one ``ab`` line.
 
 Any failed check ends the run with a non-zero exit code and without the last
 line.  Tolerances (|a - b| <= tol (1 + |b|)):
@@ -412,6 +435,22 @@ def airquality_model(bt, dtype):
                      dtype=dtype, device="cuda")
 
 
+def gamma_airquality_model(bt, dtype):
+    """The JAX package's ``gamma_airquality_N10`` bench row (bench.py:205-
+    219), the reference's own anchor model: ``bsm_ng`` gamma level + slope
+    on airquality Ozone (37 missing) with Wind and Temp as regressors,
+    ``beta`` normal(0, 1), ``phi`` and the sds with gamma priors; n = 153,
+    m = 2, d = 5."""
+    aq = bt.airquality()
+    return bt.bsm_ng(aq["Ozone"], xreg=np.column_stack([aq["Wind"],
+                                                         aq["Temp"]]),
+                     beta=bt.normal_prior(np.zeros(2), 0.0, 1.0),
+                     distribution="gamma", phi=bt.gamma_prior(1.0, 2.0, 0.01),
+                     sd_level=bt.gamma_prior(1.0, 2.0, 0.1),
+                     sd_slope=bt.gamma_prior(1.0, 2.0, 0.1), dtype=dtype,
+                     device="cuda")
+
+
 def lg_sweep_model(bt, m: int, dtype, n: int = 40):
     """A small bsm_lg with state dimension ``m`` (1: level, 2: level +
     slope, 3: level + seasonal(3), 4: level + slope + seasonal(3)), three
@@ -596,6 +635,170 @@ def check_kernels(model, B: int, N: int, label: str, timed: bool,
             "psi_logw": bare_ms(lambda: ck.psi_logw(
                 spec, al, k_ahat, k_Lb, k_Ab, eps, us), "bssm_psi_logw")}
         out["one_kernel"] = one_kernel(k1, "laplace_solve")
+    return out
+
+
+def rts_staging_cases(bt) -> list:
+    """``(label, model, B)`` on both sides of each limit of
+    ``rts_geometry``: the wave limit at the main path's model in float64
+    (the most rows ``RTS_SHARED_WAVES`` waves of shared-staged blocks hold,
+    and one more), the footprint limit at m = 2 (float64: n = 723 fits, 724
+    does not; float32: n = 1449 and 1450) and m = 4 float64 (n = 256 fits,
+    257 and 1200 do not), and m = 1, 3 at small shapes."""
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    last = int(ck.RTS_SHARED_WAVES * ck.rts_shared_rows(153, 2, 8,
+                                                         ck._sm_count(0)))
+    m64 = main_path_model(bt, torch.float64)
+    f32, f64 = torch.float32, torch.float64
+    sw = lambda m, dt, n: sweep_model(bt, "poisson", m, dt, n=n)  # noqa
+    return [(f"main f64 B={last} (last shared)", m64, last),
+            (f"main f64 B={last + 1} (first device)", m64, last + 1),
+            ("m=2 f64 n=723", sw(2, f64, 723), 64),
+            ("m=2 f64 n=724", sw(2, f64, 724), 64),
+            ("m=2 f32 n=1449", sw(2, f32, 1449), 64),
+            ("m=2 f32 n=1450", sw(2, f32, 1450), 64),
+            ("m=4 f64 n=256", sw(4, f64, 256), 64),
+            ("m=4 f64 n=257", sw(4, f64, 257), 64),
+            ("m=4 f64 n=1200", sw(4, f64, 1200), 64),
+            ("m=1 f32 n=40", sw(1, f32, 40), 256),
+            ("m=3 f64 n=40", sw(3, f64, 40), 256)]
+
+
+def scaled_err(got: torch.Tensor, ref: torch.Tensor) -> dict:
+    """Largest |got - ref| / (1 + |ref|) and the share of entries above
+    1e-3, over the finite entries."""
+    got, ref = got.double(), ref.double()
+    fin = torch.isfinite(got) & torch.isfinite(ref)
+    d = torch.where(fin, (got - ref).abs() / (1 + ref.abs()),
+                    torch.zeros_like(ref))
+    return {"max": float(d.max()), "share_above_1e-3": float(
+        (d > 1e-3).double().mean())}
+
+
+def check_rts_staging(bt) -> list:
+    """K2 (``rts_factors``) on both sides of its staging rule
+    (``rts_staging_cases``): the other staging, forced, against the rule's
+    launch to the bit (both compute every factor by the same operations;
+    only where the moments are staged differs), and the rule's launch
+    against the plain version at the tolerances of ``check_kernels``.  A
+    float32 series of n = 1449 steps is conditioned past those tolerances
+    (ill-conditioned gains: both float32 versions lie up to 14% from the
+    float64 one in Ab, and 0.9% from each other); there the kernel and the
+    plain version are each held against the plain version in float64, and
+    the kernel's largest error and share above 1e-3 may not exceed the
+    plain version's by more than a tenth.  The wrapper always takes the
+    rule's staging, so the check forces the other by replacing
+    ``rts_geometry`` for the call."""
+    from unittest import mock
+    from bssm_tpu_torch.inference import approx as amod
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    from bssm_tpu_torch.ops import kalman
+    out = []
+    sms = ck._sm_count(0)
+    for label, model, B in rts_staging_cases(bt):
+        dt = model.dtype
+        f64 = dt == torch.float64
+        m = model.extra["m"]
+        tol = (lambda k: F64_TOL) if f64 else (lambda k: F32_TOL[k])
+        spec = model.build(thetas_around_init(model, B, 43))
+        conv_tol = max(1e-8, 50.0 * float(torch.finfo(dt).eps))
+        g = amod.approximate(spec, conv_tol, 100).gaussian(spec)
+        item = spec.y.element_size()
+        geo = ck.rts_geometry(spec.n, m, item, B, sms)
+        other = ck.RtsGeometry(ck.RTS_ROWS_DEVICE, False,
+                               ck.RTS_ROWS_DEVICE * ck.rts_sys_elems(m)
+                               * item) if geo.shared else \
+            ck.RtsGeometry(ck.RTS_ROWS_SHARED, True, ck.RTS_ROWS_SHARED * (
+                ck.rts_sys_elems(m) + ck.rts_row_elems(spec.n, m)) * item)
+        k = ck.rts_factors(g)
+        p = kalman.smoother_bwd_factors(g)
+        torch.cuda.synchronize()
+        res = {"label": label, "B": B, "n": spec.n, "m": m,
+               "dtype": str(dt).replace("torch.", ""),
+               "geometry": geo._asdict()}
+        if f64 or spec.n <= 153:
+            res["checks"] = [
+                compare("rts_factors.ahat", k[0], p[0],
+                        tol("ahat_m3" if m >= 3 else "ahat"), f64),
+                compare("rts_factors.Ab", k[2], p[2], tol("Ab"), f64),
+                compare("rts_factors.LbLbT", outer(k[1]), outer(p[1]),
+                        tol("LL"), f64)]
+        else:
+            r = kalman.smoother_bwd_factors(type(g)(*[x.double()
+                                                      for x in g]))
+            acc = {}
+            for name, a, b, c in (("ahat", k[0], p[0], r[0]),
+                                  ("Ab", k[2], p[2], r[2]),
+                                  ("LbLbT", outer(k[1]), outer(p[1]),
+                                   outer(r[1]))):
+                ek, ep = scaled_err(a, c), scaled_err(b, c)
+                acc[name] = {"kernel_vs_f64": ek, "plain_vs_f64": ep,
+                             "kernel_vs_plain": scaled_err(a, b)}
+                if ek["max"] > 1.1 * ep["max"] + 1e-6 or \
+                        ek["share_above_1e-3"] > \
+                        1.1 * ep["share_above_1e-3"] + 1e-6:
+                    FAILURES.append({"what": f"rts_factors.{name} less "
+                                             "accurate than the plain "
+                                             "version", "label": label,
+                                     **acc[name]})
+            res["against_float64"] = acc
+            res["checks"] = []
+        if other.smem_bytes <= ck.SMEM_LIMIT:
+            with mock.patch.object(ck, "rts_geometry",
+                                   lambda *_, geo=other: geo):
+                o = ck.rts_factors(g)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(k, o))
+            res["other_geometry"] = other._asdict()
+            res["other_staging_bitwise_equal"] = same
+            if not same:
+                FAILURES.append({"what": "rts_factors: the two stagings "
+                                         "differ", "label": label})
+        out.append(res)
+        del k, p, g, spec
+        torch.cuda.empty_cache()
+    picks = {r["geometry"]["shared"] for r in out}
+    if picks != {True, False}:
+        FAILURES.append({"what": "rts_factors: a staging was never picked",
+                         "picks": sorted(picks)})
+    return out
+
+
+PSI_PARTICLES = (1, 7, 8, 10, 16, 17, 32)
+
+
+def check_psi_particles(model, B: int, label: str, seed: int = 47) -> dict:
+    """K3 (``psi_logw``) against its plain version at every particle count
+    of ``PSI_PARTICLES``, on both sides of each segment width (1, 8, 16
+    and 32 lanes a row), with the kernel's own factors on both sides, at
+    the tolerance of ``check_kernels``."""
+    from bssm_tpu_torch.inference import approx as amod
+    from bssm_tpu_torch.inference import particle as pmod
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    dt = model.dtype
+    f64 = dt == torch.float64
+    m = model.extra["m"]
+    spec = model.build(thetas_around_init(model, B, seed))
+    conv_tol = max(1e-8, 50.0 * float(torch.finfo(dt).eps))
+    ar = amod.approximate(spec, conv_tol, 100)
+    fac = ck.rts_factors(ar.gaussian(spec))
+    zero = torch.zeros(B, dtype=dt, device="cuda")
+    al = amod.ApproxLoglik(ar, amod.mode_scales(spec, ar), zero, zero)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    out = {"label": label, "B": B, "n": spec.n, "m": m,
+           "dtype": str(dt).replace("torch.", ""), "checks": []}
+    for N in PSI_PARTICLES:
+        eps = torch.randn((B, spec.n + 1, N, m), dtype=dt, device="cuda",
+                          generator=gen)
+        us = torch.rand((B, spec.n, N), dtype=dt, device="cuda",
+                        generator=gen)
+        k = ck.psi_logw(spec, al, *fac, eps, us)
+        p = pmod.psi_logw_scan(spec, al, eps, us, factors=fac)
+        torch.cuda.synchronize()
+        c = compare(f"psi_logw.logw N={N}", k, p,
+                    F64_TOL if f64 else F32_TOL["logw"], f64)
+        c["segment"] = list(ck.psi_segment(N))
+        out["checks"].append(c)
     return out
 
 
@@ -872,6 +1075,66 @@ def staging_sweep(bt) -> list:
                                 got["device"][4], got["shared"][4],
                                 F64_TOL if f64 else F32_TOL["ll"], True)]
                 out.append(r)
+    return out
+
+
+def rts_staging_sweep(bt) -> list:
+    """``rts_factors`` at n = 153 over B = 1024, 4096, 16384, m = 1..4 (the
+    main path's model at m = 2) and both dtypes: the bare kernel in each of
+    its two stagings (shared memory where a block fits), timed in turns
+    (shared, device, device, shared), the waves the shared blocks need
+    (B over ``rts_shared_rows``), the staging the rule picks, and the two
+    held against each other to the bit.  The readings ``RTS_SHARED_WAVES``
+    is set from.  The wrapper always takes the rule's staging, so the sweep
+    forces each by replacing ``rts_geometry`` for the call."""
+    from unittest import mock
+    from bssm_tpu_torch.inference import approx as amod
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    out = []
+    sms = ck._sm_count(0)
+    for dt in (torch.float32, torch.float64):
+        conv_tol = max(1e-8, 50.0 * float(torch.finfo(dt).eps))
+        for m in (1, 2, 3, 4):
+            model = main_path_model(bt, dt) if m == 2 \
+                else sweep_model(bt, "poisson", m, dt, n=153)
+            for B in (1024, 4096, 16384):
+                spec = model.build(thetas_around_init(model, B, 59))
+                g = amod.approximate(spec, conv_tol, 100).gaussian(spec)
+                item = spec.y.element_size()
+                rows = ck.rts_shared_rows(spec.n, m, item, sms)
+                geo = {"shared": ck.RtsGeometry(
+                    ck.RTS_ROWS_SHARED, True, ck.RTS_ROWS_SHARED * (
+                        ck.rts_sys_elems(m) + ck.rts_row_elems(spec.n, m))
+                    * item), "device": ck.RtsGeometry(
+                    ck.RTS_ROWS_DEVICE, False,
+                    ck.RTS_ROWS_DEVICE * ck.rts_sys_elems(m) * item)}
+                r = {"dtype": str(dt).replace("torch.", ""), "m": m, "B": B,
+                     "waves_shared": B / rows if rows else None,
+                     "picked": "shared" if ck.rts_geometry(
+                         spec.n, m, item, B, sms).shared else "device"}
+                names = ("shared", "device", "device", "shared") if rows \
+                    else ("device", "device")
+                got = {}
+                for name in names:
+                    with mock.patch.object(ck, "rts_geometry",
+                                           lambda *_, x=geo[name]: x):
+                        got[name] = ck.rts_factors(g)
+                        r.setdefault(name + "_ms", []).append(bare_ms(
+                            lambda: ck.rts_factors(g), "bssm_rts_factors"))
+                torch.cuda.synchronize()
+                if rows:
+                    r["faster"] = min(("shared", "device"),
+                                      key=lambda k: min(r[k + "_ms"]))
+                    r["bit_equal"] = all(torch.equal(a, b) for a, b in zip(
+                        got["shared"], got["device"]))
+                    if not r["bit_equal"]:
+                        FAILURES.append({"what": "rts_factors: the two "
+                                                 "stagings differ",
+                                         "dtype": r["dtype"], "m": m,
+                                         "B": B})
+                out.append(r)
+                del got, g, spec
+                torch.cuda.empty_cache()
     return out
 
 
@@ -1532,12 +1795,112 @@ def geometry_sweep(bt) -> list:
     return out
 
 
-def big_ab(parent: str, smi: str) -> int:
-    """The one-card A/B of the large-ensemble kernel against an earlier
-    package: ``parent`` is a checkout of it (``git archive <rev> | tar -x -C
-    <dir>``).  The script copies itself there and runs
-    ``big_ab_readings`` in four processes, parent, change, change, parent,
-    each building its own kernels; prints one ``big_ab`` line."""
+def k2k3_ab_readings(bt) -> dict:
+    """The readings of K2's and K3's A/B, on whichever package ``bt`` is
+    (this one, or an earlier one with the same wrapper calls): wrapper and
+    bare milliseconds of ``rts_factors`` and ``psi_logw`` (N = 10) at the
+    main path's model, float32, B = 1024, 4096 and 16384 (phase 2 gives
+    them 16384-row chunks, ``da_psi_N64`` K2 1024 rows), the digests of
+    their outputs on fixed inputs (``k2k3_digests``), then the phase-2
+    seconds of ``psi_N10`` (three runs) and the chain seconds of
+    ``da_psi_N64`` (two runs) as ``main`` runs them."""
+    from bssm_tpu_torch.inference import approx as amod
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    m32 = main_path_model(bt, torch.float32)
+    res = {"kernels": {}, "paths": {}}
+    for B in (1024, 4096, 16384):
+        spec = m32.build(thetas_around_init(m32, B, 7))
+        ar = amod.approximate(spec, 50.0 * float(torch.finfo(
+            torch.float32).eps), 100)
+        g = ar.gaussian(spec)
+        fac = ck.rts_factors(g)
+        zero = torch.zeros(B, dtype=torch.float32, device="cuda")
+        al = amod.ApproxLoglik(ar, amod.mode_scales(spec, ar), zero, zero)
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        eps = torch.randn((B, spec.n + 1, 10, 2), device="cuda",
+                          generator=gen)
+        us = torch.rand((B, spec.n, 10), device="cuda", generator=gen)
+        k2 = lambda: ck.rts_factors(g)                        # noqa: E731
+        k3 = lambda: ck.psi_logw(spec, al, *fac, eps, us)     # noqa: E731
+        for name, fn, entry in (("rts_factors", k2, "bssm_rts_factors"),
+                                ("psi_logw", k3, "bssm_psi_logw")):
+            res["kernels"][f"{name} B={B}"] = {
+                "ms": time_ms(fn, reps=20),
+                "bare_ms": bare_ms(fn, entry, reps=20)}
+        del fac, eps, us, g, ar, spec
+        torch.cuda.empty_cache()
+    res["digests"] = k2k3_digests(bt)
+    for label, chains, iters, reps, kw in (
+            ("psi_N10", CHAINS, 1000, 3,
+             dict(particles=10, mcmc_type="is2", sampling_method="psi",
+                  store_modes=False, corr_batch=16384)),
+            ("da_psi_N64", CHAINS // 4, 500, 2,
+             dict(particles=64, mcmc_type="da", sampling_method="psi"))):
+        kw = dict(output_type="theta", seed=1, n_chains=chains, **kw)
+        bt.run_mcmc(m32, iter=20, **kw)                   # warm-up
+        r = res["paths"][label] = {"chain_s": [], "phase2_s": []}
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            out = bt.run_mcmc(m32, iter=iters, **kw)
+            w = out.flat_weights()
+            r["chain_s"].append(out.time["mcmc"])
+            r["phase2_s"].append(out.time.get("correction"))
+            r["acceptance_rate"] = out.acceptance_rate
+            r["ess_is_fraction"] = (bt.ess_is(w) / w.size
+                                    if out.weights is not None else None)
+            del out
+            torch.cuda.empty_cache()
+    return res
+
+
+def k2k3_digests(bt) -> dict:
+    """SHA-256 of the outputs of ``rts_factors`` (ahat, Lb, Ab) and
+    ``psi_logw`` (N = 10) on fixed inputs: the main path's model at
+    B = 1024 and 16384 in float32 and at 1024 in float64, and the sweep
+    models at m = 1, 3, 4 in both dtypes at B = 256 (the approximation by
+    ``laplace_solve``, the randomness from a seeded generator).  Equal
+    digests on two packages mean outputs equal to the bit."""
+    import hashlib
+    from bssm_tpu_torch.inference import approx as amod
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    sha = lambda ts: hashlib.sha256(b"".join(            # noqa: E731
+        t.contiguous().cpu().numpy().tobytes() for t in ts)).hexdigest()
+    cases = [("main f32 B=1024", main_path_model(bt, torch.float32), 1024),
+             ("main f32 B=16384", main_path_model(bt, torch.float32),
+              16384),
+             ("main f64 B=1024", main_path_model(bt, torch.float64), 1024)]
+    for dt in (torch.float32, torch.float64):
+        for m in (1, 3, 4):
+            cases.append((f"m={m} {str(dt).replace('torch.', '')} B=256",
+                          sweep_model(bt, "poisson", m, dt), 256))
+    out = {}
+    for label, model, B in cases:
+        dt = model.dtype
+        spec = model.build(thetas_around_init(model, B, 61))
+        ar = amod.approximate(spec, max(1e-8, 50.0 * float(
+            torch.finfo(dt).eps)), 100)
+        fac = ck.rts_factors(ar.gaussian(spec))
+        zero = torch.zeros(B, dtype=dt, device="cuda")
+        al = amod.ApproxLoglik(ar, amod.mode_scales(spec, ar), zero, zero)
+        gen = torch.Generator(device="cuda").manual_seed(62)
+        eps = torch.randn((B, spec.n + 1, 10, spec.m), dtype=dt,
+                          device="cuda", generator=gen)
+        us = torch.rand((B, spec.n, 10), dtype=dt, device="cuda",
+                        generator=gen)
+        lw = ck.psi_logw(spec, al, *fac, eps, us)
+        out[label] = {"rts_factors": sha(fac), "psi_logw": sha([lw])}
+    return out
+
+
+AB_READINGS = {"k2k3": k2k3_ab_readings, "big": big_ab_readings}
+
+
+def ab(parent: str, which: str, smi: str) -> int:
+    """The one-card A/B of this package against an earlier one: ``parent``
+    is a checkout of it (``git archive <rev> | tar -x -C <dir>``).  The
+    script copies itself there and runs the readings ``which`` of
+    ``AB_READINGS`` in four processes, parent, change, change, parent, each
+    building its own kernels; prints one ``ab`` line."""
     import shutil
     from pathlib import Path
     here = Path(__file__).resolve()
@@ -1546,16 +1909,26 @@ def big_ab(parent: str, smi: str) -> int:
     runs = []
     for side in ("parent", "change", "change", "parent"):
         script = there if side == "parent" else here
-        p = subprocess.run([sys.executable, str(script), "--big-ab-side"],
+        p = subprocess.run([sys.executable, str(script), "--ab-side", which],
                            cwd=str(script.parent), capture_output=True,
                            text=True, timeout=900)
         lines = [json.loads(ln) for ln in p.stdout.splitlines()
-                 if ln.startswith('{"big_ab_side"')]
+                 if ln.startswith('{"ab_side"')]
         if p.returncode != 0 or not lines:
             print(p.stdout[-4000:], p.stderr[-4000:], file=sys.stderr)
             return 1
-        runs.append({"side": side, **lines[-1]["big_ab_side"]})
-    emit("big_ab", {"nvidia_smi": smi, "parent": str(parent), "runs": runs})
+        runs.append({"side": side, **lines[-1]["ab_side"]})
+    res = {"nvidia_smi": smi, "readings": which, "parent": str(parent),
+           "runs": runs}
+    if "digests" in runs[0]:
+        # outputs equal to the bit across the two packages, and within each
+        res["bit_equal_to_parent"] = {
+            label: {k: runs[0]["digests"][label][k]
+                    == runs[1]["digests"][label][k] for k in d}
+            for label, d in runs[0]["digests"].items()}
+        res["repeatable"] = all(runs[i]["digests"] == runs[j]["digests"]
+                                for i, j in ((0, 3), (1, 2)))
+    emit("ab", res)
     return 0
 
 
@@ -1687,6 +2060,28 @@ def run_path(bt, ck, model, label: str, desc: str, chains: int, iters: int,
             problems.append(f"non-finite {name}")
     res["problems"] = [f"{label}: {p}" for p in problems]
     return res, out
+
+
+# ESS_IS fraction of the JAX package's gamma_airquality_N10 row at 4096
+# chains x 1000 iterations on its TPU (BENCH_r05.json)
+GAMMA_ESS_REF = 0.8918
+
+
+def ess_fraction_check(out, ref: float, groups: int = 32) -> dict:
+    """The run's ESS_IS fraction against a reference run of the same size:
+    its standard error by a jackknife over ``groups`` groups of chains (the
+    chains are independent, the draws within one are not), the reference's
+    taken to be the same; ok when they differ by at most 4 sqrt(2) of it."""
+    w = out.weights.reshape(out.weights.shape[0], -1).astype(np.float64)
+    frac = lambda x: x.sum() ** 2 / (x.size * (x ** 2).sum())  # noqa: E731
+    parts = np.array_split(np.arange(w.shape[0]), groups)
+    loo = np.array([frac(np.delete(w, g, axis=0)) for g in parts])
+    se = float(np.sqrt((groups - 1) / groups
+                       * ((loo - loo.mean()) ** 2).sum()))
+    est = float(frac(w))
+    return {"ess_is_fraction": est, "reference": ref, "jackknife_se": se,
+            "z": float((est - ref) / (np.sqrt(2.0) * se)),
+            "ok": bool(abs(est - ref) <= 4.0 * np.sqrt(2.0) * se)}
 
 
 def lg_states_check(summary, full) -> dict:
@@ -1848,18 +2243,25 @@ def main() -> int:
                     help="also trace short runs of five paths with "
                          "torch.profiler and print device time by kernel")
     ap.add_argument("--staging-sweep", action="store_true",
-                    help="only time laplace_solve's stagings over B, m and "
-                         "dtype (staging_sweep), print them and stop; "
-                         "prints no result line")
+                    help="only time the stagings of laplace_solve and "
+                         "rts_factors over B, m and dtype (staging_sweep, "
+                         "rts_staging_sweep), print them and stop; prints "
+                         "no result line")
     ap.add_argument("--big-only", action="store_true",
                     help="only run the large-ensemble kernel's checks and "
                          "times (big_section) and stop; prints no result "
                          "line")
-    ap.add_argument("--big-ab", metavar="DIR",
-                    help="only the large-ensemble kernel's A/B against the "
-                         "package checked out in DIR (big_ab); prints no "
+    ap.add_argument("--ab", metavar="DIR",
+                    help="only the A/B of this package against the package "
+                         "checked out in DIR, on one card (ab); prints no "
                          "result line")
-    ap.add_argument("--big-ab-side", action="store_true",
+    ap.add_argument("--ab-set", choices=sorted(AB_READINGS),
+                    default="k2k3",
+                    help="the readings of --ab: k2k3 (rts_factors and "
+                         "psi_logw, psi_N10's phase 2, da_psi_N64's chain; "
+                         "the default) or big (the large-ensemble kernel "
+                         "and the paths it paces)")
+    ap.add_argument("--ab-side", choices=sorted(AB_READINGS),
                     help=argparse.SUPPRESS)
     ap.add_argument("--geometry-sweep", action="store_true",
                     help="only time the large-ensemble kernel under launch "
@@ -1886,15 +2288,15 @@ def main() -> int:
                   "tf32_matmul": torch.backends.cuda.matmul.allow_tf32})
     if args.staging_sweep:
         emit("staging_sweep", {"nvidia_smi": smi, "runs": staging_sweep(bt),
+                               "rts_factors": rts_staging_sweep(bt),
                                "failures": FAILURES})
         return 1 if FAILURES else 0
-    if args.big_ab_side:
-        emit("big_ab_side", {"nvidia_smi": smi,
-                             "build_seconds": ck.build_seconds,
-                             **big_ab_readings(bt)})
+    if args.ab_side:
+        emit("ab_side", {"nvidia_smi": smi, "build_seconds": ck.build_seconds,
+                         **AB_READINGS[args.ab_side](bt)})
         return 0
-    if args.big_ab:
-        return big_ab(args.big_ab, smi)
+    if args.ab:
+        return ab(args.ab, args.ab_set, smi)
     if args.geometry_sweep:
         emit("geometry_sweep", {"nvidia_smi": smi,
                                 "runs": geometry_sweep(bt),
@@ -1952,8 +2354,16 @@ def main() -> int:
         if not any(r["picked"] == pick for r in sweep):
             FAILURES.append({"what": f"the wrapper never picked {pick} "
                                      "staging in the staging sweep"})
+    # K2 on both sides of its staging limits and both stagings timed, K3 at
+    # every segment width
+    rts_staging = check_rts_staging(bt)
+    rts_sweep = rts_staging_sweep(bt)
+    psi_particles = [check_psi_particles(m32, 1024, "main f32 B=1024"),
+                     check_psi_particles(m64, 1024, "main f64 B=1024")]
     emit("checks", {"runs": checks, "staging_sweep": sweep,
-                    "failures": FAILURES})
+                    "rts_staging": rts_staging,
+                    "rts_staging_sweep": rts_sweep,
+                    "psi_particles": psi_particles, "failures": FAILURES})
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} kernel check(s) failed",
               file=sys.stderr)
@@ -2058,7 +2468,13 @@ def main() -> int:
         run_path(bt, ck, m32, "da_psi_N64", lvl_slope, CHAINS // 4, it_half,
                  ("laplace_solve", "rts_factors", "psi_big_logw"),
                  (0.05, 0.35), None, particles=64, mcmc_type="da",
-                 sampling_method="psi")]
+                 sampling_method="psi"),
+        run_path(bt, ck, gamma_airquality_model(bt, torch.float32),
+                 "gamma_airquality_N10", "bsm_ng gamma airquality Ozone ~ "
+                 "Wind + Temp, level+slope, n=153, m=2, d=5, float32",
+                 CHAINS, it_full, ("laplace_solve", "rts_factors",
+                                   "psi_logw"), (0.15, 0.35), None,
+                 particles=10, **is2)]
     aq = "bsm_lg airquality Ozone ~ Wind + Temp, level+slope, n=153, m=2, " \
         "d=5, float32"
     runs += [run_path(bt, ck, a32, "lg_" + ot, aq,
@@ -2102,6 +2518,12 @@ def main() -> int:
     paths = [r for r, _ in runs]
     outs = {r["path"]: o for r, o in runs}
     problems = [p for r in paths for p in r["problems"]]
+    ga = ess_fraction_check(outs["gamma_airquality_N10"], GAMMA_ESS_REF)
+    next(r for r in paths
+         if r["path"] == "gamma_airquality_N10")["ess_vs_reference"] = ga
+    if not ga["ok"]:
+        problems.append(f"gamma_airquality_N10: ESS_IS fraction against "
+                        f"the reference's {ga}")
     # post_correct replays is2_full's correction on the approx run
     r_ap = next(r for r in paths if r["path"] == "approx_full")
     torch.cuda.synchronize()
@@ -2175,8 +2597,8 @@ def main() -> int:
             "ms": c_16k["ms"][name], "plain_ms": c_16k["plain_ms"][name],
             "bound_ms": b[name]["bound_ms"], "bound_by": b[name]["bound_by"],
             "library_ms": None, "shape": "B=16384 n=153 m=2 N=10 float32"})
-    # bare kernels (profiler), and the readings at the 1024 chains of seven
-    # paths; phase 1 gives laplace_solve B = 4096 rows: that reading too
+    # bare kernels, and the readings at the 1024 chains of seven paths and
+    # at B = 4096 (phase 1 gives laplace_solve B = 4096 rows)
     for k in kernels:
         name = k["name"]
         k["bare_ms"] = c_16k["bare_ms"][name]
@@ -2184,10 +2606,10 @@ def main() -> int:
         k["bare_ms_B1024"] = c_1k["bare_ms"][name]
         k["plain_ms_B1024"] = c_1k["plain_ms"][name]
         k["bound_ms_B1024"] = c_1k["bounds"][name]["bound_ms"]
-    kernels[0]["ms_B4096"] = c_4k["ms"]["laplace_solve"]
-    kernels[0]["bare_ms_B4096"] = c_4k["bare_ms"]["laplace_solve"]
-    kernels[0]["plain_ms_B4096"] = c_4k["plain_ms"]["laplace_solve"]
-    kernels[0]["bound_ms_B4096"] = b4["laplace_solve"]["bound_ms"]
+        k["ms_B4096"] = c_4k["ms"][name]
+        k["bare_ms_B4096"] = c_4k["bare_ms"][name]
+        k["plain_ms_B4096"] = c_4k["plain_ms"][name]
+        k["bound_ms_B4096"] = b4[name]["bound_ms"]
     for name, line in (("log_likelihood", 386), ("fast_smoother_ll", 487)):
         lb = l_16k["bounds"][name]
         k = {"name": name, "route": "cuda",

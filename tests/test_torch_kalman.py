@@ -181,6 +181,54 @@ def test_bwd_factors_match_scan(m):
     assert torch.equal(Ab[:, -1], torch.zeros_like(Ab[:, -1]))
 
 
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+def test_bwd_factors_come_from_the_filtered_moments_alone(m):
+    """The premise of the rts_factors kernel's layout: at every t < n, J_t
+    and the factor of Sig_t computed from (att_t, Ptt_t) alone, with
+    P_{t+1|t} and a_{t+1|t} predicted again from them, equal
+    smoother_bwd_factors' Ab_t and Lb_t; the affine recursion
+    ahat_t = att_t + J_t (ahat_{t+1} - a_{t+1|t}) from ahat_n = a_{n|n-1}
+    reproduces its ahat; t = n is the factor of P_{n|n-1} alone.  Float64,
+    missing y, to roundoff (rtol 1e-12: the same operations in another
+    batching)."""
+    from bssm_tpu_torch.ops.chol import _psd_factor, _psd_pinv
+    from bssm_tpu_torch.core.spec import at_t
+    d = _lg_arrays(70 + m, 26, m, 3, diffuse=(m == 2))
+    d["y"][:, [0, 11, 25]] = np.nan
+    _, t = _both(d)
+    ahat, Lb, Ab = tkalman.smoother_bwd_factors(t)
+    r = tkalman.kfilter(t)
+    s = tkalman._sys(t)
+    n = t.n
+    T, RR, C = at_t(s.T, 0), at_t(s.RR, 0), at_t(s.C, 0)
+    tr = lambda A: A.transpose(-1, -2)                       # noqa: E731
+    close = lambda a, b: torch.testing.assert_close(        # noqa: E731
+        a, b, rtol=1e-12, atol=1e-12)
+    J, a_next = [], []
+    for k in range(n):
+        Ptt, att = r.Ptt[:, k], r.att[:, k]
+        P_next = tkalman._sym(T @ Ptt @ tr(T) + RR)
+        close(P_next, r.Pt[:, k + 1])
+        a_next.append(C + (T @ att[..., None])[..., 0])
+        close(a_next[-1], r.at[:, k + 1])
+        Jk = Ptt @ tr(T) @ _psd_pinv(P_next)
+        ImJT = torch.eye(m, dtype=Jk.dtype) - Jk @ T
+        Sig = tkalman._sym(ImJT @ Ptt @ tr(ImJT) + Jk @ RR @ tr(Jk))
+        close(Jk, Ab[:, k])
+        L = _psd_factor(Sig)
+        close(L @ tr(L), Lb[:, k] @ tr(Lb[:, k]))
+        if m <= 2:
+            close(L, Lb[:, k])
+        J.append(Jk)
+    close(_psd_factor(r.Pt[:, n]), Lb[:, n])
+    assert torch.equal(Ab[:, n], torch.zeros_like(Ab[:, n]))
+    ah = r.at[:, n]
+    close(ah, ahat[:, n])
+    for k in range(n - 1, -1, -1):
+        ah = r.att[:, k] + (J[k] @ (ah - a_next[k])[..., None])[..., 0]
+        close(ah, ahat[:, k])
+
+
 @pytest.mark.parametrize("m", [2, 3])
 def test_bwd_factors_match_pallas_interpret_f32(m):
     """Plain version (float32) vs the TPU kernel in interpret mode, at the

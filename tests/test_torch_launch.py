@@ -4,7 +4,11 @@ CPU: what ``ops/cuda_kalman.py`` hands them, checked without a card.
 - ``staging_options`` / ``laplace_staging``: rows a block and where a
   Laplace pass is staged, on both sides of the 227 KB shared-memory limit
   and of the wave count up to which shared memory is chosen, m = 1..4,
-  float32 and float64; ``kalman_tile``: the chunks of the D tile.
+  float32 and float64; ``kalman_tile``: the chunks of the D tile;
+  ``rts_geometry``: where ``rts_factors`` stages (shared memory up to its
+  footprint and wave limits, device memory beyond) and ``rts_layout``, its
+  one output buffer; ``psi_segment``: the lanes a row of ``psi_logw``
+  takes, on both sides of each power of two.
 - ``system_leaves`` and ``_strided``: each leaf as (pointer, batch stride
   [, time stride]), read back with ``torch.as_strided`` the way the kernels
   read it, reproduces the packed system the first design launched with
@@ -128,6 +132,105 @@ def test_laplace_staging_of_the_main_path():
     assert ck.staging_options(1076, 4, 8)[0] is None
     for B in (1024, 4096):                 # the chains: one wave
         assert ck.laplace_staging(153, 2, 4, B, 132) == shared
+
+
+def _rts_block_bytes(n, m, item, rows):
+    """Shared memory of a rts_factors block staging in shared memory: each
+    row's T, R R' and C, and its staged values, att and the upper triangle
+    of Ptt at n steps, made odd."""
+    return rows * (2 * m * m + m + ((m + m * (m + 1) // 2) * n | 1)) * item
+
+
+@pytest.mark.parametrize("item", [4, 8])
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+def test_rts_geometry_on_both_sides_of_each_limit(m, item):
+    """rts_factors stages 8 rows a block in shared memory while they fit in
+    227 KB and run in at most RTS_SHARED_WAVES waves (as many blocks an SM
+    as its 228 KB hold, each with its 1 KB reserve, at most 8), and 32 rows
+    a block in a device scratch beyond either limit (then only the systems
+    are in shared memory)."""
+    rows = ck.RTS_ROWS_SHARED
+    device = ck.RtsGeometry(ck.RTS_ROWS_DEVICE, False,
+                            ck.RTS_ROWS_DEVICE * (2 * m * m + m) * item)
+    # the footprint limit, at one row
+    n = 1
+    while _rts_block_bytes(n + 1, m, item, rows) <= ck.SMEM_LIMIT:
+        n += 1
+    inside = ck.rts_geometry(n, m, item, 1, 132)
+    assert inside == ck.RtsGeometry(rows, True,
+                                    _rts_block_bytes(n, m, item, rows))
+    assert inside.smem_bytes <= ck.SMEM_LIMIT
+    assert ck.rts_geometry(n + 1, m, item, 1, 132) == device
+    assert ck.rts_shared_rows(n + 1, m, item, 132) == 0
+    # the wave limit, at the main path's n where it fits
+    k = min(153, n)
+    geo = ck.rts_geometry(k, m, item, 1, 132)
+    assert geo.shared and geo.smem_bytes == _rts_block_bytes(k, m, item,
+                                                             rows)
+    per_sm = min(8, (228 * 1024) // (geo.smem_bytes + 1024 + 128))
+    assert ck.rts_shared_rows(k, m, item, 132) == rows * 132 * per_sm
+    last = int(rows * 132 * per_sm * ck.RTS_SHARED_WAVES)
+    assert ck.rts_geometry(k, m, item, last, 132) == geo
+    assert ck.rts_geometry(k, m, item, last + 1, 132) == device
+    assert ck.rts_geometry(k, m, item, last + 1, 264).shared
+
+
+def test_rts_geometry_of_the_main_path():
+    """m = 2, n = 153, float32: 8 rows a block in 24800 bytes, eight
+    blocks an SM (the kernel's launch bound), 8448 rows a wave on 132 SMs,
+    shared memory up to 3.5 waves: every batch of the paths (1024 rows,
+    the 16384-row chunks of phase 2) in shared memory, device memory from
+    29569 rows; the footprint limit at n = 1449 (float32, m = 2), n = 723
+    (float64, m = 2) and n = 256 (float64, m = 4).  The kernel's thread limit and launch bound
+    are the wrapper's."""
+    import re
+    shared = ck.RtsGeometry(8, True, 24800)
+    for B in (1, 1024, 4096, 16384, 29568):
+        assert ck.rts_geometry(153, 2, 4, B, 132) == shared
+    assert ck.rts_geometry(153, 2, 4, 29569, 132) == ck.RtsGeometry(
+        32, False, 1280)
+    assert ck.rts_geometry(256, 4, 8, 64, 132).shared
+    assert not ck.rts_geometry(257, 4, 8, 64, 132).shared
+    assert ck.rts_geometry(1449, 2, 4, 64, 132).shared
+    assert not ck.rts_geometry(1450, 2, 4, 64, 132).shared
+    assert ck.rts_geometry(723, 2, 8, 64, 132).shared
+    assert not ck.rts_geometry(724, 2, 8, 64, 132).shared
+    src = (ck.CSRC / "rts_factors.cu").read_text()
+    const = dict(re.findall(r"constexpr int (kRts\w+) = (\d+);", src))
+    assert int(const["kRtsMaxThreads"]) == ck.THREADS_RTS
+    assert int(const["kRtsMinBlocks"]) == ck.RTS_BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize("B,n,m", [(1, 4, 1), (3, 6, 3), (1024, 153, 2),
+                                   (5, 10, 4), (7, 2, 2)])
+def test_rts_layout_keeps_runs_aligned(B, n, m):
+    """The one output buffer of rts_factors: ahat, then Lb from a line of
+    32 values, then Ab right behind it; at even m (the runs of m^2 values
+    the kernel stores 16 bytes at a time) every run of Lb and Ab starts on
+    a multiple of m^2 values, so those stores stay aligned."""
+    lb, ab, total = ck.rts_layout(B, n, m)
+    k = B * (n + 1)
+    assert lb % 32 == 0 and k * m <= lb < k * m + 32
+    assert ab == lb + k * m * m and total == ab + k * m * m
+    assert m % 2 or (lb % (m * m) == 0 and ab % (m * m) == 0)
+
+
+@pytest.mark.parametrize("N,want", [(1, (1, 32)), (2, (2, 16)), (3, (4, 8)),
+                                    (4, (4, 8)), (5, (8, 4)), (7, (8, 4)),
+                                    (8, (8, 4)), (9, (16, 2)), (10, (16, 2)),
+                                    (16, (16, 2)), (17, (32, 1)),
+                                    (32, (32, 1))])
+def test_psi_segment_on_both_sides_of_each_power_of_two(N, want):
+    """psi_logw gives a row the least power of two >= N lanes, so a warp
+    serves 32 / w rows; the C entry computes the same (psi_segment of
+    csrc/psi_logw.cu, a doubling loop from 1) and a block of
+    THREADS_PSI_BLOCK threads serves four warps' rows."""
+    w, rows = ck.psi_segment(N)
+    assert (w, rows) == want and w * rows == 32 and w >= N > w // 2
+    src = (ck.CSRC / "psi_logw.cu").read_text()
+    assert "int w = 1;\n  while (w < N) w <<= 1;" in src
+    assert "a.threads / 32 * (32 / bssm::psi_segment((int)a.N))" in src
+    assert ck.THREADS_PSI_BLOCK == 128
 
 
 @pytest.mark.parametrize("item", [4, 8])

@@ -154,6 +154,128 @@ def test_stratified_indices_equal_index_for_index():
     np.testing.assert_allclose(ggot.numpy(), np.asarray(gref), rtol=1e-14)
 
 
+def _segment_scan(x, w):
+    """The psi_logw kernel's inclusive prefix sum over a segment of w lanes
+    (Hillis-Steele, shuffle-up by 1, 2, ..., w/2), in x's own precision."""
+    x = x.copy()
+    o = 1
+    while o < w:
+        up = x.copy()
+        x[o:] = x[o:] + up[:-o]
+        o *= 2
+    return x
+
+
+def _kernel_ancestors(nw, r, search):
+    """The psi_logw kernel's stratified resampling of one row, in the
+    precision of ``nw``: the segment's scan (lanes >= N hold 0), cum[N-1]
+    := 1, u_p = (p + r_p) * (1/N), and the ancestor by ``search``:
+    "first" reads every cumulative weight (the first design), "bound" is
+    the lower bound over their running maximum in log2 w steps (the
+    redesign)."""
+    N = nw.shape[0]
+    w, _ = cuda_kalman.psi_segment(N)
+    dt = nw.dtype.type
+    cum = _segment_scan(np.concatenate([nw, np.zeros(w - N, nw.dtype)]), w)
+    cum[N - 1] = dt(1)
+    inv_n = dt(1) / dt(N)
+    u = (np.arange(N).astype(nw.dtype) + r) * inv_n
+    if search == "first":
+        out = []
+        for up in u:
+            hit = [q for q in range(N) if cum[q] >= up]
+            out.append(hit[0] if hit else N - 1)
+        return np.array(out)
+    cm = np.maximum.accumulate(cum)
+    out = []
+    for up in u:
+        q, half = 0, w // 2
+        while half >= 1:
+            q += half if cm[q + half - 1] < up else 0
+            half //= 2
+        out.append(min(q, N - 1))
+    return np.array(out)
+
+
+@pytest.mark.parametrize("N", [1, 7, 8, 10, 16, 17, 32])
+def test_lower_bound_picks_the_first_designs_ancestors(N):
+    """The redesigned search (a lower bound over the running maximum of the
+    segment's scan) returns the first q with cum[q] >= u_p, the ancestor
+    of the first design and of particle._ancestors: with zero weights,
+    one survivor, ties of u_p with a cumulative weight (dyadic weights and
+    uniforms, exact in any summation order, so particle._ancestors sees
+    the same cum), and in float32 with random weights, where the scan of
+    the segment may decrease by an ulp and a bare lower bound on cum could
+    pick another ancestor."""
+    rng = np.random.default_rng(N)
+    cases = []
+    for kind in range(6):
+        if kind == 0:                      # dyadic weights, dyadic u: ties
+            w = rng.integers(0, 4, N).astype(float)
+            w[rng.integers(0, N)] += 1
+            w *= 2.0 ** -int(np.ceil(np.log2(w.sum())))
+            w[-1] += 1 - w.sum()
+            r = rng.integers(0, 4, N) / 4.0
+        elif kind == 1:                    # dead particles
+            w = rng.uniform(size=N)
+            w[: N // 2] = 0
+            w /= w.sum()
+            r = rng.uniform(size=N)
+        elif kind == 2:                    # one survivor
+            w = np.zeros(N)
+            w[rng.integers(0, N)] = 1.0
+            r = rng.uniform(size=N)
+        elif kind == 3:                    # equal weights, u on the edges
+            w = np.full(N, 1.0 / N)
+            r = np.zeros(N)
+        else:
+            w = rng.uniform(size=N) ** 4
+            w /= w.sum()
+            r = rng.uniform(size=N)
+        cases.append((w, r))
+    for kind, (w, r) in enumerate(cases):
+        first = _kernel_ancestors(w, r, "first")
+        np.testing.assert_array_equal(_kernel_ancestors(w, r, "bound"),
+                                      first)
+        if kind in (0, 3):
+            # ties: exact only where u_p = (p + r_p) / N is (N a power of
+            # two), and against the search itself, since exp(log w) in
+            # particle._ancestors rounds the weights
+            if N & (N - 1) == 0:
+                ref = tres.stratified_indices_from_uniforms(
+                    torch.as_tensor(w), torch.as_tensor(r)).numpy()
+                np.testing.assert_array_equal(first, ref)
+        else:
+            ref = tpf._ancestors(torch.log(torch.as_tensor(w))[None],
+                                 torch.as_tensor(r)[None])[0].numpy()
+            np.testing.assert_array_equal(first, ref)
+        w32, r32 = w.astype(np.float32), r.astype(np.float32)
+        np.testing.assert_array_equal(_kernel_ancestors(w32, r32, "bound"),
+                                      _kernel_ancestors(w32, r32, "first"))
+    # a float32 segment scan that decreases: w = (1/2, 2^-25, 2^-25, 0, ...)
+    # scans to (1/2, 1/2, 1/2 + 2^-24, 1/2, ...); particle N/2 with
+    # r = N 2^-24 has u = 1/2 + 2^-24, whose first q is 2; a bare lower
+    # bound on cum answers another q
+    if N >= 8 and N & (N - 1) == 0:
+        w32 = np.full(N, (0.5 - 2.0 ** -24) / (N - 4), np.float32)
+        w32[:4] = [0.5, 2.0 ** -25, 2.0 ** -25, 0.0]
+        cum = _segment_scan(w32, N)
+        assert cum[3] < cum[2]
+        r32 = np.zeros(N, np.float32)
+        r32[N // 2] = N * 2.0 ** -24
+        got = _kernel_ancestors(w32, r32, "bound")
+        assert got[N // 2] == 2
+        np.testing.assert_array_equal(got, _kernel_ancestors(w32, r32,
+                                                             "first"))
+        cum[N - 1] = 1
+        u = np.float32(N // 2 + r32[N // 2]) * np.float32(1 / N)
+        q, half = 0, N // 2
+        while half >= 1:
+            q += half if cum[q + half - 1] < u else 0
+            half //= 2
+        assert q != 2
+
+
 def test_lse_update_guards():
     """Non-finite particle weights count as zero; a dead ensemble gives -inf
     and uniform weights (the guards the kernel keeps)."""
