@@ -308,6 +308,339 @@ __device__ __forceinline__ void bwd_mean_step(const Sys<R, M>& s, R v, R F,
 }
 
 // ---------------------------------------------------------------------------
+// the fast smoother's backward mean pass, split (fast_smoother_ll and
+// laplace_step)
+// ---------------------------------------------------------------------------
+// The backward pass is the affine recursion r_{t-1} = c_t + L_t' r_t with
+//   c_t = ok Z v / F,  L_t = T (I - K_t Z') where the step updates, T where
+//   it does not,
+// and alphahat_t = a_t + P_t r_{t-1}.  c_t and L_t depend on the forward
+// pass alone, so they are a map over (row, t); so is alphahat once the r
+// chain is done.  Only the chain of m-vectors r is serial, m^2 multiply-adds
+// a step.  The forward pass stages v and F with the update mask folded in:
+// where a step updates nothing (missing y, or F <= kZeroTol), F = +inf and
+// v = 0, so that K = P Z / F = 0 and v / F = 0, and c_t + L_t' r is the
+// missing branch T' r with no mask.  (`ll` still takes the mask: only what
+// is staged is folded.)  c_t and L_t are held as (w = v / F, g = T K), m + 1
+// values, from which the chain forms them with the row's Z and T: form for
+// form as bwd_mean_step forms them.
+//
+// A block keeps the steps of its rows in shared memory (SplitTile): row by
+// row, field by field, each field a run of `len` steps, a row's runs
+// `ld` values long with `ld` odd, so that threads on consecutive rows touch
+// different banks and threads on consecutive steps of one row neighbouring
+// ones.  The fields of a step (split_fields):
+//   0 .. M     the backward slots: the step's inputs (y, H or H^2, and D in
+//              field M + 1) before the forward pass; v and F after it;
+//              w and g after bwd_terms; r_{t-1} in 0 .. M-1 after
+//              bwd_chain;
+//   M+1..2M    a_t, the predicted mean;
+//   2M+1 ..    the upper triangle of P_t, row by row.
+// The forward pass stages the staged_fields of a step: v, F, a_t and P_t's
+// upper triangle, 7 values at m = 2.
+//
+// Where a block's rows do not fit in shared memory with their whole series,
+// the tile holds `len` steps at a time: the forward pass keeps, at the start
+// of every tile but the first, a checkpoint of a and P's upper triangle
+// (split_save), and the backward pass runs each tile's forward steps again
+// from its checkpoint (split_restore) before its backward steps.  The same
+// function on the same values gives the same bits, so a tiled pass equals
+// the whole-series one to the bit.
+
+template <int M> __host__ __device__ constexpr int split_fields() {
+  return 2 * M + 1 + M * (M + 1) / 2;
+}
+template <int M> __host__ __device__ constexpr int staged_fields() {
+  return 2 + M + M * (M + 1) / 2;
+}
+template <int M> __host__ __device__ constexpr int checkpoint_fields() {
+  return M + M * (M + 1) / 2;
+}
+
+// Checkpoint c of row r of a block of `rows` rows (the state at the start
+// of tile c + 1): in the block's device buffer `ck`, checkpoint by
+// checkpoint, field by field, the block's rows side by side.
+template <typename R, int M>
+__device__ __forceinline__ void split_save(R* ck, int rows, int r, int c,
+                                           const R (&a)[M],
+                                           const R (&P)[M * M]) {
+  R* p = ck + (long)c * checkpoint_fields<M>() * rows + r;
+#pragma unroll
+  for (int i = 0; i < M; ++i, p += rows) *p = a[i];
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = i; j < M; ++j, p += rows) *p = P[i * M + j];
+}
+template <typename R, int M>
+__device__ __forceinline__ void split_restore(const R* ck, int rows, int r,
+                                              int c, R (&a)[M],
+                                              R (&P)[M * M]) {
+  const R* p = ck + (long)c * checkpoint_fields<M>() * rows + r;
+#pragma unroll
+  for (int i = 0; i < M; ++i, p += rows) a[i] = *p;
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = i; j < M; ++j, p += rows) P[i * M + j] = P[j * M + i] = *p;
+}
+// the tile field of staged field f
+template <int M> __host__ __device__ constexpr int split_field_of(int f) {
+  return f < 2 ? f : f + M - 1;
+}
+
+template <typename R> struct SplitTile {
+  R* p;     // row 0, field 0, step 0
+  int ld;   // values from one row to the next (odd)
+  int len;  // steps of a field's run
+  __device__ __forceinline__ R& operator()(int r, int f, int t) const {
+    return p[r * ld + f * len + t];
+  }
+};
+
+// One forward step of the split smoother: a_t and P_t's upper triangle as
+// they stand before the step, then kf_step, then v and F with the mask
+// folded in.  `out` in staged order: v, F, a_t, P_t.  Returns the
+// log-likelihood increment.  P_t is exactly symmetric after the first step
+// (predict averages it with its transpose); P1 is taken as symmetric.
+template <typename R, int M>
+__device__ __forceinline__ R split_fwd_step(const Sys<R, M>& s, R (&a)[M],
+                                            R (&P)[M * M], R y, R h2, R d,
+                                            R (&out)[staged_fields<M>()]) {
+  int f = 2;
+#pragma unroll
+  for (int i = 0; i < M; ++i) out[f++] = a[i];
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = i; j < M; ++j) out[f++] = P[i * M + j];
+  R v, Fs, okf, inc, att[M], Ptt[M * M];
+  kf_step<R, M>(s, a, P, y, h2, d, v, Fs, okf, inc, att, Ptt);
+  out[0] = v;  // 0 where the step updates nothing
+  out[1] = okf != R(0) ? Fs : R(INFINITY);
+  return inc;
+}
+
+// P_t of step t of row r, from its upper triangle
+template <typename R, int M>
+__device__ __forceinline__ void split_P(const SplitTile<R>& st, int r, int t,
+                                        R (&P)[M * M]) {
+  int f = 2 * M + 1;
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = i; j < M; ++j) P[i * M + j] = P[j * M + i] = st(r, f++, t);
+}
+
+// c_t and L_t of every (row, t) of the tile, as (w, g), by the threads
+// tid, tid + nth, ...: row r's Z and T are sys[r * (M + M^2) ..] (Z, then
+// T row-major).  Reads v, F and P_t; writes w into field 0, g into 1 .. M.
+template <typename R, int M>
+__device__ __forceinline__ void bwd_terms(const SplitTile<R>& st,
+                                          const R* sys, int nr, int tid,
+                                          int nth) {
+  constexpr int MM = M * M;
+  const int len = st.len;
+  for (int k = tid; k < nr * len; k += nth) {
+    const int r = k / len, t = k - r * len;
+    const R* Z = sys + r * (M + MM);
+    const R* T = Z + M;
+    R P[MM];
+    split_P<R, M>(st, r, t, P);
+    const R v = st(r, 0, t), F = st(r, 1, t);
+    R K[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      R acc = R(0);
+#pragma unroll
+      for (int j = 0; j < M; ++j) acc += P[i * M + j] * Z[j];
+      K[i] = acc / F;
+    }
+    st(r, 0, t) = v / F;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      R acc = R(0);
+#pragma unroll
+      for (int l = 0; l < M; ++l) acc += T[i * M + l] * K[l];
+      st(r, 1 + i, t) = acc;
+    }
+  }
+}
+
+// The r chain of row r over the tile's steps, last to first, one thread:
+// r_{t-1} = Z w + (T - g Z')' r, written over the step's fields 0 .. M-1.
+// `rv` carries r from one tile to the one before it.  Kc steps' (w, g) are
+// read before any is used, off the chain.
+template <typename R, int M>
+__device__ __forceinline__ void bwd_chain(const SplitTile<R>& st, int r,
+                                          const R (&Z)[M],
+                                          const R (&T)[M * M], R (&rv)[M]) {
+  constexpr int Kc = 4;
+  for (int t1 = st.len; t1 > 0; t1 -= Kc) {
+    R w[Kc], g[Kc][M];
+#pragma unroll
+    for (int q = 0; q < Kc; ++q) {
+      const int t = max(t1 - 1 - q, 0);
+      w[q] = st(r, 0, t);
+#pragma unroll
+      for (int i = 0; i < M; ++i) g[q][i] = st(r, 1 + i, t);
+    }
+#pragma unroll
+    for (int q = 0; q < Kc; ++q) {
+      const int t = t1 - 1 - q;
+      if (t < 0) break;
+      R rn[M];
+#pragma unroll
+      for (int j = 0; j < M; ++j) {
+        R sl = R(0);
+#pragma unroll
+        for (int i = 0; i < M; ++i)
+          sl += (T[i * M + j] - g[q][i] * Z[j]) * rv[i];
+        rn[j] = Z[j] * w[q] + sl;
+      }
+#pragma unroll
+      for (int j = 0; j < M; ++j) {
+        rv[j] = rn[j];
+        st(r, j, t) = rn[j];
+      }
+    }
+  }
+}
+
+// the field of P_t's element (i, j) (upper triangle, row by row)
+template <int M> __device__ __forceinline__ int split_P_field(int i, int j) {
+  const int a = min(i, j), b = max(i, j);
+  return 2 * M + 1 + a * M - a * (a - 1) / 2 + (b - a);
+}
+
+// The backward steps of a tile, every thread of the block: c_t and L_t
+// (bwd_terms), then the r chain of each row on thread r (bwd_chain), each
+// phase closed by a barrier.  After it, fields 0 .. M-1 of every step hold
+// r_{t-1}, which smoothed_mean reads.
+template <typename R, int M>
+__device__ __forceinline__ void split_backward(const SplitTile<R>& st,
+                                               const R* sys, int nr,
+                                               const Sys<R, M>& s,
+                                               R (&rv)[M]) {
+  bwd_terms<R, M>(st, sys, nr, threadIdx.x, blockDim.x);
+  __syncthreads();
+  if ((int)threadIdx.x < nr) bwd_chain<R, M>(st, threadIdx.x, s.Z, s.T, rv);
+  __syncthreads();
+}
+
+// alphahat_t, element i, of row r: a_t + P_t r_{t-1}
+template <typename R, int M>
+__device__ __forceinline__ R smoothed_mean(const SplitTile<R>& st, int r,
+                                           int t, int i) {
+  R acc = st(r, M + 1 + i, t);
+#pragma unroll
+  for (int j = 0; j < M; ++j) acc += st(r, split_P_field<M>(i, j), t) *
+                                     st(r, j, t);
+  return acc;
+}
+
+// The forward steps of the tile for row r, one thread, its inputs read
+// from the tile a step ahead: y in field 0, the observation variance in
+// field 1 (its square root where kSquareH), D in field M + 1.  kFirst: the
+// first pass, which sums the log-likelihood and the variances; kKeep:
+// stage the steps in the tile.
+template <typename R, int M, bool kSquareH, bool kFirst, bool kKeep>
+__device__ __forceinline__ void split_tile_forward(const SplitTile<R>& st,
+                                                   int r, const Sys<R, M>& s,
+                                                   R (&a)[M], R (&P)[M * M],
+                                                   R& ll, R& hsum) {
+  constexpr int W = staged_fields<M>();
+  const int len = st.len;
+  R yn = st(r, 0, 0), hn = st(r, 1, 0), dn = st(r, M + 1, 0);
+  for (int t = 0; t < len; ++t) {
+    const R y = yn, h = hn, d = dn;
+    if (t + 1 < len) {
+      yn = st(r, 0, t + 1);
+      hn = st(r, 1, t + 1);
+      dn = st(r, M + 1, t + 1);
+    }
+    const R h2 = kSquareH ? h * h : h;
+    R out[W];
+    const R inc = split_fwd_step<R, M>(s, a, P, y, h2, d, out);
+    if constexpr (kFirst) {
+      hsum += h2;
+      ll += inc;
+    }
+    if constexpr (kKeep) {
+#pragma unroll
+      for (int f = 0; f < W; ++f) st(r, split_field_of<M>(f), t) = out[f];
+    }
+  }
+}
+
+// One split pass over a block's rows, tile by tile (fast_smoother_ll,
+// laplace_step).  Row r < nr is run by thread r, whose system is `s`;
+// `sys` holds each row's Z and T in shared memory.  `load(t0, len)`,
+// called by every thread, fills fields 0, 1 and M + 1 of the tile's `len`
+// steps from t0 and ends with a barrier.  The forward pass keeps a
+// checkpoint at the start of every tile but the first in the block's `ck`
+// and stages the last tile; then `done(a_n, ll, hsum)` on each row's
+// thread.  The backward pass goes from the last tile to the first: every
+// tile but the last runs its forward steps again from its checkpoint, then
+// split_backward, then `tail(t0, len)` on every thread (which leaves the
+// tile free with a barrier).  `st.len` follows the tile.
+template <typename R, int M, bool kSquareH, typename Load, typename Done,
+          typename Tail>
+__device__ __forceinline__ void split_pass(SplitTile<R>& st, R* ck,
+                                           const R* sys, int rows, int nr,
+                                           int n, int C, const Sys<R, M>& s,
+                                           Load load, Done done, Tail tail) {
+  constexpr int MM = M * M;
+  const int tid = threadIdx.x, ntiles = (n + C - 1) / C;
+  const bool chain = tid < nr;
+  R av[M], P[MM], ll = R(0), hsum = R(0);
+  const auto start = [&]() {
+#pragma unroll
+    for (int i = 0; i < M; ++i) av[i] = s.a1[i];
+#pragma unroll
+    for (int i = 0; i < MM; ++i) P[i] = s.P1[i];
+  };
+  if (chain) start();
+  for (int c = 0; c < ntiles; ++c) {
+    st.len = min(C, n - c * C);
+    if (chain && c > 0) split_save<R, M>(ck, rows, tid, c - 1, av, P);
+    load(c * C, st.len);
+    if (chain) {
+      if (c == ntiles - 1)
+        split_tile_forward<R, M, kSquareH, true, true>(st, tid, s, av, P, ll,
+                                                       hsum);
+      else
+        split_tile_forward<R, M, kSquareH, true, false>(st, tid, s, av, P,
+                                                        ll, hsum);
+    }
+    __syncthreads();
+  }
+  if (chain) done(av, ll, hsum);
+  R rv[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) rv[i] = R(0);
+  for (int c = ntiles - 1; c >= 0; --c) {
+    const int t0 = c * C;
+    st.len = min(C, n - t0);
+    if (c < ntiles - 1) {
+      if (chain) {
+        if (c > 0)
+          split_restore<R, M>(ck, rows, tid, c - 1, av, P);
+        else
+          start();
+      }
+      load(t0, st.len);
+      if (chain)
+        split_tile_forward<R, M, kSquareH, false, true>(st, tid, s, av, P,
+                                                        ll, hsum);
+      __syncthreads();
+    }
+    split_backward<R, M>(st, sys, nr, s, rv);
+    tail(t0, st.len);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // observation families
 // ---------------------------------------------------------------------------
 

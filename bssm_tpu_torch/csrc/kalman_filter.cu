@@ -21,9 +21,9 @@
 // H^2 summed over the steps as the filter reads them, plus sum |R R'|), so
 // a call is one launch: no packed system, no transposed copy, no mask.
 //
-// What bounds them on this card: neither the bytes (the series and the
-// system: microseconds at 16384 rows) nor the operations, but the latency of
-// one chain of n dependent Kalman steps per row with m x m matrices in
+// What bounds kalman_ll on this card: neither the bytes (the series and
+// the system: microseconds at 16384 rows) nor the operations, but the latency
+// of one chain of n dependent Kalman steps per row with m x m matrices in
 // registers.  The batch is the only parallelism, so one thread owns one row
 // and blocks are one warp wide, which spreads a few thousand rows over every
 // SM; the chain of n steps is the serial floor of this design.
@@ -42,10 +42,34 @@
 // constant in time is read where it lies (a broadcast).  The wrapper
 // (ops/cuda_kalman.kalman_tile) sets the chunk.
 //
-// fast_smoother_ll keeps its first design: it stages v, F, ok, a_t and P_t
-// (3 + m + m^2 values a step) in a scratch tensor laid out time-major
-// (n, rows, B) and recomputes the gain in the backward pass.  alpha is
-// written in the (B, n+1, m) layout its callers read.
+// fast_smoother_ll runs the same forward chain, one thread a row, and then
+// the backward pass split as kalman_common.cuh sets out: c_t and L_t (as
+// w = v/F and g = T K) and alphahat_t are maps over (row, t) that every
+// thread of the block computes; only the r chain, m^2 multiply-adds a step,
+// stays one thread a row.  The first design was bound by the bytes of its
+// device-memory staging (3 + m + m^2 values a step written and read back)
+// and by reading the series and writing alpha at a stride of n a thread.
+// Here the series come in through the block's tile in shared memory
+// (cp.async, consecutive threads on consecutive t of a row), the forward
+// pass stages 2 + m + m(m+1)/2 values a step in the tile (v, and F with the
+// update mask folded in, a_t, P_t's upper triangle: 7 at m = 2, not 9), and
+// each row's alpha goes out as one contiguous run.  The tile holds `chunk`
+// steps of the block's rows; the wrapper's rule (ops/cuda_kalman.
+// fs_geometry) picks one of two layouts:
+// * the whole series (chunk = n) of 8 rows a block on 128 threads, nothing
+//   staged outside shared memory, while the blocks run in at most
+//   FS_SHARED_WAVES waves: each wave costs a whole forward chain;
+// * beyond that, 32 rows a block on one warp (every row resident at once at
+//   the path's 65536-row chunks) and tiles of fs_chunk steps (12 at m = 2
+//   float32), with checkpoints: the forward pass keeps a and P's triangle at
+//   the start of each tile in a small device buffer (a tenth of a staging's
+//   bytes), and the backward pass runs each tile's forward steps again
+//   before its backward steps, twice the forward arithmetic for no staging
+//   traffic.  A staging of every step in device memory, coalesced, was
+//   measured against it over m = 1..4, both dtypes and B = 1024..65536 and
+//   lost in every case (development runs, PERF.md), so it is not kept.
+// Both layouts compute every value by the same operations in the same
+// order and agree to the bit.
 #include <string.h>
 
 #include "kalman_common.cuh"
@@ -60,13 +84,17 @@ struct KalmanArgs {
   SystemArg sys;
   long long ll;       // (B,) log-likelihood out
   long long alpha;    // (B, n+1, m) smoothed means out (smoother only)
-  long long scratch;  // (n, 3 + m + m^2, B) (smoother only)
-  long long chunk;    // kalman_ll: time steps of a D tile chunk, 0: no tile
-  long long smem;     // kalman_ll: dynamic shared memory of a block, bytes
+  long long scratch;  // smoother: the checkpoints, 0 with one tile
+  long long chunk;    // kalman_ll: time steps of a D tile chunk, 0: no tile;
+                      // smoother: steps of a tile, n: the whole series
+  long long smem;     // dynamic shared memory of a block, bytes
+  long long rows;     // smoother: rows of the batch a block takes
+  long long threads;  // smoother: threads of a block
   long long stream;
 };
 
-constexpr int kRowsLG = 32;  // rows (threads) of a block
+constexpr int kRowsLG = 32;  // rows (threads) of a kalman_ll block
+constexpr int kFsMaxThreads = 256;  // threads of a smoother block
 
 // One filter step of kalman_ll's row: H^2 into the degenerate sum, then the
 // masked Kalman step.
@@ -167,70 +195,80 @@ __global__ void kalman_ll_kernel(const KalmanArgs a) {
         degenerate_h2rr<R, M>(hsum, s) ? R(-INFINITY) : ll;
 }
 
+// the shared-memory values of a fast_smoother_ll block of `rows` rows whose
+// tile holds `len` steps: each row's Z and T, then the tile
+__host__ __device__ inline long long fs_block_elems(long long rows,
+                                                    long long len,
+                                                    long long m) {
+  const long long ws = 2 * m + 1 + m * (m + 1) / 2;  // split_fields
+  return rows * (m + m * m) + rows * ((ws * len) | 1);
+}
+
+// One launch: the forward filter of every row of the block, tile by tile,
+// then the split backward pass (kalman_common.cuh) from the last tile to the
+// first, alphahat stored as it comes.  One tile of n steps is the shared
+// staging; shorter tiles keep checkpoints (see the head).
 template <typename R, int M>
 __global__ void fast_smoother_ll_kernel(const KalmanArgs a) {
-  const long B = a.B;
-  const long b = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  constexpr int MM = M * M;
-  const int n = (int)a.n;
-  // scratch rows per time step: v, F, ok, a_t (M), P_t (MM)
-  constexpr int ROWS = 3 + M + MM;
-  constexpr int kV = 0, kF = 1, kOk = 2, kA = 3, kP = 3 + M;
-  R* const scratch = reinterpret_cast<R*>(a.scratch);
-#define SC(t, r) scratch[((long)(t) * ROWS + (r)) * B + b]
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int SY = M + M * M;
+  const int n = (int)a.n, rows = (int)a.rows, C = (int)a.chunk;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const long B = a.B, b0 = (long)blockIdx.x * rows;
+  const int nr = (int)min((long)rows, B - b0);
+  R* const s_sys = reinterpret_cast<R*>(smem_raw);
+  SplitTile<R> st{s_sys + rows * SY, (split_fields<M>() * C) | 1, C};
+  // the block's checkpoints, one for every tile but the first
+  R* const ck = reinterpret_cast<R*>(a.scratch) +
+                b0 * (long)checkpoint_fields<M>() * ((n + C - 1) / C - 1);
+  R* const alpha = reinterpret_cast<R*>(a.alpha);
 
   Sys<R, M> s;
-  load_sys_leaves<R, M>(s, a.sys, b);
-  const R* y = series_row<R>(a.y, b);
-  const R* H = series_row<R>(a.H, b);
-  const R* D = series_row<R>(a.D, b);
-  R* alpha = reinterpret_cast<R*>(a.alpha) + b * (long)(n + 1) * M;
-
-  // ---- forward: Kalman filter, staging what the backward pass needs
-  R av[M], P[MM];
+  if (tid < nr) {
+    load_sys_leaves<R, M>(s, a.sys, b0 + tid);
+    R* sy = s_sys + tid * SY;
 #pragma unroll
-  for (int i = 0; i < M; ++i) av[i] = s.a1[i];
+    for (int i = 0; i < M; ++i) sy[i] = s.Z[i];
 #pragma unroll
-  for (int i = 0; i < MM; ++i) P[i] = s.P1[i];
-  R ll = R(0), hsum = R(0);
-  for (int t = 0; t < n; ++t) {
-#pragma unroll
-    for (int i = 0; i < M; ++i) SC(t, kA + i) = av[i];
-#pragma unroll
-    for (int i = 0; i < MM; ++i) SC(t, kP + i) = P[i];
-    const R h = H[t * a.H.ts];
-    const R h2 = h * h;
-    hsum += h2;
-    R v, Fs, okf, inc, att[M], Ptt[MM];
-    kf_step<R, M>(s, av, P, y[t * a.y.ts], h2, D[t * a.D.ts], v, Fs, okf,
-                  inc, att, Ptt);
-    SC(t, kV) = v;
-    SC(t, kF) = Fs;
-    SC(t, kOk) = okf;
-    ll += inc;
+    for (int i = 0; i < M * M; ++i) sy[M + i] = s.T[i];
   }
-  // alphahat_n = a_n: no observation after the last step
+  split_pass<R, M, true>(
+      st, ck, s_sys, rows, nr, n, C, s,
+      // y, H and D of the tile's steps, from t0, into fields 0, 1 and
+      // M + 1, consecutive threads on consecutive steps of a row
+      [&](int t0, int len) {
+        for (int k = tid; k < nr * len; k += nth) {
+          const int r = k / len, t = k - r * len;
+          const long b = b0 + r, tt = t0 + t;
+          cp_async<sizeof(R)>(&st(r, 0, t),
+                              series_row<R>(a.y, b) + tt * a.y.ts);
+          cp_async<sizeof(R)>(&st(r, 1, t),
+                              series_row<R>(a.H, b) + tt * a.H.ts);
+          cp_async<sizeof(R)>(&st(r, M + 1, t),
+                              series_row<R>(a.D, b) + tt * a.D.ts);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+      },
+      [&](const R (&an)[M], R ll, R hsum) {
+        const long b = b0 + tid;
+        // alphahat_n = a_n: no observation after the last step
 #pragma unroll
-  for (int i = 0; i < M; ++i) alpha[(long)n * M + i] = av[i];
-
-  // ---- backward: r recursion and smoothed means
-  R r[M];
-#pragma unroll
-  for (int i = 0; i < M; ++i) r[i] = R(0);
-  for (int t = n - 1; t >= 0; --t) {
-    R at[M], Pt[MM], al[M];
-#pragma unroll
-    for (int i = 0; i < M; ++i) at[i] = SC(t, kA + i);
-#pragma unroll
-    for (int i = 0; i < MM; ++i) Pt[i] = SC(t, kP + i);
-    bwd_mean_step<R, M>(s, SC(t, kV), SC(t, kF), SC(t, kOk), at, Pt, r, al);
-#pragma unroll
-    for (int i = 0; i < M; ++i) alpha[(long)t * M + i] = al[i];
-  }
-  reinterpret_cast<R*>(a.ll)[b] =
-      degenerate_h2rr<R, M>(hsum, s) ? R(-INFINITY) : ll;
-#undef SC
+        for (int i = 0; i < M; ++i) alpha[(b * (n + 1) + n) * M + i] = an[i];
+        reinterpret_cast<R*>(a.ll)[b] =
+            degenerate_h2rr<R, M>(hsum, s) ? R(-INFINITY) : ll;
+      },
+      // alphahat of the tile's steps, each row's run stored contiguously
+      [&](int t0, int len) {
+        const int run = len * M;
+        for (int k = tid; k < nr * run; k += nth) {
+          const int r = k / run, q = k - r * run, t = q / M, i = q - t * M;
+          alpha[(b0 + r) * (n + 1) * M + (long)t0 * M + q] =
+              smoothed_mean<R, M>(st, r, t, i);
+        }
+        __syncthreads();
+      });
 }
 
 template <typename R, int M> int launch_ll(const KalmanArgs& a) {
@@ -251,9 +289,21 @@ template <typename R, int M> int launch_ll(const KalmanArgs& a) {
 }
 
 template <typename R, int M> int launch_smoother(const KalmanArgs& a) {
-  const unsigned blocks = (unsigned)((a.B + kRowsLG - 1) / kRowsLG);
-  fast_smoother_ll_kernel<R, M>
-      <<<blocks, kRowsLG, 0, (cudaStream_t)a.stream>>>(a);
+  const long long ntiles = a.chunk < 1 ? 0 : (a.n + a.chunk - 1) / a.chunk;
+  if (a.rows < 1 || a.threads < a.rows || a.threads > kFsMaxThreads ||
+      a.threads % 32 != 0 || a.n < 1 || a.chunk < 1 || a.chunk > a.n ||
+      (ntiles > 1) != (a.scratch != 0) ||
+      a.smem != fs_block_elems(a.rows, a.chunk, M) * (long long)sizeof(R))
+    return -3;
+  const unsigned blocks = (unsigned)((a.B + a.rows - 1) / a.rows);
+  if (a.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fast_smoother_ll_kernel<R, M>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  fast_smoother_ll_kernel<R, M><<<blocks, (unsigned)a.threads,
+                                  (size_t)a.smem, (cudaStream_t)a.stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -261,8 +311,8 @@ template <typename R, int M> int launch_smoother(const KalmanArgs& a) {
 
 // Plain C entry points: `args` points to the packed KalmanArgs, `size` is
 // its length in bytes.  Each returns the launch's cudaError_t, -1 for an
-// unsupported m, -2 when `size` is not the struct's, -3 for a D tile
-// geometry the kernel does not take.
+// unsupported m, -2 when `size` is not the struct's, -3 for a D tile or a
+// smoother geometry the kernel does not take.
 extern "C" int bssm_kalman_ll(const void* args, long long size) {
   if (size != (long long)sizeof(bssm::KalmanArgs)) return -2;
   bssm::KalmanArgs a;

@@ -80,10 +80,27 @@
 // The solve tests convergence per row, as the JAX package's scan path does;
 // a thread whose row has converged idles until its warp is done.
 //
-// laplace_step_kernel keeps its first design: one thread a row, blocks of
-// one warp, the pass staged in a device-memory scratch (n, 3 + m + m^2, B)
-// the wrapper allocates.  Its main caller is one model (B = 1), where a
-// thread's latency is all there is.
+// laplace_step_kernel runs one pass for a block of rows, split as the fast
+// smoother of kalman_filter.cu is (kalman_common.cuh): every thread of the
+// block computes the pseudo-observations (ytilde, HHtilde) of every step
+// at the mode, before the chain, into the block's tile in shared memory;
+// one thread a row runs the Kalman filter from the tile, staging 2 + m +
+// m(m+1)/2 values a step in it (v, F with the update mask folded in, a_t,
+// P_t's upper triangle: 7 at m = 2, 4.3 KB a row at n = 153 float32); every
+// thread computes c_t and L_t; one thread a row runs the r chain; every
+// thread computes alphahat_t, the new mode and its squared change, and the
+// new mode is stored a row's run at a time; the mean of the change is a
+// reduction in a fixed order (each lane of a warp the steps t = lane mod
+// 32, last first, then the warp's butterfly).  Its main caller is one model
+// (B = 1), where the filter's chain is all that stays serial: one row a
+// block of 128 threads.  The first design ran the whole pass on one thread
+// a row and staged it in a device scratch allocated at every call.  The
+// layouts are fast_smoother_ll's and so is the rule that picks them
+// (ops/cuda_kalman.fs_geometry): the whole series of 8 rows a block (one
+// row for one model), or 32 rows a block with tiles and checkpoints, where
+// the blocks would need more waves or the rows do not fit.  Both compute
+// every value alike and agree to the bit; the wrapper returns the three
+// outputs as views of one allocation.
 #include <string.h>
 
 #include "kalman_common.cuh"
@@ -109,14 +126,32 @@ struct LaplaceArgs {
   long long stream;
 };
 
-// Launch arguments of bssm_laplace_step.
+// Launch arguments of bssm_laplace_step.  `out` is one device buffer: the
+// new mode (B, n), ll (B), diff (B).
 struct StepArgs {
   long long is_double, m, dist, B, n;
   SeriesArg y, u, D, mode;
   SystemArg sys;
-  long long mode_out, ll, diff, scratch;  // scratch: (n, 3 + m + m^2, B)
+  long long out;
+  long long scratch;  // the checkpoints, 0 with one tile
+  long long rows;     // rows of the batch a block takes
+  long long threads;  // threads of a block
+  long long chunk;    // steps of a tile, n: the whole series
+  long long smem;     // dynamic shared memory of a block, bytes
   long long stream;
 };
+
+constexpr int kStepMaxThreads = 256;
+
+// shared-memory values of a laplace_step block of `rows` rows whose tile
+// holds `len` steps: each row's Z and T, the tile, and each row's 32
+// partial sums of the squared change
+__host__ __device__ inline long long step_block_elems(long long rows,
+                                                      long long len,
+                                                      long long m) {
+  const long long ws = 2 * m + 1 + m * (m + 1) / 2;  // split_fields
+  return rows * (m + m * m) + rows * ((ws * len) | 1) + rows * 32;
+}
 
 // values of one time step staged by the pass: v, F, ok, a (M), P (MM)
 template <int M> __host__ __device__ constexpr int pass_rows() {
@@ -321,28 +356,101 @@ __global__ void laplace_solve_kernel(const LaplaceArgs a) {
   });
 }
 
+// One Laplace pass of every row of the block: the pseudo-observations of
+// every step in parallel, the forward filter one thread a row, the split
+// backward pass (kalman_common.cuh) tile by tile from the last steps to the
+// first, the new mode and its squared change in parallel, the mean of the
+// change by a fixed-order reduction.  One tile of n steps is the shared
+// staging; shorter tiles keep checkpoints, as fast_smoother_ll's do.
 template <typename R, int M>
 __global__ void laplace_step_kernel(const StepArgs a) {
-  const long b = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
-  const int n = (int)a.n;
-  const Stage<R> sc{reinterpret_cast<R*>(a.scratch), (long)a.B, b,
-                    pass_rows<M>()};
-  Sys<R, M> s;
-  load_sys_leaves<R, M>(s, a.sys, b);
-  const R phi = leaf_row<R>(a.sys.phi, b)[0];
-  const R* mode = series_row<R>(a.mode, b);
-  const long m_ts = a.mode.ts;
-  R* out = reinterpret_cast<R*>(a.mode_out) + b * n;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int SY = M + M * M;
+  const int n = (int)a.n, rows = (int)a.rows, dist = (int)a.dist;
+  const int C = (int)a.chunk;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nth >> 5;
+  const long B = a.B, b0 = (long)blockIdx.x * rows;
+  const int nr = (int)min((long)rows, B - b0);
+  R* const s_sys = reinterpret_cast<R*>(smem_raw);
+  SplitTile<R> st{s_sys + rows * SY, (split_fields<M>() * C) | 1, C};
+  R* const s_dacc = st.p + (long)rows * st.ld;  // [rows][32]
+  // the block's checkpoints, one for every tile but the first
+  R* const ck = reinterpret_cast<R*>(a.scratch) +
+                b0 * (long)checkpoint_fields<M>() * ((n + C - 1) / C - 1);
+  R* const mode_out = reinterpret_cast<R*>(a.out);
+  R* const ll_out = mode_out + B * n;
+  R* const diff_out = ll_out + B;
 
-  R ll;
-  const R diff = laplace_pass<R, M>(
-      s, (int)a.dist, phi, n, series_row<R>(a.y, b), a.y.ts,
-      series_row<R>(a.u, b), a.u.ts, series_row<R>(a.D, b), a.D.ts, sc,
-      [&](int t) { return mode[t * m_ts]; },
-      [&](int t, R v) { out[t] = v; }, ll);
-  reinterpret_cast<R*>(a.ll)[b] = ll;
-  reinterpret_cast<R*>(a.diff)[b] = diff;
+  for (int k = tid; k < nr * 32; k += nth) s_dacc[k] = R(0);
+  Sys<R, M> s;
+  if (tid < nr) {
+    load_sys_leaves<R, M>(s, a.sys, b0 + tid);
+    R* sy = s_sys + tid * SY;
+#pragma unroll
+    for (int i = 0; i < M; ++i) sy[i] = s.Z[i];
+#pragma unroll
+    for (int i = 0; i < M * M; ++i) sy[M + i] = s.T[i];
+  }
+  split_pass<R, M, false>(
+      st, ck, s_sys, rows, nr, n, C, s,
+      // the pseudo-observations (ytilde, HHtilde) at the mode of the tile's
+      // steps, from t0, and D, into fields 0, 1 and M + 1
+      [&](int t0, int len) {
+        for (int k = tid; k < nr * len; k += nth) {
+          const int r = k / len, t = k - r * len;
+          const long b = b0 + r, tt = t0 + t;
+          const R y = series_row<R>(a.y, b)[tt * a.y.ts];
+          R yt, hh;
+          laplace_match<R>(dist, y, series_row<R>(a.u, b)[tt * a.u.ts],
+                           leaf_row<R>(a.sys.phi, b)[0],
+                           series_row<R>(a.mode, b)[tt * a.mode.ts], yt, hh);
+          st(r, 0, t) = isfinite(y) ? yt : R(NAN);
+          st(r, 1, t) = (isfinite(hh) && hh > R(0)) ? hh : R(1);
+          st(r, M + 1, t) = series_row<R>(a.D, b)[tt * a.D.ts];
+        }
+        __syncthreads();
+      },
+      [&](const R (&)[M], R ll, R) { ll_out[b0 + tid] = ll; },
+      [&](int t0, int len) {
+        // the new mode of every step, stored a row's run at a time, and its
+        // squared change into field 0
+        for (int k = tid; k < nr * len; k += nth) {
+          const int r = k / len, t = k - r * len;
+          const long b = b0 + r, tt = t0 + t;
+          R al[M];
+#pragma unroll
+          for (int i = 0; i < M; ++i) al[i] = smoothed_mean<R, M>(st, r, t, i);
+          R new_mode;
+          if (dist == kSvm) {
+            new_mode = al[0];
+          } else {
+            const R* Z = s_sys + r * SY;
+            new_mode = series_row<R>(a.D, b)[tt * a.D.ts];
+#pragma unroll
+            for (int i = 0; i < M; ++i) new_mode += Z[i] * al[i];
+          }
+          mode_out[b * n + tt] = new_mode;
+          const R delta = new_mode - series_row<R>(a.mode, b)[tt * a.mode.ts];
+          st(r, 0, t) = delta * delta;
+        }
+        __syncthreads();
+        // lane l of a row's warp adds the steps t = l (mod 32), last first:
+        // the same order whatever the tiles
+        for (int r = warp; r < nr; r += nwarps) {
+          R acc = s_dacc[r * 32 + lane];
+          const int last = t0 + len - 1;
+          for (int t = last - (((last - lane) % 32) + 32) % 32; t >= t0;
+               t -= 32)
+            acc += st(r, 0, t - t0);
+          s_dacc[r * 32 + lane] = acc;
+        }
+        __syncthreads();
+      });
+  for (int r = warp; r < nr; r += nwarps) {
+    const R sum = warp_sum(s_dacc[r * 32 + lane]);
+    if (lane == 0) diff_out[b0 + r] = sum / R(n);
+  }
 }
 
 template <typename R, int M> int launch_solve(const LaplaceArgs& a) {
@@ -368,10 +476,21 @@ template <typename R, int M> int launch_solve(const LaplaceArgs& a) {
 }
 
 template <typename R, int M> int launch_step(const StepArgs& a) {
-  constexpr int kThreads = 32;
-  const unsigned blocks = (unsigned)((a.B + kThreads - 1) / kThreads);
-  laplace_step_kernel<R, M>
-      <<<blocks, kThreads, 0, (cudaStream_t)a.stream>>>(a);
+  const long long ntiles = a.chunk < 1 ? 0 : (a.n + a.chunk - 1) / a.chunk;
+  if (a.rows < 1 || a.threads < a.rows || a.threads > kStepMaxThreads ||
+      a.threads % 32 != 0 || a.n < 1 || a.chunk < 1 || a.chunk > a.n ||
+      (ntiles > 1) != (a.scratch != 0) ||
+      a.smem != step_block_elems(a.rows, a.chunk, M) * (long long)sizeof(R))
+    return -3;
+  const unsigned blocks = (unsigned)((a.B + a.rows - 1) / a.rows);
+  if (a.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        laplace_step_kernel<R, M>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  laplace_step_kernel<R, M><<<blocks, (unsigned)a.threads, (size_t)a.smem,
+                              (cudaStream_t)a.stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -380,7 +499,8 @@ template <typename R, int M> int launch_step(const StepArgs& a) {
 // Plain C entry points.  `args` points to the packed argument struct and
 // `size` is its length in bytes.  Each returns the launch's cudaError_t, -1
 // for an unsupported m, -2 when `size` is not the struct's, -3 for a
-// staging geometry that disagrees with laplace_block_elems.
+// staging geometry that disagrees with laplace_block_elems or a tile
+// geometry that disagrees with step_block_elems.
 extern "C" int bssm_laplace_solve(const void* args, long long size) {
   if (size != (long long)sizeof(bssm::LaplaceArgs)) return -2;
   bssm::LaplaceArgs a;

@@ -465,8 +465,8 @@ def _launch(fn, layout: struct.Struct, dev, *fields) -> int:
 # PsiArgs, BigLaunch), field for field: "q" a 64-bit integer or pointer, "d"
 # a double.
 _SOLVE_ARGS = struct.Struct("=32qd7q")
-_STEP_ARGS = struct.Struct("=37q")
-_KALMAN_ARGS = struct.Struct("=34q")
+_STEP_ARGS = struct.Struct("=39q")
+_KALMAN_ARGS = struct.Struct("=36q")
 _RTS_ARGS = struct.Struct("=35q")
 _PSI_ARGS = struct.Struct("=30q")
 _BIG_ARGS = struct.Struct("=48q")
@@ -497,10 +497,122 @@ def kalman_tile(n: int, itemsize: int) -> tuple:
     return chunk, 2 * rows * chunk * itemsize
 
 
-def _lg_launch(name: str, g: LGSpec, smooth: bool):
+# fast_smoother_ll and laplace_step (csrc/kalman_filter.cu,
+# csrc/laplace_solve.cu): how a block lays out the forward pass that the
+# split backward pass reads
+FS_ROWS_SHARED = 8        # rows of a block holding their whole series
+FS_THREADS = 128          # its threads
+FS_ROWS_TILED = 32        # rows (and threads: one warp) of a block with
+                          # tiles and checkpoints
+FS_TILE_BYTES = 12 * 1024 # the most bytes of such a block's tile: 12
+                          # steps at m = 2 float32, so that 16 blocks fit
+                          # an SM and the path's 65536 rows run at once
+# the most waves of whole-series blocks for which they are chosen over
+# tiles with checkpoints, for fast_smoother_ll and for laplace_step, whose
+# tiles cost more (its match runs again with each tile's forward steps):
+# chip_smoke.py's fs_staging_sweep and step_staging_readings, PERF.md
+FS_SHARED_WAVES = 2.5
+STEP_SHARED_WAVES = 4.0
+
+
+class FsGeometry(NamedTuple):
+    """How ``fast_smoother_ll`` or ``laplace_step`` lays a launch out."""
+    rows: int          # rows of the batch a block takes
+    threads: int       # threads of a block
+    chunk: int         # steps of a block's tile; n: the whole series, in
+                       # shared memory (else tiles with checkpoints)
+    smem_bytes: int    # dynamic shared memory of a block
+
+
+def split_fields(m: int) -> int:
+    """Values a step holds in the tile of the split backward pass
+    (``split_fields`` of csrc/kalman_common.cuh): m + 1 backward slots,
+    a_t, P_t's upper triangle."""
+    return 2 * m + 1 + m * (m + 1) // 2
+
+
+def fs_block_elems(rows: int, steps: int, m: int) -> int:
+    """Shared values of a ``fast_smoother_ll`` block: each row's Z and T,
+    then a tile of ``steps`` steps a row, each row's run made odd."""
+    return rows * (m + m * m) + rows * ((split_fields(m) * steps) | 1)
+
+
+def step_block_elems(rows: int, steps: int, m: int) -> int:
+    """Shared values of a ``laplace_step`` block: those of
+    ``fs_block_elems`` and each row's 32 partial sums of the change."""
+    return fs_block_elems(rows, steps, m) + 32 * rows
+
+
+def fs_chunk(n: int, m: int, itemsize: int) -> int:
+    """Steps of the tile of a block with checkpoints: as many as
+    ``FS_TILE_BYTES`` hold for its ``FS_ROWS_TILED`` rows, at least 1, at
+    most n."""
+    per_step = FS_ROWS_TILED * split_fields(m) * itemsize
+    return max(1, min(n, FS_TILE_BYTES // per_step))
+
+
+def fs_options(n: int, m: int, itemsize: int, step: bool = False,
+               rows: int = FS_ROWS_SHARED) -> dict:
+    """The two layouts of ``fast_smoother_ll`` (``step``: of
+    ``laplace_step``) for series of length n, state dimension m and values
+    of ``itemsize`` bytes: ``shared``, ``rows`` rows a block on
+    ``FS_THREADS`` threads with their whole series in shared memory (None
+    where they do not fit in ``SMEM_LIMIT``), and ``checkpoint``,
+    ``FS_ROWS_TILED`` rows a block with tiles of ``fs_chunk`` steps."""
+    elems = step_block_elems if step else fs_block_elems
+    smem = elems(rows, n, m) * itemsize
+    shared = FsGeometry(rows, FS_THREADS, n, smem) \
+        if smem <= SMEM_LIMIT else None
+    chunk = fs_chunk(n, m, itemsize)
+    return {"shared": shared,
+            "checkpoint": FsGeometry(FS_ROWS_TILED, FS_ROWS_TILED, chunk,
+                                     elems(FS_ROWS_TILED, chunk, m)
+                                     * itemsize)}
+
+
+def fs_waves(geo: FsGeometry, B: int, sms: int) -> float:
+    """Waves in which the blocks of ``geo`` run over B rows on ``sms``
+    multiprocessors: as many blocks an SM as its shared memory (each with
+    its reserve), its 64 warps and its block limit hold."""
+    per_sm = min(MAX_BLOCKS_PER_SM, 64 // (geo.threads // 32),
+                 SMEM_PER_SM // (geo.smem_bytes + SMEM_RESERVED))
+    return -(-B // geo.rows) / (sms * per_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def fs_geometry(n: int, m: int, itemsize: int, B: int, sms: int,
+                step: bool = False) -> FsGeometry:
+    """The launch of ``fast_smoother_ll`` (``step``: of ``laplace_step``)
+    for B rows on a card of ``sms`` multiprocessors: whole series in shared
+    memory while those blocks run in at most ``FS_SHARED_WAVES``
+    (``STEP_SHARED_WAVES``) waves, each further wave costing a whole
+    forward chain, else tiles with checkpoints, every row resident at once.
+    One model (B = 1) takes one row a block.  Cached: a chain asks for the
+    same launch at every iteration."""
+    opts = fs_options(n, m, itemsize, step,
+                      rows=1 if B == 1 else FS_ROWS_SHARED)
+    shared = opts["shared"]
+    most = STEP_SHARED_WAVES if step else FS_SHARED_WAVES
+    if shared is not None and fs_waves(shared, B, sms) <= most:
+        return shared
+    return opts["checkpoint"]
+
+
+def fs_scratch_elems(geo: FsGeometry, B: int, n: int, m: int) -> int:
+    """Values of the checkpoints of a launch laid out as ``geo``: a and P's
+    upper triangle at the start of every tile but the first, for B rows
+    rounded up to whole blocks; none with one tile."""
+    rows = -(-B // geo.rows) * geo.rows
+    return rows * (m + m * (m + 1) // 2) * (-(-n // geo.chunk) - 1)
+
+
+def _lg_launch(name: str, g: LGSpec, smooth: bool,
+               staging: Optional[FsGeometry] = None):
     """Checks and launches one of the two linear-Gaussian kernels on the
     spec's own tensors; returns ``ll`` or ``(alpha, ll)``, with the
-    degenerate-model rule applied by the kernel."""
+    degenerate-model rule applied by the kernel.  The smoother's outputs
+    are views of one allocation, its launch laid out as ``fs_geometry``
+    chooses unless ``staging`` says otherwise."""
     _check_system(g)
     B, n, m = _batch(g), g.n, g.m
     dt, dev = g.y.dtype, g.y.device
@@ -510,21 +622,28 @@ def _lg_launch(name: str, g: LGSpec, smooth: bool):
     series = _strided(g.y, B, n, "y", full=True) \
         + _strided(g.H, B, n, "H") + D
     sys_args, keep = _system_args(g, B, with_phi=False)
-    chunk, smem = kalman_tile(n, g.y.element_size()) \
-        if D[1] and D[2] and not smooth else (0, 0)
-    ll = torch.empty((B,), dtype=dt, device=dev)
-    alpha = scratch = None
-    if smooth:
-        alpha = torch.empty((B, n + 1, m), dtype=dt, device=dev)
-        scratch = torch.empty((n, 3 + m + m * m, B), dtype=dt, device=dev)
     lib = _load()
-    with torch.cuda.device(dev):
-        code = _call(
-            lib.bssm_fast_smoother_ll if smooth else lib.bssm_kalman_ll,
-            _KALMAN_ARGS, int(dt == torch.float64), m, B, n, *series,
-            *sys_args, ll.data_ptr(), 0 if alpha is None else alpha.data_ptr(),
-            0 if scratch is None else scratch.data_ptr(), chunk, smem,
-            _stream(dev))
+    if smooth:
+        geo = staging or fs_geometry(n, m, g.y.element_size(), B,
+                                     _sm_count(dev.index))
+        k = B * (n + 1) * m
+        out = torch.empty((k + B,), dtype=dt, device=dev)
+        alpha, ll = out[:k].view(B, n + 1, m), out[k:]
+        size = fs_scratch_elems(geo, B, n, m)
+        scratch = torch.empty((size,), dtype=dt, device=dev) if size \
+            else None
+        code = _launch(lib.bssm_fast_smoother_ll, _KALMAN_ARGS, dev,
+                       int(dt == torch.float64), m, B, n, *series,
+                       *sys_args, ll.data_ptr(), alpha.data_ptr(),
+                       0 if scratch is None else scratch.data_ptr(),
+                       geo.chunk, geo.smem_bytes, geo.rows, geo.threads)
+    else:
+        chunk, smem = kalman_tile(n, g.y.element_size()) \
+            if D[1] and D[2] else (0, 0)
+        ll = torch.empty((B,), dtype=dt, device=dev)
+        code = _launch(lib.bssm_kalman_ll, _KALMAN_ARGS, dev,
+                       int(dt == torch.float64), m, B, n, *series,
+                       *sys_args, ll.data_ptr(), 0, 0, chunk, smem, 0, 0)
     _check_launch(lib, code, name)
     LAUNCHES[name] += 1
     return (alpha, ll) if smooth else ll
@@ -542,14 +661,16 @@ def log_likelihood(g: LGSpec) -> torch.Tensor:
     return _lg_launch("log_likelihood", g, smooth=False)
 
 
-def fast_smoother_ll(g: LGSpec):
+def fast_smoother_ll(g: LGSpec, staging: Optional[FsGeometry] = None):
     """``(alpha (B, n+1, m), ll (B,))``: smoothed state means by the moment
     identity alphahat_t = a_t + P_t r_{t-1}, and the Kalman log-likelihood
-    under the rule of ``log_likelihood``."""
+    under the rule of ``log_likelihood``.  On the card a call is one launch,
+    laid out as ``fs_geometry`` chooses unless ``staging`` (one of
+    ``fs_options``) says otherwise: every layout gives the same bits."""
     from . import kalman
     if not g.y.is_cuda:
         return kalman.fast_smoother_ll(g, degenerate=kalman.degenerate_h2rr)
-    return _lg_launch("fast_smoother_ll", g, smooth=True)
+    return _lg_launch("fast_smoother_ll", g, smooth=True, staging=staging)
 
 
 def routed_log_likelihood(g: LGSpec) -> torch.Tensor:
@@ -703,32 +824,37 @@ def laplace_solve(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
 # K8: one pass of the Laplace iteration
 # ---------------------------------------------------------------------------
 
-def laplace_step(spec: NGSpec, mode: torch.Tensor):
+def laplace_step(spec: NGSpec, mode: torch.Tensor,
+                 staging: Optional[FsGeometry] = None):
     """One pass of the Laplace iteration at ``mode (B, n)`` for every batch
     row: ``(new_mode (B, n), ll (B,), diff (B,))``, the new signal mode, the
     Kalman log-likelihood of the approximating model at the pseudo-
     observations of ``mode``, and the mean-squared change of the mode.  The
-    spec may be unbatched (one model, B rows of modes) or have B rows."""
+    spec may be unbatched (one model, B rows of modes) or have B rows.  On
+    the card the three are views of one allocation and a call is one
+    launch, laid out as ``fs_geometry(..., step=True)`` chooses unless
+    ``staging`` says otherwise (every layout gives the same bits)."""
     if not spec.y.is_cuda:
         from ..inference.approx import _laplace_step
         return _laplace_step(spec, mode)
     B, n, m = with_batch(mode, 1).shape[0], spec.n, spec.m
     dt, dev = spec.y.dtype, spec.y.device
     args, keep = _laplace_args("laplace_step", spec, mode, B, spec.batch)
-    new_mode = torch.empty((B, n), dtype=dt, device=dev)
-    ll = torch.empty((B,), dtype=dt, device=dev)
-    diff = torch.empty((B,), dtype=dt, device=dev)
-    scratch = torch.empty((n, 3 + m + m * m, B), dtype=dt, device=dev)
+    geo = staging or fs_geometry(n, m, spec.y.element_size(), B,
+                                 _sm_count(dev.index), step=True)
+    Bn = B * n
+    out = torch.empty((Bn + 2 * B,), dtype=dt, device=dev)
+    size = fs_scratch_elems(geo, B, n, m)
+    scratch = torch.empty((size,), dtype=dt, device=dev) if size else None
     lib = _load()
-    with torch.cuda.device(dev):
-        code = _call(lib.bssm_laplace_step, _STEP_ARGS,
-                     int(dt == torch.float64), m,
-                     int(spec.distribution), B, n, *args,
-                     new_mode.data_ptr(), ll.data_ptr(), diff.data_ptr(),
-                     scratch.data_ptr(), _stream(dev))
+    code = _launch(lib.bssm_laplace_step, _STEP_ARGS, dev,
+                   int(dt == torch.float64), m, int(spec.distribution), B, n,
+                   *args, out.data_ptr(),
+                   0 if scratch is None else scratch.data_ptr(), geo.rows,
+                   geo.threads, geo.chunk, geo.smem_bytes)
     _check_launch(lib, code, "laplace_step")
     LAUNCHES["laplace_step"] += 1
-    return new_mode, ll, diff
+    return out[:Bn].view(B, n), out[Bn:Bn + B], out[Bn + B:]
 
 
 # ---------------------------------------------------------------------------

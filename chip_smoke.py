@@ -904,6 +904,10 @@ def check_step(model, B: int, label: str, timed: bool, seed: int = 31,
                compare(f"laplace_step.{k}", g, r, tol(t), f64)
                for k, t, g, r in zip(("mode", "ll", "diff"),
                                      ("mode", "ll", "mode"), got, ref)]}
+    geo = ck.fs_geometry(spec.n, spec.m, spec.y.element_size(), B,
+                         ck._sm_count(0), step=True)
+    out["geometry"] = geo._asdict()
+    out["layouts_bit_equal"] = step_layouts_equal(spec, mode, got, label)
     if timed:
         out["ms"] = time_ms(lambda: ck.laplace_step(spec, mode))
         out["plain_ms"] = time_ms(lambda: amod._laplace_step(spec, mode),
@@ -911,6 +915,90 @@ def check_step(model, B: int, label: str, timed: bool, seed: int = 31,
         out["bounds"] = step_bounds(B, spec.n, spec.m, dt)
         out["bare_ms"] = bare_ms(lambda: ck.laplace_step(spec, mode),
                                  "bssm_laplace_step")
+        out["one_kernel"] = one_kernel(lambda: ck.laplace_step(spec, mode),
+                                       "laplace_step")
+    return out
+
+
+def step_layouts(spec, B: int) -> dict:
+    """The launch layouts of ``laplace_step`` for this spec: the rule's
+    (``fs_geometry``), the two of ``fs_options`` (the whole series in
+    shared memory where it fits, one row a block for one model; tiles with
+    checkpoints), and at B = 1 the whole-series block on one and two warps
+    as well as the rule's four."""
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    n, m, item = spec.n, spec.m, spec.y.element_size()
+    out = {"rule": ck.fs_geometry(n, m, item, B, ck._sm_count(0),
+                                  step=True)}
+    opts = ck.fs_options(n, m, item, step=True,
+                         rows=1 if B == 1 else ck.FS_ROWS_SHARED)
+    out.update({k: g for k, g in opts.items() if g is not None})
+    if B == 1 and opts["shared"] is not None:
+        for threads in (32, 64):
+            out[f"threads={threads}"] = opts["shared"]._replace(
+                threads=threads)
+    return out
+
+
+def step_layouts_equal(spec, mode, got, label: str) -> bool:
+    """Every layout of ``step_layouts`` gives ``got``'s outputs to the bit
+    (a failure otherwise)."""
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    B = mode.shape[0]
+    equal = True
+    for name, geo in step_layouts(spec, B).items():
+        other = ck.laplace_step(spec, mode, staging=geo)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, other)):
+            equal = False
+            FAILURES.append({"what": f"laplace_step: layout {name} differs "
+                                     "from the rule's", "label": label,
+                             "geometry": geo._asdict()})
+    return equal
+
+
+def step_staging_readings(bt) -> list:
+    """``laplace_step`` at n = 153 over m = 1..4 (the main path's model at
+    m = 2, the Poisson sweep models else), float32 and float64, B = 1, 4096,
+    16384: the bare kernel under each layout of ``step_layouts``, timed in
+    turns (forward through the list, then backward), the waves of the
+    whole-series layout, the layout the rule picks, all equal to the bit
+    (``step_layouts_equal``).  The readings ``STEP_SHARED_WAVES`` is set
+    from."""
+    from bssm_tpu_torch.core.spec import drop_batch
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    out = []
+    sms = ck._sm_count(0)
+    for dt in (torch.float32, torch.float64):
+        for m in (1, 2, 3, 4):
+            model = main_path_model(bt, dt) if m == 2 \
+                else sweep_model(bt, "poisson", m, dt, n=153)
+            for B in (1, 4096, 16384):
+                th = thetas_around_init(model, B, 31)
+                spec = drop_batch(model.build(th[0])) if B == 1 \
+                    else model.build(th)
+                mode = spec.initial_mode.expand(B, spec.n).contiguous()
+                lay = step_layouts(spec, B)
+                r = {"dtype": str(dt).replace("torch.", ""), "m": m, "B": B,
+                     "geometry": {k: g._asdict() for k, g in lay.items()},
+                     "waves_shared": (ck.fs_waves(lay["shared"], B, sms)
+                                      if "shared" in lay else None),
+                     "picked": [k for k, g in lay.items() if k != "rule"
+                                and g == lay["rule"]][0],
+                     "bare_ms": {}}
+                got = ck.laplace_step(spec, mode)
+                r["bit_equal"] = step_layouts_equal(
+                    spec, mode, got, f"step_staging {r['dtype']} m={m} "
+                                     f"B={B}")
+                names = [k for k in lay if k != "rule"]
+                for name in names + list(reversed(names)):
+                    r["bare_ms"].setdefault(name, []).append(bare_ms(
+                        lambda: ck.laplace_step(spec, mode,
+                                                staging=lay[name]),
+                        "bssm_laplace_step"))
+                r["faster"] = min(r["bare_ms"],
+                                  key=lambda k: min(r["bare_ms"][k]))
+                out.append(r)
     return out
 
 
@@ -1138,6 +1226,64 @@ def rts_staging_sweep(bt) -> list:
     return out
 
 
+FS_SWEEP_B = (1024, 4096, 16384, 65536)
+
+
+def fs_staging_sweep(bt) -> list:
+    """``fast_smoother_ll`` at n = 153 over B in ``FS_SWEEP_B``, m = 1..4
+    (the airquality ``bsm_lg`` at m = 2, the sweep models else) and both
+    dtypes: the bare kernel under each layout of ``fs_options`` (the whole
+    series in shared memory where its blocks fit, tiles with checkpoints),
+    timed in turns (shared, checkpoint, checkpoint, shared), the waves of
+    the shared layout's blocks, the layout the rule picks, and the two
+    against each other to the bit (a failure otherwise).  The readings
+    ``FS_SHARED_WAVES`` is set from."""
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    out = []
+    sms = ck._sm_count(0)
+    for dt in (torch.float32, torch.float64):
+        for m in (1, 2, 3, 4):
+            model = airquality_model(bt, dt) if m == 2 \
+                else lg_sweep_model(bt, m, dt, n=153)
+            for B in FS_SWEEP_B:
+                spec = model.build(thetas_around_init(model, B, 67,
+                                                      spread=0.3))
+                item = spec.y.element_size()
+                opts = {k: g for k, g in ck.fs_options(spec.n, m, item)
+                        .items() if g is not None}
+                r = {"dtype": str(dt).replace("torch.", ""), "m": m, "B": B,
+                     "waves_shared": (ck.fs_waves(opts["shared"], B, sms)
+                                      if "shared" in opts else None),
+                     "chunk_tiled": opts["checkpoint"].chunk,
+                     "picked": [k for k, g in opts.items() if g ==
+                                ck.fs_geometry(spec.n, m, item, B, sms)][0],
+                     "bare_ms": {}}
+                got = {}
+                for name in list(opts) + list(reversed(list(opts))):
+                    geo = opts[name]
+                    if name not in got:
+                        got[name] = ck.fast_smoother_ll(spec, staging=geo)
+                    r["bare_ms"].setdefault(name, []).append(bare_ms(
+                        lambda: ck.fast_smoother_ll(spec, staging=geo),
+                        "bssm_fast_smoother_ll"))
+                torch.cuda.synchronize()
+                r["faster"] = min(r["bare_ms"],
+                                  key=lambda k: min(r["bare_ms"][k]))
+                first = got[r["picked"]]
+                r["bit_equal"] = all(
+                    torch.equal(first[0], g[0]) and torch.equal(first[1],
+                                                                g[1])
+                    for g in got.values())
+                if not r["bit_equal"]:
+                    FAILURES.append({"what": "fast_smoother_ll: the "
+                                             "stagings differ",
+                                     "dtype": r["dtype"], "m": m, "B": B})
+                out.append(r)
+                del got, spec
+                torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the linear-Gaussian kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -1206,6 +1352,21 @@ def check_lg(model, B: int, label: str, timed: bool, degenerate_rows: int = 0,
     if int(torch.isneginf(p_ll).sum()) != degenerate_rows:
         FAILURES.append({"what": "degenerate rows", "label": label,
                          "got": int(torch.isneginf(p_ll).sum())})
+    # every staging of the smoother gives the rule's bits
+    item = spec.y.element_size()
+    out["fs_geometry"] = ck.fs_geometry(spec.n, spec.m, item, B,
+                                        ck._sm_count(0))._asdict()
+    out["fs_stagings_bit_equal"] = True
+    for name, geo in ck.fs_options(spec.n, spec.m, item).items():
+        if geo is None:
+            continue
+        a2, l2 = ck.fast_smoother_ll(spec, staging=geo)
+        torch.cuda.synchronize()
+        if not (torch.equal(a2, k_a) and torch.equal(l2, k_l)):
+            out["fs_stagings_bit_equal"] = False
+            FAILURES.append({"what": f"fast_smoother_ll: staging {name} "
+                                     "differs from the rule's",
+                             "label": label})
     if timed:
         out["ms"] = {"log_likelihood": time_ms(lambda: ck.log_likelihood(spec)),
                      "fast_smoother_ll": time_ms(
@@ -1223,6 +1384,8 @@ def check_lg(model, B: int, label: str, timed: bool, degenerate_rows: int = 0,
                                         "bssm_fast_smoother_ll")}
         out["one_kernel"] = one_kernel(lambda: ck.log_likelihood(spec),
                                        "log_likelihood")
+        out["one_kernel_smoother"] = one_kernel(
+            lambda: ck.fast_smoother_ll(spec), "fast_smoother_ll")
     D = spec.D if spec.D.dim() == 2 else spec.D[None]
     if D.shape[0] > 1 and D.shape[1] > 1:
         out["D_tile"] = dict(zip(("chunk", "smem_bytes"), ck.kalman_tile(
@@ -1892,7 +2055,122 @@ def k2k3_digests(bt) -> dict:
     return out
 
 
-AB_READINGS = {"k2k3": k2k3_ab_readings, "big": big_ab_readings}
+def k7k8_ab_readings(bt) -> dict:
+    """The readings of K7's and K8's A/B, on whichever package ``bt`` is
+    (the wrapper calls are the same in both): wrapper and bare milliseconds
+    of ``fast_smoother_ll`` on the airquality ``bsm_lg``, float32, at
+    B = 1024, 4096, 16384 and 65536 (the paths give it 65536-row chunks),
+    and of ``laplace_step`` on the main path's model at B = 1 (one model,
+    as the single-model solve gives it), 4096 and 16384, each bare reading
+    the median of five; the digests of both kernels' outputs on fixed
+    inputs (``k7k8_digests``); the single-model solve's milliseconds
+    (``ng_api``'s ``single_solve_ms``, three readings); and the states
+    seconds of ``lg_full`` and ``approx_full`` (two runs each, as ``main``
+    runs them)."""
+    from bssm_tpu_torch.core.spec import drop_batch
+    from bssm_tpu_torch.inference import approx as amod
+    from bssm_tpu_torch.inference.filters import spec_of
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    a32 = airquality_model(bt, torch.float32)
+    m32 = main_path_model(bt, torch.float32)
+    res = {"kernels": {}, "paths": {}}
+    med = lambda fn, entry: statistics.median(            # noqa: E731
+        bare_ms(fn, entry, reps=20) for _ in range(5))
+    for B in (1024, 4096, 16384, 65536):
+        spec = a32.build(thetas_around_init(a32, B, 29, spread=0.3))
+        fn = lambda: ck.fast_smoother_ll(spec)                # noqa: E731
+        res["kernels"][f"fast_smoother_ll B={B}"] = {
+            "ms": time_ms(fn, reps=20),
+            "bare_ms": med(fn, "bssm_fast_smoother_ll")}
+        del spec
+    for B in (1, 4096, 16384):
+        th = thetas_around_init(m32, B, 31)
+        spec = drop_batch(m32.build(th[0])) if B == 1 else m32.build(th)
+        mode = spec.initial_mode.expand(B, spec.n).contiguous()
+        fn = lambda: ck.laplace_step(spec, mode)              # noqa: E731
+        res["kernels"][f"laplace_step B={B}"] = {
+            "ms": time_ms(fn, reps=20),
+            "bare_ms": med(fn, "bssm_laplace_step")}
+    torch.cuda.empty_cache()
+    res["digests"] = k7k8_digests(bt)
+    spec1 = spec_of(m32)
+    amod.approximate(spec1)
+    res["paths"]["ng_api single_solve_ms"] = [
+        time_ms(lambda: amod.approximate(spec1)) for _ in range(3)]
+    for label, model, kw in (
+            ("lg_full", a32, {}),
+            ("approx_full", m32, dict(mcmc_type="approx",
+                                      store_modes=True))):
+        kw = dict(output_type="full", seed=1, n_chains=CHAINS // 4, **kw)
+        bt.run_mcmc(model, iter=20, **kw)                 # warm-up
+        r = res["paths"][label] = {"states_s": [], "chain_s": []}
+        for _ in range(2):
+            torch.cuda.synchronize()
+            out = bt.run_mcmc(model, iter=1000, **kw)
+            r["states_s"].append(out.time["states"])
+            r["chain_s"].append(out.time["mcmc"])
+            r["acceptance_rate"] = out.acceptance_rate
+            del out
+            torch.cuda.empty_cache()
+    return res
+
+
+def k7k8_digests(bt) -> dict:
+    """SHA-256 of the outputs of ``fast_smoother_ll`` (alpha, ll) and
+    ``laplace_step`` (new mode, ll, diff) on fixed inputs: the airquality
+    ``bsm_lg`` at B = 1024 and 65536 float32 and 1024 float64, the lg sweep
+    models at m = 1, 3, 4 (n = 40, missing y) in both dtypes at B = 256;
+    the main path's model at B = 1 and 4096 float32 and 1 float64, the
+    Poisson sweep models at m = 1, 3, 4 in both dtypes at B = 256.  On the
+    same inputs those of the kernels that share their device functions:
+    ``log_likelihood`` (K6) on each linear-Gaussian input, ``laplace_solve``
+    (K1, from the step's mode) and ``rts_factors`` (K2, on K1's
+    approximating model) on each non-Gaussian one.  Equal digests on two
+    packages mean outputs equal to the bit."""
+    import hashlib
+    from bssm_tpu_torch.core.spec import drop_batch
+    from bssm_tpu_torch.inference import approx as amod
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    sha = lambda ts: hashlib.sha256(b"".join(            # noqa: E731
+        t.contiguous().cpu().numpy().tobytes() for t in ts)).hexdigest()
+    out = {}
+    lg = [("aq f32 B=1024", airquality_model(bt, torch.float32), 1024),
+          ("aq f32 B=65536", airquality_model(bt, torch.float32), 65536),
+          ("aq f64 B=1024", airquality_model(bt, torch.float64), 1024)]
+    ng = [("main f32 B=1", main_path_model(bt, torch.float32), 1),
+          ("main f32 B=4096", main_path_model(bt, torch.float32), 4096),
+          ("main f64 B=1", main_path_model(bt, torch.float64), 1)]
+    for dt in (torch.float32, torch.float64):
+        tag = str(dt).replace("torch.", "")
+        for m in (1, 3, 4):
+            lg.append((f"m={m} {tag} B=256", lg_sweep_model(bt, m, dt), 256))
+            ng.append((f"m={m} {tag} B=256",
+                       sweep_model(bt, "poisson", m, dt), 256))
+    for label, model, B in lg:
+        spec = model.build(thetas_around_init(model, B, 71, spread=0.3))
+        out["fast_smoother_ll " + label] = sha(ck.fast_smoother_ll(spec))
+        out["log_likelihood " + label] = sha([ck.log_likelihood(spec)])
+    for label, model, B in ng:
+        th = thetas_around_init(model, B, 73)
+        spec = drop_batch(model.build(th[0])) if B == 1 \
+            else model.build(th)
+        gen = torch.Generator(device="cuda").manual_seed(74)
+        mode = (spec.initial_mode + 0.1 * torch.randn(
+            (B, spec.n), dtype=model.dtype, device="cuda",
+            generator=gen)).contiguous()
+        out["laplace_step " + label] = sha(ck.laplace_step(spec, mode))
+        if B > 1:
+            sol = ck.laplace_solve(spec, mode, max(1e-8, 50.0 * float(
+                torch.finfo(model.dtype).eps)), 100)
+            out["laplace_solve " + label] = sha(sol)
+            yt, H = amod._one_match(spec, sol[0])
+            out["rts_factors " + label] = sha(ck.rts_factors(
+                spec.approx_gaussian(yt, H)))
+    return out
+
+
+AB_READINGS = {"k2k3": k2k3_ab_readings, "big": big_ab_readings,
+               "k7k8": k7k8_ab_readings}
 
 
 def ab(parent: str, which: str, smi: str) -> int:
@@ -1922,10 +2200,11 @@ def ab(parent: str, which: str, smi: str) -> int:
            "runs": runs}
     if "digests" in runs[0]:
         # outputs equal to the bit across the two packages, and within each
-        res["bit_equal_to_parent"] = {
-            label: {k: runs[0]["digests"][label][k]
-                    == runs[1]["digests"][label][k] for k in d}
-            for label, d in runs[0]["digests"].items()}
+        def same(a, b):
+            return {k: same(a[k], b[k]) for k in a} \
+                if isinstance(a, dict) else a == b
+        res["bit_equal_to_parent"] = same(runs[0]["digests"],
+                                          runs[1]["digests"])
         res["repeatable"] = all(runs[i]["digests"] == runs[j]["digests"]
                                 for i, j in ((0, 3), (1, 2)))
     emit("ab", res)
@@ -2243,10 +2522,12 @@ def main() -> int:
                     help="also trace short runs of five paths with "
                          "torch.profiler and print device time by kernel")
     ap.add_argument("--staging-sweep", action="store_true",
-                    help="only time the stagings of laplace_solve and "
-                         "rts_factors over B, m and dtype (staging_sweep, "
-                         "rts_staging_sweep), print them and stop; prints "
-                         "no result line")
+                    help="only time the stagings of laplace_solve, "
+                         "rts_factors and fast_smoother_ll over B, m and "
+                         "dtype and the layouts of laplace_step "
+                         "(staging_sweep, rts_staging_sweep, "
+                         "fs_staging_sweep, step_staging_readings), print "
+                         "them and stop; prints no result line")
     ap.add_argument("--big-only", action="store_true",
                     help="only run the large-ensemble kernel's checks and "
                          "times (big_section) and stop; prints no result "
@@ -2259,8 +2540,11 @@ def main() -> int:
                     default="k2k3",
                     help="the readings of --ab: k2k3 (rts_factors and "
                          "psi_logw, psi_N10's phase 2, da_psi_N64's chain; "
-                         "the default) or big (the large-ensemble kernel "
-                         "and the paths it paces)")
+                         "the default), big (the large-ensemble kernel "
+                         "and the paths it paces) or k7k8 "
+                         "(fast_smoother_ll and laplace_step, the "
+                         "single-model solve, lg_full's and approx_full's "
+                         "states)")
     ap.add_argument("--ab-side", choices=sorted(AB_READINGS),
                     help=argparse.SUPPRESS)
     ap.add_argument("--geometry-sweep", action="store_true",
@@ -2289,6 +2573,8 @@ def main() -> int:
     if args.staging_sweep:
         emit("staging_sweep", {"nvidia_smi": smi, "runs": staging_sweep(bt),
                                "rts_factors": rts_staging_sweep(bt),
+                               "fast_smoother_ll": fs_staging_sweep(bt),
+                               "laplace_step": step_staging_readings(bt),
                                "failures": FAILURES})
         return 1 if FAILURES else 0
     if args.ab_side:
@@ -2385,8 +2671,22 @@ def main() -> int:
         for m in (1, 3, 4):
             step.append(check_step(sweep_model(bt, "poisson", m, dtype), 256,
                                    f"sweep m={m}", timed=False))
+    # beyond shared memory (m = 4, n = 1600 float64, 64 rows): tiles with
+    # checkpoints; one model's long series in float32, whole in shared
+    # memory
+    for m, dtype, n, B in ((4, torch.float64, 1600, 64),
+                           (2, torch.float32, 2200, 1)):
+        c = check_step(sweep_model(bt, "poisson", m, dtype, n=n), B,
+                       f"long n={n} m={m}", timed=False)
+        if (c["geometry"]["chunk"] == n) != (B == 1):
+            FAILURES.append({"what": "laplace_step layout at long n",
+                             "label": c["label"],
+                             "geometry": c["geometry"]})
+        step.append(c)
     single = check_single_solve(m64, 4096, "main f64 B=4096")
+    step_layouts_sweep = step_staging_readings(bt)
     emit("step_checks", {"runs": step, "single_solve": single,
+                         "layouts": step_layouts_sweep,
                          "failures": FAILURES})
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} laplace_step check(s) failed",
@@ -2433,11 +2733,21 @@ def main() -> int:
             FAILURES.append({"what": "D tile not chunked", "label":
                              c["label"]})
         lg.append(c)
+    # the smoother over long series (its tiles many times over)
+    for m, dtype, n in ((2, torch.float32, 1200), (4, torch.float64, 1200)):
+        lg.append(check_lg(lg_sweep_model(bt, m, dtype, n=n), 256,
+                           f"long n={n} m={m}", timed=False))
     layouts = [check_layouts(m32, a32, 4096, "layouts f32 B=4096",
                              timed=True),
                check_layouts(m64, a64, 1024, "layouts f64 B=1024",
                              timed=False)]
-    emit("lg_checks", {"runs": lg, "layouts": layouts, "failures": FAILURES})
+    fs_sweep = fs_staging_sweep(bt)
+    for pick in ("shared", "checkpoint"):
+        if not any(r["picked"] == pick for r in fs_sweep):
+            FAILURES.append({"what": f"the smoother's rule never picked "
+                                     f"{pick} staging in its sweep"})
+    emit("lg_checks", {"runs": lg, "layouts": layouts,
+                       "fs_staging_sweep": fs_sweep, "failures": FAILURES})
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} linear-Gaussian check(s) failed",
               file=sys.stderr)
@@ -2623,6 +2933,8 @@ def main() -> int:
              "bound_ms": lb["bound_ms"], "bound_by": lb["bound_by"],
              "library_ms": None, "shape": "B=16384 n=153 m=2 float32",
              "bare_ms": l_16k["bare_ms"][name]}
+        if name == "fast_smoother_ll":
+            k["geometry_B65536"] = l_64k["fs_geometry"]
         for tag, run in (("_B4096", l_4k), ("_B1024", l_1k),
                          ("_B65536", l_64k)):
             k["ms" + tag] = run["ms"][name]
@@ -2637,7 +2949,8 @@ def main() -> int:
           "launches_by_path": by_path["laplace_step"],
           "max_abs_err": max(c["max_abs_err"] for run in (s_16k, s_4k, s_1)
                              for c in run["checks"]),
-          "library_ms": None, "shape": "B=16384 n=153 m=2 float32"}
+          "library_ms": None, "shape": "B=16384 n=153 m=2 float32",
+          "geometry_B1": s_1["geometry"]}
     for tag, run in (("", s_16k), ("_B4096", s_4k), ("_B1", s_1)):
         k8["ms" + tag] = run["ms"]
         k8["bare_ms" + tag] = run["bare_ms"]

@@ -15,6 +15,8 @@ known-answer vectors of Philox-4x32-10.  The plain versions fed the
 ancestors their own search chose (the kernel's check-only ``anc`` input)
 reproduce themselves bit for bit.
 """
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -125,6 +127,17 @@ def test_philox_known_answers(ctr, key, want):
     assert tuple(int(g) for g in got) == want
 
 
+@contextlib.contextmanager
+def _one_thread():
+    """torch's intra-op threads set to one inside the block."""
+    was = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(was)
+
+
 def test_philox_fill_plain_layout_and_moments():
     """Filled tensors: shapes, uniforms strictly inside (0, 1) in float32
     too, moments of 2e5 normals within 5 standard errors, another key or
@@ -146,9 +159,18 @@ def test_philox_fill_plain_layout_and_moments():
     eps2, us2 = ck.philox_fill_plain(key + 1, 50, 21, 64, 3, torch.float32)
     assert not torch.equal(eps, eps2) and not torch.equal(us, us2)
     assert not torch.equal(eps[0], eps[1])
-    big_e, big_u = ck.philox_fill_plain(key, 60, 25, 64, 3, torch.float32)
-    assert torch.equal(big_e[:50, :21], eps)
-    assert torch.equal(big_u[:50, :20], us)
+    # the two fills on one intra-op thread: every element of either goes
+    # through the same vectorised code (both sizes are multiples of the
+    # vector width), so that the comparison does not depend on how the
+    # thread pool splits the elementwise ops under load
+    with _one_thread():
+        one_e, one_u = ck.philox_fill_plain(key, 50, 21, 64, 3,
+                                            torch.float32)
+        big_e, big_u = ck.philox_fill_plain(key, 60, 25, 64, 3,
+                                            torch.float32)
+    assert torch.equal(big_e[:50, :21], one_e)
+    assert torch.equal(big_u[:50, :20], one_u)
+    assert torch.equal(one_u, us)
     # the extreme words: the largest 24-bit value stays below 1 in float32
     top = ck._u01(torch.tensor([0xffffffff, 0], dtype=torch.int64),
                   torch.float32)

@@ -31,6 +31,8 @@ from bssm_tpu_torch.core.spec import drop_batch
 from bssm_tpu_torch.inference import approx as tapprox
 from bssm_tpu_torch.ops import cuda_kalman
 
+from torch_split_mirror import split_laplace_step
+
 FAMILIES = ["svm", "poisson", "binomial", "negative binomial", "gamma"]
 
 
@@ -102,6 +104,33 @@ def test_laplace_step_matches_kernel_and_vmapped_step(family, m):
         assert torch.isfinite(g).all(), name
         _close(g, k)
         _close(g, b)
+
+
+@pytest.mark.parametrize("m", [1, 2])
+@pytest.mark.parametrize("family", ["poisson", "svm"])
+def test_split_step_matches_kernel_interpret(family, m):
+    """One pass split as the laplace_step kernel runs it
+    (``torch_split_mirror.split_laplace_step``: the pseudo-observations of
+    every step first, the filter, the split backward pass, the new mode
+    and its squared change for every step, their mean in the kernel's
+    lane order), float64, missing y: within 1e-10 of the JAX package's
+    TPU kernel in interpret mode, and of the port's plain step."""
+    jm, tm = _pair(family, m)
+    B = 3
+    th = _thetas(jm, B, seed=10 + m)
+    jspec = jax.vmap(jm.build)(jnp.asarray(th))
+    tspec = tm.build(torch.as_tensor(th))
+    mode = (np.asarray(jspec.initial_mode)
+            + 0.2 * np.random.default_rng(10 + m).normal(size=(B,
+                                                               tspec.n)))
+    got = split_laplace_step(tspec, torch.as_tensor(mode))
+    kern = fused_laplace_step_batched(jspec, jnp.asarray(mode), B,
+                                      interpret=True)
+    plain = cuda_kalman.laplace_step(tspec, torch.as_tensor(mode))
+    for g, k, p, name in zip(got, kern, plain, ("mode", "ll", "diff")):
+        assert torch.isfinite(g).all(), name
+        _close(g, k)
+        _close(g, p, tol=1e-12)
 
 
 @pytest.mark.parametrize("family", ["poisson", "svm", "gamma"])

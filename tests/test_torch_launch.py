@@ -249,6 +249,131 @@ def test_kalman_tile(item):
     assert ck.kalman_tile(153, 4) == (153, 19584)
 
 
+def _fs_bytes(rows, steps, m, item, step):
+    """Shared memory of a fast_smoother_ll (``step``: laplace_step) block:
+    each row's Z and T, its tile of 2m + 1 + m(m+1)/2 values a step made
+    odd, and laplace_step's 32 partial sums a row."""
+    tile = rows * (m + m * m + ((2 * m + 1 + m * (m + 1) // 2) * steps | 1))
+    return (tile + (32 * rows if step else 0)) * item
+
+
+def _fs_per_sm(geo):
+    """Blocks of ``geo`` an SM holds: its 228 KB (each block with a 1 KB
+    reserve), its 64 warps, at most 32 blocks."""
+    return min(32, 64 // (geo.threads // 32),
+               (228 * 1024) // (geo.smem_bytes + 1024 + 128))
+
+
+@pytest.mark.parametrize("step", [False, True])
+@pytest.mark.parametrize("item", [4, 8])
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+def test_fs_geometry_on_both_sides_of_each_limit(m, item, step):
+    """fast_smoother_ll (and laplace_step, ``step``) keeps the whole series
+    of 8 rows a block (one row for one model) in shared memory while it
+    fits in 227 KB and its blocks run in at most FS_SHARED_WAVES
+    (STEP_SHARED_WAVES) waves, and takes 32 rows a block with tiles and
+    checkpoints beyond either limit; the tile holds 12 KB of steps."""
+    sms, most = 132, ck.STEP_SHARED_WAVES if step else ck.FS_SHARED_WAVES
+    geo = lambda n, B: ck.fs_geometry(n, m, item, B, sms, step)  # noqa: E731
+    chunk = lambda n: max(1, min(n, 12 * 1024 // (            # noqa: E731
+        32 * (2 * m + 1 + m * (m + 1) // 2) * item)))
+    tiled = lambda n: ck.FsGeometry(32, 32, chunk(n), _fs_bytes(  # noqa
+        32, chunk(n), m, item, step))
+    for rows, B in ((8, 8), (1, 1)):
+        # the footprint limit
+        n = 1
+        while _fs_bytes(rows, n + 1, m, item, step) <= ck.SMEM_LIMIT:
+            n += 1
+        assert geo(n, B) == ck.FsGeometry(rows, 128, n, _fs_bytes(
+            rows, n, m, item, step))
+        assert geo(n + 1, B) == tiled(n + 1)
+        assert ck.fs_options(n + 1, m, item, step, rows)["shared"] is None
+        assert ck.fs_scratch_elems(geo(n, B), B, n, m) == 0
+    # the wave limit at the main path's n
+    shared = geo(153, 8)
+    assert shared.chunk == 153 and shared.rows == 8
+    per_sm = _fs_per_sm(shared)
+    last = 8 * int(most * sms * per_sm)
+    assert ck.fs_waves(shared, last, sms) <= most \
+        < ck.fs_waves(shared, last + 1, sms)
+    assert geo(153, last) == shared
+    assert geo(153, last + 1) == tiled(153)
+    assert ck.fs_geometry(153, m, item, last + 1, 2 * sms, step) == shared
+
+
+def test_fs_geometry_of_the_main_path():
+    """m = 2, n = 153, float32 on 132 SMs: fast_smoother_ll's whole series
+    in 39392 bytes for 8 rows (five blocks an SM, 2.5 waves: the 1024- and
+    4096-row batches) and tiles of 12 steps in 13184 bytes with
+    checkpoints at the 16384- and 65536-row chunks; laplace_step's one
+    model a block of 128 threads, its 4096 and 16384 rows in shared
+    memory (up to 4 waves).  The C side takes these geometries."""
+    import re
+    shared = ck.FsGeometry(8, 128, 153, 39392)
+    tiled = ck.FsGeometry(32, 32, 12, 13184)
+    for B, want in ((1024, shared), (4096, shared), (16384, tiled),
+                    (65536, tiled)):
+        assert ck.fs_geometry(153, 2, 4, B, 132) == want
+    assert ck.fs_geometry(153, 2, 4, 1, 132) == ck.FsGeometry(
+        1, 128, 153, 4924)
+    assert ck.fs_scratch_elems(tiled, 65536, 153, 2) == 65536 * 5 * 12
+    step = ck.FsGeometry(8, 128, 153, 40416)
+    for B in (4096, 16384):
+        assert ck.fs_geometry(153, 2, 4, B, 132, step=True) == step
+    assert ck.fs_geometry(153, 2, 4, 1, 132, step=True) == ck.FsGeometry(
+        1, 128, 153, 5052)
+    assert ck.fs_geometry(153, 2, 4, 65536, 132, step=True).rows == 32
+    kf = (ck.CSRC / "kalman_filter.cu").read_text()
+    ls = (ck.CSRC / "laplace_solve.cu").read_text()
+    assert int(re.search(r"kFsMaxThreads = (\d+);", kf)[1]) \
+        >= ck.FS_THREADS
+    assert int(re.search(r"kStepMaxThreads = (\d+);", ls)[1]) \
+        >= ck.FS_THREADS
+
+    def c_function(src, name):
+        """The C function ``name`` (integer arithmetic only) as Python."""
+        body = src[src.index(f"long long {name}("):]
+        body = body[body.index("{") + 1:body.index("\n}")]
+        lines = [ln.split("//")[0].strip().rstrip(";") for ln in
+                 body.splitlines()]
+        code = "\n".join(ln.replace("const long long ", "")
+                         .replace("return ", "out = ").replace(" / ", " // ")
+                         for ln in lines if ln)
+        return lambda **kw: (exec(code, {}, kw), kw["out"])[1]
+
+    fs_c = c_function(kf, "fs_block_elems")
+    step_c = c_function(ls, "step_block_elems")
+    for m in (1, 2, 3, 4):
+        for rows, steps in ((1, 1), (8, 153), (32, 12), (7, 40)):
+            assert fs_c(rows=rows, len=steps, m=m) \
+                == ck.fs_block_elems(rows, steps, m)
+            assert step_c(rows=rows, len=steps, m=m) \
+                == ck.step_block_elems(rows, steps, m)
+
+
+@pytest.mark.parametrize("B,n,m", [(1, 40, 1), (45, 30, 2), (64, 153, 3),
+                                   (33, 7, 4)])
+def test_fs_checkpoints_fill_the_scratch_once(B, n, m):
+    """The checkpoints of a tiled launch, indexed as split_save indexes them
+    (block b0's run of (tiles - 1) checkpoints, each field's rows side by
+    side), cover ``fs_scratch_elems`` values each exactly once."""
+    geo = ck.FsGeometry(32, 32, 4, 0)
+    size = ck.fs_scratch_elems(geo, B, n, m)
+    cf = m + m * (m + 1) // 2
+    ntiles = -(-n // geo.chunk)
+    seen = np.zeros(size, dtype=int)
+    for b0 in range(0, B, geo.rows):
+        base = b0 * cf * (ntiles - 1)
+        for r in range(min(geo.rows, B - b0)):
+            for c in range(ntiles - 1):
+                for f in range(cf):
+                    seen[base + c * cf * geo.rows + f * geo.rows + r] += 1
+    full = -(-B // geo.rows) * geo.rows
+    assert size == full * cf * (ntiles - 1)
+    # rows of a partial last block leave their slots unused, no others
+    assert (seen <= 1).all() and seen.sum() == B * cf * (ntiles - 1)
+
+
 # ---------------------------------------------------------------------------
 # the leaves as the kernels read them
 # ---------------------------------------------------------------------------
