@@ -7,22 +7,32 @@ It imports torch and numpy and nothing of JAX or of ``bssm_tpu``.
 
 What runs today:
 
-- on ``bsm_ng`` models: IS-MCMC (``mcmc_type`` "is1", "is2", "is3") with
-  ``output_type`` "theta", "summary" or "full", approximate MCMC
-  ("approx", theta or full output), pseudo-marginal (``"pm"``) and
-  delayed-acceptance (``"da"``) MCMC with theta output, with the
-  psi-auxiliary particle filter or the bootstrap filter at up to 512
-  particles; ``post_correct`` and ``suggest_N``; and on one model
-  ``gaussian_approx``, ``logLik`` (approximate or particle estimate),
-  ``kfilter``, ``bootstrap_filter``, ``particle_smoother`` and the
-  smoothers through the Gaussian approximation;
-- on the linear-Gaussian ``bsm_lg`` and ``ar1_lg``: marginal MCMC
-  (``mcmc_type="gaussian"``) with ``output_type`` "theta", "summary" or
-  "full", and ``logLik``, ``fast_smoother``, ``smoother`` and
-  ``sim_smoother``.
+- on the non-Gaussian ``bsm_ng``, ``ar1_ng``, ``svm`` and ``ssm_ung``:
+  IS-MCMC (``mcmc_type`` "is1", "is2", "is3") with ``output_type``
+  "theta", "summary" or "full", approximate MCMC ("approx", theta or full
+  output), pseudo-marginal (``"pm"``) and delayed-acceptance (``"da"``)
+  MCMC with theta output, with the psi-auxiliary particle filter or the
+  bootstrap filter at up to 512 particles; ``post_correct`` and
+  ``suggest_N``; and on one model ``gaussian_approx``, ``logLik``
+  (approximate or particle estimate), ``kfilter``, ``bootstrap_filter``,
+  ``particle_smoother`` and the smoothers through the Gaussian
+  approximation;
+- on the linear-Gaussian ``bsm_lg``, ``ar1_lg`` and ``ssm_ulg``: marginal
+  MCMC (``mcmc_type="gaussian"``) with ``output_type`` "theta", "summary"
+  or "full", and ``logLik``, ``fast_smoother``, ``smoother``,
+  ``sim_smoother``, ``bootstrap_filter`` and ``particle_smoother`` (the
+  bootstrap filter);
+- on the output of a run: ``summary``, ``check_diagnostics``, ``iact``,
+  ``asymptotic_var``, ``estimate_ess``, ``rhat``, ``ess_bulk``,
+  ``ess_tail``, ``rhat_rank``, and ``McmcOutput.save`` / ``load`` (the JAX
+  package's ``.npz`` format), ``last_theta`` (resume a run through
+  ``run_mcmc``'s ``theta_init`` and ``S``), ``as_draws``,
+  ``to_dataframe`` (needs pandas), ``plot`` (needs matplotlib) and
+  ``str()``.
 
-Entry points run on the CUDA device unless the caller passes
-``device="cpu"``.
+The user functions of ``ssm_ulg`` / ``ssm_ung`` are torch functions batched
+over chains (``models/ssm.py``).  Entry points run on the CUDA device
+unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -42,7 +52,9 @@ from .core.priors import (uniform_prior, halfnormal_prior,       # noqa: E402
                           normal_prior, tnormal_prior, gamma_prior,
                           PriorStack)
 from .models.bsm import bsm_lg, bsm_ng                           # noqa: E402
-from .models.ar1 import ar1_lg                                   # noqa: E402
+from .models.ar1 import ar1_lg, ar1_ng                           # noqa: E402
+from .models.svm import svm                                      # noqa: E402
+from .models.ssm import ssm_ulg, ssm_ung                         # noqa: E402
 from .inference.mcmc import (run_mcmc, McmcOutput,               # noqa: E402
                              is_correction_generator)
 from .inference.approx import (approximate, approx_loglik,       # noqa: E402
@@ -55,8 +67,11 @@ from .inference.filters import (kfilter, bootstrap_filter,       # noqa: E402
 from .inference.postcorrect import post_correct, suggest_N       # noqa: E402
 from .inference.particle import (psi_logw, bsf_logw,             # noqa: E402
                                  psi_logw_scan, bsf_logw_scan,
-                                 psi_filter, bsf_filter, PFResult)
+                                 psi_filter, bsf_filter, bsf_filter_lg,
+                                 PFResult)
 from .ops.resample import ancestor_trace                         # noqa: E402
 from .diagnostics.summary import (weighted_mean, weighted_var,   # noqa: E402
-                                  ess_is)
+                                  ess_is, iact, asymptotic_var,
+                                  estimate_ess, rhat, ess_bulk, ess_tail,
+                                  rhat_rank, summary, check_diagnostics)
 from .utils.datasets import airquality                           # noqa: E402

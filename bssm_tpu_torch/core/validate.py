@@ -1,9 +1,10 @@
 """Argument validation with friendly errors.
 
 Own copy of the numpy checks of ``bssm_tpu/core/validate.py`` that the
-model constructors of this package call (NaN allowed only in y; positivity
-of u/phi; dimension rules for xreg/beta).  The package imports nothing of
-the JAX package, so the checks live here too.
+univariate model constructors of this package call (NaN allowed only in y;
+positivity of u; dimension rules for Z/H/T/R/a1/P1/D/C and xreg/beta).
+The multivariate branches wait for the multivariate models.  The package
+imports nothing of the JAX package, so the checks live here too.
 """
 from __future__ import annotations
 
@@ -40,8 +41,6 @@ def check_u(u, y):
         raise ValueError("Argument 'u' must contain only positive finite "
                          "values.")
     return u
-
-
 
 
 def check_period(period, n):
@@ -84,3 +83,115 @@ def check_beta(beta, k):
         raise ValueError("Number of coefficients in beta is not equal to "
                          "the number of columns of xreg.")
     return beta
+
+
+def check_D(D, n):
+    """Observation intercept: scalar or (n,), returned 1-D."""
+    if D is None:
+        return np.zeros(1)
+    D = np.asarray(D, dtype=np.float64)
+    if D.size not in (1, n):
+        raise ValueError("'D' must be a scalar or length n, where n is "
+                         "the number of observations.")
+    return D.reshape(-1)
+
+
+def check_C(C, m, n):
+    """State intercept: (m,), (m, 1) or (m, n), returned (m, 1|n)."""
+    if C is None:
+        return np.zeros((m, 1))
+    C = np.asarray(C, dtype=np.float64)
+    if C.ndim == 1 and C.size == m:
+        C = C.reshape(m, 1)
+    if C.ndim != 2 or C.shape[0] != m or C.shape[1] not in (1, n):
+        raise ValueError("'C' must be m x 1 or m x n matrix, where m is "
+                         "the number of states.")
+    return C
+
+
+def check_Z(Z, n):
+    """Observation vector: scalar, (m,) or (m, n), returned (m, 1|n)."""
+    Z = np.asarray(Z, dtype=np.float64)
+    if Z.ndim == 0:
+        return Z.reshape(1, 1)
+    if Z.ndim == 1:
+        return Z.reshape(-1, 1)
+    if Z.ndim != 2 or Z.shape[1] not in (1, n):
+        raise ValueError(
+            "'Z' must be a (m x 1) or (m x n) matrix, where m is the "
+            "number of states and n is the length of the series.")
+    return Z
+
+
+def check_T(T, m, n):
+    """State transition: (m, m) or (m, m, n), returned (m, m, 1|n)."""
+    T = np.asarray(T, dtype=np.float64)
+    if T.size == 1 and m == 1:
+        return T.reshape(1, 1, 1)
+    if T.ndim == 2:
+        T = T[..., None]
+    if T.ndim != 3 or T.shape[0] != m or T.shape[1] != m or \
+            T.shape[2] not in (1, n):
+        raise ValueError(
+            "'T' must be a (m x m) matrix, (m x m x 1) or (m x m x n) "
+            "array, where m is the number of states.")
+    return T
+
+
+def check_R(R, m, n):
+    """State noise loading: (m, k) or (m, k, n), k <= m, returned
+    (m, k, 1|n)."""
+    R = np.asarray(R, dtype=np.float64)
+    if R.ndim <= 1 and R.size == m:
+        return R.reshape(m, 1, 1)
+    if R.ndim == 2:
+        R = R[..., None]
+    if R.ndim != 3 or R.shape[0] != m or R.shape[1] > m or \
+            R.shape[2] not in (1, n):
+        raise ValueError(
+            "'R' must be a (m x k) matrix, (m x k x 1) or (m x k x n) "
+            "array, where k<=m is the number of disturbances eta, and m is "
+            "the number of states.")
+    return R
+
+
+def check_a1(a1, m):
+    if a1 is None:
+        return np.zeros(m)
+    a1 = np.asarray(a1, dtype=np.float64).reshape(-1)
+    if a1.size in (1, m):
+        return np.broadcast_to(a1, (m,)).copy()
+    raise ValueError("Misspecified a1, argument a1 must be a vector of "
+                     "length m, where m is the number of states.")
+
+
+def check_P1(P1, m):
+    if P1 is None:
+        return np.zeros((m, m))
+    P1 = np.asarray(P1, dtype=np.float64)
+    if P1.size == 1 and m == 1:
+        return P1.reshape(1, 1)
+    if P1.shape != (m, m):
+        raise ValueError("Argument P1 must be (m x m) matrix, where m is "
+                         "the number of states.")
+    return P1
+
+
+def check_H(H, n):
+    """Observation noise sd: scalar or (n,), returned 1-D."""
+    H = np.asarray(H, dtype=np.float64)
+    if H.size not in (1, n):
+        raise ValueError("'H' must be a scalar or length n, where n is "
+                         "the length of the time series y.")
+    return H.reshape(-1)
+
+
+def check_missingness(arrays, allow=("y",)):
+    """NaN allowed only in y.  ``arrays``: dict of name -> array-like."""
+    for name, arr in arrays.items():
+        if name in allow or arr is None:
+            continue
+        a = np.asarray(arr, dtype=np.float64)
+        if np.isnan(a).any():
+            raise ValueError("Missing values not allowed in the model "
+                             "object (except in component 'y').")

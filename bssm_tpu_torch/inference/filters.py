@@ -66,15 +66,13 @@ def bootstrap_filter(model_or_spec, particles: int,
                      generator: Optional[torch.Generator] = None,
                      seed: int = 1, theta=None, eps=None,
                      us=None) -> pf_mod.PFResult:
-    """Bootstrap particle filter of a non-Gaussian model, trajectories
-    untraced (``ops/resample.ancestor_trace``)."""
+    """Bootstrap particle filter of a non-Gaussian or linear-Gaussian
+    model, trajectories untraced (``ops/resample.ancestor_trace``)."""
     spec = spec_of(model_or_spec, theta)
-    if not isinstance(spec, NGSpec):
-        raise NotImplementedError(
-            "bootstrap_filter is ported for non-Gaussian models")
-    return pf_mod.bsf_filter(spec, particles,
-                             generator_for(spec, generator, seed), eps=eps,
-                             us=us)
+    run = pf_mod.bsf_filter if isinstance(spec, NGSpec) \
+        else pf_mod.bsf_filter_lg
+    return run(spec, particles, generator_for(spec, generator, seed),
+               eps=eps, us=us)
 
 
 class ParticleSmootherResult(NamedTuple):
@@ -91,15 +89,16 @@ def particle_smoother(model_or_spec, particles: int, method: str = "psi",
                       conv_tol: float = approx_mod.CONV_TOL,
                       max_iter: int = approx_mod.MAX_ITER
                       ) -> ParticleSmootherResult:
-    """Filter-smoother state estimates of a non-Gaussian model by the
-    psi-auxiliary (``method="psi"``) or the bootstrap (``"bsf"``) particle
-    filter: the weighted mean and covariance of the traced trajectories."""
+    """Filter-smoother state estimates by the psi-auxiliary
+    (``method="psi"``) or the bootstrap (``"bsf"``) particle filter: the
+    weighted mean and covariance of the traced trajectories.  A
+    linear-Gaussian model takes the bootstrap filter whatever ``method``
+    is, as in the JAX package."""
     spec = spec_of(model_or_spec, theta)
-    if not isinstance(spec, NGSpec):
-        raise NotImplementedError(
-            "particle_smoother is ported for non-Gaussian models")
     gen = generator_for(spec, generator, seed)
-    if method == "psi":
+    if not isinstance(spec, NGSpec):
+        pf = pf_mod.bsf_filter_lg(spec, particles, gen, eps=eps, us=us)
+    elif method == "psi":
         al = approx_mod.approx_loglik(spec, conv_tol=conv_tol,
                                       max_iter=max_iter)
         pf = pf_mod.psi_filter(spec, al, particles, gen, eps=eps, us=us)

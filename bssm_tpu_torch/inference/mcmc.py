@@ -60,6 +60,7 @@ import numpy as np
 import torch
 
 from ..core.config import resolve_device
+from ..core.priors import LOG
 from ..models.base import Model
 from ..ops import cuda_kalman
 from ..ops import kalman as kalman_mod
@@ -182,7 +183,9 @@ def _ram_scan(logdens: Callable, log_prior: Callable, theta0: torch.Tensor,
 class McmcOutput:
     """Posterior sample container (dense storage, chain axis first), plain
     numpy arrays.  theta is reported in the natural space (log-sampled
-    parameters exponentiated back)."""
+    parameters exponentiated back).  ``save`` / ``load`` write and read the
+    JAX package's ``.npz`` format; ``summary`` and ``check_diagnostics``
+    (``diagnostics/summary.py``) take it as they are."""
     theta: np.ndarray            # (chains, S, d)
     posterior: np.ndarray        # (chains, S)
     accepted: np.ndarray         # (chains, S) jump-chain head flags
@@ -213,6 +216,43 @@ class McmcOutput:
     def counts(self) -> np.ndarray:
         return np.ones_like(self.posterior, dtype=np.int64)
 
+    # -- checkpointing ----------------------------------------------------
+    # The stored theta and final S are the resumable state:
+    # ``run_mcmc(model, theta_init=out.last_theta(model), S=out.S,
+    # burnin=0, n_chains=...)`` continues the run.
+    def save(self, path: str) -> None:
+        """One compressed ``.npz``: every array field under its name, the
+        other fields as ``repr`` of a dict under ``__meta__``; the JAX
+        package's format, so that either package loads the other's."""
+        fields = {f.name: getattr(self, f.name)
+                  for f in dataclasses.fields(self)}
+        arrays = {k: v for k, v in fields.items()
+                  if isinstance(v, np.ndarray)}
+        meta = {k: v for k, v in fields.items()
+                if not isinstance(v, np.ndarray) and v is not None}
+        np.savez_compressed(path, __meta__=np.asarray([repr(meta)]),
+                            **arrays)
+
+    @staticmethod
+    def load(path: str) -> "McmcOutput":
+        """A saved output; fields this class does not know are ignored."""
+        import ast
+        z = np.load(path, allow_pickle=False)
+        meta = ast.literal_eval(str(z["__meta__"][0]))
+        fields = {f.name for f in dataclasses.fields(McmcOutput)}
+        kw = {k: z[k] for k in z.files if k in fields}
+        kw.update({k: v for k, v in meta.items() if k in fields})
+        kw["theta_names"] = tuple(kw.get("theta_names", ()))
+        return McmcOutput(**kw)
+
+    def last_theta(self, model) -> np.ndarray:
+        """Every chain's final draw ``(chains, d)`` mapped back to the
+        sampled space through ``model.transforms``: a continuation run's
+        ``theta_init``."""
+        th = self.theta[:, -1, :]
+        tr = np.asarray(model.transforms)
+        return np.where(tr == LOG, np.log(np.maximum(th, 1e-300)), th)
+
     def flat_theta(self) -> np.ndarray:
         return self.theta.reshape(-1, self.theta.shape[-1])
 
@@ -220,6 +260,115 @@ class McmcOutput:
         if self.weights is None:
             return np.ones(self.posterior.size)
         return self.weights.reshape(-1)
+
+    # -- exports ----------------------------------------------------------
+    def to_dataframe(self, variable: str = "theta"):
+        """Long-format draws as the R package's ``as.data.frame``: one row
+        a (chain, iteration, parameter) for "theta", one row a (chain,
+        iteration, state) with a column a time point for "states".  Needs
+        pandas."""
+        import pandas as pd
+        C, S = self.posterior.shape
+        w = self.weights if self.weights is not None else np.ones((C, S))
+        if variable == "theta":
+            frames = []
+            for j, name in enumerate(self.theta_names):
+                frames.append(pd.DataFrame({
+                    "iter": np.tile(np.arange(S), C),
+                    "chain": np.repeat(np.arange(C), S),
+                    "variable": name,
+                    "value": self.theta[..., j].reshape(-1),
+                    "weight": w.reshape(-1)}))
+            return pd.concat(frames, ignore_index=True)
+        if variable == "states":
+            if self.alpha is None:
+                raise ValueError("state draws need output_type='full'")
+            C, S, n1, m = self.alpha.shape
+            recs = []
+            for j in range(m):
+                df = pd.DataFrame(self.alpha[..., j].reshape(C * S, n1))
+                df.insert(0, "chain", np.repeat(np.arange(C), S))
+                df.insert(1, "iter", np.tile(np.arange(S), C))
+                df.insert(2, "variable", f"state_{j + 1}")
+                df.insert(3, "weight", w.reshape(-1))
+                recs.append(df)
+            return pd.concat(recs, ignore_index=True)
+        raise ValueError(variable)
+
+    def as_draws(self) -> dict:
+        """``{name: (chains, draws)}`` as the R package's ``as_draws``, with
+        ``.log_posterior`` and, for IS runs, the weights as ``.weight``."""
+        out = {name: self.theta[..., j]
+               for j, name in enumerate(self.theta_names)}
+        out[".log_posterior"] = self.posterior
+        if self.weights is not None:
+            out[".weight"] = self.weights
+        return out
+
+    def plot(self, variables=None, bins: int = 40):
+        """Trace and density of each parameter, one row of two axes each;
+        an IS run plots its approximate (unweighted) chains, as the R
+        package does.  Needs matplotlib; returns the Figure."""
+        import matplotlib
+        matplotlib.use("Agg", force=False)
+        import matplotlib.pyplot as plt
+        if self.mcmc_type in ("is1", "is2", "is3"):
+            warnings.warn("Input is based on a IS-weighted MCMC, the plots "
+                          "correspond to the approximate MCMC.")
+        names = list(variables or self.theta_names)
+        fig, axes = plt.subplots(len(names), 2,
+                                 figsize=(9, 2.2 * len(names)),
+                                 squeeze=False)
+        for r, name in enumerate(names):
+            j = self.theta_names.index(name)
+            for c in range(self.theta.shape[0]):
+                axes[r][0].plot(self.theta[c, :, j], lw=0.5)
+                axes[r][1].hist(self.theta[c, :, j], bins=bins,
+                                histtype="step", density=True)
+            axes[r][0].set_ylabel(name)
+        axes[-1][0].set_xlabel("iteration")
+        fig.tight_layout()
+        return fig
+
+    def __str__(self) -> str:
+        """Run summary as the R package's ``print.mcmc_output``."""
+        from ..diagnostics.summary import summary as _summary
+        lines = [f"Iterations = {self.burnin + 1}:{self.iter}",
+                 f"Thinning interval = {self.thin}",
+                 f"MCMC type = {self.mcmc_type} "
+                 f"({self.posterior.shape[0]} chains x "
+                 f"{self.posterior.shape[1]} stored draws)",
+                 "",
+                 "Acceptance rate after the burn-in period: "
+                 f"{self.acceptance_rate:.3f}", "", "Summary for theta:"]
+        for row in _summary(self, variable="theta", return_se=True):
+            lines.append(
+                "  {variable}: mean {Mean:.4g} sd {SD:.4g} se {SE:.3g} "
+                "ess {ESS:.0f}".format(**row))
+        if self.alphahat is not None:
+            n = self.alphahat.shape[0] - 1
+            mean = np.atleast_1d(self.alphahat[n])
+            sd = np.sqrt(np.atleast_1d(np.diag(np.atleast_2d(self.Vt[n]))))
+            lines.append(f"\nSummary for alpha_{n + 1}:")
+            for j, (mu, s) in enumerate(zip(mean, sd)):
+                lines.append(f"  state_{j + 1}: mean {mu:.4g} sd {s:.4g}")
+        elif self.alpha is not None:
+            n = self.alpha.shape[2] - 1
+            w = self.flat_weights()
+            a = self.alpha.reshape((-1,) + self.alpha.shape[2:])[:, n, :]
+            sw = w.sum()
+            mean = (w[:, None] * a).sum(0) / sw
+            sd = np.sqrt((w[:, None] * (a - mean) ** 2).sum(0) / sw)
+            lines.append(f"\nSummary for alpha_{n + 1}:")
+            for j in range(a.shape[1]):
+                lines.append(
+                    f"  state_{j + 1}: mean {mean[j]:.4g} sd {sd[j]:.4g}")
+        else:
+            lines.append("\nNo posterior samples for states available.")
+        if self.time:
+            lines.append("\nRun time (s): " + ", ".join(
+                f"{k} {v:.2f}" for k, v in self.time.items()))
+        return "\n".join(lines)
 
     def __repr__(self) -> str:
         parts = []

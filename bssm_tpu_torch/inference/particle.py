@@ -37,7 +37,8 @@ either device, the models the kernels do not take (``cuda_kalman.route``),
 a seed then standing for the tensors ``philox_fill_plain`` draws.
 
 The JAX package has no TPU kernel for the filters with trajectories:
-``psi_filter`` and ``bsf_filter`` are batched tensor code on the card too,
+``psi_filter``, ``bsf_filter`` and ``bsf_filter_lg`` (the bootstrap filter
+of a linear-Gaussian model) are batched tensor code on the card too,
 with the proposal factors of ``psi_filter`` from the ``rts_factors``
 kernel.  Each takes injected normals and uniforms (stream mode) or draws
 them from a ``torch.Generator``, and resamples at every step, as the JAX
@@ -51,7 +52,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core import distributions as fam
-from ..core.spec import NGSpec, SVM, at_t, with_batch
+from ..core.spec import LGSpec, NGSpec, SVM, at_t, with_batch
 from ..ops import cuda_kalman
 from ..ops.chol import psd_chol
 from ..ops.kalman import smoother_bwd_factors
@@ -454,42 +455,26 @@ def psi_filter(spec: NGSpec, al: ApproxLoglik, nsim: int,
     return PFResult(ll, traced, torch.stack(nws, dim=2), identity)
 
 
-def bsf_filter(spec: NGSpec, nsim: int,
-               generator: Optional[torch.Generator] = None,
-               eps: Optional[torch.Tensor] = None,
-               us: Optional[torch.Tensor] = None) -> PFResult:
-    """Bootstrap particle filter with trajectories: particles start from
-    N(a1, P1), move forwards through the state equation and are weighted by
-    the observation density, resampling before every step; the last step
-    predicts alpha_n beyond the data (uniform weights).  Randomness: ``eps
-    (B, n+1, N, m)`` (``eps[:, 0]`` the initial draws, the first k entries
-    of ``eps[:, s]`` the state disturbances of step s) and ``us (B, n, N)``,
-    or drawn from ``generator``.  ``loglik`` includes the exact observation
-    constants.  The trajectories are untraced: ``ancestor_trace(alpha,
-    indices)`` gives the paths."""
+def _bsf_run(name: str, spec, nsim: int, generator, eps, us, log_dens):
+    """The bootstrap filter's loop, shared by both model kinds:
+    ``log_dens(alpha (B, N, m), t) -> (B, N)`` the observation
+    log-densities, up to their constants, of y_t.  Returns the PFResult
+    with the log-likelihood less those constants."""
     n, m, k = spec.n, spec.m, spec.k
     if k > m:
         raise NotImplementedError(
-            f"bsf_filter: R has {k} columns, more than the {m} states")
+            f"{name}: R has {k} columns, more than the {m} states")
     B = eps.shape[0] if eps is not None else (spec.batch or 1)
     dt, dev = spec.y.dtype, spec.y.device
-    eps, us = _draws("bsf_filter", B, n + 1, nsim, m, dt, dev, generator,
-                     eps, us)
+    eps, us = _draws(name, B, n + 1, nsim, m, dt, dev, generator, eps, us)
     N = eps.shape[2]
     y = with_batch(spec.y, 1)
-    u = with_batch(spec.u, 1)
-    Z = with_batch(spec.Z, 2)
-    D = with_batch(spec.D, 1).to(dt)
     T, R, C = with_batch(spec.T, 3), with_batch(spec.R, 3), \
         with_batch(spec.C, 2)
-    phi = _col(spec.phi)
     tr = lambda A: A.transpose(-1, -2)                       # noqa: E731
 
     def weigh(alpha, t):
-        y_t = y[:, t, None]
-        lw = fam.log_obs_density(spec.distribution, y_t, u[:, t, None], phi,
-                                 _signal(spec, alpha, Z, D, t))
-        return _weigh(lw, torch.isfinite(y_t))
+        return _weigh(log_dens(alpha, t), torch.isfinite(y[:, t, None]))
 
     alpha = with_batch(spec.a1, 1)[:, None, :] \
         + eps[:, 0] @ tr(psd_chol(with_batch(spec.P1, 2)))
@@ -508,6 +493,58 @@ def bsf_filter(spec: NGSpec, nsim: int,
         alphas.append(alpha)
         nws.append(nw)
         idxs.append(idx)
-    ll = ll + fam.obs_log_const(spec.distribution, y, u, phi)
     return PFResult(ll, torch.stack(alphas, dim=2), torch.stack(nws, dim=2),
                     torch.stack(idxs, dim=2))
+
+
+def bsf_filter(spec: NGSpec, nsim: int,
+               generator: Optional[torch.Generator] = None,
+               eps: Optional[torch.Tensor] = None,
+               us: Optional[torch.Tensor] = None) -> PFResult:
+    """Bootstrap particle filter of a non-Gaussian model with trajectories:
+    particles start from N(a1, P1), move forwards through the state
+    equation and are weighted by the observation density, resampling before
+    every step; the last step predicts alpha_n beyond the data (uniform
+    weights).  Randomness: ``eps (B, n+1, N, m)`` (``eps[:, 0]`` the
+    initial draws, the first k entries of ``eps[:, s]`` the state
+    disturbances of step s) and ``us (B, n, N)``, or drawn from
+    ``generator``.  ``loglik`` includes the exact observation constants.
+    The trajectories are untraced: ``ancestor_trace(alpha, indices)`` gives
+    the paths."""
+    y = with_batch(spec.y, 1)
+    u = with_batch(spec.u, 1)
+    Z = with_batch(spec.Z, 2)
+    D = with_batch(spec.D, 1).to(spec.y.dtype)
+    phi = _col(spec.phi)
+
+    def log_dens(alpha, t):
+        return fam.log_obs_density(spec.distribution, y[:, t, None],
+                                   u[:, t, None], phi,
+                                   _signal(spec, alpha, Z, D, t))
+
+    pf = _bsf_run("bsf_filter", spec, nsim, generator, eps, us, log_dens)
+    return pf._replace(loglik=pf.loglik + fam.obs_log_const(
+        spec.distribution, y, u, phi))
+
+
+def bsf_filter_lg(spec: LGSpec, nsim: int,
+                  generator: Optional[torch.Generator] = None,
+                  eps: Optional[torch.Tensor] = None,
+                  us: Optional[torch.Tensor] = None) -> PFResult:
+    """``bsf_filter`` of a linear-Gaussian model, weighted by the Gaussian
+    observation density N(D_t + Z_t' alpha_t, H_t^2): the JAX package's
+    ``bsf_filter_lg``, a Monte-Carlo check of the Kalman filter.  The
+    same randomness, outputs and order."""
+    y = with_batch(spec.y, 1)
+    Z = with_batch(spec.Z, 2)
+    D = with_batch(spec.D, 1).to(spec.y.dtype)
+    HH = with_batch(spec.HH, 1)
+
+    def log_dens(alpha, t):
+        mu = at_t(D, t)[:, None] + (alpha * at_t(Z, t)[:, None, :]).sum(-1)
+        return -0.5 * torch.square(y[:, t, None] - mu) / at_t(HH, t)[:, None]
+
+    pf = _bsf_run("bsf_filter_lg", spec, nsim, generator, eps, us, log_dens)
+    const = -0.5 * (math.log(2.0 * math.pi) + torch.log(HH))
+    const = torch.where(torch.isfinite(y), const, torch.zeros_like(const))
+    return pf._replace(loglik=pf.loglik + const.expand(-1, spec.n).sum(-1))

@@ -65,7 +65,14 @@ What it does, in order:
    ``log_likelihood`` on three layouts of the same leaves (as built, expand
    views of stride 0, per-row copies with non-contiguous cores) against the
    plain versions, timed at B = 4096;
-6. drives fifteen paths through the public entry points and gates each
+6. holds the kernels against their plain versions at shapes the steps
+   above never gave them (``sv_checks``): K1, K2 and K3 on the SV family
+   at n = 945, m = 1, float32 at 8192 rows (timed) and 2048 (K1), float64
+   at 256, both ``svm`` types; K4 (N = 64, period 4) there, float32 fed the
+   plain version's ancestors (every row), float64 against the plain
+   version, and timed at 8192 rows; K1-K3 with T, R, a1, P1 and C per row
+   (``ar1_ng`` negative binomial, 1024 rows, both dtypes);
+7. drives nineteen paths through the public entry points and gates each
    (finite values, acceptance rate, ESS_IS fraction where there are
    weights, the path's kernels launched by that very run, and no plain
    route taken on the card, ``cuda_kalman.PLAIN_ROUTES``):
@@ -97,10 +104,26 @@ What it does, in order:
    (m = 12, 256 chains) and ``gaussian`` summary output on a level + slope
    + seasonal(12) ``bsm_lg`` (m = 13, 1024 chains): they must take the
    plain versions on the card (plain routes > 0) and launch no kernel;
-7. prints one JSON object per line: ``card``, ``checks``, ``step_checks``,
-   ``big_checks``, ``lg_checks``, one ``path`` line each (``main_path`` for
-   ``psi_N10``), ``kernels``, the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+   and the other univariate models: ``svm_is2_N64`` (``svm`` "sigma" type
+   on a simulated series of the exchange data's length, n = 945, is2/psi
+   with 64 particles, period 4, 2048 chains, acceptance in [0.10, 0.65]
+   and ESS_IS >= 0.9, the JAX package's zoo window and floor),
+   ``ar1_ng_negbin_pm_N10`` (pseudo-marginal psi, 10 particles, 1024
+   chains, [0.10, 0.55]), ``ssm_ung_is2`` (the main path's model through a
+   batched ``update_fn`` and ``prior_fn``, 4096 chains) and
+   ``ssm_ulg_gaussian`` (airquality's local linear trend, H and R from
+   ``update_fn``, 4096 chains), all on the kernels (no plain route);
+8. the ``diagnostics`` phase on ``psi_N10``'s output (4096 chains x 500
+   draws): ``summary`` and ``check_diagnostics`` timed and finite, the
+   summary's means equal to the weighted means computed on the card to
+   1e-6, the native library built, ``save`` / ``load`` equal in every
+   field, and 100 iterations resumed from ``last_theta`` and ``S`` that
+   start inside the posterior's range;
+9. prints one JSON object per line: ``card``, ``checks``, ``step_checks``,
+   ``big_checks``, ``lg_checks``, ``sv_checks``, one ``path`` line each
+   (``main_path`` for ``psi_N10``), ``diagnostics``, ``kernels``, the
+   card's name and power limit, and last ``{"ok": true, "device":
+   {...}}``.
 
 ``--ab DIR`` runs only the one-card A/B of this package against an earlier
 one checked out in DIR (``git archive <rev> | tar -x -C DIR``): four
@@ -511,6 +534,94 @@ def seasonal_models(bt, dtype, device="cuda"):
     return ng, lg
 
 
+def sv_series(n: int = 945, seed: int = 21) -> np.ndarray:
+    """A stochastic-volatility series of the length of bssm's ``exchange``
+    data (n = 945, which the repo does not hold), simulated with numpy at
+    rho 0.98, sd_ar 0.15, sigma 0.6 from a stationary start."""
+    rng = np.random.default_rng(seed)
+    rho, sd_ar, sigma = 0.98, 0.15, 0.6
+    h = np.empty(n)
+    h[0] = rng.normal(0.0, sd_ar / np.sqrt(1.0 - rho ** 2))
+    for t in range(1, n):
+        h[t] = rho * h[t - 1] + sd_ar * rng.normal()
+    return sigma * np.exp(h / 2.0) * rng.normal(size=n)
+
+
+def svm_model(bt, dtype, n: int = 945, **kw):
+    """The JAX package's exchange-rate SV row (benchmarks/zoo_tpu.py:
+    186-206): ``svm`` of the "sigma" type on ``sv_series``, rho
+    uniform(-0.999, 0.999) from 0.98, sd_ar halfnormal(1) from 0.15, sigma
+    halfnormal(2) from 0.6; ``mu`` given instead gives the "mu" type."""
+    third = kw or dict(sigma=bt.halfnormal_prior(0.6, 2.0))
+    return bt.svm(sv_series(n), rho=bt.uniform_prior(0.98, -0.999, 0.999),
+                  sd_ar=bt.halfnormal_prior(0.15, 1.0), dtype=dtype,
+                  device="cuda", **third)
+
+
+def ar1_negbin_model(bt, dtype):
+    """The JAX package's ``ar1_ng(negbin,pm)`` zoo row (benchmarks/
+    zoo_tpu.py:143-148) on the main path's series: rho uniform(-0.999,
+    0.999) from 0.8, sigma halfnormal(1) from 0.3, mu normal(0, 2) from 1,
+    phi halfnormal(5) from 2; n = 153, m = 1, d = 4, and T, R, a1, P1 and
+    C vary over rows."""
+    return bt.ar1_ng(main_path_series(),
+                     rho=bt.uniform_prior(0.8, -0.999, 0.999),
+                     sigma=bt.halfnormal_prior(0.3, 1.0),
+                     mu=bt.normal_prior(1.0, 0.0, 2.0),
+                     phi=bt.halfnormal_prior(2.0, 5.0),
+                     distribution="negative binomial", dtype=dtype,
+                     device="cuda")
+
+
+def ssm_ung_model(bt, dtype):
+    """The main path's model written as ``ssm_ung``: Poisson level + slope,
+    Z = (1, 0), T = [[1, 1], [0, 1]], a1 = 0, P1 = 100 I, theta the log
+    sds, R = diag(exp theta) per row from a batched ``update_fn``, and a
+    batched ``prior_fn`` giving the main path's prior on the log scale:
+    halfnormal(1) on the level sd and halfnormal(0.1) on the slope sd at
+    exp(theta), plus the log-Jacobian theta.  The same posterior as
+    ``psi_N10``'s, through the user functions."""
+    scale = torch.tensor([1.0, 0.1], dtype=dtype, device="cuda")
+
+    def update_fn(theta):
+        return {"R": torch.diag_embed(torch.exp(theta))[:, None]}
+
+    def prior_fn(theta):
+        return (theta - 0.5 * torch.square(torch.exp(theta) / scale)).sum(-1)
+
+    return bt.ssm_ung(main_path_series(), Z=np.array([1.0, 0.0]),
+                      T=np.array([[1.0, 1.0], [0.0, 1.0]]),
+                      R=np.diag([0.1, 0.01]), distribution="poisson",
+                      P1=100.0 * np.eye(2), init_theta=np.log([0.1, 0.01]),
+                      update_fn=update_fn, prior_fn=prior_fn,
+                      theta_names=("log_sd_level", "log_sd_slope"),
+                      dtype=dtype, device="cuda")
+
+
+def ssm_ulg_model(bt, dtype):
+    """airquality Ozone (37 missing) as a local linear trend ``ssm_ulg``:
+    Z = (1, 0), T = [[1, 1], [0, 1]], a1 = 0, P1 = 100 I; theta the log
+    sds (y, level, slope), H = exp theta_1 and R = diag(exp theta_2,
+    exp theta_3) per row from a batched ``update_fn``; ``prior_fn`` gives
+    each sd ``lg_theta``'s gamma(2, 0.01) prior at exp(theta) plus the
+    log-Jacobian.  n = 153, m = 2, d = 3."""
+    def update_fn(theta):
+        return {"H": torch.exp(theta[:, :1]),
+                "R": torch.diag_embed(torch.exp(theta[:, 1:]))[:, None]}
+
+    def prior_fn(theta):
+        return (2.0 * theta - 0.01 * torch.exp(theta)).sum(-1)
+
+    return bt.ssm_ulg(bt.airquality()["Ozone"], Z=np.array([1.0, 0.0]),
+                      H=1.0, T=np.array([[1.0, 1.0], [0.0, 1.0]]),
+                      R=np.eye(2), P1=100.0 * np.eye(2),
+                      init_theta=np.zeros(3), update_fn=update_fn,
+                      prior_fn=prior_fn,
+                      theta_names=("log_sd_y", "log_sd_level",
+                                   "log_sd_slope"),
+                      dtype=dtype, device="cuda")
+
+
 def thetas_around_init(model, B: int, seed: int, spread: float = 0.5):
     dev = model.device
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -524,10 +635,12 @@ def thetas_around_init(model, B: int, seed: int, spread: float = 0.5):
 # ---------------------------------------------------------------------------
 
 def check_kernels(model, B: int, N: int, label: str, timed: bool,
-                  seed: int = 7, k1_only: bool = False) -> dict:
+                  seed: int = 7, k1_only: bool = False,
+                  spread: float = 0.5) -> dict:
     """Runs the three kernels (``k1_only``: laplace_solve alone) and their
-    plain versions on the same inputs on the card; returns errors and (when
-    ``timed``) milliseconds."""
+    plain versions on the same inputs on the card, at B thetas ``spread``
+    around the initial one; returns errors and (when ``timed``)
+    milliseconds."""
     from bssm_tpu_torch.inference import approx as amod
     from bssm_tpu_torch.inference import particle as pmod
     from bssm_tpu_torch.ops import cuda_kalman as ck
@@ -538,7 +651,7 @@ def check_kernels(model, B: int, N: int, label: str, timed: bool,
     strict = f64
     m = model.extra["m"]
     tol = (lambda k: F64_TOL) if f64 else (lambda k: F32_TOL[k])
-    spec = model.build(thetas_around_init(model, B, seed))
+    spec = model.build(thetas_around_init(model, B, seed, spread))
     conv_tol = max(1e-8, 50.0 * float(torch.finfo(dt).eps))
     mode0 = spec.initial_mode
     out = {"label": label, "B": B, "n": spec.n, "m": m, "N": N,
@@ -1441,13 +1554,13 @@ def compare_rows(name: str, got: torch.Tensor, ref: torch.Tensor,
     return res
 
 
-def big_inputs(model, B: int, seed: int):
-    """Spec, approximation and proposal factors of B rows around the
-    initial theta, through the K1 and K2 kernels."""
+def big_inputs(model, B: int, seed: int, spread: float = 0.5):
+    """Spec, approximation and proposal factors of B rows ``spread`` around
+    the initial theta, through the K1 and K2 kernels."""
     from bssm_tpu_torch.inference import approx as amod
     from bssm_tpu_torch.inference.mcmc import _psi_al
     from bssm_tpu_torch.ops import cuda_kalman as ck
-    spec = model.build(thetas_around_init(model, B, seed))
+    spec = model.build(thetas_around_init(model, B, seed, spread))
     al = _psi_al(spec, amod.approximate(spec))
     fac = ck.rts_factors(al.approx.gaussian(spec))
     return spec, al, fac
@@ -1477,13 +1590,14 @@ def compare_big(name: str, got, ref, dt, resamplings: int, N: int,
 
 
 def check_big(model, B: int, N: int, kk: int, label: str, timed: bool,
-              modes=("psi", "bsf"), seed: int = 11) -> dict:
+              modes=("psi", "bsf"), seed: int = 11,
+              spread: float = 0.5) -> dict:
     """The modes of the large-ensemble kernel, stream randomness, against
     their plain versions on the same tensors on the card."""
     from bssm_tpu_torch.inference import particle as pmod
     from bssm_tpu_torch.ops import cuda_kalman as ck
     dt, m = model.dtype, model.extra["m"]
-    spec, al, fac = big_inputs(model, B, seed)
+    spec, al, fac = big_inputs(model, B, seed, spread)
     n = spec.n
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     eps = torch.randn((B, n + 1, N, m), dtype=dt, device="cuda",
@@ -1585,7 +1699,7 @@ def check_philox(model, B: int, N: int, kk: int, label: str,
 
 
 def check_anc(model, B: int, N: int, kk: int, mode: str, label: str,
-              seed: int = 15) -> dict:
+              seed: int = 15, spread: float = 0.5) -> dict:
     """Float32 check of the large-ensemble kernel that holds every row: the
     plain version runs with its own search and returns the ancestors it
     chose; the kernel is fed those ancestors (``anc``, stream mode) on the
@@ -1598,7 +1712,7 @@ def check_anc(model, B: int, N: int, kk: int, mode: str, label: str,
     dt, m = model.dtype, model.extra["m"]
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     if mode == "psi":
-        spec, al, fac = big_inputs(model, B, seed)
+        spec, al, fac = big_inputs(model, B, seed, spread)
         n = spec.n
         eps = torch.randn((B, n + 1, N, m), dtype=dt, device="cuda",
                           generator=gen)
@@ -1837,6 +1951,86 @@ def big_section(bt, m32, m64):
                         "failures": FAILURES})
     return big, big_main, t_big
 
+
+
+# the SV checks move theta this little around the initial one: rho starts
+# at 0.98 and must stay below 1 in every row
+SV_SPREAD = 0.003
+
+
+def sv_big_times(model, B: int, N: int, kk: int) -> dict:
+    """The large-ensemble kernel in psi mode at ``svm_is2_N64``'s
+    correction chunk: Philox mode as the path runs it, the bare kernel,
+    the plain version on the tensors ``philox_fill`` wrote, and the
+    bound."""
+    from bssm_tpu_torch.inference import particle as pmod
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    spec, al, fac = big_inputs(model, B, 19, SV_SPREAD)
+    n, m, dt = spec.n, model.extra["m"], model.dtype
+    key = ck.philox_key(torch.Generator(device="cuda").manual_seed(17),
+                        "cuda")
+
+    def kernel():
+        return ck.psi_big_logw(spec, al, *fac, kk, seed=key, nsim=N)
+
+    r = {"shape": f"B={B} n={n} m={m} N={N} kk={kk} "
+                  f"{str(dt).replace('torch.', '')}",
+         "ms": time_ms(kernel), "bare_ms": bare_ms(kernel,
+                                                   "bssm_particle_big",
+                                                   reps=3)}
+    eps, us = ck.philox_fill(key, B, n + 1, N, m, dt)
+    r["plain_ms"] = time_ms(lambda: pmod.psi_logw_scan(
+        spec, al, eps, us, factors=fac, resample_every=kk), reps=1, warmup=0)
+    r.update(big_bounds(B, n, n, m, N, kk, dt, psi=True))
+    del eps, us
+    torch.cuda.empty_cache()
+    return r
+
+
+def sv_checks(bt) -> dict:
+    """The kernels at shapes the kernel checks above never gave them:
+    - ``svm_is2_N64``'s (the SV family at n = 945, m = 1, T, R, P1 and phi
+      per row): K1, K2 and K3 at the correction's 8192-row chunks (timed)
+      and K1 at phase 1's 2048 rows in float32, K1-K3 at 256 rows in
+      float64, also for the "mu" type (a1 and C per row); K4 (N = 64,
+      period 4) in float32 fed the plain version's ancestors (every row)
+      at 2048 rows, in float64 against the plain version at 256, and timed
+      at 8192;
+    - per-row T, R, a1, P1 and C in K1-K3: ``ar1_ng`` negative binomial on
+      the main path's series at the 1024 rows of ``ar1_ng_negbin_pm_N10``,
+      both dtypes;
+    with the stagings of K1 and K2 the rules pick at those shapes."""
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    sv32, sv64 = svm_model(bt, torch.float32), svm_model(bt, torch.float64)
+    sv_mu = svm_model(bt, torch.float64,
+                      mu=bt.normal_prior(-1.0, 0.0, 2.0))
+    ar32 = ar1_negbin_model(bt, torch.float32)
+    ar64 = ar1_negbin_model(bt, torch.float64)
+    sp = dict(spread=SV_SPREAD)
+    runs = [check_kernels(sv32, 8192, 10, "svm f32 B=8192 n=945",
+                          timed=True, **sp),
+            check_kernels(sv32, 2048, 10, "svm f32 B=2048 n=945",
+                          timed=False, k1_only=True, **sp),
+            check_kernels(sv64, 256, 10, "svm f64 B=256 n=945",
+                          timed=False, **sp),
+            check_kernels(sv_mu, 256, 10, "svm mu f64 B=256 n=945",
+                          timed=False, **sp),
+            check_kernels(ar32, 1024, 10, "ar1_ng negbin f32 B=1024",
+                          timed=False, spread=0.03),
+            check_kernels(ar64, 1024, 10, "ar1_ng negbin f64 B=1024",
+                          timed=False, spread=0.03)]
+    sms = ck._sm_count(0)
+    for r in runs:
+        r["rts_geometry"] = ck.rts_geometry(
+            r["n"], r["m"], 4 if r["dtype"] == "float32" else 8, r["B"],
+            sms)._asdict()
+    big = [check_anc(sv32, 2048, 64, 4, "psi",
+                     "anc svm psi N=64 kk=4 B=2048", **sp),
+           check_big(sv64, 256, 64, 4, "svm f64 psi N=64 kk=4", timed=False,
+                     modes=("psi",), **sp)]
+    torch.cuda.empty_cache()
+    return {"runs": runs, "big": big,
+            "psi_big_times": sv_big_times(sv32, 8192, 64, 4)}
 
 
 AB_SHAPES = (("K5 pm_bsf_N200", "bsf", 1024, 200, 1),
@@ -2512,6 +2706,82 @@ def is_states_check(summary, full) -> dict:
     return res
 
 
+def diagnostics_phase(bt, model, out, run: dict) -> dict:
+    """``summary`` and ``check_diagnostics`` on a path's output, each
+    timed; the summary's means against the weighted means computed on the
+    card from the same arrays; the native library built; ``save`` then
+    ``load`` equal in every field; and a run of 100 iterations resumed from
+    ``last_theta`` and the final ``S`` with ``burnin=0``, whose first draws
+    must lie inside the range of the stored draws (99.9% of the chains)
+    with their mean within 0.1 posterior sd of the posterior mean.
+    ``rhat_rank`` of each parameter is printed, not gated."""
+    import dataclasses
+    from pathlib import Path
+    from bssm_tpu_torch import native
+    from bssm_tpu_torch.inference.mcmc import McmcOutput
+    problems = []
+    t0 = time.time()
+    rows = bt.summary(out, return_se=True)
+    t_summary = time.time() - t0
+    t0 = time.time()
+    text = bt.check_diagnostics(out)
+    t_check = time.time() - t0
+    numbers = [v for r in rows for v in r.values() if not isinstance(v, str)]
+    if not (np.isfinite(numbers).all() and "nan" not in text):
+        problems.append("non-finite summary or diagnostics")
+    d = out.theta.shape[-1]
+    th = torch.as_tensor(out.theta, device="cuda").reshape(-1, d).double()
+    w = torch.as_tensor(out.weights, device="cuda").reshape(-1).double()
+    card = ((w[:, None] * th).sum(0) / w.sum()).cpu().numpy()
+    mean = np.array([r["Mean"] for r in rows])
+    rel = np.abs(mean - card) / np.abs(card)
+    if not (rel <= 1e-6).all():
+        problems.append(f"summary means {mean} against the card's {card}")
+    lib = native.get_lib() is not None
+    if not lib:
+        problems.append("the native library did not build")
+    path = Path(native.__file__).resolve().parent.parent / "_build" \
+        / "chip_smoke_output.npz"
+    t0 = time.time()
+    out.save(str(path))
+    back = McmcOutput.load(str(path))
+    t_save = time.time() - t0
+    path.unlink()
+    for f in dataclasses.fields(out):
+        a, b = getattr(back, f.name), getattr(out, f.name)
+        same = np.array_equal(a, b) if isinstance(b, np.ndarray) else a == b
+        if not same:
+            problems.append(f"save/load changed {f.name}")
+    t0 = time.time()
+    res = bt.run_mcmc(model, iter=100, burnin=0,
+                      theta_init=back.last_theta(model), S=back.S,
+                      **{**run, "seed": 2})
+    t_resume = time.time() - t0
+    flat = out.flat_theta()
+    first = res.theta[:, 0, :]
+    inside = float(((first >= flat.min(0)) & (first <= flat.max(0)))
+                   .all(-1).mean())
+    drift = np.abs(first.mean(0) - flat.mean(0)) / flat.std(0)
+    if not (np.isfinite(res.theta).all() and np.isfinite(res.weights).all()):
+        problems.append("non-finite resumed run")
+    if not (inside >= 0.999 and (drift < 0.1).all()):
+        problems.append(f"resumed chains start away from the posterior: "
+                        f"inside {inside}, drift {drift}")
+    rows = [{k: v if isinstance(v, str) else float(v) for k, v in r.items()}
+            for r in rows]
+    return {"draws": int(flat.shape[0]), "summary": rows,
+            "summary_s": t_summary, "check_diagnostics": text,
+            "check_diagnostics_s": t_check,
+            "rhat_rank": {name: bt.rhat_rank(out.theta[..., j])
+                          for j, name in enumerate(out.theta_names)},
+            "mean_rel_err_vs_card": rel.tolist(), "native_built": lib,
+            "save_load_s": t_save, "resume_s": t_resume,
+            "resume_first_inside_share": inside,
+            "resume_first_mean_drift_sd": drift.tolist(),
+            "resume_acceptance_rate": res.acceptance_rate,
+            "problems": [f"diagnostics: {p}" for p in problems]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iter", type=int, default=1000,
@@ -2753,6 +3023,14 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    # ---- the SV family at n = 945, per-row systems ------------------------
+    sv = sv_checks(bt)
+    emit("sv_checks", {**sv, "failures": FAILURES})
+    if FAILURES:
+        print(f"chip_smoke: {len(FAILURES)} SV / per-row check(s) failed",
+              file=sys.stderr)
+        return 1
+
     # ---- the paths, each at full width ------------------------------------
     it_full = args.iter
     it_half = max(args.iter // 2, 40)
@@ -2875,6 +3153,37 @@ def main() -> int:
     ng = ng_api_path(bt, ck, m32, proper)
     paths.append(ng)
     problems += ng["problems"]
+    # the other univariate models: svm (exchange-rate length), ar1_ng
+    # pseudo-marginal, and the main path's model and airquality's local
+    # linear trend through user update functions
+    new_runs = [
+        run_path(bt, ck, svm_model(bt, torch.float32), "svm_is2_N64",
+                 "svm sigma type, simulated n=945, m=1, d=3, float32",
+                 CHAINS // 2, it_full,
+                 ("laplace_solve", "rts_factors", "psi_big_logw"),
+                 (0.10, 0.65), 0.9, particles=64, psi_resample_every=4,
+                 **{**is2, "corr_batch": 8192}),
+        run_path(bt, ck, ar1_negbin_model(bt, torch.float32),
+                 "ar1_ng_negbin_pm_N10", "ar1_ng negative binomial, n=153, "
+                 "m=1, d=4, float32", CHAINS // 4, it_half,
+                 ("laplace_solve", "rts_factors", "psi_logw"), (0.10, 0.55),
+                 None, particles=10, mcmc_type="pm", sampling_method="psi"),
+        run_path(bt, ck, ssm_ung_model(bt, torch.float32), "ssm_ung_is2",
+                 "ssm_ung poisson level+slope (the main path's model, R "
+                 "from update_fn), n=153, m=2, d=2, float32", CHAINS,
+                 it_full, ("laplace_solve", "rts_factors", "psi_logw"),
+                 (0.15, 0.35), 0.95, particles=10, **is2),
+        run_path(bt, ck, ssm_ulg_model(bt, torch.float32),
+                 "ssm_ulg_gaussian", "ssm_ulg airquality Ozone local linear "
+                 "trend (H, R from update_fn), n=153, m=2, d=3, float32",
+                 CHAINS, it_full, ("log_likelihood",), (0.15, 0.6), None)]
+    paths += [r for r, _ in new_runs]
+    outs.update({r["path"]: o for r, o in new_runs})
+    problems += [p for r, _ in new_runs for p in r["problems"]]
+    diag = diagnostics_phase(bt, m32, outs["psi_N10"],
+                             dict(output_type="theta", n_chains=CHAINS,
+                                  particles=10, **is2))
+    problems += diag["problems"]
     for r in paths:
         if r["path"].startswith("lg_"):
             r["parity_r05_posterior_mean"] = LG_PARITY
@@ -2920,6 +3229,17 @@ def main() -> int:
         k["bare_ms_B4096"] = c_4k["bare_ms"][name]
         k["plain_ms_B4096"] = c_4k["plain_ms"][name]
         k["bound_ms_B4096"] = b4[name]["bound_ms"]
+    # and at svm_is2_N64's correction chunks: the SV family, n = 945, m = 1
+    sv_k = sv["runs"][0]
+    for k in kernels:
+        name = k["name"]
+        k["shape_sv"] = "svm B=8192 n=945 m=1 N=10 float32"
+        k["ms_sv"] = sv_k["ms"][name]
+        k["bare_ms_sv"] = sv_k["bare_ms"][name]
+        k["plain_ms_sv"] = sv_k["plain_ms"][name]
+        k["bound_ms_sv"] = sv_k["bounds"][name]["bound_ms"]
+        k["bound_by_sv"] = sv_k["bounds"][name]["bound_by"]
+    kernels[0]["laplace_niter_mean_sv"] = sv_k["laplace_niter_mean"]
     for name, line in (("log_likelihood", 386), ("fast_smoother_ll", 487)):
         lb = l_16k["bounds"][name]
         k = {"name": name, "route": "cuda",
@@ -2969,6 +3289,13 @@ def main() -> int:
              "launches": total[name], "launches_by_path": by_path[name],
              "max_abs_err": err, "library_ms": None}
         k.update({key: v for key, v in t.items() if key != "check"})
+        if name == "psi_big_logw":
+            t = sv["psi_big_times"]
+            k.update({"shape_sv": t["shape"], "ms_sv": t["ms"],
+                      "bare_ms_sv": t["bare_ms"],
+                      "plain_ms_sv": t["plain_ms"],
+                      "bound_ms_sv": t["bound_ms"],
+                      "bound_by_sv": t["bound_by"]})
         kernels.append(k)
     for k in kernels:
         if k["launches"] <= 0:
@@ -2977,6 +3304,7 @@ def main() -> int:
     for r in paths:
         r["total_s"] = time.time() - t_start
         emit("main_path" if r["path"] == "psi_N10" else "path", r)
+    emit("diagnostics", diag)
     if args.profile:
         theta = dict(output_type="theta", seed=1)
         for label, model, run in (

@@ -185,15 +185,16 @@ def test_correction_matches_draw_for_draw(stored_modes):
 
 
 def _is_stats(out):
-    """Weighted posterior means of the two sds, their Monte-Carlo standard
-    errors from the spread of the per-chain weighted means, acceptance, and
-    ESS_IS as a fraction."""
+    """Weighted posterior means of the parameters, their Monte-Carlo
+    standard errors from the spread of the per-chain weighted means,
+    acceptance, and ESS_IS as a fraction."""
     w = out.weights
+    d = out.theta.shape[-1]
     means = np.array([[weighted_mean(out.theta[c, :, j], w[c])
-                       for j in range(2)] for c in range(out.theta.shape[0])])
+                       for j in range(d)] for c in range(out.theta.shape[0])])
     fw = out.flat_weights()
     pooled = np.array([weighted_mean(out.flat_theta()[:, j], fw)
-                       for j in range(2)])
+                       for j in range(d)])
     se = means.std(axis=0, ddof=1) / np.sqrt(means.shape[0])
     return pooled, se, out.acceptance_rate, ess_is(fw) / fw.size
 

@@ -4,9 +4,11 @@ particles.
 
 - ``cuda_kalman.kernel_takes`` decides from a spec's shape alone whether a
   kernel takes it: it takes the main model (``bsm_ng`` level + slope),
-  ``bsm_lg`` on airquality and ``ar1_lg``, and declines a period-12
-  seasonal ``bsm_ng`` / ``bsm_lg`` (m = 12, 13), a time-varying Z and, in
-  bootstrap mode only, an R with more columns than states.  The call sites
+  ``bsm_lg`` on airquality, ``ar1_lg`` and an ``ssm_ung`` whose batched
+  update function sets R per row, and declines a period-12 seasonal
+  ``bsm_ng`` / ``bsm_lg`` (m = 12, 13), a time-varying Z (set directly or
+  by an ``ssm_ung``'s update function) and, in bootstrap mode only, an R
+  with more columns than states.  The call sites
   then run the plain versions; ``route`` counts that in ``PLAIN_ROUTES``
   for specs on the card only.
 - The plain route at period 12 (n = 48, float64) against the JAX package on
@@ -117,6 +119,8 @@ def _case(kind):
         spec = spec_of(_seasonal_pair(kind == "lg12")[1])
         assert spec.m == (13 if kind == "lg12" else 12)
         return spec, set()
+    if kind.startswith("ssm_ung"):
+        return _ssm_ung_case(kind.endswith("time-varying"))
     spec = spec_of(_main_model())
     if kind == "time-varying Z":
         return dataclasses.replace(
@@ -126,8 +130,35 @@ def _case(kind):
     return dataclasses.replace(spec, R=R), set(WRAPPERS) - {"bsf_big_logw"}
 
 
+def _ssm_ung_case(varying: bool):
+    """The main model as an ``ssm_ung`` whose batched ``update_fn`` sets R
+    per row and, when ``varying``, also a Z with a time axis of n (the
+    second state's loading a trend): (a batch of three rows, the wrappers
+    whose kernels take it)."""
+    y = _monthly(1)
+    n = y.shape[0]
+    Zt = torch.stack([torch.ones(n), torch.linspace(0.0, 1.0, n)], dim=1)
+
+    def update(th):
+        out = {"R": torch.diag_embed(torch.exp(th))[:, None]}
+        if varying:
+            out["Z"] = Zt.to(th.dtype)
+        return out
+
+    model = bt.ssm_ung(y, Z=np.array([1.0, 0.0]),
+                       T=np.array([[1.0, 1.0], [0.0, 1.0]]),
+                       R=np.diag([0.1, 0.01]), distribution="poisson",
+                       P1=100.0 * np.eye(2), init_theta=np.log([0.1, 0.01]),
+                       update_fn=update, dtype=torch.float64, device="cpu")
+    spec = model.build(torch.as_tensor(_thetas(model, 3, 2)))
+    assert spec.R.shape == (3, 1, 2, 2)
+    assert spec.Z.shape == ((n, 2) if varying else (1, 2))
+    return spec, set() if varying else set(WRAPPERS)
+
+
 @pytest.mark.parametrize("kind", ["main", "aq", "ar1", "ng12", "lg12",
-                                  "time-varying Z", "R wider than m"])
+                                  "time-varying Z", "R wider than m",
+                                  "ssm_ung", "ssm_ung time-varying"])
 def test_kernel_takes_the_served_models_only(kind):
     """The predicate per wrapper; on the CPU ``route`` gives the same
     answer and counts no plain route."""
