@@ -11,12 +11,16 @@ What runs today:
   IS-MCMC (``mcmc_type`` "is1", "is2", "is3") with ``output_type``
   "theta", "summary" or "full", approximate MCMC ("approx", theta or full
   output), pseudo-marginal (``"pm"``) and delayed-acceptance (``"da"``)
-  MCMC with theta output, with the psi-auxiliary particle filter or the
-  bootstrap filter at up to 512 particles; ``post_correct`` and
+  MCMC with theta or full output, with the psi-auxiliary particle filter,
+  the bootstrap filter (any number of particles: kernels up to 512, plain
+  scans above) or SPDK importance sampling, on the local or the global
+  (``local_approx=False``) Gaussian approximation; ``post_correct`` and
   ``suggest_N``; and on one model ``gaussian_approx``, ``logLik``
-  (approximate or particle estimate), ``kfilter``, ``bootstrap_filter``,
-  ``particle_smoother`` and the smoothers through the Gaussian
-  approximation;
+  (approximate, particle or SPDK estimate), ``importance_sample``,
+  ``kfilter``, ``bootstrap_filter``, ``particle_smoother`` and the
+  smoothers through the Gaussian approximation;
+- on a run with state output and a model of the future or the past:
+  ``predict`` and ``fitted`` (univariate models);
 - on the linear-Gaussian ``bsm_lg``, ``ar1_lg`` and ``ssm_ulg``: marginal
   MCMC (``mcmc_type="gaussian"``) with ``output_type`` "theta", "summary"
   or "full", and ``logLik``, ``fast_smoother``, ``smoother``,
@@ -62,13 +66,16 @@ from .inference.approx import (approximate, approx_loglik,       # noqa: E402
 from .inference.smoothers import (fast_smoother, smoother,       # noqa: E402
                                   sim_smoother)
 from .inference.loglik import logLik                             # noqa: E402
+from .inference.importance import (importance_sample,            # noqa: E402
+                                   ImportanceSample)
+from .inference.predict import predict, fitted                   # noqa: E402
 from .inference.filters import (kfilter, bootstrap_filter,       # noqa: E402
                                 particle_smoother)
 from .inference.postcorrect import post_correct, suggest_N       # noqa: E402
 from .inference.particle import (psi_logw, bsf_logw,             # noqa: E402
                                  psi_logw_scan, bsf_logw_scan,
                                  psi_filter, bsf_filter, bsf_filter_lg,
-                                 PFResult)
+                                 spdk_sample, spdk_weights, PFResult)
 from .ops.resample import ancestor_trace                         # noqa: E402
 from .diagnostics.summary import (weighted_mean, weighted_var,   # noqa: E402
                                   ess_is, iact, asymptotic_var,

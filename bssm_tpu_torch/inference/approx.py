@@ -16,6 +16,16 @@ tests convergence after every pass.  ``laplace_solve_plain`` is the plain
 version of both (``ops/cuda_kalman.py``), and what runs, on either device,
 for a model the kernels do not take (``cuda_kalman.kernel_takes``: m > 4,
 a time-varying system); all stop row by row.
+
+The global approximation (``run_mcmc(local_approx=False)``) solves the
+pseudo-observations once, at the model's initial theta
+(``global_approximation``), and then evaluates every proposal with one
+``fast_smoother_ll`` pass of the approximating model they define
+(``global_approx_loglik``).  Its particle filters and SPDK propose from
+the approximation rebuilt at that mode, and ``rebuilt_loglik`` completes
+their log-weight to an estimate of the log-likelihood itself, so that a
+correction or a pseudo-marginal chain weighs against the global
+approximation's likelihood.
 """
 from __future__ import annotations
 
@@ -190,6 +200,60 @@ def approx_loglik(spec: NGSpec, approx: Optional[ApproxResult] = None,
     ct = fam.const_term(spec.distribution, spec.y, spec.u, _col(spec.phi),
                         approx.ytilde, approx.Htilde)
     return ApproxLoglik(approx, sc, gll + ct + sc.sum(-1), gll)
+
+
+class GlobalApprox(NamedTuple):
+    """The frozen pseudo-observations of the global approximation, solved
+    once at a model's initial theta: ``(n,)`` each, shared by every row."""
+    ytilde: torch.Tensor
+    Htilde: torch.Tensor
+
+
+def global_approximation(model, conv_tol: float = CONV_TOL,
+                         max_iter: int = MAX_ITER) -> GlobalApprox:
+    """``(ytilde0, Htilde0)`` of the global approximation: the Laplace
+    approximation of ONE model, built at ``model.theta_init`` (unbatched,
+    as the single-model API builds it, so the solve is
+    ``laplace_solve_steps``).  It is a constant of the run, not a function
+    of theta."""
+    from .filters import spec_of
+    ap = approximate(spec_of(model), conv_tol, max_iter)
+    return GlobalApprox(ap.ytilde[0], ap.Htilde[0])
+
+
+def global_approx_loglik(spec: NGSpec, ga: GlobalApprox):
+    """The global approximation at every row of ``spec``: one fast-smoother
+    pass of the approximating model with the frozen pseudo-observations
+    (``fast_smoother_ll``; y and H shared, the system per row), the mode of
+    its smoothed states, and ``ll = Kalman loglik + const_term +
+    sum of the scales at that mode``.  Returns ``(ll (B,), mode (B, n))``,
+    the JAX package's ``local_approx=False`` evaluation."""
+    # the frozen series as stride-0 views of B rows: the kernel reads them
+    # with batch stride 0, nothing is copied
+    B = spec.batch or 1
+    g = spec.approx_gaussian(ga.ytilde.expand(B, -1), ga.Htilde.expand(B, -1))
+    alpha, gll = cuda_kalman.routed_fast_smoother_ll(g)
+    mode = signal_from_states(spec, alpha[:, :spec.n])
+    sc = fam.scales(spec.distribution, spec.y, spec.u, _col(spec.phi), mode,
+                    ga.ytilde, ga.Htilde)
+    sc = torch.where(spec.obs_mask, sc, torch.zeros_like(sc))
+    ct = fam.const_term(spec.distribution, spec.y, spec.u, _col(spec.phi),
+                        ga.ytilde, ga.Htilde)
+    return gll + ct + sc.sum(-1), mode
+
+
+def rebuilt_loglik(spec: NGSpec, approx: ApproxResult) -> torch.Tensor:
+    """The approximate log-likelihood ``(B,)`` of an approximation rebuilt
+    at a mode (``approximate_for_is``): the Kalman log-likelihood of its
+    approximating model (``log_likelihood``) + const_term + the sum of its
+    scales.  A psi filter or SPDK built on that approximation estimates
+    L(theta) over exp of it, so this plus their log-weight estimates the
+    log-likelihood itself."""
+    sc = mode_scales(spec, approx)
+    ct = fam.const_term(spec.distribution, spec.y, spec.u, _col(spec.phi),
+                        approx.ytilde, approx.Htilde)
+    return (cuda_kalman.routed_log_likelihood(approx.gaussian(spec)) + ct
+            + sc.sum(-1))
 
 
 def gaussian_approx(model_or_spec, conv_tol: float = CONV_TOL,

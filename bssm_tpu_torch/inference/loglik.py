@@ -7,8 +7,9 @@ GPU, its plain version on the CPU and for models the kernel does not take,
 with the kernel wrapper's degenerate-model rule, ``ops/kalman.degenerate_h2rr``,
 on both), whatever ``particles`` is.  A non-Gaussian model's is
 the approximate log-likelihood of its Laplace approximation
-(``particles=0``) or a particle filter's estimate: the psi-auxiliary filter
-(``method="psi"``) or the bootstrap filter (``"bsf"``).
+(``particles=0``) or an importance-sampling estimate: the psi-auxiliary
+filter (``method="psi"``), the bootstrap filter (``"bsf"``) or SPDK draws
+from the approximating model (``"spdk"``, antithetic).
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ def logLik(model_or_spec, particles: int = 0, method: str = "psi",
     ``particles`` is (as in the JAX package), else approximate
     (``particles=0``) or the estimate of a ``particles``-particle filter,
     whose randomness comes from ``generator`` (default: seeded with
-    ``seed``) or ``eps``/``us``."""
+    ``seed``) or, for the particle filters, ``eps``/``us``."""
     spec = spec_of(model_or_spec, theta)
     if not isinstance(spec, NGSpec):
         return cuda_kalman.routed_log_likelihood(spec)
@@ -43,8 +44,10 @@ def logLik(model_or_spec, particles: int = 0, method: str = "psi",
     gen = generator_for(spec, generator, seed)
     if method == "bsf":
         return pf_mod.bsf_filter(spec, particles, gen, eps=eps, us=us).loglik
-    if method != "psi":
-        raise NotImplementedError(f"method={method!r}: 'psi' and 'bsf' are "
-                                  "ported")
+    if method not in ("psi", "spdk"):
+        raise NotImplementedError(f"method={method!r}: 'psi', 'bsf' and "
+                                  "'spdk' are ported")
     al = approx_mod.approx_loglik(spec, conv_tol=conv_tol, max_iter=max_iter)
+    if method == "spdk":
+        return pf_mod.spdk_sample(spec, al, particles, gen).loglik
     return pf_mod.psi_filter(spec, al, particles, gen, eps=eps, us=us).loglik

@@ -12,15 +12,24 @@ and, for non-Gaussian models (``kind == "ng"``):
   approximating Gaussian model per stored theta);
 - ``mcmc_type="is2"``: the same chain followed by an importance-sampling
   correction of each jump-chain head, by the psi-auxiliary particle filter
-  (``sampling_method="psi"``) or the bootstrap filter (``"bsf"``);
+  (``sampling_method="psi"``), the bootstrap filter (``"bsf"``) or SPDK
+  importance sampling from the approximating model (``"spdk"``);
   ``"is1"`` corrects every stored slot and averages each jump-chain
   segment's estimates, ``"is3"`` corrects every slot on its own; all three
   with ``output_type`` "theta", "summary" (weighted posterior mean and
-  covariance of the states) or "full" (one filter trajectory per slot);
-- ``mcmc_type="pm"``: pseudo-marginal Metropolis on a particle-filter
-  estimate of the likelihood (psi or bsf), ``output_type="theta"``;
+  covariance of the states) or "full" (one trajectory per slot);
+- ``mcmc_type="pm"``: pseudo-marginal Metropolis on an importance-sampling
+  estimate of the likelihood (psi, bsf or spdk), ``output_type`` "theta" or
+  "full" (the trajectory drawn with the accepted estimate, kept on
+  rejection);
 - ``mcmc_type="da"``: delayed acceptance, stage 1 on the approximation and
-  stage 2 on the particle-filter estimate, ``output_type="theta"``.
+  stage 2 on that estimate, ``output_type`` "theta" or "full".
+
+The approximation is local (``local_approx=True``, the default: a Laplace
+iteration at every evaluation) or global (frozen pseudo-observations solved
+once at the initial theta, then one ``fast_smoother_ll`` pass a proposal;
+``approx.global_approx_loglik``); ``_approx_evaluator`` is the one
+evaluation phase 1, pm, and da's stage 1 call.
 
 All chains advance together as one batch in a Python loop over iterations:
 every proposal costs one launch of each kernel on its path plus elementwise
@@ -30,10 +39,13 @@ branched around.  Kernels per evaluation (``ops/cuda_kalman.py``):
 for the conditional means of its state draws; ``laplace_solve`` for the
 approximation; ``rts_factors`` and ``psi_logw``
 (up to 32 particles) or ``psi_big_logw`` (up to 512) for the psi filter;
-``bsf_big_logw`` for the bootstrap filter.  Summary and full output of the
-IS correction run the filters with trajectories (``particle.psi_filter`` /
-``bsf_filter``, batched tensor code; the psi factors from ``rts_factors``),
-and the approx full output the simulation smoother (``fast_smoother_ll``).
+``bsf_big_logw`` for the bootstrap filter; above 512 particles the plain
+scans (``particle.psi_logw_scan`` / ``bsf_logw_scan``); ``fast_smoother_ll``
+for the global approximation and for SPDK's simulation smoother.  Summary
+and full output of the IS correction, and full output of pm and da, run
+the filters with trajectories (``particle.psi_filter`` / ``bsf_filter``,
+batched tensor code; the psi factors from ``rts_factors``) or SPDK, and
+the approx full output the simulation smoother (``fast_smoother_ll``).
 A model the kernels do not take (m > 4, a time-varying system: a seasonal
 model with period 12, say) runs the same chains through their plain
 versions on the card (``cuda_kalman.route``).
@@ -69,6 +81,7 @@ from ..ops.simsmooth import simulate_states_single
 from . import approx as approx_mod
 from . import particle as pf_mod
 from .ram import adapt_S
+from .replay import Replay
 
 
 # --------------------------------------------------------------------------
@@ -455,20 +468,64 @@ def _state_summary(model: Model, thetas: torch.Tensor, batch_size: int):
 # phase 1: approximate MCMC
 # --------------------------------------------------------------------------
 
+class Approximation(NamedTuple):
+    """The Gaussian approximation of a run: ``evaluate(spec) ->
+    (approximate loglik (B,), mode (B, n))`` of every row, the counterpart
+    of the JAX package's ``_family_ops(...).approx_eval`` (None for the
+    correction of a stored run, which evaluates nothing), and whether it is
+    the global one."""
+    evaluate: Optional[Callable] = None
+    is_global: bool = False
+
+    def base(self, spec, ar, approx_ll):
+        """What a psi filter's or SPDK's log-weight against ``ar`` (the
+        approximation rebuilt at the mode) adds to, to estimate the
+        log-likelihood: the evaluated ``approx_ll`` when it is ``ar``'s own
+        (local), else ``ar``'s likelihood (global; the JAX package adds the
+        global approximation's instead, which leaves its global estimates
+        relative to another likelihood: ROADMAP, deliberate deviations)."""
+        return approx_mod.rebuilt_loglik(spec, ar) if self.is_global \
+            else approx_ll
+
+    def estimates_loglik(self, sampling_method: str) -> bool:
+        """Whether an IS correction's log-weight estimates the
+        log-likelihood itself, so that ``_is_finish`` subtracts the stored
+        approximate one: bsf always; psi and spdk on the global
+        approximation, where their log-weight adds to ``base``."""
+        return sampling_method == "bsf" or self.is_global
+
+
+def _approx_evaluator(model: Model, conv_tol: float, max_iter: int,
+                      local_approx: bool = True) -> Approximation:
+    """The approximation that phase 1, pm and da's stage 1 evaluate.
+    Local: the Laplace iteration, cold-started from the data-derived mode
+    at every evaluation, so the approximate posterior does not depend on a
+    chain's history.  Global: the pseudo-observations are solved once here,
+    at ``model.theta_init`` (also when a resumed run starts elsewhere), and
+    every evaluation is one smoother pass (``approx.global_approx_loglik``).
+    Either way the filters propose from the approximation rebuilt at the
+    evaluated mode (``approximate_for_is``)."""
+    if local_approx:
+        def evaluate(spec):
+            al = approx_mod.approx_loglik(spec, conv_tol=conv_tol,
+                                          max_iter=max_iter)
+            return al.loglik, al.approx.mode
+        return Approximation(evaluate, False)
+    ga = approx_mod.global_approximation(model, conv_tol, max_iter)
+    return Approximation(
+        lambda spec: approx_mod.global_approx_loglik(spec, ga), True)
+
+
 def _approx_chain(model: Model, n_iter, burnin, thin, target, gamma, end_ram,
-                  conv_tol, max_iter, scan_modes=True):
-    """The phase-1 sampler targeting the Gaussian-approximation posterior.
-    Every evaluation cold-starts the Laplace iteration from the data-derived
-    mode, so the approximate posterior does not depend on the chain's
-    history.  With ``scan_modes`` the converged mode of the current state is
-    carried and stored per slot for the correction; without, the correction
-    recomputes it."""
+                  approx: Approximation, scan_modes=True):
+    """The phase-1 sampler targeting the Gaussian-approximation posterior
+    (``approx.evaluate``).  With ``scan_modes`` the mode of the current
+    state is carried and stored per slot for the correction; without, the
+    correction recomputes it (local only)."""
 
     def logdens(theta):
-        spec = model.build(theta)
-        al = approx_mod.approx_loglik(spec, conv_tol=conv_tol,
-                                      max_iter=max_iter)
-        return al.loglik, al.loglik, al.approx.mode
+        ll, mode = approx.evaluate(model.build(theta))
+        return ll, ll, mode
 
     def chain(generator, theta0, S0):
         final, thetas, lps, lls, accepted, modes, acc_rate = _ram_scan(
@@ -486,10 +543,10 @@ def _approx_chain(model: Model, n_iter, burnin, thin, target, gamma, end_ram,
 # --------------------------------------------------------------------------
 
 def _check_method(model: Model, sampling_method: str) -> None:
-    if sampling_method not in ("psi", "bsf"):
+    if sampling_method not in ("psi", "bsf", "spdk"):
         raise NotImplementedError(
-            f"sampling_method={sampling_method!r}: only 'psi' and 'bsf' are "
-            "ported")
+            f"sampling_method={sampling_method!r}: 'psi', 'bsf' and 'spdk' "
+            "are ported")
     if model.kind != "ng":
         raise NotImplementedError(f"model kind {model.kind!r} is not ported")
 
@@ -503,29 +560,56 @@ def _psi_al(spec, ar):
                                    zero, zero)
 
 
+def _pick_trajectory(traced: torch.Tensor, w: torch.Tensor, generator=None,
+                     u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One trajectory of every row drawn by its weights: ``traced (B, N,
+    n+1, m)``, ``w (B, N)`` (not necessarily normalised); the inverse CDF
+    at a uniform ``u (B,)``, drawn from ``generator`` unless given.
+    Returns ``(B, n+1, m)``."""
+    cw = torch.cumsum(w, dim=-1)
+    if u is None:
+        u = torch.rand(w.shape[0], dtype=w.dtype, device=w.device,
+                       generator=generator)
+    pick = torch.searchsorted(cw, (u * cw[:, -1])[:, None], right=True)
+    pick = torch.clamp(pick, max=w.shape[-1] - 1)
+    return torch.gather(traced, 1, pick[:, :, None, None].expand(
+        -1, 1, *traced.shape[2:]))[:, 0]
+
+
 def _make_correct_rows(model: Model, nsim: int, sampling_method: str,
                        conv_tol: float = 1e-8, max_iter: int = 100,
                        psi_resample_every: int = 1,
                        want_states: bool = False,
-                       want_moments: bool = False):
+                       want_moments: bool = False,
+                       approx: Approximation = Approximation()):
     """The correction of a batch of stored draws (the counterpart of the
-    JAX package's per-draw ``_make_correct_one``).
+    JAX package's per-draw ``_make_correct_one``) of a run on ``approx``.
+    psi and spdk add their log-weight to ``approx.base`` with a zero
+    approximate log-likelihood: on the local approximation that leaves the
+    correction itself, on the global one an estimate of the log-likelihood
+    (``approx.rebuilt_loglik`` plus the log-weight), from which
+    ``_is_finish`` subtracts the stored approximate log-likelihood
+    (``Approximation.estimates_loglik``), as it does for bsf.
 
     ``correct_rows(theta (B, d), modes (B, n) or None, generator, eps=None,
-    us=None) -> dict``.  Without states or moments it returns
-    ``{"log_w": (B,)}`` from the log-weight-only estimators: psi, the
-    psi-APF log-weight (without stored modes the Laplace approximation is
-    recomputed cold, which reproduces phase 1's: it cold starts too); bsf,
-    the bootstrap filter's log-likelihood estimate, from which
-    ``_is_finish`` subtracts the stored approximate log-likelihood (the
-    modes are not used).  ``eps``/``us`` inject the filter's randomness.
+    us=None, states=None, u_pick=None) -> dict``.  Without states or
+    moments it returns ``{"log_w": (B,)}`` from the log-weight-only
+    estimators: psi, the psi-APF log-weight (without stored modes the
+    Laplace approximation is recomputed cold, which reproduces phase 1's:
+    it cold starts too); bsf, the bootstrap filter's log-likelihood
+    estimate, from which ``_is_finish`` subtracts the stored approximate
+    log-likelihood (the modes are not used).  ``eps``/``us`` inject the
+    filter's randomness.  spdk: the log of the mean SPDK weight of ``nsim``
+    simulation-smoother draws (``states (B, N, n+1, m)`` injects the
+    draws), like psi already the correction.
 
     With ``want_states`` / ``want_moments`` the filter keeps its
     trajectories (``psi_filter`` / ``bsf_filter``, resampling at every
-    step) and the dict adds ``alpha (B, n+1, m)``, one trajectory per row
-    drawn from the final weights (by a uniform from ``generator``, after
-    the filter's draws), and ``mean (B, n+1, m)`` / ``Vt (B, n+1, m, m)``,
-    the weighted moments of the row's trajectories."""
+    step; spdk's draws) and the dict adds ``alpha (B, n+1, m)``, one
+    trajectory per row drawn from the final weights (``_pick_trajectory``,
+    by a uniform from ``generator`` after the filter's draws, or
+    ``u_pick``), and ``mean (B, n+1, m)`` / ``Vt (B, n+1, m, m)``, the
+    weighted moments of the row's trajectories."""
     _check_method(model, sampling_method)
     kk = int(psi_resample_every)
 
@@ -534,11 +618,21 @@ def _make_correct_rows(model: Model, nsim: int, sampling_method: str,
             ar = approx_mod.approximate(spec, conv_tol, max_iter)
         else:
             ar = approx_mod.approximate_for_is(spec, modes)
-        return _psi_al(spec, ar)
+        al = _psi_al(spec, ar)
+        return al._replace(loglik=approx.base(spec, ar, al.loglik))
 
-    def correct_rows(theta, modes=None, generator=None, eps=None, us=None):
+    def correct_rows(theta, modes=None, generator=None, eps=None, us=None,
+                     states=None, u_pick=None):
         spec = model.build(theta)
-        if not (want_states or want_moments):
+        if sampling_method == "spdk":
+            al = approximation(spec, modes)
+            if states is None:
+                r = pf_mod.spdk_sample(spec, al, nsim, generator)
+                log_w, traced, w = r.loglik, r.alpha, r.weights
+            else:
+                traced = states
+                log_w, w = pf_mod.spdk_weights(spec, al, states)
+        elif not (want_states or want_moments):
             if sampling_method == "bsf":
                 return {"log_w": pf_mod.bsf_logw(
                     spec, nsim, generator, resample_every=kk, eps=eps,
@@ -546,25 +640,18 @@ def _make_correct_rows(model: Model, nsim: int, sampling_method: str,
             return {"log_w": pf_mod.psi_logw(
                 spec, approximation(spec, modes), nsim, generator, eps=eps,
                 us=us, resample_every=kk)}
-        if sampling_method == "bsf":
+        elif sampling_method == "bsf":
             pf = pf_mod.bsf_filter(spec, nsim, generator, eps=eps, us=us)
-            traced = ancestor_trace(pf.alpha, pf.indices)
+            log_w, traced, w = (pf.loglik, ancestor_trace(pf.alpha,
+                                                          pf.indices),
+                                pf.weights[..., -1])
         else:       # psi_filter returns its trajectories traced
             pf = pf_mod.psi_filter(spec, approximation(spec, modes), nsim,
                                    generator, eps=eps, us=us)
-            traced = pf.alpha
-        w = pf.weights[..., -1]                                   # (B, N)
-        out = {"log_w": pf.loglik}
+            log_w, traced, w = pf.loglik, pf.alpha, pf.weights[..., -1]
+        out = {"log_w": log_w}
         if want_states:
-            cw = torch.cumsum(w, dim=-1)
-            u = torch.rand(w.shape[0], dtype=w.dtype, device=w.device,
-                           generator=generator)
-            pick = torch.searchsorted(cw, (u * cw[:, -1])[:, None],
-                                      right=True)
-            pick = torch.clamp(pick, max=w.shape[-1] - 1)
-            out["alpha"] = torch.gather(
-                traced, 1, pick[:, :, None, None].expand(
-                    -1, 1, *traced.shape[2:]))[:, 0]
+            out["alpha"] = _pick_trajectory(traced, w, generator, u_pick)
         if want_moments:
             sw = w.sum(-1)[:, None, None]
             mean = torch.einsum('bi,bitm->btm', w, traced) / sw
@@ -580,13 +667,14 @@ def _make_correct_rows(model: Model, nsim: int, sampling_method: str,
 def _is_correction_flat(model: Model, thetas, modes, generator, nsim,
                         sampling_method, batch_size, conv_tol=1e-8,
                         max_iter=100, psi_resample_every=1,
-                        want_states=False, want_moments=False):
+                        want_states=False, want_moments=False,
+                        approx: Approximation = Approximation()):
     """IS correction over a flat axis of stored draws, in chunks of
     ``batch_size`` rows.  thetas ``(Ns, d)``; modes ``(Ns, n)`` or None.
     Returns the dict of ``_make_correct_rows`` with leading axis Ns."""
     correct_rows = _make_correct_rows(model, nsim, sampling_method, conv_tol,
                                       max_iter, psi_resample_every,
-                                      want_states, want_moments)
+                                      want_states, want_moments, approx)
     parts = []
     for lo in range(0, thetas.shape[0], batch_size):
         mo = None if modes is None else modes[lo:lo + batch_size]
@@ -598,7 +686,8 @@ def _is_correction_flat(model: Model, thetas, modes, generator, nsim,
 def _is_postprocess(model: Model, thetas, modes, accepted, approx_ll,
                     generator, *, nsim, sampling_method, batch_size,
                     is_type=2, want_states=False, want_moments=False,
-                    conv_tol=1e-8, max_iter=100, psi_resample_every=1):
+                    conv_tol=1e-8, max_iter=100, psi_resample_every=1,
+                    approx: Approximation = Approximation()):
     """The IS correction of a stored approximate run.  thetas ``(C, S, d)``,
     approx_ll ``(C, S)``.
 
@@ -620,9 +709,9 @@ def _is_postprocess(model: Model, thetas, modes, accepted, approx_ll,
     corr = _is_correction_flat(model, th_rows, mo_rows, generator, nsim,
                                sampling_method, batch_size, conv_tol,
                                max_iter, psi_resample_every, want_states,
-                               want_moments)
+                               want_moments, approx)
     return (_is_finish(corr, hmask, (C, Sn), approx_ll, sampling_method,
-                       is_type, generator),
+                       is_type, generator, approx=approx),
             int(th_rows.shape[0]))
 
 
@@ -636,12 +725,15 @@ def _segment_sum(x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
 
 
 def _is_finish(corr, hmask, shape, approx_ll=None, sampling_method="psi",
-               is_type=2, generator=None, gumbel=None):
+               is_type=2, generator=None, gumbel=None,
+               approx: Approximation = Approximation()):
     """Assembly pass: jump-chain fill of is2's head results, is1's segment
     mixture, and the global weighted moments of summary output.
 
-    The bootstrap filter estimates the full likelihood, so its weight is
-    the ratio to the stored approximate likelihood ``approx_ll``.  is1: a
+    Where the correction estimates the full likelihood
+    (``approx.estimates_loglik``: bsf, and psi and spdk after a run on the
+    global approximation), its weight is the ratio to the stored
+    approximate likelihood ``approx_ll``.  is1: a
     segment's log-weight is the log of the mean of its slots' weights; its
     trajectory is one slot's, drawn with probability proportional to the
     weight by the Gumbel-max rule (noise ``gumbel (C S,)``, drawn from
@@ -655,7 +747,7 @@ def _is_finish(corr, hmask, shape, approx_ll=None, sampling_method="psi",
         src = torch.cumsum(hmask.to(torch.int64), 0) - 1  # head ordinal
         corr = {k: v[src] for k, v in corr.items()}
     log_w = corr["log_w"]
-    if sampling_method == "bsf":
+    if approx.estimates_loglik(sampling_method):
         log_w = log_w - approx_ll.reshape(-1)
     ninf = torch.full_like(log_w, -torch.inf)
     log_w = torch.where(torch.isfinite(log_w), log_w, ninf)
@@ -730,41 +822,112 @@ def _approx_state_draws(model: Model, thetas, modes, generator,
 # pseudo-marginal and delayed-acceptance MCMC
 # --------------------------------------------------------------------------
 
+def _psi_states(spec, al, eps, us, u):
+    """psi filter with trajectories on injected draws, and one trajectory
+    picked by the final weights at the uniforms ``u``."""
+    pf = pf_mod.psi_filter(spec, al, eps.shape[2], eps=eps, us=us)
+    return pf.loglik, _pick_trajectory(pf.alpha, pf.weights[..., -1], u=u)
+
+
+def _bsf_states(spec, eps, us, u):
+    """``_psi_states`` of the bootstrap filter (its paths traced)."""
+    pf = pf_mod.bsf_filter(spec, eps.shape[2], eps=eps, us=us)
+    return pf.loglik, _pick_trajectory(ancestor_trace(pf.alpha, pf.indices),
+                                       pf.weights[..., -1], u=u)
+
+
+def _spdk_estimate(spec, al, um, eps, eta, nsim, u):
+    """SPDK's estimate on the simulation smoother's injected normals, and
+    with uniforms ``u`` one of its draws picked by the weights."""
+    r = pf_mod.spdk_sample(spec, al, nsim, um=um, eps=eps, eta=eta)
+    if u is None:
+        return (r.loglik,)
+    return r.loglik, _pick_trajectory(r.alpha, r.weights, u=u)
+
+
+def _eager(fn, spec, *args):
+    return fn(spec, *args)
+
+
 def _pf_loglik(model: Model, theta: torch.Tensor, generator, nsim: int,
-               sampling_method: str, conv_tol: float, max_iter: int):
-    """``(ll (C,), approx_ll (C,))`` of every row of ``theta``: the
-    particle-filter estimate of the log-likelihood and the approximation's.
-    bsf: the bootstrap filter's estimate, twice.  psi: the approximate
-    log-likelihood plus the psi-APF log-weight, the filter linearised at the
-    converged mode.  The filters resample at every step."""
+               sampling_method: str, approx: Approximation,
+               need_states: bool = False, replay=None):
+    """``(ll (C,), approx_ll (C,), alpha (C, n+1, m) or None)`` of every row
+    of ``theta``: the importance-sampling estimate of the log-likelihood,
+    the approximation's (``approx.evaluate``), and with ``need_states`` one
+    trajectory drawn by the final weights (``_pick_trajectory``, a uniform
+    from ``generator`` after the filter's draws).  bsf: the bootstrap
+    filter's estimate, twice.  psi: the psi-APF log-weight against the
+    approximation rebuilt at the evaluated mode, plus ``approx.base`` (the
+    approximate log-likelihood, or on the global approximation the rebuilt
+    one's).  spdk: the same with the SPDK weights of ``nsim``
+    simulation-smoother draws.  The filters resample at every step; without
+    states psi and bsf run the log-weight-only kernels, with states
+    ``psi_filter`` / ``bsf_filter``.  The randomness is drawn here, in the
+    order the filters would draw it, and the tensor code with trajectories
+    (and SPDK) goes through ``replay`` (``replay.Replay``: one CUDA graph
+    per shape on the card) when given."""
+    call = replay or _eager
     spec = model.build(theta)
+    n, m = spec.n, spec.m
+    kw = dict(dtype=spec.y.dtype, device=spec.y.device, generator=generator)
+
+    def uniforms(B):
+        return torch.rand((B,), **kw) if need_states else None
+
     if sampling_method == "bsf":
-        ll = pf_mod.bsf_logw(spec, nsim, generator)
-        return ll, ll
-    al = approx_mod.approx_loglik(spec, conv_tol=conv_tol, max_iter=max_iter)
-    ar = approx_mod.approximate_for_is(spec, al.approx.mode)
-    log_corr = pf_mod.psi_logw(spec, _psi_al(spec, ar), nsim, generator)
-    return al.loglik + log_corr, al.loglik
+        if not need_states:
+            ll = pf_mod.bsf_logw(spec, nsim, generator)
+            return ll, ll, None
+        B = spec.batch or 1
+        eps = torch.randn((B, n + 1, nsim, m), **kw)
+        us = torch.rand((B, n, nsim), **kw)
+        ll, alpha = call(_bsf_states, spec, eps, us, uniforms(B))
+        return ll, ll, alpha
+    approx_ll, mode = approx.evaluate(spec)
+    ar = approx_mod.approximate_for_is(spec, mode)
+    al = _psi_al(spec, ar)
+    base = approx.base(spec, ar, approx_ll)
+    B = mode.shape[0]
+    if sampling_method == "spdk":
+        nb = (nsim + 1) // 2
+        um = torch.randn((B, nb, m), **kw)
+        eps = torch.randn((B, nb, n), **kw)
+        eta = torch.randn((B, nb, n, spec.k), **kw)
+        res = call(_spdk_estimate, spec, al, um, eps, eta, nsim,
+                   uniforms(B))
+    elif not need_states:
+        return (base + pf_mod.psi_logw(spec, al, nsim, generator),
+                approx_ll, None)
+    else:
+        eps = torch.randn((B, n + 1, nsim, m), **kw)
+        us = torch.rand((B, n, nsim), **kw)
+        res = call(_psi_states, spec, al, eps, us, uniforms(B))
+    return base + res[0], approx_ll, res[1] if need_states else None
 
 
 def _pm_chain(model: Model, n_iter, burnin, thin, target, gamma, end_ram,
-              nsim, sampling_method, conv_tol, max_iter, pf_generator):
+              nsim, sampling_method, approx, pf_generator,
+              store_states=False):
     """Pseudo-marginal RAM Metropolis: the chain accepts on the noisy
-    particle-filter log-likelihood, whose value at the current state is kept
-    as stored, and adapts on the approximation's (psi) or the same (bsf)."""
+    estimate of the log-likelihood, whose value at the current state is kept
+    as stored, and adapts on the approximation's (psi, spdk) or the same
+    (bsf).  With ``store_states`` the trajectory drawn with the estimate is
+    the chain's aux: kept on rejection, stored per slot."""
     _check_method(model, sampling_method)
 
+    replay = Replay()
+
     def logdens(theta):
-        ll, approx_ll = _pf_loglik(model, theta, pf_generator, nsim,
-                                   sampling_method, conv_tol, max_iter)
-        return ll, approx_ll, None
+        return _pf_loglik(model, theta, pf_generator, nsim, sampling_method,
+                          approx, store_states, replay)
 
     def chain(generator, theta0, S0):
-        final, thetas, lps, lls, accepted, _, acc_rate = _ram_scan(
+        final, thetas, lps, lls, accepted, alphas, acc_rate = _ram_scan(
             logdens, model.log_prior, theta0, S0, generator, n_iter, burnin,
-            thin, target, gamma, end_ram, store_aux=False)
+            thin, target, gamma, end_ram, store_aux=store_states)
         return dict(theta=thetas, prior=lps, ll=lls, accepted=accepted,
-                    S=final.S, acc_rate=acc_rate)
+                    S=final.S, acc_rate=acc_rate, alpha=alphas)
 
     return chain
 
@@ -775,6 +938,7 @@ class DaState(NamedTuple):
     ll: torch.Tensor           # (C,) particle-filter log-likelihood, stored
     ll_approx: torch.Tensor    # (C,) approximate log-likelihood
     S: torch.Tensor            # (C, d, d)
+    alpha: Optional[torch.Tensor] = None   # (C, n+1, m) with state output
 
 
 def _da_step(full_eval: Callable, log_prior: Callable, state: DaState,
@@ -782,7 +946,8 @@ def _da_step(full_eval: Callable, log_prior: Callable, state: DaState,
              i: int, target: float, gamma: float, adapt: bool):
     """One delayed-acceptance iteration of every chain from injected
     randomness: ``u (C, d)`` proposal normals, ``unif1``, ``unif2 (C,)`` the
-    uniforms of the two stages.  ``full_eval(theta) -> (ll, ll_approx)``.
+    uniforms of the two stages.  ``full_eval(theta) -> (ll, ll_approx,
+    alpha or None)``; a state's trajectory changes with its theta.
 
     Stage 1 screens the proposal on the approximation; stage 2 accepts the
     survivors with the ratio of the particle-filter estimate to the
@@ -794,8 +959,8 @@ def _da_step(full_eval: Callable, log_prior: Callable, state: DaState,
     lp_prop = log_prior(prop)
     ok = lp_prop > -torch.inf
     ninf = torch.full_like(lp_prop, -torch.inf)
-    ll_prop, ll_approx_prop = full_eval(torch.where(ok.unsqueeze(-1), prop,
-                                                    state.theta))
+    ll_prop, ll_approx_prop, alpha_prop = full_eval(
+        torch.where(ok.unsqueeze(-1), prop, state.theta))
     ll_prop = torch.where(ok, ll_prop.to(prop.dtype), ninf)
     ll_approx_prop = torch.where(ok, ll_approx_prop.to(prop.dtype), ninf)
     acc_prob = torch.where(
@@ -806,52 +971,64 @@ def _da_step(full_eval: Callable, log_prior: Callable, state: DaState,
     log_alpha = ll_prop + state.ll_approx - state.ll - ll_approx_prop
     accept = pass1 & (torch.log(unif2) < log_alpha)
     S = adapt_S(state.S, u, acc_prob, target, i, gamma) if adapt else state.S
+    alpha = state.alpha
+    if alpha is not None:
+        alpha = torch.where(accept[:, None, None], alpha_prop, alpha)
     new = DaState(
         theta=torch.where(accept.unsqueeze(-1), prop, state.theta),
         lp_prior=torch.where(accept, lp_prop, state.lp_prior),
         ll=torch.where(accept, ll_prop, state.ll),
-        ll_approx=torch.where(accept, ll_approx_prop, state.ll_approx), S=S)
+        ll_approx=torch.where(accept, ll_approx_prop, state.ll_approx), S=S,
+        alpha=alpha)
     return new, accept
 
 
 def _da_init(model: Model, theta0, S0, pf_generator, nsim: int,
-             sampling_method: str, conv_tol: float, max_iter: int) -> DaState:
+             sampling_method: str, approx: Approximation,
+             store_states: bool = False, replay=None) -> DaState:
     """The initial state of delayed acceptance.  As in the JAX package,
     ``ll_approx`` starts at the second value of ``_pf_loglik``: the
-    approximation's log-likelihood for psi, the bootstrap estimate itself
-    for bsf (which changes only the first stage-1 ratio)."""
+    approximation's log-likelihood for psi and spdk, the bootstrap estimate
+    itself for bsf (which changes only the first stage-1 ratio)."""
     dt = theta0.dtype
-    ll0, all0 = _pf_loglik(model, theta0, pf_generator, nsim,
-                           sampling_method, conv_tol, max_iter)
+    ll0, all0, alpha0 = _pf_loglik(model, theta0, pf_generator, nsim,
+                                   sampling_method, approx, store_states,
+                                   replay)
     return DaState(theta0, model.log_prior(theta0), ll0.to(dt), all0.to(dt),
-                   S0)
+                   S0, alpha0)
 
 
 def _da_chain(model: Model, n_iter, burnin, thin, target, gamma, end_ram,
-              nsim, sampling_method, conv_tol, max_iter, pf_generator):
+              nsim, sampling_method, approx, pf_generator,
+              store_states=False):
     """Delayed-acceptance RAM Metropolis, all chains batched; stores the
-    post-burn-in slots like ``_ram_scan``."""
+    post-burn-in slots like ``_ram_scan``, with ``store_states`` also the
+    current trajectory ``(C, S, n+1, m)``."""
     _check_method(model, sampling_method)
+    replay = Replay()
 
     def full_eval(theta):
-        ll, approx_ll = _pf_loglik(model, theta, pf_generator, nsim,
-                                   sampling_method, conv_tol, max_iter)
+        ll, approx_ll, alpha = _pf_loglik(model, theta, pf_generator, nsim,
+                                          sampling_method, approx,
+                                          store_states, replay)
         if sampling_method == "bsf":        # stage 1 needs the approximation
-            approx_ll = approx_mod.approx_loglik(
-                model.build(theta), conv_tol=conv_tol,
-                max_iter=max_iter).loglik
-        return ll, approx_ll
+            approx_ll = approx.evaluate(model.build(theta))[0]
+        return ll, approx_ll, alpha
 
     def chain(generator, theta0, S0):
         C, d = theta0.shape
         dt, dev = theta0.dtype, theta0.device
         state = _da_init(model, theta0, S0, pf_generator, nsim,
-                         sampling_method, conv_tol, max_iter)
+                         sampling_method, approx, store_states, replay)
         Sn = len(range(burnin, n_iter, thin))
         thetas = torch.empty((C, Sn, d), dtype=dt, device=dev)
         lps = torch.empty((C, Sn), dtype=dt, device=dev)
         lls = torch.empty((C, Sn), dtype=dt, device=dev)
         accs = torch.empty((C, Sn), dtype=torch.bool, device=dev)
+        alphas = None
+        if store_states:
+            alphas = torch.empty((C, Sn) + tuple(state.alpha.shape[1:]),
+                                 dtype=dt, device=dev)
         n_acc = torch.zeros(C, dtype=dt, device=dev)
         k = 0
         for i in range(1, n_iter + 1):
@@ -871,9 +1048,12 @@ def _da_chain(model: Model, n_iter, burnin, thin, target, gamma, end_ram,
                     lps[:, k] = state.lp_prior
                     lls[:, k] = state.ll
                     accs[:, k] = accept
+                    if store_states:
+                        alphas[:, k] = state.alpha
                     k += 1
         return dict(theta=thetas, prior=lps, ll=lls, accepted=accs,
-                    S=state.S, acc_rate=n_acc / max(n_iter - burnin, 1))
+                    S=state.S, acc_rate=n_acc / max(n_iter - burnin, 1),
+                    alpha=alphas)
 
     return chain
 
@@ -923,7 +1103,7 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
              output_type: str = "theta", n_chains: int = 1, seed: int = 1,
              conv_tol: float = 1e-8, max_iter: int = 100, theta_init=None,
              corr_batch: Optional[int] = None, store_modes: bool = True,
-             psi_resample_every: int = 1,
+             psi_resample_every: int = 1, local_approx: bool = True,
              device=None, dtype: Optional[torch.dtype] = None) -> McmcOutput:
     """Bayesian inference via adaptive MCMC.
 
@@ -931,11 +1111,15 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
     default), output_type "theta" (the default; the JAX package defaults to
     "full"), "summary" (``alphahat``, ``Vt``) or "full" (``alpha``).
     Non-Gaussian models: mcmc_type "is2" (default), "is1", "is3",
-    "approx", "pm" or "da"; sampling_method "psi" (default) or "bsf";
-    output_type "theta" (the default; the JAX package defaults to "full"),
-    for is1/is2/is3 also "summary" (``alphahat``, ``Vt``) or "full"
-    (``alpha``), for approx also "full".  ``particles``: 2 to 512.
-    ``psi_resample_every``: the stratified-resampling period of the
+    "approx", "pm" or "da"; sampling_method "psi" (default), "bsf" or
+    "spdk"; output_type "theta" (the default; the JAX package defaults to
+    "full"), for is1/is2/is3 also "summary" (``alphahat``, ``Vt``) or
+    "full" (``alpha``), for approx, pm and da also "full".  ``particles``:
+    2 or more (kernels up to 512, the plain scans above).
+    ``local_approx=False`` freezes the Gaussian approximation's
+    pseudo-observations at the model's initial theta: one smoother pass a
+    proposal instead of the Laplace iteration; the modes are then always
+    stored.  ``psi_resample_every``: the stratified-resampling period of the
     theta-output correction's particle filter above 32 particles; 1
     (default) resamples at every step, k > 1 at every k-th step only, which
     keeps the likelihood estimate unbiased for a fixed schedule (check
@@ -972,9 +1156,8 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
             raise NotImplementedError(
                 f"mcmc_type={mcmc_type!r}: only 'approx', 'is1', 'is2', "
                 "'is3', 'pm' and 'da' are ported")
-        outputs = {"approx": ("theta", "full"), "pm": ("theta",),
-                   "da": ("theta",)}.get(mcmc_type,
-                                         ("theta", "summary", "full"))
+        outputs = ("theta", "full") if mcmc_type in ("approx", "pm", "da") \
+            else ("theta", "summary", "full")
         if output_type not in outputs:
             raise NotImplementedError(
                 f"output_type={output_type!r}: mcmc_type={mcmc_type!r} "
@@ -984,7 +1167,6 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
             if particles < 2:
                 raise ValueError(
                     "particles >= 2 required for non-approx MCMC")
-            pf_mod._check_particles(particles)
     if int(psi_resample_every) < 1:
         raise ValueError("psi_resample_every must be >= 1")
     if burnin is None:
@@ -1012,19 +1194,24 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
     base = dict(n_iter=iter, burnin=burnin, thin=thin,
                 target=target_acceptance, gamma=gamma,
                 end_ram=end_adaptive_phase)
-    common = dict(base, conv_tol=conv_tol, max_iter=max_iter)
     if mcmc_type == "gaussian":
         chain = _gaussian_chain(model, **base)
-    elif mcmc_type in ("pm", "da"):
+    else:
+        approx = _approx_evaluator(model, conv_tol, max_iter,
+                                   bool(local_approx))
+    if mcmc_type in ("pm", "da"):
         make = _pm_chain if mcmc_type == "pm" else _da_chain
         chain = make(model, nsim=particles, sampling_method=sampling_method,
-                     pf_generator=gen2, **common)
-    else:
-        # the modes are kept when asked, and always for the approx full
-        # output, whose state draws replay them
-        chain = _approx_chain(
-            model, scan_modes=bool(store_modes) or (
-                mcmc_type == "approx" and output_type == "full"), **common)
+                     approx=approx, pf_generator=gen2,
+                     store_states=output_type == "full", **base)
+    elif mcmc_type != "gaussian":
+        # the modes are kept when asked, always for the approx full output,
+        # whose state draws replay them, and always on the global
+        # approximation, which a cold recompute would replace by the local
+        store_modes = bool(store_modes) or not local_approx or (
+            mcmc_type == "approx" and output_type == "full")
+        chain = _approx_chain(model, approx=approx, scan_modes=store_modes,
+                              **base)
     res = chain(gen1, theta0, S0)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -1051,10 +1238,12 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
             alphahat, Vt = _state_summary(model, res["theta"], rows)
             out.alphahat, out.Vt = host(alphahat), host(Vt)
         out.time["states"] = _time.time() - t1
+    if mcmc_type in ("pm", "da") and output_type == "full":
+        out.alpha = host(res["alpha"])
     if mcmc_type == "approx" or mcmc_type.startswith("is"):
         out.approx_loglik = host(res["approx_ll"])
         out.theta_sampled = host(res["theta"])
-        out.local_approx = True
+        out.local_approx = bool(local_approx)
         if store_modes:
             out.modes = host(res["modes"])
     if mcmc_type == "approx" and output_type == "full":
@@ -1072,7 +1261,8 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
             batch_size=int(corr_batch or 256), is_type=int(mcmc_type[-1]),
             want_states=output_type == "full",
             want_moments=output_type == "summary", conv_tol=conv_tol,
-            max_iter=max_iter, psi_resample_every=psi_resample_every)
+            max_iter=max_iter, psi_resample_every=psi_resample_every,
+            approx=approx)
         _store_correction(out, post, res["prior"] + res["approx_ll"], host)
         if device.type == "cuda":
             torch.cuda.synchronize(device)

@@ -25,8 +25,24 @@ particles      psi-APF                 bootstrap filter
 =============  ======================  ==============================
 N <= 32        ``psi_logw``            ``bsf_big_logw``
 32 < N <= 512  ``psi_big_logw``        ``bsf_big_logw``
-N > 512        not ported              not ported
+N > 512        ``psi_logw_scan``       ``bsf_logw_scan``
 =============  ======================  ==============================
+
+The tier is decided by N alone, as in the JAX package, whose keyed scans
+serve N > 512: above ``cuda_kalman.MAX_N_BIG`` the plain recursions run
+over all rows in batched tensor code, drawing each step's uniforms and
+normals from the generator at that step (``_Draws``; the whole ``(B, n+1,
+N, m)`` tensor of a 16384-row chunk at N = 1024 would be 20 GB).  That tier
+is not a plain route of a kernel and ``PLAIN_ROUTES`` does not count it.
+Every filter here carries log-weights between resamplings, where the JAX
+keyed scans carry linear weights that underflow to 0 in the far tail and
+stay dead until the next resampling: a deliberate deviation, equal where
+the weights do not underflow (an informative initial state).
+
+SPDK importance sampling (``spdk_sample``) draws from the approximating
+model's smoothing law by the batched simulation smoother
+(``ops/simsmooth.simulate_states_batched``, the ``fast_smoother_ll``
+kernel) and weighs the draws (``spdk_weights``).
 
 ``psi_logw`` takes its randomness injected as tensors; the large-ensemble
 kernel takes a Philox key drawn from the caller's generator and makes its
@@ -116,18 +132,60 @@ def _ancestors(lnw: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 
 class _AncestorLog:
     """The ancestors a scan used, ``(B, S, N)`` int32: identity at the steps
-    that do not resample.  With ``anc`` given they are read from it instead
-    of searched for (the kernels' check-only input of the same layout)."""
+    that do not resample; kept only when ``keep``.  With ``anc`` given they
+    are read from it instead of searched for (the kernels' check-only input
+    of the same layout)."""
 
-    def __init__(self, anc, B: int, S: int, N: int, dev):
+    def __init__(self, anc, B: int, S: int, N: int, dev, keep: bool):
         self.given = anc
         self.log = torch.arange(N, dtype=torch.int32, device=dev).expand(
-            B, S, N).clone()
+            B, S, N).clone() if keep else None
 
     def pick(self, s: int, search) -> torch.Tensor:
         idx = search() if self.given is None else self.given[:, s - 1].long()
-        self.log[:, s - 1] = idx.to(torch.int32)
+        if self.log is not None:
+            self.log[:, s - 1] = idx.to(torch.int32)
         return idx
+
+
+class _Draws:
+    """The randomness of a plain scan, read one step at a time: step 0's
+    normals, then at every step s >= 1 its uniforms and its normals.  Either
+    slices of injected tensors ``eps (B, S, N, w)`` and ``us (B, S-1, N)``,
+    or fresh draws from ``generator`` made at that step, in that order
+    (``stream_draws`` makes the same stream as tensors).  A scan asks for
+    every step's uniforms, also at steps that do not resample."""
+
+    def __init__(self, eps, us, generator=None, B=None, N=None, w=None,
+                 dt=None, dev=None):
+        self.eps, self.us = eps, us
+        if eps is not None:
+            B, _, N, w = eps.shape
+        self.shape, self.kw = (B, N, w), dict(dtype=dt, device=dev,
+                                             generator=generator)
+
+    def normals(self, s: int) -> torch.Tensor:
+        if self.eps is not None:
+            return self.eps[:, s].contiguous()
+        return torch.randn(self.shape, **self.kw)
+
+    def uniforms(self, s: int) -> torch.Tensor:
+        if self.eps is not None:
+            return self.us[:, s - 1].contiguous()
+        return torch.rand(self.shape[:2], **self.kw)
+
+
+def stream_draws(generator: torch.Generator, B: int, steps: int, N: int,
+                 w: int, dtype, device):
+    """The tensors ``eps (B, steps, N, w)`` and ``us (B, steps-1, N)`` that
+    a plain scan fed ``generator`` draws step by step (``_Draws``)."""
+    d = _Draws(None, None, generator, B, N, w, dtype, device)
+    eps = [d.normals(0)]
+    us = []
+    for s in range(1, steps):
+        us.append(d.uniforms(s))
+        eps.append(d.normals(s))
+    return torch.stack(eps, dim=1), torch.stack(us, dim=1)
 
 
 def _signal(spec: NGSpec, alpha: torch.Tensor, Z, D, t: int) -> torch.Tensor:
@@ -137,13 +195,19 @@ def _signal(spec: NGSpec, alpha: torch.Tensor, Z, D, t: int) -> torch.Tensor:
         + (alpha * at_t(Z, t).unsqueeze(-2)).sum(-1)
 
 
-def psi_logw_scan(spec: NGSpec, al: ApproxLoglik, eps: torch.Tensor,
-                  us: torch.Tensor, factors=None, resample_every: int = 1,
+def psi_logw_scan(spec: NGSpec, al: ApproxLoglik,
+                  eps: Optional[torch.Tensor] = None,
+                  us: Optional[torch.Tensor] = None, factors=None,
+                  resample_every: int = 1,
                   anc: Optional[torch.Tensor] = None,
-                  return_ancestors: bool = False):
-    """Plain version of the ``psi_logw`` and ``psi_big_logw`` kernels: the
-    psi-APF log-weight ``(B,)`` as a Python loop over time with injected
-    randomness ``eps (B, n+1, N, m)`` and ``us (B, n, N)``.  ``factors`` are
+                  return_ancestors: bool = False,
+                  generator: Optional[torch.Generator] = None,
+                  nsim: Optional[int] = None):
+    """Plain version of the ``psi_logw`` and ``psi_big_logw`` kernels, and
+    the tier above 512 particles: the psi-APF log-weight ``(B,)`` as a
+    Python loop over time with injected randomness ``eps (B, n+1, N, m)``
+    and ``us (B, n, N)``, or without them ``nsim`` particles whose draws
+    come from ``generator`` step by step (``_Draws``).  ``factors`` are
     the proposal factors ``(ahat, Lb, Ab)``; computed when absent.  With
     ``resample_every`` = kk > 1 the ensemble is resampled at generation
     steps 1, 1 + kk, ... only (``us`` of the other steps is not read) and
@@ -157,8 +221,10 @@ def psi_logw_scan(spec: NGSpec, al: ApproxLoglik, eps: torch.Tensor,
     steps (the large-ensemble kernel's check-only input);
     ``return_ancestors`` returns ``(logw, ancestors used (B, n, N) int32)``."""
     n = spec.n
-    B, _, N, _ = eps.shape
-    dt = spec.y.dtype
+    dt, dev = spec.y.dtype, spec.y.device
+    draws = _Draws(eps, us, generator, al.approx.mode.shape[0], nsim,
+                   spec.m, dt, dev)
+    B, N, _ = draws.shape
     kk = int(resample_every)
     ahat, Lb, Ab = _factors(spec, al) if factors is None else factors
     y = with_batch(spec.y, 1)
@@ -168,15 +234,16 @@ def psi_logw_scan(spec: NGSpec, al: ApproxLoglik, eps: torch.Tensor,
     phi = _col(spec.phi)
     yt, Ht, scl = al.approx.ytilde, al.approx.Htilde, al.scales
     tr = lambda A: A.transpose(-1, -2)                       # noqa: E731
-    log = _AncestorLog(anc, B, n, N, eps.device)
+    log = _AncestorLog(anc, B, n, N, dev, return_ancestors)
 
-    alpha = ahat[:, n, None, :] + eps[:, 0] @ tr(Lb[:, n])   # no observation
-    nw = torch.full((B, N), 1.0 / N, dtype=dt, device=eps.device)
-    lnw = torch.full((B, N), -math.log(N), dtype=dt, device=eps.device)
-    ll = torch.zeros(B, dtype=dt, device=eps.device)
+    # no observation at alpha_n
+    alpha = ahat[:, n, None, :] + draws.normals(0) @ tr(Lb[:, n])
+    nw = torch.full((B, N), 1.0 / N, dtype=dt, device=dev)
+    lnw = torch.full((B, N), -math.log(N), dtype=dt, device=dev)
+    ll = torch.zeros(B, dtype=dt, device=dev)
     for s in range(1, n + 1):
         t = n - s
-        r = us[:, s - 1]
+        r = draws.uniforms(s)
         if kk == 1:
             anc_s = _pick(alpha, log.pick(
                 s, lambda: stratified_indices_from_uniforms(nw, r)))
@@ -187,7 +254,7 @@ def psi_logw_scan(spec: NGSpec, al: ApproxLoglik, eps: torch.Tensor,
             anc_s = alpha
         alpha = (ahat[:, t, None, :]
                  + (anc_s - ahat[:, t + 1, None, :]) @ tr(Ab[:, t])
-                 + eps[:, s] @ tr(Lb[:, t]))
+                 + draws.normals(s) @ tr(Lb[:, t]))
         sig = _signal(spec, alpha, Z, D, t)
         y_t = y[:, t, None]
         lw = fam.log_weights(spec.distribution, y_t, u[:, t, None], phi, sig,
@@ -203,20 +270,26 @@ def psi_logw_scan(spec: NGSpec, al: ApproxLoglik, eps: torch.Tensor,
     return (ll, log.log) if return_ancestors else ll
 
 
-def bsf_logw_scan(spec: NGSpec, eps: torch.Tensor, us: torch.Tensor,
+def bsf_logw_scan(spec: NGSpec, eps: Optional[torch.Tensor] = None,
+                  us: Optional[torch.Tensor] = None,
                   resample_every: int = 1,
                   anc: Optional[torch.Tensor] = None,
-                  return_ancestors: bool = False):
-    """Plain version of the ``bsf_big_logw`` kernel: the bootstrap-filter
-    log-likelihood ``(B,)`` less the observation constants, as a Python loop
-    over time with injected randomness ``eps (B, n, N, m)`` (``eps[:, 0]``
-    draws the initial ensemble; the state noise is ``R`` zero-padded to m
-    columns times ``eps[:, s]``) and ``us (B, n-1, N)`` (``us[:, s-1]``
-    resamples before step s).  ``anc`` and ``return_ancestors`` as in
+                  return_ancestors: bool = False,
+                  generator: Optional[torch.Generator] = None,
+                  nsim: Optional[int] = None):
+    """Plain version of the ``bsf_big_logw`` kernel, and the tier above 512
+    particles: the bootstrap-filter log-likelihood ``(B,)`` less the
+    observation constants, as a Python loop over time with injected
+    randomness ``eps (B, n, N, m)`` (``eps[:, 0]`` draws the initial
+    ensemble; the state noise is ``R`` zero-padded to m columns times
+    ``eps[:, s]``) and ``us (B, n-1, N)`` (``us[:, s-1]`` resamples before
+    step s), or ``nsim`` particles drawing from ``generator`` step by step
+    (``_Draws``).  ``anc`` and ``return_ancestors`` as in
     ``psi_logw_scan``, ``(B, n-1, N)``."""
     n, m = spec.n, spec.m
-    B, _, N, _ = eps.shape
-    dt = spec.y.dtype
+    dt, dev = spec.y.dtype, spec.y.device
+    draws = _Draws(eps, us, generator, spec.batch or 1, nsim, m, dt, dev)
+    B, N, _ = draws.shape
     kk = int(resample_every)
     y = with_batch(spec.y, 1)
     u = with_batch(spec.u, 1)
@@ -226,7 +299,7 @@ def bsf_logw_scan(spec: NGSpec, eps: torch.Tensor, us: torch.Tensor,
     sysb = cuda_kalman.pack_bootstrap_system(spec, B)
     a1, L1, C, R, T = torch.split(sysb, [m, m * m, m, m * m, m * m], dim=1)
     mat = lambda A: A.reshape(B, m, m).transpose(-1, -2)     # noqa: E731
-    log = _AncestorLog(anc, B, n - 1, N, eps.device)
+    log = _AncestorLog(anc, B, n - 1, N, dev, return_ancestors)
 
     def weigh(alpha, lnw, ll, t):
         y_t = y[:, t, None]
@@ -236,26 +309,17 @@ def bsf_logw_scan(spec: NGSpec, eps: torch.Tensor, us: torch.Tensor,
         inc, lnw = _carry_update(lnw, lw, ok)
         return lnw, ll + torch.where(ok[:, 0], inc, torch.zeros_like(inc))
 
-    alpha = a1[:, None, :] + eps[:, 0] @ mat(L1)
-    lnw = torch.full((B, N), -math.log(N), dtype=dt, device=eps.device)
-    lnw, ll = weigh(alpha, lnw, torch.zeros(B, dtype=dt, device=eps.device),
-                    0)
+    alpha = a1[:, None, :] + draws.normals(0) @ mat(L1)
+    lnw = torch.full((B, N), -math.log(N), dtype=dt, device=dev)
+    lnw, ll = weigh(alpha, lnw, torch.zeros(B, dtype=dt, device=dev), 0)
     for s in range(1, n):
+        r = draws.uniforms(s)
         if (s - 1) % kk == 0:
-            alpha = _pick(alpha, log.pick(
-                s, lambda: _ancestors(lnw, us[:, s - 1])))
+            alpha = _pick(alpha, log.pick(s, lambda: _ancestors(lnw, r)))
             lnw = torch.full_like(lnw, -math.log(N))
-        alpha = C[:, None, :] + alpha @ mat(T) + eps[:, s] @ mat(R)
+        alpha = C[:, None, :] + alpha @ mat(T) + draws.normals(s) @ mat(R)
         lnw, ll = weigh(alpha, lnw, ll, s)
     return (ll, log.log) if return_ancestors else ll
-
-
-def _check_particles(nsim: int) -> None:
-    if nsim > cuda_kalman.MAX_N_BIG:
-        raise NotImplementedError(
-            f"{nsim} particles: the kernels serve at most "
-            f"{cuda_kalman.MAX_N_BIG}; the scan tier for larger ensembles "
-            "is not ported yet.")
 
 
 def _factors(spec: NGSpec, al: ApproxLoglik):
@@ -293,12 +357,17 @@ def psi_logw(spec: NGSpec, al: ApproxLoglik, nsim: int,
     (the injected tensors of one 16384-row chunk at n = 153, N = 256 would
     be gigabytes).  A model the kernels do not take
     (``cuda_kalman.kernel_takes``) runs the plain version,
-    ``psi_logw_scan``, on the same randomness."""
-    _check_particles(nsim)
+    ``psi_logw_scan``, on the same randomness.  Above 512 particles every
+    model runs ``psi_logw_scan`` with its draws made step by step from
+    ``generator`` (or ``eps`` and ``us`` if given)."""
     n, m = spec.n, spec.m
     B = al.approx.mode.shape[0]
     dt, dev = spec.y.dtype, spec.y.device
     ahat, Lb, Ab = _factors(spec, al)
+    if nsim > cuda_kalman.MAX_N_BIG:
+        return al.loglik + psi_logw_scan(
+            spec, al, eps, us, factors=(ahat, Lb, Ab),
+            resample_every=resample_every, generator=generator, nsim=nsim)
     if nsim > cuda_kalman.MAX_N_PSI:
         key = None if eps is not None \
             else cuda_kalman.philox_key(generator, dev)
@@ -327,14 +396,18 @@ def bsf_logw(spec: NGSpec, nsim: int,
              generator: Optional[torch.Generator] = None,
              resample_every: int = 1, eps: Optional[torch.Tensor] = None,
              us: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The bootstrap-filter log-likelihood estimate only, ``(B,)``, with
-    ``nsim`` <= 512 particles: the ``bsf_big_logw`` kernel plus the exact
-    observation constants.  Randomness as in ``psi_logw``'s large-ensemble
-    branch, and a model the kernel does not take likewise runs the plain
-    version, ``bsf_logw_scan``."""
-    _check_particles(nsim)
+    """The bootstrap-filter log-likelihood estimate only, ``(B,)``: up to
+    512 particles the ``bsf_big_logw`` kernel plus the exact observation
+    constants.  Randomness as in ``psi_logw``'s large-ensemble branch, and
+    a model the kernel does not take likewise runs the plain version,
+    ``bsf_logw_scan``, which also serves every model above 512 particles
+    with its draws made step by step, as in ``psi_logw``."""
     const = fam.obs_log_const(spec.distribution, with_batch(spec.y, 1),
                               with_batch(spec.u, 1), _col(spec.phi))
+    if nsim > cuda_kalman.MAX_N_BIG:
+        return const + bsf_logw_scan(spec, eps, us,
+                                     resample_every=resample_every,
+                                     generator=generator, nsim=nsim)
     key = None if eps is not None \
         else cuda_kalman.philox_key(generator, spec.y.device)
     if cuda_kalman.route("bsf_big_logw", spec):
@@ -548,3 +621,57 @@ def bsf_filter_lg(spec: LGSpec, nsim: int,
     const = -0.5 * (math.log(2.0 * math.pi) + torch.log(HH))
     const = torch.where(torch.isfinite(y), const, torch.zeros_like(const))
     return pf._replace(loglik=pf.loglik + const.expand(-1, spec.n).sum(-1))
+
+
+# ---------------------------------------------------------------------------
+# SPDK importance sampling
+# ---------------------------------------------------------------------------
+
+class SPDKResult(NamedTuple):
+    loglik: torch.Tensor    # (B,)
+    alpha: torch.Tensor     # (B, N, n+1, m) simulation-smoother draws
+    weights: torch.Tensor   # (B, N) normalised importance weights
+
+
+def spdk_weights(spec: NGSpec, al: ApproxLoglik, alpha: torch.Tensor):
+    """The Shephard-Pitt / Durbin-Koopman importance weights of draws
+    ``alpha (B, N, n+1, m)`` from the smoothing law of ``al``'s
+    approximating model: ``(loglik (B,), weights (B, N))``, with loglik
+    ``al.loglik`` plus the log of the mean weight.  The signal of the SV
+    family is the first state."""
+    n = spec.n
+    dt = spec.y.dtype
+    if spec.distribution == SVM:
+        sig = alpha[..., :n, 0]
+    else:
+        Z = with_batch(spec.Z, 2)[:, None]                  # (b, 1, nz, m)
+        D = with_batch(spec.D, 1).to(dt)[:, None]           # (b, 1, nd)
+        sig = D + (alpha[..., :n, :] * Z).sum(-1)
+    phi = _col(spec.phi)
+    phi = phi.unsqueeze(-1) if phi.dim() == 2 else phi
+    lw = fam.log_weights(spec.distribution, with_batch(spec.y, 1)[:, None],
+                         with_batch(spec.u, 1)[:, None], phi, sig,
+                         al.approx.ytilde[:, None], al.approx.Htilde[:, None])
+    w = lw.sum(-1) - al.scales.sum(-1)[:, None]
+    mx = w.max(dim=-1, keepdim=True).values
+    we = torch.exp(w - mx)
+    loglik = al.loglik + torch.log(we.mean(-1)) + mx[:, 0]
+    return loglik, we / we.sum(-1, keepdim=True)
+
+
+def spdk_sample(spec: NGSpec, al: ApproxLoglik, nsim: int,
+                generator: Optional[torch.Generator] = None,
+                use_antithetic: bool = True, *,
+                um: Optional[torch.Tensor] = None,
+                eps: Optional[torch.Tensor] = None,
+                eta: Optional[torch.Tensor] = None) -> SPDKResult:
+    """SPDK importance sampling of every row: ``nsim`` draws from the
+    approximating model's smoothing law (``simulate_states_batched``, the
+    ``fast_smoother_ll`` kernel; antithetic by default; ``um``/``eps``/
+    ``eta`` inject its normals) weighed by ``spdk_weights``."""
+    from ..ops.simsmooth import simulate_states_batched
+    alpha = simulate_states_batched(al.approx.gaussian(spec), nsim,
+                                    generator, use_antithetic, um=um,
+                                    eps=eps, eta=eta)
+    ll, w = spdk_weights(spec, al, alpha)
+    return SPDKResult(ll, alpha, w)

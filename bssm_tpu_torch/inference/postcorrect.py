@@ -22,8 +22,9 @@ import numpy as np
 import torch
 
 from ..models.base import Model
-from .mcmc import (McmcOutput, _is_postprocess, _make_correct_rows,
-                   _store_correction, is_correction_generator)
+from .mcmc import (Approximation, McmcOutput, _is_postprocess,
+                   _make_correct_rows, _store_correction,
+                   is_correction_generator)
 from . import approx as approx_mod
 from .filters import spec_of, theta_of
 
@@ -44,7 +45,9 @@ def post_correct(model: Model, output: McmcOutput, particles: int,
     A run stored without its modes is corrected by recomputing the
     approximation cold at each row, which reproduces phase 1's (it cold
     starts too); that holds only for a run on the local approximation, so
-    any other run without modes is refused."""
+    any other run without modes is refused.  A run on the global
+    approximation (``local_approx`` False) is weighed against its stored
+    approximate likelihood (``Approximation.estimates_loglik``)."""
     if output.theta_sampled is None or output.approx_loglik is None:
         raise ValueError("post_correct needs an approximate or IS run of "
                          "the port (theta_sampled and approx_loglik)")
@@ -70,7 +73,8 @@ def post_correct(model: Model, output: McmcOutput, particles: int,
                         device=dev), approx_ll, generator, nsim=particles,
         sampling_method=sampling_method, batch_size=int(corr_batch),
         is_type=int(is_type), want_states=output_type == "full",
-        want_moments=output_type == "summary")
+        want_moments=output_type == "summary",
+        approx=Approximation(is_global=output.local_approx is False))
     out = copy.copy(output)
     out.alpha = out.alphahat = out.Vt = None
     _store_correction(out, post, on_dev(output.prior) + approx_ll,

@@ -126,6 +126,10 @@ LAUNCHES = {"log_likelihood": 0, "fast_smoother_ll": 0, "laplace_solve": 0,
 # plain versions run on the card in place of each wrapper's kernel, for
 # specs outside the kernels' contract (``route``), since the same reset
 PLAIN_ROUTES = {k: 0 for k in LAUNCHES if k != "philox_fill"}
+# kernels run again by replays of a captured CUDA graph
+# (``inference/replay.py``), counted apart from ``LAUNCHES``: a replay
+# issues the graph, not the wrappers
+REPLAYED = {k: 0 for k in LAUNCHES}
 
 # seconds the last build took (None: library was already built or not loaded)
 build_seconds: Optional[float] = None
@@ -134,8 +138,8 @@ _lib = None
 
 
 def reset_launch_counts() -> None:
-    """Sets ``LAUNCHES`` and ``PLAIN_ROUTES`` to 0."""
-    for counts in (LAUNCHES, PLAIN_ROUTES):
+    """Sets ``LAUNCHES``, ``PLAIN_ROUTES`` and ``REPLAYED`` to 0."""
+    for counts in (LAUNCHES, PLAIN_ROUTES, REPLAYED):
         for k in counts:
             counts[k] = 0
 

@@ -13,7 +13,13 @@ launch of the fast-smoother kernel for the whole batch on the GPU, its plain
 version on the CPU and for models the kernel does not take
 (``cuda_kalman.routed_fast_smoother_ll``).  Its moment-identity means equal the classic
 ``kalman.fast_smoother``'s, which the JAX package uses here, up to
-roundoff.
+roundoff.  The JAX package reuses one model's gains across its draws; the
+kernel recomputes them for every series, which gives the same means.
+
+``simulate_states_batched`` draws for a batch of models at once (SPDK
+importance sampling over the stored draws of a correction, or over the
+chains): two smoother launches, one for the B rows' alphahat, one for all
+B x ceil(nsim/2) simulated series.
 """
 from __future__ import annotations
 
@@ -103,3 +109,59 @@ def simulate_states(spec: LGSpec, nsim: int, generator=None,
     if use_antithetic:
         base = torch.cat([base, 2.0 * alphahat - base], dim=0)
     return base[:nsim]
+
+
+def repeat_rows(spec: LGSpec, reps: int) -> LGSpec:
+    """``spec`` with every batched leaf repeated ``reps`` times row by row
+    (row b becomes rows b reps .. b reps + reps - 1); shared leaves stay
+    shared.  The kernels read a leaf with one batch stride, so a per-model
+    system reaches ``reps`` series of one model only as a copy: for m = 2
+    float32 that is at most 72 bytes a series (Z, T, R, a1, P1, C)."""
+    from ..core.spec import CORE_NDIM
+    new = {}
+    for f in LGSpec._fields:
+        x = getattr(spec, f)
+        if x.dim() == CORE_NDIM[f] + 1 and x.shape[0] > 1:
+            new[f] = x.repeat_interleave(reps, dim=0)
+    return spec._replace(**new)
+
+
+def simulate_states_batched(spec: LGSpec, nsim: int, generator=None,
+                            use_antithetic: bool = True, *,
+                            um: Optional[torch.Tensor] = None,
+                            eps: Optional[torch.Tensor] = None,
+                            eta: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """``nsim`` posterior draws of the states of every batch row of
+    ``spec``, ``(B, nsim, n+1, m)``: ``simulate_states`` row by row.  Two
+    smoother calls (``routed_fast_smoother_ll``): the B rows of alphahat,
+    and the B x n_base simulated series, n_base = ceil(nsim/2) with
+    antithetic variates (draw i + n_base is 2 alphahat - draw i), else
+    nsim.  Injected normals: ``um (B, n_base, m)``, ``eps (B, n_base, n)``,
+    ``eta (B, n_base, n, k)``; else drawn from ``generator`` in that
+    order."""
+    B = um.shape[0] if um is not None else (spec.batch or 1)
+    n, m, k = spec.n, spec.m, spec.k
+    n_base = (nsim + 1) // 2 if use_antithetic else nsim
+    if um is None:
+        kw = dict(dtype=spec.y.dtype, device=spec.y.device,
+                  generator=generator)
+        um = torch.randn((B, n_base, m), **kw)
+        eps = torch.randn((B, n_base, n), **kw)
+        eta = torch.randn((B, n_base, n, k), **kw)
+    elif eps is None or eta is None:
+        raise ValueError("give all of um, eps and eta, or none")
+    alphahat, _ = cuda_kalman.routed_fast_smoother_ll(spec)      # (B, n+1, m)
+    rep = repeat_rows(spec, n_base)
+    aplus, ysim = _simulate_prior_and_obs(
+        rep, False, um.reshape(B * n_base, m), eps.reshape(B * n_base, n),
+        eta.reshape(B * n_base, n, k))
+    y = with_batch(spec.y, 1)
+    y = y.repeat_interleave(n_base, dim=0) if y.shape[0] > 1 else y
+    ystar = torch.where(torch.isfinite(y), ysim, y)
+    cond, _ = cuda_kalman.routed_fast_smoother_ll(rep._replace(y=ystar))
+    base = (alphahat[:, None] - cond.reshape(B, n_base, n + 1, m)
+            + aplus.reshape(B, n_base, n + 1, m))
+    if use_antithetic:
+        base = torch.cat([base, 2.0 * alphahat[:, None] - base], dim=1)
+    return base[:, :nsim]

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --ab DIR   # A/B of K2, K3 against the package in DIR
     python3 chip_smoke.py --ab DIR --ab-set big   # the same for K4 / K5
     python3 chip_smoke.py --geometry-sweep   # K4 / K5 launch geometries
+    python3 chip_smoke.py --grid-depth 4000  # the replication grid, deep
 
 What it does, in order:
 
@@ -72,7 +73,7 @@ What it does, in order:
    plain version's ancestors (every row), float64 against the plain
    version, and timed at 8192 rows; K1-K3 with T, R, a1, P1 and C per row
    (``ar1_ng`` negative binomial, 1024 rows, both dtypes);
-7. drives nineteen paths through the public entry points and gates each
+7. drives 24 paths through the public entry points and gates each
    (finite values, acceptance rate, ESS_IS fraction where there are
    weights, the path's kernels launched by that very run, and no plain
    route taken on the card, ``cuda_kalman.PLAIN_ROUTES``):
@@ -113,15 +114,36 @@ What it does, in order:
    batched ``update_fn`` and ``prior_fn``, 4096 chains) and
    ``ssm_ulg_gaussian`` (airquality's local linear trend, H and R from
    ``update_fn``, 4096 chains), all on the kernels (no plain route);
+   and the non-Gaussian MCMC options on the main path's model
+   (``option_paths``): ``psi_N10_global`` (``local_approx=False``: K7
+   once an iteration, K8 for the solve at ``theta_init``, no K1),
+   ``spdk_N10`` (SPDK's phase 2: K7 over the chunk's rows and its 5
+   simulated series a row; ``psi_N10``'s acceptance to the last digit),
+   ``is2_psi_N1024`` (1024 chains, the plain tier above 512 particles, no
+   particle kernel), each with its weighted means within 5 combined SEs of
+   ``psi_N10``'s, and ``pm_psi_full_N10`` / ``da_spdk_full_N10`` (1024
+   chains, state output: rejected slots repeat, every state mean within 6
+   combined SEs of ``is2_full``'s weighted mean; a pm theta-output run of
+   the same size times the chain-time ratio);
 8. the ``diagnostics`` phase on ``psi_N10``'s output (4096 chains x 500
    draws): ``summary`` and ``check_diagnostics`` timed and finite, the
    summary's means equal to the weighted means computed on the card to
    1e-6, the native library built, ``save`` / ``load`` equal in every
    field, and 100 iterations resumed from ``last_theta`` and ``S`` that
-   start inside the posterior's range;
+   start inside the posterior's range; then the phases of the options
+   (``options_section``): ``replications`` (bssm's grid, 24 cells, one
+   ``replication`` line each, every cell held against is2/bsf/local,
+   ``replications_phase``), ``bign_checks``
+   (the plain tier at N = 1024 against K4 / K5 at 512 by the likelihood
+   they estimate; its per-step draws against the injected stream),
+   ``global_checks`` (K7 at the global and SPDK shapes against its plain
+   version, timed; the CUDA-graph replay of pm / da estimates against the
+   eager calls, to the bit) and ``predict_fitted``;
 9. prints one JSON object per line: ``card``, ``checks``, ``step_checks``,
-   ``big_checks``, ``lg_checks``, ``sv_checks``, one ``path`` line each
-   (``main_path`` for ``psi_N10``), ``diagnostics``, ``kernels``, the
+   ``big_checks``, ``lg_checks``, ``sv_checks``, the phases' lines, one
+   ``path`` line each (``main_path`` for ``psi_N10``), ``diagnostics``,
+   ``kernels`` (each kernel's launches by its wrapper, and apart from
+   them ``replayed``, the launches CUDA-graph replays repeated), the
    card's name and power limit, and last ``{"ok": true, "device":
    {...}}``.
 
@@ -1506,15 +1528,21 @@ def check_lg(model, B: int, label: str, timed: bool, degenerate_rows: int = 0,
     return out
 
 
+def read_elems(x: torch.Tensor) -> int:
+    """Elements a kernel reads of ``x`` once each: those along its axes of
+    nonzero stride (a stride-0 axis is one value repeated)."""
+    return int(np.prod([s for s, st in zip(x.shape, x.stride()) if st]))
+
+
 def lg_bounds(spec, B: int, dt) -> dict:
     """Least time of the two linear-Gaussian kernels on this spec: bytes of
-    the y, H^2 and D series as the wrapper hands them over (a shared series
-    once, a batched one B times), the packed system and the outputs;
-    operations B n kf_step_ops(m), plus B n bwd_mean_ops(m) for the
-    smoother."""
+    the y, H and D series the kernels read (a leaf with batch stride 0,
+    shared by every row, once; a batched one B times), the packed system and
+    the outputs; operations B n kf_step_ops(m), plus B n bwd_mean_ops(m) for
+    the smoother."""
     it = torch.finfo(dt).bits // 8
     n, m = spec.n, spec.m
-    series = sum(x.numel() for x in (spec.y, spec.HH, spec.D))
+    series = sum(read_elems(x) for x in (spec.y, spec.H, spec.D))
     inputs = series + (3 * m + 3 * m * m) * B
     kf = B * n * kf_step_ops(m)
     return {"log_likelihood": roofline(it * (inputs + B), kf),
@@ -2485,6 +2513,7 @@ def run_path(bt, ck, model, label: str, desc: str, chains: int, iters: int,
     elapsed = time.time() - t0
     launches = dict(ck.LAUNCHES)
     plain_routes = dict(ck.PLAIN_ROUTES)
+    replayed = dict(ck.REPLAYED)
 
     d = out.theta.shape[-1]
     w = out.flat_weights()
@@ -2505,6 +2534,7 @@ def run_path(bt, ck, model, label: str, desc: str, chains: int, iters: int,
            "posterior_mean_sd": [float(bt.weighted_mean(sd[:, j], w))
                                  for j in range(d)],
            "launches": launches, "plain_routes": plain_routes,
+           "replayed": replayed,
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     problems = []
     for k in plain:
@@ -2782,6 +2812,694 @@ def diagnostics_phase(bt, model, out, run: dict) -> dict:
             "problems": [f"diagnostics: {p}" for p in problems]}
 
 
+# ---------------------------------------------------------------------------
+# the non-Gaussian MCMC options, predict / fitted and their phases
+# ---------------------------------------------------------------------------
+
+def flat_stats(out) -> dict:
+    """Per parameter over the flat draws, as the JAX package's
+    ``benchmarks/replications.py`` takes them: the weighted mean, its
+    standard error from ``asymptotic_var`` and the ESS of
+    ``estimate_ess`` (weighted variance over that asymptotic variance),
+    one autocorrelation estimate each."""
+    from bssm_tpu_torch.diagnostics.summary import (asymptotic_var,
+                                                    weighted_var)
+    w = out.flat_weights().astype(np.float64)
+    res = {}
+    for j, name in enumerate(out.theta_names):
+        th = out.flat_theta()[:, j].astype(np.float64)
+        av = max(asymptotic_var(th, w), 0.0)
+        res[name] = {"mean": float(np.sum(w * th) / np.sum(w)),
+                     "se": float(np.sqrt(av)),
+                     "ess": float(weighted_var(th, w) / av) if av > 0
+                     else float(th.size)}
+    return res
+
+
+def means_agree(stats: dict, ref: dict, k: float = 5.0) -> dict:
+    """Each parameter's weighted mean within ``k`` combined standard errors
+    of the reference run's (both ``flat_stats``)."""
+    res = {}
+    for name, r in ref.items():
+        m1, s1 = stats[name]["mean"], stats[name]["se"]
+        z = abs(m1 - r["mean"]) / max(np.hypot(s1, r["se"]), 1e-30)
+        res[name] = {"mean": m1, "se": s1, "ref_mean": r["mean"],
+                     "ref_se": r["se"], "z": z}
+    res["ok"] = all(v["z"] < k for v in res.values())
+    return res
+
+
+def pm_states_check(out, ref) -> dict:
+    """A pm / da run's state draws against ``is2_full``'s (another chain on
+    the same model): at every (t, j) the mean of the draws within 6 sqrt(Vt
+    (1 / ESS_pm + 1 / ESS_is2)) of is2_full's weighted mean.  Vt: is2_full's
+    weighted variance of the draws; ESS_pm: batch means with the chains as
+    batches (the chains are independent), chains x the variance of all
+    draws over the variance of the chain means, per (t, j); ESS_is2:
+    ``segment_ess`` of is2_full (its independent trajectories, as
+    is1_summary's gate)."""
+    a = out.alpha.astype(np.float64)                      # (C, S, n+1, m)
+    r = ref.alpha.reshape((-1,) + ref.alpha.shape[2:])
+    w = ref.weights.reshape(-1).astype(np.float64)
+    mean_r = np.einsum('s,stm->tm', w, r, dtype=np.float64) / w.sum()
+    var_r = np.einsum('s,stm->tm', w, np.square(r - mean_r, dtype=np.float64),
+                      dtype=np.float64) / w.sum()
+    flat = a.reshape((-1,) + a.shape[2:])
+    ess_pm = a.shape[0] * flat.var(0) / a.mean(1).var(0)
+    ess_is2 = segment_ess(ref)
+    z = np.abs(flat.mean(0) - mean_r) / np.sqrt(var_r * (1.0 / ess_pm
+                                                         + 1.0 / ess_is2))
+    return {"max_z": float(z.max()), "mean_z": float(z.mean()),
+            "min_ess_pm": float(ess_pm.min()),
+            "median_ess_pm": float(np.median(ess_pm)), "ess_is2": ess_is2,
+            "ok": bool(np.isfinite(z).all() and z.max() < 6.0)}
+
+
+def repeats_rejected(out) -> bool:
+    """Every slot whose proposal was rejected holds the previous slot's
+    trajectory."""
+    rej = ~out.accepted[:, 1:]
+    return bool(rej.any() and np.array_equal(out.alpha[:, 1:][rej],
+                                             out.alpha[:, :-1][rej]))
+
+
+def option_paths(bt, ck, m32, outs, it_full: int, it_half: int,
+                 lvl_slope: str, is2: dict):
+    """The paths of the non-Gaussian MCMC options on the main path's model:
+    the global approximation (``psi_N10_global``), SPDK (``spdk_N10``), the
+    plain particle tier above 512 (``is2_psi_N1024``) and the state output
+    of pm and da (``pm_psi_full_N10``, ``da_spdk_full_N10``), each with its
+    own gates beside ``run_path``'s.  ``outs`` holds ``psi_N10``'s and
+    ``is2_full``'s outputs, the references.  Returns the path objects and
+    outputs; also times a pm/psi run with theta output, the chain-time
+    reference of the state output."""
+    runs = [
+        run_path(bt, ck, m32, "psi_N10_global", lvl_slope, CHAINS, it_full,
+                 ("fast_smoother_ll", "laplace_step", "rts_factors",
+                  "psi_logw"), (0.15, 0.35), 0.5, particles=10,
+                 local_approx=False, **is2),
+        run_path(bt, ck, m32, "spdk_N10", lvl_slope, CHAINS, it_full,
+                 ("laplace_solve", "fast_smoother_ll"), (0.15, 0.35), 0.95,
+                 particles=10, **{**is2, "sampling_method": "spdk"}),
+        run_path(bt, ck, m32, "is2_psi_N1024", lvl_slope, CHAINS // 4,
+                 it_full, ("laplace_solve", "rts_factors"), (0.15, 0.35),
+                 0.99, particles=1024, **{**is2, "corr_batch": 2048}),
+        run_path(bt, ck, m32, "pm_psi_full_N10", lvl_slope, CHAINS // 4,
+                 it_half, ("laplace_solve", "rts_factors"), (0.15, 0.35),
+                 None, particles=10, mcmc_type="pm", sampling_method="psi",
+                 output_type="full"),
+        run_path(bt, ck, m32, "da_spdk_full_N10", lvl_slope, CHAINS // 4,
+                 it_half, ("laplace_solve", "fast_smoother_ll"),
+                 (0.05, 0.35), None, particles=10, mcmc_type="da",
+                 sampling_method="spdk", output_type="full")]
+    res = {r["path"]: r for r, _ in runs}
+    new = {r["path"]: o for r, o in runs}
+    ref = flat_stats(outs["psi_N10"])
+    for label in ("psi_N10_global", "spdk_N10", "is2_psi_N1024"):
+        agree = means_agree(flat_stats(new[label]), ref)
+        res[label]["means_vs_psi_N10"] = agree
+        if not agree["ok"]:
+            res[label]["problems"].append(
+                f"{label}: means disagree with psi_N10's {agree}")
+    g = res["psi_N10_global"]
+    if g["launches"]["fast_smoother_ll"] < it_full or \
+            g["launches"]["laplace_solve"] != 0:
+        g["problems"].append(f"psi_N10_global: launches {g['launches']}")
+    s = res["spdk_N10"]
+    if s["acceptance_rate"] != outs["psi_N10"].acceptance_rate:
+        s["problems"].append("spdk_N10: acceptance differs from psi_N10's")
+    b = res["is2_psi_N1024"]
+    if b["launches"]["psi_big_logw"] or b["launches"]["psi_logw"]:
+        b["problems"].append(f"is2_psi_N1024: a particle kernel launched "
+                             f"above 512 particles {b['launches']}")
+    # the pm chain with theta output on the same model and size: the
+    # reference of the state output's chain time
+    torch.cuda.synchronize()
+    t0 = time.time()
+    bt.run_mcmc(m32, iter=it_half, particles=10, mcmc_type="pm",
+                sampling_method="psi", n_chains=CHAINS // 4, seed=1)
+    torch.cuda.synchronize()
+    theta_s = time.time() - t0
+    for label in ("pm_psi_full_N10", "da_spdk_full_N10"):
+        out, r = new[label], res[label]
+        shape_ok = out.alpha is not None and out.alpha.shape == (
+            CHAINS // 4, it_half - it_half // 2, m32.extra["n"] + 1, 2)
+        st = pm_states_check(out, outs["is2_full"]) if shape_ok else {}
+        r["states_check"] = st
+        r["rejected_slots_repeat"] = shape_ok and repeats_rejected(out)
+        if not (shape_ok and r["rejected_slots_repeat"] and st["ok"]):
+            shape = None if out.alpha is None else out.alpha.shape
+            r["problems"].append(f"{label}: state output {st}, shape "
+                                 f"{shape}")
+    res["pm_psi_full_N10"]["theta_output_elapsed_s"] = theta_s
+    res["pm_psi_full_N10"]["chain_time_ratio_full_over_theta"] = \
+        res["pm_psi_full_N10"]["elapsed_s"] / theta_s
+    return [r for r, _ in runs], new
+
+
+# bssm's poisson_series is not in the repository: a series simulated in its
+# manner (a log-scale local linear trend, Poisson counts), from a seed
+REPLICATION_CHAINS = 512
+REPLICATION_ITER = 500          # cut from 1000 to keep the grid in budget
+REPLICATION_BASE = [("approx", None, 0),
+                    ("pm", "psi", 10), ("pm", "spdk", 10), ("pm", "bsf", 200),
+                    ("da", "psi", 10), ("da", "spdk", 10), ("da", "bsf", 200),
+                    ("is2", "psi", 10), ("is2", "spdk", 10),
+                    ("is2", "bsf", 200), ("is1", "psi", 10),
+                    ("is3", "psi", 10)]
+
+
+def replication_model(bt, dtype=torch.float32):
+    """The JAX package's replication model (``benchmarks/replications.py``)
+    on a series simulated as bssm's ``poisson_series``: n = 100, slope sd
+    0.01, level sd 0.1 on the log scale, Poisson counts; uniform priors on
+    the sds up to twice the sd of log(max(0.1, y)), P1 = 0.1 I."""
+    rng = np.random.default_rng(321)
+    slope = np.cumsum(np.r_[0.0, rng.normal(0, 0.01, 99)])
+    y = rng.poisson(np.exp(np.cumsum(slope + np.r_[0.0, rng.normal(
+        0, 0.1, 99)]))).astype(float)
+    s = float(np.std(np.log(np.maximum(0.1, y))))
+    return bt.bsm_ng(y, sd_level=bt.uniform_prior(0.115, 0.0, 2 * s),
+                     sd_slope=bt.uniform_prior(0.004, 0.0, 2 * s),
+                     P1=np.eye(2) * 0.1, distribution="poisson",
+                     dtype=dtype, device="cuda")
+
+
+def replications_phase(bt, ck, iters: int = REPLICATION_ITER,
+                       keep=()) -> dict:
+    """The reference's replication grid: {approx, pm, da, is2, is1, is3} x
+    {psi 10, spdk 10, bsf 200} as ``benchmarks/replications.py`` lists it,
+    each on the local and the global approximation, 512 chains x ``iters``,
+    theta output, seed 1.  One JSON line a cell in that script's row format
+    plus its seconds.  Gates: every cell runs; every cell but approx has
+    its weighted means within 5 combined SEs (``flat_stats``) of
+    is2/bsf/local's, whose weights carry no approximation; the IS cells of
+    one approximation share phase 1's acceptance to the last digit; pm/bsf
+    is bit for bit the same on either approximation (the bootstrap filter
+    uses none); acceptance in [0.15, 0.35], bsf cells pm [0.10, 0.45], da
+    [0.03, 0.35]; no plain route.  The outputs of the cells in ``keep``
+    come back under ``outputs``."""
+    model = replication_model(bt)
+    rows, outs, stats, problems = [], {}, {}, []
+    launches = {k: 0 for k in ck.LAUNCHES}
+    replayed = dict(launches)
+    t_phase = time.time()
+    for mt, sm, N in REPLICATION_BASE:
+        for local in (True, False):
+            key = (mt, sm or "-", "local" if local else "global")
+            torch.cuda.synchronize()
+            ck.reset_launch_counts()
+            t0 = time.time()
+            try:
+                out = bt.run_mcmc(model, iter=iters, particles=N,
+                                  mcmc_type=mt, sampling_method=sm, seed=1,
+                                  output_type="theta", local_approx=local,
+                                  n_chains=REPLICATION_CHAINS,
+                                  corr_batch=16384)
+                torch.cuda.synchronize()
+            except Exception as e:        # a cell that raises fails the gate
+                problems.append(f"replications {key}: {e!r}"[:300])
+                continue
+            row = {"mcmc_type": mt, "sampling": sm or "-", "particles": N,
+                   "approx": key[2], "time_s": time.time() - t0,
+                   "acceptance": out.acceptance_rate}
+            stats[key] = flat_stats(out)
+            for name, st in stats[key].items():
+                row[f"mean_{name}"], row[f"se_{name}"] = st["mean"], st["se"]
+                row[f"ess_{name}"] = st["ess"]
+            row["seconds"] = row["time_s"]
+            row["plain_routes"] = dict(ck.PLAIN_ROUTES)
+            for k, v in ck.LAUNCHES.items():
+                launches[k] += v
+                replayed[k] += ck.REPLAYED[k]
+            if any(ck.PLAIN_ROUTES.values()):
+                problems.append(f"replications {key}: plain routes")
+            lo, hi = {"pm": (0.10, 0.45), "da": (0.03, 0.35)}.get(
+                mt, (0.15, 0.35)) if sm == "bsf" else (0.15, 0.35)
+            if not lo <= out.acceptance_rate <= hi:
+                problems.append(f"replications {key}: acceptance "
+                                f"{out.acceptance_rate}")
+            if not np.isfinite(out.posterior).all():
+                problems.append(f"replications {key}: non-finite posterior")
+            emit("replication", row)
+            rows.append(row)
+            outs[key] = out
+    ref = stats.get(("is2", "bsf", "local"))
+    z = {}
+    if ref is not None:
+        for key, st in stats.items():
+            if key[0] == "approx":
+                continue
+            agree = means_agree(st, ref)
+            z["/".join(key)] = {k: v["z"] for k, v in agree.items()
+                                if k != "ok"}
+            if not agree["ok"]:
+                problems.append(f"replications {key}: means disagree with "
+                                f"is2/bsf/local's {agree}")
+    for loc in ("local", "global"):
+        accs = {k: o.acceptance_rate for k, o in outs.items()
+                if k[0].startswith("is") and k[2] == loc}
+        if len(set(accs.values())) > 1:
+            problems.append(f"replications: IS cells on the {loc} "
+                            f"approximation differ in acceptance {accs}")
+    a, b = outs.get(("pm", "bsf", "local")), outs.get(("pm", "bsf",
+                                                       "global"))
+    if a is None or b is None or not np.array_equal(a.theta, b.theta):
+        problems.append("replications: pm/bsf differs between the local "
+                        "and the global approximation")
+    return {"chains": REPLICATION_CHAINS, "iter": iters,
+            "cells": len(rows), "seconds": time.time() - t_phase,
+            "z_vs_is2_bsf_local": z, "launches": launches,
+            "replayed": replayed, "problems": problems,
+            "outputs": {k: outs[k] for k in keep if k in outs}}
+
+
+def global_tails(bt, model, out) -> dict:
+    """Why the global approximation's psi and spdk cells read low in a deep
+    grid.  ``out``: an IS run of the replication model on the global
+    approximation, with its modes (cast to ``model``'s dtype, whose global
+    approximation the fixed thetas use).  Its draws fall into eight bins
+    of sd_slope (quantiles), 512 draws a bin; at each draw, 128
+    replicates of each log-likelihood estimator give the log of the mean of
+    exp(estimate): psi with 10 and 100 particles and spdk with 10 draws on
+    the approximation rebuilt at the stored mode (as the correction builds
+    it), psi 10 on the local approximation, each less bsf 200's, as a mean
+    and SE over the bin's draws.  An unbiased estimator whose relative
+    variance is V reads about V / (2 x 128) low this way: a shortfall that
+    shrinks from 10 to 100 particles is a heavy tail, not a bias.  Then at
+    three fixed thetas the same logs over 16384 replicates."""
+    from bssm_tpu_torch.inference import approx as A
+    from bssm_tpu_torch.inference import mcmc as M
+    from bssm_tpu_torch.inference import particle as P
+    per, reps, fixed_reps = 512, 128, 16384
+    dev = model.device
+    th = torch.as_tensor(out.theta_sampled.reshape(-1, 2),
+                         dtype=model.dtype, device=dev)
+    mo = torch.as_tensor(out.modes.reshape(-1, out.modes.shape[-1]),
+                         dtype=model.dtype, device=dev)
+    slope = np.exp(out.theta_sampled.reshape(-1, 2)[:, 1])
+    q = np.quantile(slope, np.linspace(0, 1, 9))
+    rng = np.random.default_rng(0)
+    sel = np.concatenate([rng.choice(np.nonzero(
+        (slope >= q[i]) & (slope <= q[i + 1]))[0], per, replace=False)
+        for i in range(8)])
+    local = M._approx_evaluator(model, 1e-8, 100, True)
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rebuilt(t, m):
+        spec = model.build(t)
+        ar = A.approximate_for_is(spec, m)
+        return spec, ar, A.rebuilt_loglik(spec, ar)
+
+    def glo_psi(N):
+        def f(t, m):
+            spec, ar, base = rebuilt(t, m)
+            return base + P.psi_logw(spec, M._psi_al(spec, ar), N, gen)
+        return f
+
+    def glo_spdk(t, m):
+        spec, ar, base = rebuilt(t, m)
+        al = M._psi_al(spec, ar)._replace(loglik=base)
+        return P.spdk_sample(spec, al, 10, gen).loglik
+
+    def loc_psi(t, m):
+        spec = model.build(t)
+        ll, mode = local.evaluate(spec)
+        ar = A.approximate_for_is(spec, mode)
+        return ll + P.psi_logw(spec, M._psi_al(spec, ar), 10, gen)
+
+    def bsf(t, m):
+        return P.bsf_logw(model.build(t), 200, gen)
+
+    def log_mean_exp(v):                       # (rows, reps) -> (rows,)
+        v = v.double()
+        mx = v.max(-1, keepdim=True).values
+        return torch.log(torch.exp(v - mx).mean(-1)) + mx[..., 0]
+
+    fns = {"glo_psi10": glo_psi(10), "glo_psi100": glo_psi(100),
+           "glo_spdk10": glo_spdk, "loc_psi10": loc_psi, "bsf200": bsf}
+    step = max(1, 16384 // reps)
+    per_draw = {}
+    for name, fn in fns.items():
+        parts = []
+        for lo in range(0, sel.size, step):
+            rows = torch.as_tensor(sel[lo:lo + step],
+                                   device=dev).repeat_interleave(reps)
+            parts.append(log_mean_exp(fn(th[rows], mo[rows]).reshape(
+                -1, reps)))
+        per_draw[name] = torch.cat(parts).cpu().numpy()
+    bins = np.repeat(np.arange(8), per)
+    res = {"draws_per_bin": per, "reps": reps,
+           "sd_slope_bin_edges": q.tolist(),
+           "sd_level_bin_means": [float(np.exp(out.theta_sampled.reshape(
+               -1, 2)[sel[bins == i], 0]).mean()) for i in range(8)]}
+    for name in fns:
+        if name != "bsf200":
+            d = per_draw[name] - per_draw["bsf200"]
+            res[f"{name}_less_bsf200"] = [
+                [float(d[bins == i].mean()),
+                 float(d[bins == i].std() / np.sqrt(per))]
+                for i in range(8)]
+    fixed = {}
+    for sd_slope in (0.02, 0.045, 0.08):
+        t = torch.tensor(np.log([0.19, sd_slope]), dtype=model.dtype,
+                         device=dev).expand(fixed_reps, -1).contiguous()
+        _, mode = M._approx_evaluator(model, 1e-8, 100, False).evaluate(
+            model.build(t))
+        row = {}
+        for name in ("glo_psi10", "glo_psi100", "bsf200"):
+            v = fns[name](t, mode).double()
+            w = torch.exp(v - v.max())
+            row[name] = [float(log_mean_exp(v)),
+                         float(w.std() / w.mean() / np.sqrt(v.numel()))]
+        fixed[f"0.19,{sd_slope}"] = row
+    res["fixed_theta"] = {"reps": fixed_reps, **fixed}
+    return res
+
+
+def jackknife_loglik(ll: torch.Tensor, groups: int = 64) -> tuple:
+    """log of the mean of exp(ll) over rows (each row an unbiased
+    likelihood estimate at one theta) and its jackknife standard error over
+    ``groups`` groups of rows."""
+    x = ll.double().cpu().numpy()
+    mx = x.max()
+    e = np.exp(x - mx)
+    est = float(np.log(e.mean()) + mx)
+    parts = np.array_split(np.arange(x.size), groups)
+    loo = np.array([np.log(np.delete(e, p).mean()) + mx for p in parts])
+    se = float(np.sqrt((groups - 1) / groups
+                       * ((loo - loo.mean()) ** 2).sum()))
+    return est, se
+
+
+def bign_checks(bt, ck, m32, mb32) -> dict:
+    """The particle filters on both sides of 512 particles at one theta,
+    4096 rows: the bootstrap filter on ``pm_bsf_N200``'s model at N = 1024
+    (the plain tier) and 512 (K5), the psi filter on the main path's model
+    at N = 1024 (plain) and 512 (K4).  Each row is an unbiased likelihood
+    estimate, so the logs of the row means of exp(ll) agree within 5
+    combined jackknife SEs.  The plain tier at N = 640 fed a generator
+    equals, to the bit, itself fed the tensors ``stream_draws`` makes from a
+    generator in the same state (256 rows).  Times the plain tier per call
+    and per time step."""
+    from bssm_tpu_torch.inference import approx as amod
+    from bssm_tpu_torch.inference import particle as pf
+    from bssm_tpu_torch.inference.mcmc import _psi_al
+    B = BIGN_ROWS
+    res, problems = {}, []
+    for label, model, method in (("bsf", mb32, "bsf"), ("psi", m32, "psi")):
+        th = torch.as_tensor(model.theta_init, dtype=torch.float32,
+                             device="cuda").expand(B, -1)
+        spec = model.build(th)
+        al = None
+        if method == "psi":
+            al = _psi_al(spec, amod.approximate(spec))
+        est = {}
+        for N in (1024, 512):
+            gen = torch.Generator(device="cuda").manual_seed(N)
+            before = dict(ck.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            ll = pf.bsf_logw(spec, N, gen) if method == "bsf" \
+                else pf.psi_logw(spec, al, N, gen)
+            torch.cuda.synchronize()
+            sec = time.time() - t0
+            rise = {k: v - before[k] for k, v in ck.LAUNCHES.items()
+                    if v != before[k]}
+            e, se = jackknife_loglik(ll)
+            est[N] = {"log_mean_lik": e, "jackknife_se": se, "seconds": sec,
+                      "launches": rise,
+                      "finite": bool(torch.isfinite(ll).all())}
+            kernel = "bsf_big_logw" if method == "bsf" else "psi_big_logw"
+            if (N > ck.MAX_N_BIG) == (rise.get(kernel, 0) > 0):
+                problems.append(f"bign {label} N={N}: launches {rise}")
+            if not est[N]["finite"]:
+                problems.append(f"bign {label} N={N}: non-finite")
+        z = abs(est[1024]["log_mean_lik"] - est[512]["log_mean_lik"]) / \
+            np.hypot(est[1024]["jackknife_se"], est[512]["jackknife_se"])
+        est["z"] = float(z)
+        est["plain_ms_per_step"] = est[1024]["seconds"] * 1e3 / spec.n
+        if not z < 5.0:
+            problems.append(f"bign {label}: N=1024 and N=512 disagree, z {z}")
+        # the plain tier's per-step draws are the injected stream
+        small = model.build(th[:min(256, B)])
+        sal = None if al is None else _psi_al(small, amod.approximate(small))
+        steps = spec.n + 1 if method == "psi" else spec.n
+        a_gen = torch.Generator(device="cuda").manual_seed(7)
+        eps, us = pf.stream_draws(torch.Generator(device="cuda").manual_seed(
+            7), small.batch, steps, 640, spec.m, torch.float32, "cuda")
+        if method == "bsf":
+            a = pf.bsf_logw(small, 640, a_gen)
+            b = pf.bsf_logw(small, 640, eps=eps, us=us)
+        else:
+            a = pf.psi_logw(small, sal, 640, a_gen)
+            b = pf.psi_logw(small, sal, 640, eps=eps, us=us)
+        est["N640_stream_bit_equal"] = bool(torch.equal(a, b))
+        if not est["N640_stream_bit_equal"]:
+            problems.append(f"bign {label}: N=640 generator and stream "
+                            "differ")
+        res[label] = est
+    res["problems"] = problems
+    return res
+
+
+BIGN_ROWS = 4096                # rows of bign_checks
+K7_ROWS = {"global": 4096, "spdk": 16384}   # models of global_checks
+PREDICT_DRAWS = 100000
+FAMILY_DRAWS = 10 ** 6
+
+# the wrapper's readings of fast_smoother_ll at the linear-Gaussian shapes
+# in the previous kernels line (PERF.md section 6), printed beside these
+EARLIER_K7_MS = {"B4096": 0.12192, "B65536": 0.44378}
+
+
+def global_checks(bt, ck) -> dict:
+    """K7 against its plain version on the card at the two shapes the new
+    paths give it, float32 and float64: the global approximation's (y and H
+    the frozen series, stride-0 views shared by 4096 rows, the system per
+    row), also against the same rows with y and H materialised (to the
+    bit); and SPDK's (16384 models x 5 simulated series, the system
+    repeated per series, ``simsmooth.repeat_rows``).  Times the wrapper and
+    the bare kernel in float32."""
+    from bssm_tpu_torch.inference import approx as amod
+    from bssm_tpu_torch.ops import kalman
+    from bssm_tpu_torch.ops.simsmooth import repeat_rows
+    rule = kalman.degenerate_h2rr
+    out = {"earlier_wrapper_ms": EARLIER_K7_MS, "runs": []}
+    for dt in (torch.float32, torch.float64):
+        model = main_path_model(bt, dt)
+        ga = amod.global_approximation(model)
+        f64 = dt == torch.float64
+        for label, B in K7_ROWS.items():
+            spec = model.build(thetas_around_init(model, B, 53, spread=0.3))
+            if label == "global":
+                g = spec.approx_gaussian(ga.ytilde.expand(B, -1),
+                                         ga.Htilde.expand(B, -1))
+            else:
+                g = repeat_rows(amod.approximate(spec).gaussian(spec), 5)
+                noise = torch.randn(g.y.shape, dtype=dt, device="cuda",
+                                    generator=torch.Generator(
+                                        device="cuda").manual_seed(5))
+                g = g._replace(y=g.y + 0.3 * noise)
+            rows = g.batch
+            k_a, k_l = ck.fast_smoother_ll(g)
+            p_a, p_l = kalman.fast_smoother_ll(g, degenerate=rule)
+            torch.cuda.synchronize()
+            scale = p_a.double().abs().flatten(1).max(1).values[:, None, None]
+            tol = (F64_TOL, F64_TOL) if f64 else (1e-5, 2e-5)
+            atol = F64_TOL if f64 else 3e-4 * (1.0 + scale)
+            run = {"shape": label, "rows": rows, "dtype": str(dt)[6:],
+                   "checks": [
+                       compare_lg(f"fast_smoother_ll.ll {label}", k_l, p_l,
+                                  *tol),
+                       compare_lg(f"fast_smoother_ll.alpha {label}", k_a, p_a,
+                                  atol, F64_TOL if f64 else 0.0)]}
+            if label == "global":
+                dense = g._replace(y=g.y.contiguous(), H=g.H.contiguous())
+                d_a, d_l = ck.fast_smoother_ll(dense)
+                run["stride0_bit_equal_to_dense"] = bool(
+                    torch.equal(d_a, k_a) and torch.equal(d_l, k_l))
+                if not run["stride0_bit_equal_to_dense"]:
+                    FAILURES.append({"what": "fast_smoother_ll: stride-0 y "
+                                             "and H differ from dense"})
+            if not f64:
+                run["ms"] = time_ms(lambda: ck.fast_smoother_ll(g))
+                run["bare_ms"] = bare_ms(lambda: ck.fast_smoother_ll(g),
+                                         "bssm_fast_smoother_ll")
+                run["plain_ms"] = time_ms(lambda: kalman.fast_smoother_ll(
+                    g, degenerate=rule), reps=1, warmup=0)
+                run["bounds"] = lg_bounds(g, rows, dt)["fast_smoother_ll"]
+                run["fs_geometry"] = ck.fs_geometry(
+                    g.n, g.m, g.y.element_size(), rows,
+                    ck._sm_count(0))._asdict()
+            out["runs"].append(run)
+    return out
+
+
+def replay_checks(bt, m32, mb32) -> list:
+    """The CUDA-graph replay of pm / da's estimates with states
+    (``inference/replay.py``) against the same calls run eagerly, on the
+    same generator state: psi and spdk on the main path's model, bsf on
+    ``pm_bsf_N200``'s, 1024 rows, N = 10.  The first call captures the
+    graph on other thetas; the second, a replay on new inputs, must give
+    the eager call's bits."""
+    from bssm_tpu_torch.inference import mcmc as M
+    from bssm_tpu_torch.inference.replay import Replay
+    res = []
+    for method, model in (("psi", m32), ("spdk", m32), ("bsf", mb32)):
+        approx = M._approx_evaluator(model, 1e-8, 100)
+        th = thetas_around_init(model, 1024, 61, spread=0.2)
+        other = thetas_around_init(model, 1024, 62, spread=0.2)
+        replay = Replay()
+        got = []
+        for rp, t, seed in ((replay, other, 8), (replay, th, 9),
+                            (None, th, 9)):
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            got.append(M._pf_loglik(model, t, gen, 10, method, approx,
+                                    need_states=True, replay=rp))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got[1], got[2]))
+        res.append({"method": method, "replay_bit_equal_to_eager": same})
+        if not same:
+            FAILURES.append({"what": f"replay of the {method} estimate "
+                                     "differs from the eager call"})
+    return res
+
+
+def predict_fitted_phase(bt, m32, outs) -> dict:
+    """``fitted`` and ``predict`` on ``pm_psi_full_N10``'s and
+    ``is2_full``'s outputs, and the observation samplers per family.
+    Gates: fitted(type="mean") averaged over the draws (weighted) equals
+    the weighted mean of exp(Z alpha) computed on the card from the same
+    draws, to 1e-5 relative; predict over a 24-step future model (y all
+    NaN), types state / mean / response, 100000 draws: every value finite,
+    the response's sample mean within 6 SEs of the mean draws' at every
+    horizon; 10^6 observation draws of each family at a fixed signal, u and
+    phi: mean and variance within 6 SEs of their closed forms."""
+    from bssm_tpu_torch.core import spec as S
+    from bssm_tpu_torch.inference import predict as P
+    problems, res = [], {}
+    for label in ("pm_psi_full_N10", "is2_full"):
+        out = outs[label]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        f = bt.fitted(out, m32)
+        t_fit = time.time() - t0
+        w = out.flat_weights().astype(np.float64)
+        fit_mean = (w[:, None] * f.astype(np.float64)).sum(0) / w.sum()
+        a = torch.as_tensor(out.alpha.reshape((-1,) + out.alpha.shape[2:]),
+                            device="cuda")
+        sig = a[:, :-1, 0]                           # Z = (1, 0), D = 0
+        wt = torch.as_tensor(w, device="cuda")
+        card = ((wt[:, None] * torch.exp(sig).double()).sum(0)
+                / wt.sum()).cpu().numpy()
+        rel = float(np.max(np.abs(fit_mean - card) / np.abs(card)))
+        fut = bt.bsm_ng(np.full(24, np.nan),
+                        sd_level=bt.halfnormal_prior(0.1, 1.0),
+                        sd_slope=bt.halfnormal_prior(0.01, 0.1),
+                        distribution="poisson", dtype=torch.float32,
+                        device="cuda")
+        pr, t_pr = {}, {}
+        for typ in ("state", "mean", "response"):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            pr[typ] = bt.predict(out, fut, typ, PREDICT_DRAWS, seed=3)
+            t_pr[typ] = time.time() - t0
+        fin = all(np.isfinite(v).all() for v in pr.values())
+        m_r, m_m = pr["response"].astype(np.float64), \
+            pr["mean"].astype(np.float64)
+        z = np.abs(m_r.mean(0) - m_m.mean(0)) / np.sqrt(
+            m_r.var(0) / m_r.shape[0] + m_m.var(0) / m_m.shape[0])
+        res[label] = {"draws": int(f.shape[0]), "fitted_s": t_fit,
+                      "fitted_max_rel_err": rel, "predict_s": t_pr,
+                      "predict_finite": fin,
+                      "response_vs_mean_max_z": float(z.max()),
+                      "predict_mean_h24": float(m_m[:, -1].mean())}
+        if not (rel <= 1e-5 and fin and z.max() < 6.0
+                and f.shape == (out.alpha.shape[0] * out.alpha.shape[1],
+                                m32.extra["n"])):
+            problems.append(f"predict_fitted {label}: {res[label]}")
+    # observation samplers at a fixed signal, u and phi
+    N = FAMILY_DRAWS
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    s, u, phi = 0.4, 3.0, 2.5
+    sig = torch.full((N, 1), s, dtype=torch.float64, device="cuda")
+    ut = torch.full((1, 1), u, dtype=torch.float64, device="cuda")
+    ph = torch.tensor(phi, dtype=torch.float64, device="cuda")
+    mu, p = u * np.exp(s), 1.0 / (1.0 + np.exp(-s))
+    closed = {"poisson": (S.POISSON, mu, mu),
+              "binomial": (S.BINOMIAL, u * p, u * p * (1 - p)),
+              "negative binomial": (S.NEGBIN, mu, mu + mu * mu / phi),
+              "gamma": (S.GAMMA, mu, mu * mu / phi),
+              "gaussian": (S.GAUSSIAN, s, phi * phi)}
+    fam = {}
+    for name, (code, mean, var) in closed.items():
+        x = P._family_sample(code, gen, sig, ut, ph)
+        fam[name] = x
+    # the SV family: phi exp(alpha / 2) eps, signal = the first state
+    sv = bt.svm(np.ones(2), rho=bt.uniform_prior(0.9, -0.999, 0.999),
+                sd_ar=bt.halfnormal_prior(0.3, 1.0),
+                sigma=bt.halfnormal_prior(phi, 5.0), dtype=torch.float64,
+                device="cuda")
+    spec = sv.build(torch.as_tensor(sv.theta_init, device="cuda").expand(
+        N // 2, -1))
+    alpha = torch.full((N // 2, 2, 1), s, dtype=torch.float64, device="cuda")
+    fam["sv"] = P._obs_sample(spec, alpha[..., 0], alpha, gen).reshape(-1, 1)
+    closed["sv"] = (S.SVM, 0.0, phi * phi * np.exp(s))
+    for name, x in fam.items():
+        _, mean, var = closed[name]
+        x = x.reshape(-1).double()
+        n_ = x.numel()
+        m_, v_ = float(x.mean()), float(x.var())
+        m4 = float(((x - m_) ** 4).mean())
+        z_m = abs(m_ - mean) / np.sqrt(var / n_)
+        z_v = abs(v_ - var) / np.sqrt(max(m4 - v_ * v_, 1e-300) / n_)
+        fam[name] = {"draws": n_, "mean": m_, "closed_mean": mean, "var": v_,
+                     "closed_var": var, "z_mean": z_m, "z_var": z_v}
+        if not (z_m < 6.0 and z_v < 6.0):
+            problems.append(f"predict_fitted sampler {name}: {fam[name]}")
+    res["families"] = fam
+    res["problems"] = problems
+    return res
+
+
+def options_section(bt, ck, m32, mb32, outs, it_full, it_half, lvl_slope,
+                    is2) -> tuple:
+    """The new paths and the phases ``replications``, ``bign_checks``,
+    ``global_checks`` and ``predict_fitted``, each emitted on its own line.
+    Returns (path objects, outputs, phase objects, problems)."""
+    t0 = time.time()
+    paths, new = option_paths(bt, ck, m32, outs, it_full, it_half,
+                              lvl_slope, is2)
+    t_paths = time.time() - t0
+    phases = {}
+    for name, fn in (
+            ("replications", lambda: replications_phase(bt, ck)),
+            ("bign_checks", lambda: bign_checks(bt, ck, m32, mb32)),
+            ("global_checks", lambda: {**global_checks(bt, ck),
+                                       "replay": replay_checks(bt, m32,
+                                                               mb32)}),
+            ("predict_fitted", lambda: predict_fitted_phase(
+                bt, m32, {**outs, **new}))):
+        t1 = time.time()
+        try:
+            ph = fn()
+        except Exception as e:               # a failed phase fails the run
+            ph = {"problems": [f"{name}: {e!r}"[:400]]}
+        ph["phase_s"] = time.time() - t1
+        ph.pop("outputs", None)
+        phases[name] = ph
+        emit(name, ph)
+    problems = [p for r in paths for p in r["problems"]]
+    for name, ph in phases.items():
+        problems += ph.get("problems", [])
+    if FAILURES:
+        problems.append(f"kernel checks failed: {FAILURES}"[:600])
+    phases["seconds"] = {"paths": t_paths,
+                         **{k: v["phase_s"] for k, v in phases.items()}}
+    return paths, new, phases, problems
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iter", type=int, default=1000,
@@ -2817,6 +3535,12 @@ def main() -> int:
                          "states)")
     ap.add_argument("--ab-side", choices=sorted(AB_READINGS),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--grid-depth", type=int, metavar="ITER",
+                    help="only the replication grid at ITER iterations "
+                         "(replications_phase, same gates) and the tails of "
+                         "the global approximation's estimators on its "
+                         "is2/psi/global draws (global_tails); prints no "
+                         "result line")
     ap.add_argument("--geometry-sweep", action="store_true",
                     help="only time the large-ensemble kernel under launch "
                          "geometries the rule does not pick "
@@ -2858,11 +3582,20 @@ def main() -> int:
                                 "runs": geometry_sweep(bt),
                                 "failures": FAILURES})
         return 1 if FAILURES else 0
+    if args.grid_depth:
+        key = ("is2", "psi", "global")
+        ph = replications_phase(bt, ck, args.grid_depth, keep=(key,))
+        out = ph.pop("outputs").get(key)
+        if out is not None:         # float64: not an artefact of float32
+            ph["global_tails"] = {
+                str(dt)[6:]: global_tails(bt, replication_model(bt, dt), out)
+                for dt in (torch.float32, torch.float64)}
+        emit("grid_depth", {"nvidia_smi": smi, **ph})
+        return 1 if ph["problems"] or out is None else 0
     if args.big_only:
         big_section(bt, main_path_model(bt, torch.float32),
                     main_path_model(bt, torch.float64))
         return 1 if FAILURES else 0
-
     # ---- kernels against their plain versions -----------------------------
     checks = []
     m32 = main_path_model(bt, torch.float32)
@@ -3184,6 +3917,18 @@ def main() -> int:
                              dict(output_type="theta", n_chains=CHAINS,
                                   particles=10, **is2))
     problems += diag["problems"]
+    # the non-Gaussian MCMC options, predict / fitted and their phases
+    opt_paths, opt_outs, phases, opt_problems = options_section(
+        bt, ck, m32, mb32, outs, it_full, it_half, lvl_slope, is2)
+    paths += opt_paths
+    outs.update(opt_outs)
+    problems += opt_problems
+    # the replication grid's launches count as one more path's
+    paths.append({"path": "replications", "launches":
+                  phases["replications"].get(
+                      "launches", {k: 0 for k in ck.LAUNCHES}),
+                  "replayed": phases["replications"].get("replayed", {}),
+                  "problems": [], "emitted": True})
     for r in paths:
         if r["path"].startswith("lg_"):
             r["parity_r05_posterior_mean"] = LG_PARITY
@@ -3240,6 +3985,8 @@ def main() -> int:
         k["bound_ms_sv"] = sv_k["bounds"][name]["bound_ms"]
         k["bound_by_sv"] = sv_k["bounds"][name]["bound_by"]
     kernels[0]["laplace_niter_mean_sv"] = sv_k["laplace_niter_mean"]
+    k7_new = {(r["shape"], r["dtype"]): r
+              for r in phases["global_checks"].get("runs", [])}
     for name, line in (("log_likelihood", 386), ("fast_smoother_ll", 487)):
         lb = l_16k["bounds"][name]
         k = {"name": name, "route": "cuda",
@@ -3255,6 +4002,15 @@ def main() -> int:
              "bare_ms": l_16k["bare_ms"][name]}
         if name == "fast_smoother_ll":
             k["geometry_B65536"] = l_64k["fs_geometry"]
+            for tag, key in (("_global_B4096", ("global", "float32")),
+                             ("_spdk_B81920", ("spdk", "float32"))):
+                run = k7_new.get(key, {})
+                for f in ("ms", "bare_ms", "plain_ms"):
+                    k[f + tag] = run.get(f)
+                k["bound_ms" + tag] = run.get("bounds", {}).get("bound_ms")
+                k["max_abs_err" + tag] = max(
+                    [c["max_abs_err"] for c in run.get("checks", [])]
+                    or [None])
         for tag, run in (("_B4096", l_4k), ("_B1024", l_1k),
                          ("_B65536", l_64k)):
             k["ms" + tag] = run["ms"][name]
@@ -3300,8 +4056,17 @@ def main() -> int:
     for k in kernels:
         if k["launches"] <= 0:
             problems.append(f"kernel {k['name']} was launched by no path")
+        # kernels run again by CUDA-graph replays (pm / da with states),
+        # apart from the wrappers' launches
+        k["replayed"] = sum(r.get("replayed", {}).get(k["name"], 0)
+                            for r in paths)
+        k["replayed_by_path"] = {
+            r["path"]: r["replayed"][k["name"]] for r in paths
+            if r.get("replayed", {}).get(k["name"])}
 
     for r in paths:
+        if r.get("emitted"):
+            continue
         r["total_s"] = time.time() - t_start
         emit("main_path" if r["path"] == "psi_N10" else "path", r)
     emit("diagnostics", diag)

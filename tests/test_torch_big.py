@@ -479,10 +479,13 @@ def test_dispatch_by_particle_count_and_wrapper_contracts():
         assert out.shape == (B,) and torch.isfinite(out).all()
         out = tpf.bsf_logw(spec, N, gen, resample_every=2)
         assert out.shape == (B,) and torch.isfinite(out).all()
+    # above 512 the plain scan tier, from the generator step by step
+    before = dict(ck.LAUNCHES)
     for fn in (lambda: tpf.psi_logw(spec, al, 513, gen),
                lambda: tpf.bsf_logw(spec, 513, gen)):
-        with pytest.raises(NotImplementedError, match="scan tier"):
-            fn()
+        out = fn()
+        assert out.shape == (B,) and torch.isfinite(out).all()
+    assert ck.LAUNCHES == before
     # the same key gives the same value; the seed mode needs the count
     ahat, Lb, Ab = ck.rts_factors(al.approx.gaussian(spec))
     key = ck.philox_key(torch.Generator().manual_seed(4), "cpu")

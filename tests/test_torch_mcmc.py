@@ -272,10 +272,11 @@ def test_da_initial_state_takes_the_second_value_of_pf_loglik(method):
     assert (float(j_ll) == float(j_all)) == (method == "bsf")
     th = torch.as_tensor(np.array(jm.theta_init)).expand(5, -1)
     S0 = torch.as_tensor(np.asarray(tm.initial_S())).expand(5, -1, -1)
+    approx = tmcmc._approx_evaluator(tm, 1e-8, 100)
     state = tmcmc._da_init(tm, th, S0, torch.Generator().manual_seed(7), 16,
-                           method, 1e-8, 100)
-    want_ll, want_all = tmcmc._pf_loglik(
-        tm, th, torch.Generator().manual_seed(7), 16, method, 1e-8, 100)
+                           method, approx)
+    want_ll, want_all, _ = tmcmc._pf_loglik(
+        tm, th, torch.Generator().manual_seed(7), 16, method, approx)
     approx_ll = bt.approx_loglik(tm.build(th)).loglik
     assert torch.equal(state.ll, want_ll)
     assert torch.equal(state.ll_approx, want_all)
@@ -308,8 +309,8 @@ def test_unported_options_raise():
     for kw in (dict(mcmc_type="approx", output_type="summary"),
                dict(mcmc_type="da", output_type="summary"),
                dict(output_type="bogus"),
-               dict(sampling_method="spdk"), dict(particles=513),
-               dict(mcmc_type="pm", output_type="full")):
+               dict(sampling_method="bogus"), dict(mcmc_type="ekf"),
+               dict(mcmc_type="pm", output_type="summary")):
         with pytest.raises(NotImplementedError):
             bt.run_mcmc(tm, **{**dict(iter=10, particles=4, device="cpu"),
                                **kw})

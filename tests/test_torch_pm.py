@@ -92,7 +92,7 @@ def test_da_step_matches_numpy_rederivation():
     def full_eval(th):
         calls.append(th.clone())
         t = th.numpy()
-        return torch.as_tensor(f_ll(t)), torch.as_tensor(f_approx(t))
+        return torch.as_tensor(f_ll(t)), torch.as_tensor(f_approx(t)), None
 
     def log_prior(th):
         return torch.as_tensor(f_prior(th.numpy()))
@@ -303,7 +303,8 @@ def test_pm_da_end_to_end_match_within_monte_carlo_error(mcmc_type, method):
 
 
 def test_pm_da_options_and_limits():
-    """da with the bootstrap filter runs; what this package does not serve
+    """da with the bootstrap filter runs, and so do pm with state output, da
+    with SPDK and pm above 512 particles; what this package does not serve
     yet raises and names it."""
     _, tm = _models(n=16, seed=10, slope=False)
     out = bt.run_mcmc(tm, iter=30, particles=34, mcmc_type="da",
@@ -312,6 +313,13 @@ def test_pm_da_options_and_limits():
     for kw in (dict(mcmc_type="pm", output_type="full"),
                dict(mcmc_type="da", sampling_method="spdk"),
                dict(mcmc_type="pm", particles=600)):
+        out = bt.run_mcmc(tm, **{**dict(iter=10, particles=8, n_chains=2,
+                                        device="cpu"), **kw})
+        assert np.isfinite(out.posterior).all()
+        assert (out.alpha is not None) == (kw.get("output_type") == "full")
+    for kw in (dict(mcmc_type="pm", output_type="summary"),
+               dict(mcmc_type="da", sampling_method="bogus"),
+               dict(mcmc_type="ekf")):
         with pytest.raises(NotImplementedError):
             bt.run_mcmc(tm, **{**dict(iter=10, particles=8, device="cpu"),
                                **kw})

@@ -297,7 +297,8 @@ def test_lse_update_guards():
 def test_more_than_32_particles_names_the_next_slice():
     """More than 32 particles go to the large-ensemble kernel's wrapper (on
     the CPU: its plain version fed from the Philox key), up to 512; beyond
-    that the scan tier is named as not ported."""
+    that the plain scan tier runs, drawing from the generator step by
+    step."""
     jspec, jal = _jax_batch("poisson", True, 12, 2, 9, jnp.float64)
     spec, al = _to_port(jspec, jal, torch.float64)
     gen = torch.Generator().manual_seed(0)
@@ -309,5 +310,8 @@ def test_more_than_32_particles_names_the_next_slice():
     assert not torch.equal(a, b)          # each call draws a fresh key
     small = tpf.psi_logw(spec, al, 32, torch.Generator().manual_seed(0))
     assert torch.isfinite(small).all()
-    with pytest.raises(NotImplementedError, match="scan tier"):
-        tpf.psi_logw(spec, al, 513, gen)
+    big = tpf.psi_logw(spec, al, 513, torch.Generator().manual_seed(5))
+    assert cuda_kalman.LAUNCHES == before
+    assert big.shape == (2,) and torch.isfinite(big).all()
+    assert torch.equal(big, tpf.psi_logw(spec, al, 513,
+                                         torch.Generator().manual_seed(5)))
