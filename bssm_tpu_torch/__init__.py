@@ -19,8 +19,15 @@ What runs today:
   (approximate, particle or SPDK estimate), ``importance_sample``,
   ``kfilter``, ``bootstrap_filter``, ``particle_smoother`` and the
   smoothers through the Gaussian approximation;
+- on the multivariate ``ssm_mlg`` (linear-Gaussian, p series, partly
+  missing rows allowed) and ``ssm_mng`` (one family per series, Gaussian
+  included): the same ``run_mcmc`` flavours as their univariate
+  counterparts (mlg "gaussian"; mng approx, is1/is2/is3, pm and da with
+  psi, bsf or SPDK, local or global approximation, theta / summary / full
+  output as above) and the single-model API; batched tensor code with no
+  kernel, as in the JAX package;
 - on a run with state output and a model of the future or the past:
-  ``predict`` and ``fitted`` (univariate models);
+  ``predict`` and ``fitted``;
 - on the linear-Gaussian ``bsm_lg``, ``ar1_lg`` and ``ssm_ulg``: marginal
   MCMC (``mcmc_type="gaussian"``) with ``output_type`` "theta", "summary"
   or "full", and ``logLik``, ``fast_smoother``, ``smoother``,
@@ -34,9 +41,10 @@ What runs today:
   ``to_dataframe`` (needs pandas), ``plot`` (needs matplotlib) and
   ``str()``.
 
-The user functions of ``ssm_ulg`` / ``ssm_ung`` are torch functions batched
-over chains (``models/ssm.py``).  Entry points run on the CUDA device
-unless the caller passes ``device="cpu"``.
+The user functions of ``ssm_ulg`` / ``ssm_ung`` / ``ssm_mlg`` /
+``ssm_mng`` are torch functions batched over chains (``models/ssm.py``).
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -50,15 +58,16 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
-from .core.spec import (LGSpec, NGSpec, SVM, POISSON, BINOMIAL,  # noqa: E402
-                        NEGBIN, GAMMA, GAUSSIAN)
+from .core.spec import (LGSpec, NGSpec, MVLGSpec, MVNGSpec,     # noqa: E402
+                        SVM, POISSON, BINOMIAL, NEGBIN, GAMMA, GAUSSIAN)
 from .core.priors import (uniform_prior, halfnormal_prior,       # noqa: E402
                           normal_prior, tnormal_prior, gamma_prior,
                           PriorStack)
 from .models.bsm import bsm_lg, bsm_ng                           # noqa: E402
 from .models.ar1 import ar1_lg, ar1_ng                           # noqa: E402
 from .models.svm import svm                                      # noqa: E402
-from .models.ssm import ssm_ulg, ssm_ung                         # noqa: E402
+from .models.ssm import (ssm_ulg, ssm_ung, ssm_mlg,              # noqa: E402
+                         ssm_mng)
 from .inference.mcmc import (run_mcmc, McmcOutput,               # noqa: E402
                              is_correction_generator)
 from .inference.approx import (approximate, approx_loglik,       # noqa: E402
@@ -76,6 +85,10 @@ from .inference.particle import (psi_logw, bsf_logw,             # noqa: E402
                                  psi_logw_scan, bsf_logw_scan,
                                  psi_filter, bsf_filter, bsf_filter_lg,
                                  spdk_sample, spdk_weights, PFResult)
+from .inference.approx_mv import (approximate_mv,               # noqa: E402
+                                  approx_loglik_mv, psi_filter_mv,
+                                  bsf_filter_mv, spdk_sample_mv)
+from .ops.dmvnorm import dmvnorm                                 # noqa: E402
 from .ops.resample import ancestor_trace                         # noqa: E402
 from .diagnostics.summary import (weighted_mean, weighted_var,   # noqa: E402
                                   ess_is, iact, asymptotic_var,

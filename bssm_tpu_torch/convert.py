@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 from .core.config import DEFAULT_DTYPE, resolve_device
-from .core.spec import LGSpec, NGSpec, POISSON
+from .core.spec import (LGSpec, MVLGSpec, MVNGSpec, NGSpec, POISSON,
+                        with_batch)
 from .inference.approx import ApproxLoglik, ApproxResult
 
 
@@ -48,6 +49,46 @@ def ngspec_from_numpy(d: Mapping, device=None,
         mode = _tensor(d["initial_mode"], device, dtype)
     return NGSpec(**leaves, distribution=int(d.get("distribution", POISSON)),
                   initial_mode=mode)
+
+
+def mvlgspec_from_numpy(d: Mapping, device=None,
+                        dtype: torch.dtype = DEFAULT_DTYPE) -> MVLGSpec:
+    """``MVLGSpec`` from arrays ``y (n, p), Z, H, T, R, a1, P1, D, C`` (the
+    JAX package's multivariate layout)."""
+    device = resolve_device(device)
+    return MVLGSpec(**_leaves(d, MVLGSpec._fields, device, dtype))
+
+
+def mvngspec_from_numpy(d: Mapping, device=None,
+                        dtype: torch.dtype = DEFAULT_DTYPE) -> MVNGSpec:
+    """``MVNGSpec`` from arrays ``y (n, p), Z, T, R, a1, P1, D, C, phi (p,),
+    u (n, p)``, the tuple of ints ``distributions`` and, optionally,
+    ``initial_mode (n, p)``."""
+    device = resolve_device(device)
+    names = ("y", "Z", "T", "R", "a1", "P1", "D", "C", "phi", "u")
+    leaves = _leaves(d, names, device, dtype)
+    mode: Optional[torch.Tensor] = None
+    if d.get("initial_mode") is not None:
+        mode = _tensor(d["initial_mode"], device, dtype)
+    return MVNGSpec(**leaves, distributions=tuple(
+        int(x) for x in d["distributions"]), initial_mode=mode)
+
+
+def mv_approx_from_numpy(d: Mapping, device=None,
+                         dtype: torch.dtype = DEFAULT_DTYPE) -> ApproxLoglik:
+    """The multivariate ``approx_from_numpy``: ``mode, ytilde, Htilde``
+    ``(n, p)`` or ``(B, n, p)`` and ``scales`` (summed over the series)
+    ``(n,)`` or ``(B, n)``, with zero log-likelihood terms."""
+    device = resolve_device(device)
+    t = {k: with_batch(_tensor(d[k], device, dtype), 2)
+         for k in ("mode", "ytilde", "Htilde")}
+    B = t["mode"].shape[0]
+    zero = torch.zeros(B, dtype=dtype, device=device)
+    ar = ApproxResult(t["mode"], t["ytilde"], t["Htilde"],
+                      torch.ones(B, dtype=torch.int32, device=device),
+                      zero, None)
+    scales = with_batch(_tensor(d["scales"], device, dtype), 1)
+    return ApproxLoglik(ar, scales, zero, zero)
 
 
 def approx_from_numpy(d: Mapping, device=None,

@@ -25,6 +25,12 @@ field       unbatched shape     batched shape
 ``phi``     ``()``              ``(B,)``
 ``u``       ``(n,)``            ``(B, n)``
 ==========  ==================  =====================
+
+The multivariate specs (``MVLGSpec``, ``MVNGSpec``) hold ``p`` series:
+``y (n, p)``, ``Z (nz, p, m)``, ``H (nh, p, p)`` (a lower factor, the
+observation covariance is H H'), ``D (nd, p)``, ``phi (p,)``, ``u (n, p)``
+and ``initial_mode (n, p)``, each with or without the leading ``B``
+(``MV_CORE_NDIM``).
 """
 from __future__ import annotations
 
@@ -44,6 +50,8 @@ GAUSSIAN = 5
 # number of trailing (non-batch) axes of each leaf
 CORE_NDIM = dict(y=1, Z=2, H=1, T=3, R=3, a1=1, P1=2, D=1, C=2, phi=0, u=1,
                  initial_mode=1)
+MV_CORE_NDIM = dict(CORE_NDIM, y=2, Z=3, H=3, D=2, phi=1, u=2,
+                    initial_mode=2)
 
 
 def with_batch(x: torch.Tensor, core_ndim: int) -> torch.Tensor:
@@ -63,10 +71,10 @@ def at_t(A: torch.Tensor, t: int) -> torch.Tensor:
     return A[:, 0] if A.shape[1] == 1 else A[:, t]
 
 
-def _batch_of(leaves) -> Optional[int]:
+def _batch_of(leaves, core=CORE_NDIM) -> Optional[int]:
     B = None
     for name, x in leaves:
-        if x is None or x.dim() == CORE_NDIM[name]:
+        if x is None or x.dim() == core[name]:
             continue
         b = x.shape[0]
         if B is not None and b != B and 1 not in (b, B):
@@ -107,6 +115,53 @@ class LGSpec(NamedTuple):
     @property
     def HH(self) -> torch.Tensor:
         return self.H * self.H
+
+    @property
+    def RR(self) -> torch.Tensor:
+        return self.R @ self.R.transpose(-1, -2)
+
+    @property
+    def obs_mask(self) -> torch.Tensor:
+        return torch.isfinite(self.y)
+
+
+class MVLGSpec(NamedTuple):
+    """Multivariate-observation linear-Gaussian state-space model; ``H`` is
+    a lower factor of the observation covariance.  A series may be missing
+    at some time points and observed at others (NaN in ``y``)."""
+    y: torch.Tensor
+    Z: torch.Tensor
+    H: torch.Tensor
+    T: torch.Tensor
+    R: torch.Tensor
+    a1: torch.Tensor
+    P1: torch.Tensor
+    D: torch.Tensor
+    C: torch.Tensor
+
+    @property
+    def n(self) -> int:
+        return self.y.shape[-2]
+
+    @property
+    def p(self) -> int:
+        return self.y.shape[-1]
+
+    @property
+    def m(self) -> int:
+        return self.a1.shape[-1]
+
+    @property
+    def k(self) -> int:
+        return self.R.shape[-1]
+
+    @property
+    def batch(self) -> Optional[int]:
+        return _batch_of(zip(self._fields, self), MV_CORE_NDIM)
+
+    @property
+    def HH(self) -> torch.Tensor:
+        return self.H @ self.H.transpose(-1, -2)
 
     @property
     def RR(self) -> torch.Tensor:
@@ -164,20 +219,93 @@ class NGSpec:
                       a1=self.a1, P1=self.P1, D=self.D, C=self.C)
 
 
+@dataclasses.dataclass(frozen=True)
+class MVNGSpec:
+    """Multivariate non-Gaussian model: linear-Gaussian state dynamics and
+    ``p`` observed series, each of its own family (``distributions``, a
+    tuple of the ints above; ``GAUSSIAN`` with sd ``phi[j]`` included),
+    with ``phi (p,)`` and ``u (n, p)`` per series."""
+    y: torch.Tensor
+    Z: torch.Tensor
+    T: torch.Tensor
+    R: torch.Tensor
+    a1: torch.Tensor
+    P1: torch.Tensor
+    D: torch.Tensor
+    C: torch.Tensor
+    phi: torch.Tensor
+    u: torch.Tensor
+    distributions: tuple = ()
+    initial_mode: Optional[torch.Tensor] = None
+
+    @property
+    def n(self) -> int:
+        return self.y.shape[-2]
+
+    @property
+    def p(self) -> int:
+        return self.y.shape[-1]
+
+    @property
+    def m(self) -> int:
+        return self.a1.shape[-1]
+
+    @property
+    def k(self) -> int:
+        return self.R.shape[-1]
+
+    @property
+    def batch(self) -> Optional[int]:
+        names = ("y", "Z", "T", "R", "a1", "P1", "D", "C", "phi", "u")
+        return _batch_of(((f, getattr(self, f)) for f in names),
+                         MV_CORE_NDIM)
+
+    @property
+    def obs_mask(self) -> torch.Tensor:
+        return torch.isfinite(self.y)
+
+    def approx_gaussian(self, ytilde: torch.Tensor,
+                        Htilde: torch.Tensor) -> MVLGSpec:
+        """The approximating multivariate LG model: ``Htilde (..., n, p)``,
+        the pseudo-observations' sds, becomes the diagonal factor
+        ``(..., n, p, p)``."""
+        return MVLGSpec(y=ytilde, Z=self.Z, H=torch.diag_embed(Htilde),
+                        T=self.T, R=self.R, a1=self.a1, P1=self.P1,
+                        D=self.D, C=self.C)
+
+
+def is_mv(spec) -> bool:
+    """Whether ``spec`` holds several observed series."""
+    return isinstance(spec, (MVLGSpec, MVNGSpec))
+
+
+def core_ndim(spec) -> dict:
+    """The number of trailing (non-batch) axes of each leaf of ``spec``."""
+    return MV_CORE_NDIM if is_mv(spec) else CORE_NDIM
+
+
+def _replace(spec, **new):
+    if isinstance(spec, tuple):             # the NamedTuple specs
+        return spec._replace(**new)
+    return dataclasses.replace(spec, **new)
+
+
+def _fields(spec):
+    return spec._fields if isinstance(spec, tuple) \
+        else [f.name for f in dataclasses.fields(spec)]
+
+
 def drop_batch(spec):
     """The one model of a spec with a batch of one, every leaf's batch axis
     dropped: the unbatched form in which the single-model functions take
     it (the JAX package hands them one model the same way)."""
-    fields = LGSpec._fields if isinstance(spec, LGSpec) \
-        else [f.name for f in dataclasses.fields(spec)]
-    names = [f for f in fields if f in CORE_NDIM and f != "initial_mode"]
+    core = core_ndim(spec)
+    names = [f for f in _fields(spec) if f in core and f != "initial_mode"]
     if spec.batch not in (None, 1):
         raise ValueError(f"a batch of {spec.batch} models is not one model")
     new = {}
     for f in names:
         x = getattr(spec, f)
-        if x.dim() == CORE_NDIM[f] + 1:
+        if x.dim() == core[f] + 1:
             new[f] = x[0]
-    if isinstance(spec, LGSpec):
-        return spec._replace(**new)
-    return dataclasses.replace(spec, **new)
+    return _replace(spec, **new)

@@ -1,19 +1,26 @@
 """Argument validation with friendly errors.
 
 Own copy of the numpy checks of ``bssm_tpu/core/validate.py`` that the
-univariate model constructors of this package call (NaN allowed only in y;
-positivity of u; dimension rules for Z/H/T/R/a1/P1/D/C and xreg/beta).
-The multivariate branches wait for the multivariate models.  The package
-imports nothing of the JAX package, so the checks live here too.
+model constructors of this package call (NaN allowed only in y;
+positivity of u; the families' supports; dimension rules for
+Z/H/T/R/a1/P1/D/C and xreg/beta), the multivariate branches included.
+The arguments keep this package's order (``n`` first, then ``p`` and
+``multivariate`` by keyword); the same bad input raises the same exception
+type as in the JAX package.  The package imports nothing of the JAX
+package, so the checks live here too.
 """
 from __future__ import annotations
 
 import numpy as np
 
 
-def check_y(y, distribution=None):
+def check_y(y, distribution=None, *, multivariate=False):
     y = np.asarray(y, dtype=np.float64)
-    if y.ndim != 1:
+    if multivariate:
+        if y.ndim != 2:
+            raise ValueError("Argument 'y' must be a 2d array (n, p) for "
+                             "multivariate models.")
+    elif y.ndim != 1:
         raise ValueError("Argument 'y' must be a 1d array.")
     if y.shape[0] < 2:
         raise ValueError("Length of argument 'y' must be at least 2.")
@@ -54,6 +61,22 @@ def check_period(period, n):
     return int(period)
 
 
+def check_distribution(y, distributions):
+    """Per-series support checks of a multivariate non-Gaussian y ``(n, p)``
+    against the family names ``distributions``."""
+    y = np.asarray(y, dtype=np.float64)
+    for j, dist in enumerate(distributions):
+        col = y[:, j]
+        obs = col[np.isfinite(col)]
+        if dist != "gaussian" and (obs < 0).any():
+            raise ValueError(f"Negative values not allowed for {dist} "
+                             "distribution.")
+        if dist in ("negative binomial", "binomial", "poisson") and \
+                (np.abs(obs - np.round(obs)) > 1e-8).any():
+            raise ValueError(f"Non-integer values not allowed for {dist} "
+                             "distribution.")
+
+
 def check_xreg(xreg, n):
     xreg = np.atleast_2d(np.asarray(xreg, dtype=np.float64))
     if xreg.shape[0] == 1 and xreg.size == n:
@@ -85,15 +108,23 @@ def check_beta(beta, k):
     return beta
 
 
-def check_D(D, n):
-    """Observation intercept: scalar or (n,), returned 1-D."""
+def check_D(D, n, *, p=1):
+    """Observation intercept: scalar or (n,) for one series, returned 1-D;
+    (p,), (p, 1) or (p, n) for p > 1 series, returned (p, 1|n)."""
     if D is None:
-        return np.zeros(1)
+        return np.zeros(1) if p == 1 else np.zeros((p, 1))
     D = np.asarray(D, dtype=np.float64)
-    if D.size not in (1, n):
-        raise ValueError("'D' must be a scalar or length n, where n is "
-                         "the number of observations.")
-    return D.reshape(-1)
+    if p == 1:
+        if D.size not in (1, n):
+            raise ValueError("'D' must be a scalar or length n, where n is "
+                             "the number of observations.")
+        return D.reshape(-1)
+    if D.ndim == 1 and D.size == p:
+        D = D.reshape(p, 1)
+    if D.ndim != 2 or D.shape[0] != p or D.shape[1] not in (1, n):
+        raise ValueError("'D' must be p x 1 or p x n matrix, where p is "
+                         "the number of series.")
+    return D
 
 
 def check_C(C, m, n):
@@ -109,9 +140,20 @@ def check_C(C, m, n):
     return C
 
 
-def check_Z(Z, n):
-    """Observation vector: scalar, (m,) or (m, n), returned (m, 1|n)."""
+def check_Z(Z, n, *, p=1, multivariate=False):
+    """Observation vector: scalar, (m,) or (m, n), returned (m, 1|n); with
+    ``multivariate`` a (p, m) matrix or (p, m, n) array, returned
+    (p, m, 1|n)."""
     Z = np.asarray(Z, dtype=np.float64)
+    if multivariate:
+        if Z.ndim == 2:
+            Z = Z[..., None]
+        if Z.ndim != 3 or Z.shape[0] != p or Z.shape[2] not in (1, n):
+            raise ValueError(
+                "'Z' must be a (p x m) matrix or (p x m x n) array where p "
+                "is the number of series, m is the number of states, and n "
+                "is the length of the series.")
+        return Z
     if Z.ndim == 0:
         return Z.reshape(1, 1)
     if Z.ndim == 1:
@@ -177,9 +219,23 @@ def check_P1(P1, m):
     return P1
 
 
-def check_H(H, n):
-    """Observation noise sd: scalar or (n,), returned 1-D."""
+def check_H(H, n, *, p=1, multivariate=False):
+    """Observation noise sd: scalar or (n,), returned 1-D; with
+    ``multivariate`` a lower factor of the observation covariance, a
+    scalar (times the identity), (p, p) or (p, p, n), returned
+    (p, p, 1|n)."""
     H = np.asarray(H, dtype=np.float64)
+    if multivariate:
+        if H.ndim == 0:
+            H = np.eye(p) * float(H)
+        if H.ndim == 2:
+            H = H[..., None]
+        if H.ndim != 3 or H.shape[0] != p or H.shape[1] != p or \
+                H.shape[2] not in (1, n):
+            raise ValueError(
+                "'H' must be p x p matrix or p x p x n array, where p is the "
+                "number of series and n is the length of the series.")
+        return H
     if H.size not in (1, n):
         raise ValueError("'H' must be a scalar or length n, where n is "
                          "the length of the time series y.")

@@ -89,13 +89,16 @@ def _laplace_step(spec: NGSpec, mode: torch.Tensor):
 
 
 def _solve(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
-           max_iter: int, step):
+           max_iter: int, step, core: int = 1):
     """The batched loop over a Laplace ``step`` with per-row stopping (a
     converged row keeps its values while the others go on), one host
-    synchronisation a pass.  Returns (mode, prev, niter, diff, ll)."""
-    B, n = spec.batch or with_batch(mode0, 1).shape[0], spec.n
+    synchronisation a pass.  ``core`` is the number of axes of one row's
+    mode: 1, ``(n,)``; 2 for several series, ``(n, p)``.  Returns (mode,
+    prev, niter, diff, ll)."""
+    m0 = with_batch(mode0, core)
+    B = spec.batch or m0.shape[0]
     dt, dev = spec.y.dtype, spec.y.device
-    mode = with_batch(mode0, 1).expand(B, n).clone()
+    mode = m0.expand((B,) + m0.shape[1:]).clone()
     prev = mode.clone()
     niter = torch.zeros(B, dtype=torch.int32, device=dev)
     diff = torch.full((B,), conv_tol + 1.0, dtype=dt, device=dev)
@@ -105,7 +108,7 @@ def _solve(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
         if not bool(active.any()):
             break
         new_mode, new_ll, new_diff = step(spec, mode)
-        a2 = active.unsqueeze(-1)
+        a2 = active.reshape((B,) + (1,) * core)
         prev = torch.where(a2, mode, prev)
         mode = torch.where(a2, new_mode, mode)
         ll = torch.where(active, new_ll, ll)
@@ -259,9 +262,14 @@ def rebuilt_loglik(spec: NGSpec, approx: ApproxResult) -> torch.Tensor:
 def gaussian_approx(model_or_spec, conv_tol: float = CONV_TOL,
                     max_iter: int = MAX_ITER, theta=None) -> LGSpec:
     """The approximating linear-Gaussian model of a non-Gaussian model
-    (built at ``theta``, by default its initial value) or ``NGSpec``."""
+    (built at ``theta``, by default its initial value) or spec: an
+    ``LGSpec``, or for several series an ``MVLGSpec``."""
+    from ..core.spec import MVNGSpec
     from .filters import spec_of
     spec = spec_of(model_or_spec, theta)
+    if isinstance(spec, MVNGSpec):
+        from .approx_mv import approximate_mv
+        return approximate_mv(spec, conv_tol, max_iter).gaussian(spec)
     if not isinstance(spec, NGSpec):
         raise TypeError(f"gaussian_approx takes a non-Gaussian model, got "
                         f"{type(spec).__name__}")

@@ -1,9 +1,10 @@
 """Public filtering API: the Kalman filter, the bootstrap filter and the
 particle smoother.
 
-Counterpart of ``bssm_tpu/inference/filters.py`` for univariate models.
-Every function takes a model (built at ``theta``, by default its initial
-value) or a spec.  A model is handed on as ONE unbatched model, as the JAX
+Counterpart of ``bssm_tpu/inference/filters.py`` (but the nonlinear
+models' filters).  Every function takes a model (built at ``theta``, by
+default its initial value) or a spec.  A model is handed on as ONE
+unbatched model, as the JAX
 package hands it to its functions, so its Gaussian approximation is the
 single-model solve (``inference/approx.laplace_solve_steps``, the
 ``laplace_step`` kernel on the card); a spec passes as it is, so a batched
@@ -19,11 +20,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core.spec import NGSpec, drop_batch
+from ..core.spec import LGSpec, MVLGSpec, MVNGSpec, NGSpec, drop_batch
 from ..models.base import Model
-from ..ops import kalman
+from ..ops import kalman, kalman_mv
 from ..ops.resample import ancestor_trace
 from . import approx as approx_mod
+from . import approx_mv as mv_mod
 from . import particle as pf_mod
 
 
@@ -53,12 +55,17 @@ def generator_for(spec, generator: Optional[torch.Generator], seed: int):
     return torch.Generator(device=spec.y.device).manual_seed(int(seed))
 
 
-def kfilter(model_or_spec, theta=None) -> kalman.FilterResult:
-    """Kalman filter; a non-Gaussian model is filtered through its Gaussian
-    approximation."""
+def kfilter(model_or_spec, theta=None):
+    """Kalman filter (``kalman.FilterResult``, or for several series
+    ``kalman_mv.MVFilterResult``); a non-Gaussian model is filtered through
+    its Gaussian approximation."""
     spec = spec_of(model_or_spec, theta)
     if isinstance(spec, NGSpec):
         spec = approx_mod.approximate(spec).gaussian(spec)
+    elif isinstance(spec, MVNGSpec):
+        spec = mv_mod.approximate_mv(spec).gaussian(spec)
+    if isinstance(spec, MVLGSpec):
+        return kalman_mv.kfilter_mv(spec)
     return kalman.kfilter(spec)
 
 
@@ -66,13 +73,17 @@ def bootstrap_filter(model_or_spec, particles: int,
                      generator: Optional[torch.Generator] = None,
                      seed: int = 1, theta=None, eps=None,
                      us=None) -> pf_mod.PFResult:
-    """Bootstrap particle filter of a non-Gaussian or linear-Gaussian
-    model, trajectories untraced (``ops/resample.ancestor_trace``)."""
+    """Bootstrap particle filter of a non-Gaussian (one or several series)
+    or univariate linear-Gaussian model, trajectories untraced
+    (``ops/resample.ancestor_trace``)."""
     spec = spec_of(model_or_spec, theta)
-    run = pf_mod.bsf_filter if isinstance(spec, NGSpec) \
-        else pf_mod.bsf_filter_lg
-    return run(spec, particles, generator_for(spec, generator, seed),
-               eps=eps, us=us)
+    runs = {NGSpec: pf_mod.bsf_filter, MVNGSpec: mv_mod.bsf_filter_mv,
+            LGSpec: pf_mod.bsf_filter_lg}
+    if type(spec) not in runs:
+        raise TypeError(f"bootstrap_filter takes no {type(spec).__name__}")
+    return runs[type(spec)](spec, particles,
+                            generator_for(spec, generator, seed), eps=eps,
+                            us=us)
 
 
 class ParticleSmootherResult(NamedTuple):
@@ -96,17 +107,25 @@ def particle_smoother(model_or_spec, particles: int, method: str = "psi",
     is, as in the JAX package."""
     spec = spec_of(model_or_spec, theta)
     gen = generator_for(spec, generator, seed)
-    if not isinstance(spec, NGSpec):
+    if method not in ("psi", "bsf"):
+        raise NotImplementedError(f"method={method!r}: 'psi' and 'bsf' are "
+                                  "ported")
+    if isinstance(spec, MVNGSpec):
+        if method == "psi":
+            al = mv_mod.approx_loglik_mv(spec, conv_tol=conv_tol,
+                                         max_iter=max_iter)
+            pf = mv_mod.psi_filter_mv(spec, al, particles, gen, eps=eps,
+                                      us=us)
+        else:
+            pf = mv_mod.bsf_filter_mv(spec, particles, gen, eps=eps, us=us)
+    elif not isinstance(spec, NGSpec):
         pf = pf_mod.bsf_filter_lg(spec, particles, gen, eps=eps, us=us)
     elif method == "psi":
         al = approx_mod.approx_loglik(spec, conv_tol=conv_tol,
                                       max_iter=max_iter)
         pf = pf_mod.psi_filter(spec, al, particles, gen, eps=eps, us=us)
-    elif method == "bsf":
-        pf = pf_mod.bsf_filter(spec, particles, gen, eps=eps, us=us)
     else:
-        raise NotImplementedError(f"method={method!r}: 'psi' and 'bsf' are "
-                                  "ported")
+        pf = pf_mod.bsf_filter(spec, particles, gen, eps=eps, us=us)
     traced = ancestor_trace(pf.alpha, pf.indices)
     w = pf.weights[..., -1]
     w = w / w.sum(-1, keepdim=True)

@@ -1,10 +1,10 @@
-"""SPDK importance sampling of one univariate non-Gaussian model.
+"""SPDK importance sampling of one non-Gaussian model.
 
-Counterpart of ``bssm_tpu/inference/importance.py`` (its multivariate
-branch waits for the multivariate models): ``nsim`` draws of the states
-from the smoothing law of the model's Gaussian approximation, by the
-simulation smoother (``ops/simsmooth.simulate_states_batched``, the
-``fast_smoother_ll`` kernel on the card), with their importance weights.
+Counterpart of ``bssm_tpu/inference/importance.py``: ``nsim`` draws of the
+states from the smoothing law of the model's Gaussian approximation, by
+the simulation smoother (``ops/simsmooth.simulate_states_batched``, the
+``fast_smoother_ll`` kernel on the card; for several series
+``kalman_mv.simulate_states_mv``), with their importance weights.
 """
 from __future__ import annotations
 
@@ -12,8 +12,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..core.spec import NGSpec
+from ..core.spec import MVNGSpec, NGSpec
 from . import approx as approx_mod
+from . import approx_mv as mv_mod
 from .filters import generator_for, spec_of
 from .particle import spdk_sample
 
@@ -34,11 +35,15 @@ def importance_sample(model_or_spec, nsim: int,
     Laplace solve; the randomness comes from ``generator`` (default: one
     seeded with ``seed`` on the model's device)."""
     spec = spec_of(model_or_spec, theta)
-    if not isinstance(spec, NGSpec):
+    if not isinstance(spec, (NGSpec, MVNGSpec)):
         raise TypeError("importance_sample requires a non-Gaussian model")
     if (spec.batch or 1) != 1:
         raise ValueError("importance_sample takes one model")
-    al = approx_mod.approx_loglik(spec)
-    r = spdk_sample(spec, al, int(nsim), generator_for(spec, generator, seed),
-                    use_antithetic)
+    gen = generator_for(spec, generator, seed)
+    if isinstance(spec, MVNGSpec):
+        r = mv_mod.spdk_sample_mv(spec, mv_mod.approx_loglik_mv(spec),
+                                  int(nsim), gen, use_antithetic)
+    else:
+        r = spdk_sample(spec, approx_mod.approx_loglik(spec), int(nsim), gen,
+                        use_antithetic)
     return ImportanceSample(r.alpha[0], r.weights[0], r.loglik[0])

@@ -1,11 +1,12 @@
 """Log-likelihood API.
 
-Counterpart of ``bssm_tpu/inference/loglik.py`` for univariate models.  A
-linear-Gaussian model's exact log-likelihood goes through
-``ops/cuda_kalman.log_likelihood`` (the Kalman log-likelihood kernel on the
-GPU, its plain version on the CPU and for models the kernel does not take,
-with the kernel wrapper's degenerate-model rule, ``ops/kalman.degenerate_h2rr``,
-on both), whatever ``particles`` is.  A non-Gaussian model's is
+Counterpart of ``bssm_tpu/inference/loglik.py`` (but the nonlinear
+models').  A univariate linear-Gaussian model's exact log-likelihood goes
+through ``ops/cuda_kalman.log_likelihood`` (the Kalman log-likelihood
+kernel on the GPU, its plain version on the CPU and for models the kernel
+does not take, with the kernel wrapper's degenerate-model rule,
+``ops/kalman.degenerate_h2rr``, on both), whatever ``particles`` is; a
+multivariate one's through ``ops/kalman_mv``.  A non-Gaussian model's is
 the approximate log-likelihood of its Laplace approximation
 (``particles=0``) or an importance-sampling estimate: the psi-auxiliary
 filter (``method="psi"``), the bootstrap filter (``"bsf"``) or SPDK draws
@@ -17,9 +18,10 @@ from typing import Optional
 
 import torch
 
-from ..core.spec import NGSpec
-from ..ops import cuda_kalman
+from ..core.spec import MVLGSpec, MVNGSpec, NGSpec
+from ..ops import cuda_kalman, kalman_mv
 from . import approx as approx_mod
+from . import approx_mv as mv_mod
 from . import particle as pf_mod
 from .filters import generator_for, spec_of
 
@@ -36,6 +38,11 @@ def logLik(model_or_spec, particles: int = 0, method: str = "psi",
     whose randomness comes from ``generator`` (default: seeded with
     ``seed``) or, for the particle filters, ``eps``/``us``."""
     spec = spec_of(model_or_spec, theta)
+    if isinstance(spec, MVLGSpec):
+        return kalman_mv.log_likelihood_mv(spec)
+    if isinstance(spec, MVNGSpec):
+        return _loglik_mv(spec, particles, method, generator, seed,
+                          conv_tol, max_iter, eps, us)
     if not isinstance(spec, NGSpec):
         return cuda_kalman.routed_log_likelihood(spec)
     if particles == 0:
@@ -51,3 +58,25 @@ def logLik(model_or_spec, particles: int = 0, method: str = "psi",
     if method == "spdk":
         return pf_mod.spdk_sample(spec, al, particles, gen).loglik
     return pf_mod.psi_filter(spec, al, particles, gen, eps=eps, us=us).loglik
+
+
+def _loglik_mv(spec, particles, method, generator, seed, conv_tol, max_iter,
+               eps, us):
+    """``logLik`` of several series (``approx_mv``): the approximation's,
+    or a psi, bsf or SPDK estimate (the JAX package's multivariate
+    ``logLik`` takes psi for every method but bsf)."""
+    if particles == 0:
+        return mv_mod.approx_loglik_mv(spec, conv_tol=conv_tol,
+                                       max_iter=max_iter).loglik
+    gen = generator_for(spec, generator, seed)
+    if method == "bsf":
+        return mv_mod.bsf_filter_mv(spec, particles, gen, eps=eps,
+                                    us=us).loglik
+    if method not in ("psi", "spdk"):
+        raise NotImplementedError(f"method={method!r}: 'psi', 'bsf' and "
+                                  "'spdk' are ported")
+    al = mv_mod.approx_loglik_mv(spec, conv_tol=conv_tol, max_iter=max_iter)
+    if method == "spdk":
+        return mv_mod.spdk_sample_mv(spec, al, particles, gen).loglik
+    return mv_mod.psi_filter_mv(spec, al, particles, gen, eps=eps, us=us,
+                                keep_paths=False)

@@ -1,11 +1,12 @@
 """MCMC engines.  Counterpart of ``bssm_tpu/inference/mcmc.py`` for
 
-- ``mcmc_type="gaussian"`` (linear-Gaussian models, ``kind == "lg"``): RAM
+- ``mcmc_type="gaussian"`` (linear-Gaussian models, ``kind`` "lg" or
+  "mlg"): RAM
   Metropolis on the exact Kalman log-likelihood, with ``output_type``
   "theta", "summary" (posterior mean and covariance of the states) or
   "full" (one simulation-smoother draw of the states per stored theta);
 
-and, for non-Gaussian models (``kind == "ng"``):
+and, for non-Gaussian models (``kind`` "ng" or "mng"):
 
 - ``mcmc_type="approx"``: RAM Metropolis on the Gaussian approximation, with
   ``output_type`` "theta" or "full" (one draw of the states from the
@@ -50,6 +51,13 @@ A model the kernels do not take (m > 4, a time-varying system: a seasonal
 model with period 12, say) runs the same chains through their plain
 versions on the card (``cuda_kalman.route``).
 
+The multivariate models reach no kernel (the JAX package has none there
+either): ``kalman_mv`` and ``approx_mv`` are batched tensor code, and a
+chain iteration's repeated blocks of it (the mlg log-likelihood, each
+Laplace pass of an mng evaluation, pm / da's filter estimate) run on the
+card as CUDA graphs (``replay.Replay``).  A psi or bsf filter of an mng
+resamples at every step.
+
 The IS correction processes its rows in chunks of ``corr_batch`` rows,
 and the state draws or smoothing of linear-Gaussian output the stored
 thetas; the chunks only bound memory.  Duplicate slots share their head's
@@ -73,12 +81,15 @@ import torch
 
 from ..core.config import resolve_device
 from ..core.priors import LOG
+from ..core.spec import is_mv
 from ..models.base import Model
 from ..ops import cuda_kalman
 from ..ops import kalman as kalman_mod
+from ..ops import kalman_mv
 from ..ops.resample import ancestor_trace
 from ..ops.simsmooth import simulate_states_single
 from . import approx as approx_mod
+from . import approx_mv as mv_mod
 from . import particle as pf_mod
 from .ram import adapt_S
 from .replay import Replay
@@ -400,13 +411,24 @@ class McmcOutput:
 # linear-Gaussian marginal MCMC
 # --------------------------------------------------------------------------
 
+def _loglik_mv(spec):
+    return (kalman_mv.log_likelihood_mv(spec),)
+
+
 def _gaussian_chain(model: Model, n_iter, burnin, thin, target, gamma,
                     end_ram):
     """RAM Metropolis on the exact Kalman log-likelihood, all chains
-    batched: one launch of the log-likelihood kernel per iteration."""
+    batched: one launch of the log-likelihood kernel per iteration, or for
+    several series (``kind == "mlg"``) the plain multivariate filter, on
+    the card one CUDA graph replayed per iteration (``replay.Replay``)."""
+    replay = Replay()
 
     def logdens(theta):
-        ll = cuda_kalman.routed_log_likelihood(model.build(theta))
+        spec = model.build(theta)
+        if model.kind == "mlg":
+            ll = replay(_loglik_mv, spec)[0]
+        else:
+            ll = cuda_kalman.routed_log_likelihood(spec)
         return ll, ll, None
 
     def chain(generator, theta0, S0):
@@ -429,8 +451,12 @@ def _state_draws(model: Model, thetas: torch.Tensor, generator,
     flat = thetas.reshape(C * Sn, d)
     out = None
     for lo in range(0, C * Sn, batch_size):
-        a = simulate_states_single(model.build(flat[lo:lo + batch_size]),
-                                   generator).cpu().numpy()
+        spec = model.build(flat[lo:lo + batch_size])
+        if model.kind == "mlg":
+            a = kalman_mv.simulate_states_mv(spec, 1, generator, False)[:, 0]
+        else:
+            a = simulate_states_single(spec, generator)
+        a = a.cpu().numpy()
         if out is None:
             out = np.empty((C * Sn,) + a.shape[1:], dtype=a.dtype)
         out[lo:lo + a.shape[0]] = a
@@ -448,8 +474,10 @@ def _state_summary(model: Model, thetas: torch.Tensor, batch_size: int):
     flat = thetas.reshape(-1, thetas.shape[-1])
     N = flat.shape[0]
     ref = s1 = s2 = sv = None
+    smoother = kalman_mv.smoother_mv if model.kind == "mlg" \
+        else kalman_mod.smoother
     for lo in range(0, N, batch_size):
-        sm = kalman_mod.smoother(model.build(flat[lo:lo + batch_size]))
+        sm = smoother(model.build(flat[lo:lo + batch_size]))
         ah = sm.alphahat.double()
         if ref is None:
             ref = ah[0]
@@ -484,8 +512,11 @@ class Approximation(NamedTuple):
         (local), else ``ar``'s likelihood (global; the JAX package adds the
         global approximation's instead, which leaves its global estimates
         relative to another likelihood: ROADMAP, deliberate deviations)."""
-        return approx_mod.rebuilt_loglik(spec, ar) if self.is_global \
-            else approx_ll
+        if not self.is_global:
+            return approx_ll
+        if is_mv(spec):
+            return mv_mod.rebuilt_loglik_mv(spec, ar)
+        return approx_mod.rebuilt_loglik(spec, ar)
 
     def estimates_loglik(self, sampling_method: str) -> bool:
         """Whether an IS correction's log-weight estimates the
@@ -505,12 +536,24 @@ def _approx_evaluator(model: Model, conv_tol: float, max_iter: int,
     every evaluation is one smoother pass (``approx.global_approx_loglik``).
     Either way the filters propose from the approximation rebuilt at the
     evaluated mode (``approximate_for_is``)."""
+    mv = model.kind == "mng"
     if local_approx:
+        replay = Replay()
+
         def evaluate(spec):
-            al = approx_mod.approx_loglik(spec, conv_tol=conv_tol,
-                                          max_iter=max_iter)
+            if mv:      # each Laplace pass one CUDA graph on the card
+                al = mv_mod.approx_loglik_mv(spec, conv_tol=conv_tol,
+                                             max_iter=max_iter,
+                                             replay=replay)
+            else:
+                al = approx_mod.approx_loglik(spec, conv_tol=conv_tol,
+                                              max_iter=max_iter)
             return al.loglik, al.approx.mode
         return Approximation(evaluate, False)
+    if mv:
+        ga = mv_mod.global_approximation_mv(model, conv_tol, max_iter)
+        return Approximation(
+            lambda spec: mv_mod.global_approx_loglik_mv(spec, ga), True)
     ga = approx_mod.global_approximation(model, conv_tol, max_iter)
     return Approximation(
         lambda spec: approx_mod.global_approx_loglik(spec, ga), True)
@@ -547,7 +590,7 @@ def _check_method(model: Model, sampling_method: str) -> None:
         raise NotImplementedError(
             f"sampling_method={sampling_method!r}: 'psi', 'bsf' and 'spdk' "
             "are ported")
-    if model.kind != "ng":
+    if model.kind not in ("ng", "mng"):
         raise NotImplementedError(f"model kind {model.kind!r} is not ported")
 
 
@@ -556,8 +599,24 @@ def _psi_al(spec, ar):
     its mode-based scales and zero log-likelihood terms."""
     zero = torch.zeros(ar.mode.shape[0], dtype=spec.y.dtype,
                        device=spec.y.device)
-    return approx_mod.ApproxLoglik(ar, approx_mod.mode_scales(spec, ar),
-                                   zero, zero)
+    scales = mv_mod.mode_scales_mv if is_mv(spec) else approx_mod.mode_scales
+    return approx_mod.ApproxLoglik(ar, scales(spec, ar), zero, zero)
+
+
+def _rebuild(spec, modes, conv_tol=approx_mod.CONV_TOL,
+             max_iter=approx_mod.MAX_ITER):
+    """The approximation a filter weighs against, as ``_psi_al`` gives it:
+    rebuilt at ``modes``, or without them solved anew (cold, as phase 1
+    solved it)."""
+    if is_mv(spec):
+        if modes is None:
+            return _psi_al(spec, mv_mod.approximate_mv(spec, conv_tol,
+                                                       max_iter))
+        return mv_mod.approximate_for_is_mv(spec, modes)
+    if modes is None:
+        return _psi_al(spec, approx_mod.approximate(spec, conv_tol,
+                                                    max_iter))
+    return _psi_al(spec, approx_mod.approximate_for_is(spec, modes))
 
 
 def _pick_trajectory(traced: torch.Tensor, w: torch.Tensor, generator=None,
@@ -614,16 +673,15 @@ def _make_correct_rows(model: Model, nsim: int, sampling_method: str,
     kk = int(psi_resample_every)
 
     def approximation(spec, modes):
-        if modes is None:
-            ar = approx_mod.approximate(spec, conv_tol, max_iter)
-        else:
-            ar = approx_mod.approximate_for_is(spec, modes)
-        al = _psi_al(spec, ar)
-        return al._replace(loglik=approx.base(spec, ar, al.loglik))
+        al = _rebuild(spec, modes, conv_tol, max_iter)
+        return al._replace(loglik=approx.base(spec, al.approx, al.loglik))
 
     def correct_rows(theta, modes=None, generator=None, eps=None, us=None,
                      states=None, u_pick=None):
         spec = model.build(theta)
+        if model.kind == "mng":
+            return correct_rows_mv(spec, modes, generator, eps, us, states,
+                                   u_pick)
         if sampling_method == "spdk":
             al = approximation(spec, modes)
             if states is None:
@@ -649,6 +707,40 @@ def _make_correct_rows(model: Model, nsim: int, sampling_method: str,
             pf = pf_mod.psi_filter(spec, approximation(spec, modes), nsim,
                                    generator, eps=eps, us=us)
             log_w, traced, w = pf.loglik, pf.alpha, pf.weights[..., -1]
+        return finish(log_w, traced, w, generator, u_pick)
+
+    def correct_rows_mv(spec, modes, generator, eps, us, states, u_pick):
+        """The same for several series (``approx_mv``): no kernel, the
+        filters with or without their trajectories, psi and bsf resampling
+        at every step as the JAX package's multivariate filters do."""
+        keep = want_states or want_moments
+        if sampling_method == "bsf":
+            pf = mv_mod.bsf_filter_mv(spec, nsim, generator, eps=eps, us=us)
+            if not keep:
+                return {"log_w": pf.loglik}
+            log_w, traced, w = (pf.loglik,
+                                ancestor_trace(pf.alpha, pf.indices),
+                                pf.weights[..., -1])
+        else:
+            al = approximation(spec, modes)
+            if sampling_method == "spdk":
+                if states is None:
+                    r = mv_mod.spdk_sample_mv(spec, al, nsim, generator)
+                    log_w, traced, w = r.loglik, r.alpha, r.weights
+                else:
+                    traced = states
+                    log_w, w = mv_mod.spdk_weights_mv(spec, al, states)
+            elif not keep:
+                return {"log_w": mv_mod.psi_filter_mv(
+                    spec, al, nsim, generator, eps=eps, us=us,
+                    keep_paths=False)}
+            else:
+                pf = mv_mod.psi_filter_mv(spec, al, nsim, generator,
+                                          eps=eps, us=us)
+                log_w, traced, w = pf.loglik, pf.alpha, pf.weights[..., -1]
+        return finish(log_w, traced, w, generator, u_pick)
+
+    def finish(log_w, traced, w, generator, u_pick):
         out = {"log_w": log_w}
         if want_states:
             out["alpha"] = _pick_trajectory(traced, w, generator, u_pick)
@@ -701,7 +793,8 @@ def _is_postprocess(model: Model, thetas, modes, accepted, approx_ll,
     hmask[:, 0] = True                      # slot 0 of a chain is a head
     hmask = hmask.reshape(-1)
     th_rows = thetas.reshape(C * Sn, -1)
-    mo_rows = None if modes is None else modes.reshape(C * Sn, -1)
+    mo_rows = None if modes is None \
+        else modes.reshape((C * Sn,) + tuple(modes.shape[2:]))
     if is_type == 2:
         hidx = torch.nonzero(hmask).squeeze(-1)
         th_rows = th_rows[hidx]
@@ -803,15 +896,23 @@ def _approx_state_draws(model: Model, thetas, modes, generator,
     """``mcmc_type="approx"`` with ``output_type="full"``: one draw of the
     states from the approximating Gaussian model (rebuilt from the stored
     mode) at every stored theta, by the simulation smoother; ``(C, S, n+1,
-    m)`` on the host.  Drawn in chunks of ``batch_size`` rows."""
+    m)`` on the host.  Drawn in chunks of ``batch_size`` rows.  A
+    multivariate model rebuilds its approximation with ``approx_mv`` (the
+    JAX package's ``_approx_state_draws`` takes the univariate rebuild for
+    every model and fails there)."""
     C, Sn, d = thetas.shape
-    flat, fmodes = thetas.reshape(C * Sn, d), modes.reshape(C * Sn, -1)
+    flat = thetas.reshape(C * Sn, d)
+    fmodes = modes.reshape((C * Sn,) + tuple(modes.shape[2:]))
     out = None
     for lo in range(0, C * Sn, batch_size):
         spec = model.build(flat[lo:lo + batch_size])
-        ar = approx_mod.approximate_for_is(spec, fmodes[lo:lo + batch_size])
-        a = simulate_states_single(ar.gaussian(spec),
-                                   generator).cpu().numpy()
+        mo = fmodes[lo:lo + batch_size]
+        if model.kind == "mng":
+            a = mv_mod.approx_state_draws_mv(spec, mo, generator)
+        else:
+            ar = approx_mod.approximate_for_is(spec, mo)
+            a = simulate_states_single(ar.gaussian(spec), generator)
+        a = a.cpu().numpy()
         if out is None:
             out = np.empty((C * Sn,) + a.shape[1:], dtype=a.dtype)
         out[lo:lo + a.shape[0]] = a
@@ -845,6 +946,32 @@ def _spdk_estimate(spec, al, um, eps, eta, nsim, u):
     return r.loglik, _pick_trajectory(r.alpha, r.weights, u=u)
 
 
+def _psi_states_mv(spec, al, eps, us, u):
+    """``_psi_states`` of several series; without ``u`` the estimate only."""
+    if u is None:
+        return (mv_mod.psi_filter_mv(spec, al, eps.shape[2], eps=eps, us=us,
+                                     keep_paths=False),)
+    pf = mv_mod.psi_filter_mv(spec, al, eps.shape[2], eps=eps, us=us)
+    return pf.loglik, _pick_trajectory(pf.alpha, pf.weights[..., -1], u=u)
+
+
+def _bsf_states_mv(spec, eps, us, u):
+    """``_bsf_states`` of several series; without ``u`` the estimate only."""
+    pf = mv_mod.bsf_filter_mv(spec, eps.shape[2], eps=eps, us=us)
+    if u is None:
+        return (pf.loglik,)
+    return pf.loglik, _pick_trajectory(ancestor_trace(pf.alpha, pf.indices),
+                                       pf.weights[..., -1], u=u)
+
+
+def _spdk_estimate_mv(spec, al, um, eps, eta, nsim, u):
+    """``_spdk_estimate`` of several series."""
+    r = mv_mod.spdk_sample_mv(spec, al, nsim, um=um, eps=eps, eta=eta)
+    if u is None:
+        return (r.loglik,)
+    return r.loglik, _pick_trajectory(r.alpha, r.weights, u=u)
+
+
 def _eager(fn, spec, *args):
     return fn(spec, *args)
 
@@ -870,39 +997,41 @@ def _pf_loglik(model: Model, theta: torch.Tensor, generator, nsim: int,
     call = replay or _eager
     spec = model.build(theta)
     n, m = spec.n, spec.m
+    mv = model.kind == "mng"
     kw = dict(dtype=spec.y.dtype, device=spec.y.device, generator=generator)
 
     def uniforms(B):
         return torch.rand((B,), **kw) if need_states else None
 
     if sampling_method == "bsf":
-        if not need_states:
+        if not (need_states or mv):
             ll = pf_mod.bsf_logw(spec, nsim, generator)
             return ll, ll, None
         B = spec.batch or 1
         eps = torch.randn((B, n + 1, nsim, m), **kw)
         us = torch.rand((B, n, nsim), **kw)
-        ll, alpha = call(_bsf_states, spec, eps, us, uniforms(B))
-        return ll, ll, alpha
+        res = call(_bsf_states_mv if mv else _bsf_states, spec, eps, us,
+                   uniforms(B))
+        return res[0], res[0], res[1] if need_states else None
     approx_ll, mode = approx.evaluate(spec)
-    ar = approx_mod.approximate_for_is(spec, mode)
-    al = _psi_al(spec, ar)
-    base = approx.base(spec, ar, approx_ll)
+    al = _rebuild(spec, mode)
+    base = approx.base(spec, al.approx, approx_ll)
     B = mode.shape[0]
     if sampling_method == "spdk":
         nb = (nsim + 1) // 2
         um = torch.randn((B, nb, m), **kw)
-        eps = torch.randn((B, nb, n), **kw)
+        eps = torch.randn((B, nb, n) + ((spec.p,) if mv else ()), **kw)
         eta = torch.randn((B, nb, n, spec.k), **kw)
-        res = call(_spdk_estimate, spec, al, um, eps, eta, nsim,
-                   uniforms(B))
-    elif not need_states:
+        res = call(_spdk_estimate_mv if mv else _spdk_estimate, spec, al,
+                   um, eps, eta, nsim, uniforms(B))
+    elif not (need_states or mv):
         return (base + pf_mod.psi_logw(spec, al, nsim, generator),
                 approx_ll, None)
     else:
         eps = torch.randn((B, n + 1, nsim, m), **kw)
         us = torch.rand((B, n, nsim), **kw)
-        res = call(_psi_states, spec, al, eps, us, uniforms(B))
+        res = call(_psi_states_mv if mv else _psi_states, spec, al, eps, us,
+                   uniforms(B))
     return base + res[0], approx_ll, res[1] if need_states else None
 
 
@@ -1107,7 +1236,7 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
              device=None, dtype: Optional[torch.dtype] = None) -> McmcOutput:
     """Bayesian inference via adaptive MCMC.
 
-    Linear-Gaussian models (``kind == "lg"``): mcmc_type "gaussian" (the
+    Linear-Gaussian models (``kind`` "lg", "mlg"): mcmc_type "gaussian" (the
     default), output_type "theta" (the default; the JAX package defaults to
     "full"), "summary" (``alphahat``, ``Vt``) or "full" (``alpha``).
     Non-Gaussian models: mcmc_type "is2" (default), "is1", "is3",
@@ -1139,7 +1268,7 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
             f"the model lives on {model.device} as {model.dtype}; run_mcmc "
             f"was asked for {device} and {dtype}.  Build the model with the "
             "same device and dtype.")
-    if model.kind == "lg":
+    if model.kind in ("lg", "mlg"):
         mcmc_type = mcmc_type or "gaussian"
         if mcmc_type != "gaussian":
             raise NotImplementedError(

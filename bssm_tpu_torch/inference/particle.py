@@ -68,7 +68,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core import distributions as fam
-from ..core.spec import LGSpec, NGSpec, SVM, at_t, with_batch
+from ..core.spec import LGSpec, NGSpec, SVM, at_t, is_mv, with_batch
 from ..ops import cuda_kalman
 from ..ops.chol import psd_chol
 from ..ops.kalman import smoother_bwd_factors
@@ -529,7 +529,7 @@ def psi_filter(spec: NGSpec, al: ApproxLoglik, nsim: int,
 
 
 def _bsf_run(name: str, spec, nsim: int, generator, eps, us, log_dens):
-    """The bootstrap filter's loop, shared by both model kinds:
+    """The bootstrap filter's loop, shared by every model kind:
     ``log_dens(alpha (B, N, m), t) -> (B, N)`` the observation
     log-densities, up to their constants, of y_t.  Returns the PFResult
     with the log-likelihood less those constants."""
@@ -541,13 +541,15 @@ def _bsf_run(name: str, spec, nsim: int, generator, eps, us, log_dens):
     dt, dev = spec.y.dtype, spec.y.device
     eps, us = _draws(name, B, n + 1, nsim, m, dt, dev, generator, eps, us)
     N = eps.shape[2]
-    y = with_batch(spec.y, 1)
+    # a time point counts as observed where any of its series is
+    obs = torch.isfinite(with_batch(spec.y, 2)).any(-1) if is_mv(spec) \
+        else torch.isfinite(with_batch(spec.y, 1))
     T, R, C = with_batch(spec.T, 3), with_batch(spec.R, 3), \
         with_batch(spec.C, 2)
     tr = lambda A: A.transpose(-1, -2)                       # noqa: E731
 
     def weigh(alpha, t):
-        return _weigh(log_dens(alpha, t), torch.isfinite(y[:, t, None]))
+        return _weigh(log_dens(alpha, t), obs[:, t, None])
 
     alpha = with_batch(spec.a1, 1)[:, None, :] \
         + eps[:, 0] @ tr(psd_chol(with_batch(spec.P1, 2)))

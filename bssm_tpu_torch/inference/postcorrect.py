@@ -26,6 +26,7 @@ from .mcmc import (Approximation, McmcOutput, _is_postprocess,
                    _make_correct_rows, _store_correction,
                    is_correction_generator)
 from . import approx as approx_mod
+from .approx_mv import approximate_mv
 from .filters import spec_of, theta_of
 
 __all__ = ["post_correct", "suggest_N", "is_correction_generator"]
@@ -95,9 +96,10 @@ def suggest_N(model: Model, theta=None,
     is below 1; ``{"N": ..., "sd": ..., "all": {N: sd}}``.  Candidate N
     draws its randomness from a generator seeded with ``seed + N``."""
     th = theta_of(model, theta)
-    mode = approx_mod.approximate(spec_of(model, th)).mode        # (1, n)
+    solve = approximate_mv if model.kind == "mng" else approx_mod.approximate
+    mode = solve(spec_of(model, th)).mode              # (1, n) or (1, n, p)
     rows = th.expand(replications, -1)
-    modes = mode.expand(replications, -1).contiguous()
+    modes = mode.expand((replications,) + mode.shape[1:]).contiguous()
     results = {}
     for N in candidates:
         correct_rows = _make_correct_rows(model, int(N), sampling_method)

@@ -1,7 +1,9 @@
-"""Posterior predictive simulation and fitted values of univariate models.
+"""Posterior predictive simulation and fitted values.
 
 Counterpart of ``bssm_tpu/inference/predict.py`` (the nonlinear models'
-``_predict_nlg`` waits for their port).  ``predict`` picks ``nsim`` stored
+``_predict_nlg`` waits for their port); several series (``ssm_mlg``,
+``ssm_mng``) give signals, means and responses ``(..., n, p)``, the
+responses drawn series by series.  ``predict`` picks ``nsim`` stored
 draws with the IS weights as probabilities (``torch.multinomial``), builds
 the future model at all of them at once (``model.build((nsim, d))``) and
 runs the state recursion forward from each draw's final state, one batched
@@ -20,9 +22,11 @@ import numpy as np
 import torch
 
 from ..core.priors import LOG
-from ..core.spec import (BINOMIAL, GAMMA, GAUSSIAN, LGSpec, NEGBIN, POISSON,
-                         SVM, at_t, with_batch)
+from ..core.spec import (BINOMIAL, GAMMA, GAUSSIAN, LGSpec, MVLGSpec,
+                         MVNGSpec, NEGBIN, POISSON, SVM, at_t, is_mv,
+                         with_batch)
 from ..models.base import Model
+from .approx_mv import signal_mv
 
 
 def _to_sampled(model: Model, theta_nat: torch.Tensor) -> torch.Tensor:
@@ -56,9 +60,11 @@ def _sim_states(spec, a1: torch.Tensor, generator=None,
 
 
 def _signal(spec, alpha: torch.Tensor) -> torch.Tensor:
-    """The signal ``(B, n)`` of states ``(B, >= n, m)``: D + Z alpha, the
-    first state for the SV family."""
+    """The signal ``(B, n)`` (``(B, n, p)`` for several series) of states
+    ``(B, >= n, m)``: D + Z alpha, the first state for the SV family."""
     n = spec.n
+    if is_mv(spec):
+        return signal_mv(spec, alpha[:, :n])
     if getattr(spec, "distribution", None) == SVM:
         return alpha[:, :n, 0]
     Z = with_batch(spec.Z, 2)
@@ -77,8 +83,12 @@ def _family_mean(dist: int, signal: torch.Tensor) -> torch.Tensor:
 
 
 def _obs_mean(spec, signal: torch.Tensor) -> torch.Tensor:
-    if isinstance(spec, LGSpec):
+    if isinstance(spec, (LGSpec, MVLGSpec)):
         return signal
+    if isinstance(spec, MVNGSpec):
+        return torch.stack([_family_mean(d, signal[..., j])
+                            for j, d in enumerate(spec.distributions)],
+                           dim=-1)
     return _family_mean(spec.distribution, signal)
 
 
@@ -114,6 +124,18 @@ def _obs_sample(spec, signal: torch.Tensor, alpha: torch.Tensor,
                 generator=None) -> torch.Tensor:
     """Observations ``(B, n)`` given the signal (and, for the SV family,
     the states)."""
+    if isinstance(spec, MVLGSpec):
+        # correlated noise through the lower factor H
+        H = with_batch(spec.H, 3)
+        eps = torch.randn(signal.shape, dtype=signal.dtype,
+                          device=signal.device, generator=generator)
+        return signal + (H @ eps.unsqueeze(-1)).squeeze(-1)
+    if isinstance(spec, MVNGSpec):
+        u, phi = with_batch(spec.u, 2), with_batch(spec.phi, 1)
+        return torch.stack([
+            _family_sample(d, generator, signal[..., j], u[..., j],
+                           _col(phi[:, j]))
+            for j, d in enumerate(spec.distributions)], dim=-1)
     n = signal.shape[-1]
     if isinstance(spec, LGSpec):
         H = with_batch(spec.H, 1)
@@ -141,7 +163,8 @@ def predict(output, model: Model, type: str = "response", nsim: int = 1000,
     describes the future: its y length sets the horizon (the values are
     ignored) and the stored final states (``alpha[:, :, -1]``, the one-step
     prediction beyond the data) start the state recursion.  ``type``
-    "state" returns ``(nsim, n, m)``, "mean" and "response" ``(nsim, n)``.
+    "state" returns ``(nsim, n, m)``, "mean" and "response" ``(nsim, n)``
+    (``(nsim, n, p)`` for several series).
     Needs a run with ``output_type="full"``."""
     if output.alpha is None:
         raise ValueError("predict needs output_type='full'")
@@ -171,7 +194,8 @@ FITTED_ROWS = 65536      # draws a chunk of ``fitted``; bounds memory only
 
 def fitted(output, model: Model, type: str = "mean",
            seed: int = 1) -> np.ndarray:
-    """Fitted values of every stored draw, ``(draws, n)``: the observation
+    """Fitted values of every stored draw, ``(draws, n)`` (``(draws, n,
+    p)`` for several series): the observation
     mean (``type="mean"``) or one observation draw (``"response"``) at the
     stored states, the model built at the stored theta; in chunks of
     ``FITTED_ROWS`` draws.  Needs a run with ``output_type="full"``."""

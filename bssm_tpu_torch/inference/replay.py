@@ -1,14 +1,17 @@
 """One CUDA graph for a block of tensor code that a chain repeats at every
 iteration with the same shapes.
 
-The filters with trajectories and SPDK's simulation smoother are batched
-tensor code in a Python loop over time: some thousands of small device
-operations a call, each issued by the host.  Pseudo-marginal and
-delayed-acceptance chains with state output (or SPDK) call them once an
-iteration on tensors of the same shapes, so ``Replay`` captures one call
-as a CUDA graph and replays it after, with the new inputs copied into the
-captured ones.  Randomness is drawn outside, from the caller's generator,
-so a replayed call computes what the eager call computes.
+The filters with trajectories, SPDK's simulation smoother and the
+multivariate models' Kalman passes are batched tensor code in a Python
+loop over time: some thousands of small device operations a call, each
+issued by the host.  Pseudo-marginal and delayed-acceptance chains with
+state output (or SPDK), and the multivariate chains (a Laplace pass, a
+filter's estimate, the linear-Gaussian log-likelihood), call them once or
+a few times an iteration on tensors of the same shapes, so ``Replay``
+captures one call as a CUDA graph and replays it after, with the new
+inputs copied into the captured ones.  Randomness is drawn outside, from
+the caller's generator, so a replayed call computes what the eager call
+computes.
 
 The kernels inside (``rts_factors``, ``fast_smoother_ll``) run on every
 replay.  Their wrappers count in ``cuda_kalman.LAUNCHES`` only where they
@@ -28,8 +31,10 @@ from ..ops import cuda_kalman
 
 
 def _flatten(spec, args):
-    """Leaves and structure of ``(spec's fields, args)``."""
-    fields = {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)}
+    """Leaves and structure of ``(spec's fields, args)``; a spec is a
+    dataclass or a NamedTuple."""
+    fields = spec._asdict() if isinstance(spec, tuple) else {
+        f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)}
     return tree_flatten((fields, args))
 
 

@@ -1,12 +1,13 @@
 """Public smoothing API.
 
-Counterpart of ``bssm_tpu/inference/smoothers.py`` for univariate models.
+Counterpart of ``bssm_tpu/inference/smoothers.py``.
 Each function takes a model (built at ``theta``, by default its initial
 value, and handed on as one unbatched model) or a spec; a spec with a
 leading batch axis is smoothed row by row in one pass.  A non-Gaussian model
 is smoothed through its Gaussian approximation (``_to_gaussian``: the
 single-model Laplace solve for one model, the ``laplace_solve`` kernel for a
-batched spec).
+batched spec; for several series ``approx_mv.approximate_mv``), and several
+series through ``ops/kalman_mv``.
 """
 from __future__ import annotations
 
@@ -14,28 +15,37 @@ from typing import Optional
 
 import torch
 
-from ..core.spec import NGSpec
-from ..ops import kalman
+from ..core.spec import MVLGSpec, MVNGSpec, NGSpec
+from ..ops import kalman, kalman_mv
 from ..ops.simsmooth import simulate_states
 from . import approx as approx_mod
+from . import approx_mv as mv_mod
 from .filters import generator_for, spec_of
 
 
 def _to_gaussian(spec):
     if isinstance(spec, NGSpec):
         return approx_mod.approximate(spec).gaussian(spec)
+    if isinstance(spec, MVNGSpec):
+        return mv_mod.approximate_mv(spec).gaussian(spec)
     return spec
 
 
 def fast_smoother(model_or_spec, theta=None) -> torch.Tensor:
     """Smoothed state means ``(B, n+1, m)``."""
-    return kalman.fast_smoother(_to_gaussian(spec_of(model_or_spec, theta)))
+    spec = _to_gaussian(spec_of(model_or_spec, theta))
+    if isinstance(spec, MVLGSpec):
+        return kalman_mv.fast_smoother_mv(spec)
+    return kalman.fast_smoother(spec)
 
 
-def smoother(model_or_spec, theta=None) -> kalman.SmoothResult:
+def smoother(model_or_spec, theta=None):
     """Smoothed means ``alphahat``, covariances ``Vt`` and lag-one
     cross-covariances ``ccov``, with the log-likelihood."""
-    return kalman.smoother(_to_gaussian(spec_of(model_or_spec, theta)))
+    spec = _to_gaussian(spec_of(model_or_spec, theta))
+    if isinstance(spec, MVLGSpec):
+        return kalman_mv.smoother_mv(spec)
+    return kalman.smoother(spec)
 
 
 def sim_smoother(model_or_spec, nsim: int,
@@ -45,5 +55,10 @@ def sim_smoother(model_or_spec, nsim: int,
     states, ``(nsim, n+1, m)``; without a ``generator`` one is seeded with
     ``seed`` on the model's device."""
     spec = _to_gaussian(spec_of(model_or_spec, theta))
-    return simulate_states(spec, nsim, generator_for(spec, generator, seed),
-                           use_antithetic)
+    gen = generator_for(spec, generator, seed)
+    if isinstance(spec, MVLGSpec):
+        if (spec.batch or 1) != 1:
+            raise ValueError("sim_smoother draws for one model")
+        return kalman_mv.simulate_states_mv(spec, nsim, gen,
+                                            use_antithetic)[0]
+    return simulate_states(spec, nsim, gen, use_antithetic)

@@ -29,7 +29,7 @@ class Model:
     theta_init: np.ndarray
     theta_names: Tuple[str, ...]
     transforms: np.ndarray            # per-theta transform code (0 id, 1 log)
-    kind: str                         # 'lg' or 'ng' (the others wait)
+    kind: str                         # 'lg', 'ng', 'mlg' or 'mng'
     device: torch.device
     dtype: torch.dtype
     extra: dict = dataclasses.field(default_factory=dict)

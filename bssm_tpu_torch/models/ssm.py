@@ -1,10 +1,12 @@
-"""General univariate state-space models with user update functions.
+"""General state-space models with user update functions.
 
-Counterpart of ``ssm_ulg`` and ``ssm_ung`` in ``bssm_tpu/models/ssm.py``.
-The system arrays come in the R package's layout, the time axis last of
-size 1 or n (Z ``(m, 1|n)``, T ``(m, m, 1|n)``, R ``(m, k, 1|n)``, C
-``(m, 1|n)``, H and D scalars or length n), and are normalised to the
-spec's, time axis first (``core/spec.py``).
+Counterpart of ``ssm_ulg``, ``ssm_ung``, ``ssm_mlg`` and ``ssm_mng`` in
+``bssm_tpu/models/ssm.py``.  The system arrays come in the R package's
+layout, the time axis last of size 1 or n (Z ``(m, 1|n)``, T ``(m, m,
+1|n)``, R ``(m, k, 1|n)``, C ``(m, 1|n)``, H and D scalars or length n;
+with p series Z ``(p, m, 1|n)``, H ``(p, p, 1|n)`` a lower factor of the
+observation covariance, D ``(p, 1|n)``), and are normalised to the spec's,
+time axis first (``core/spec.py``).
 
 The user functions are torch functions batched over chains, as ``build``
 is: ``update_fn(theta)`` takes theta ``(B, d)`` and returns a dict of spec
@@ -17,7 +19,6 @@ to the plain versions (``ops/cuda_kalman.kernel_takes``).
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Callable, Optional
 
 import numpy as np
@@ -25,7 +26,8 @@ import torch
 
 from ..core import validate as val
 from ..core.config import DEFAULT_DTYPE, resolve_device
-from ..core.spec import CORE_NDIM, LGSpec, NGSpec
+from ..core.spec import (LGSpec, MVLGSpec, MVNGSpec, NGSpec, _replace,
+                         core_ndim)
 from .base import Model, init_mode
 from .bsm import _DIST_NAMES
 
@@ -47,16 +49,37 @@ def _system(Z, H, T, R, a1, P1, D, C, n, dev):
     return m, {k: dev(v) for k, v in arrays.items()}
 
 
+def _system_mv(Z, H, T, R, a1, P1, D, C, n, p, dev):
+    """``_system`` for p series: Z ``(p, m, 1|n)``, H ``(p, p, 1|n)``
+    (None for a non-Gaussian model) and D ``(p, 1|n)``, moved to the
+    spec's layout."""
+    Z = val.check_Z(Z, n, p=p, multivariate=True)
+    m = Z.shape[1]
+    arrays = {"Z": np.moveaxis(Z, -1, 0),
+              "T": np.moveaxis(val.check_T(T, m, n), -1, 0),
+              "R": np.moveaxis(val.check_R(R, m, n), -1, 0),
+              "a1": val.check_a1(a1, m), "P1": val.check_P1(P1, m),
+              "D": np.atleast_2d(val.check_D(D, n, p=p)).T,
+              "C": val.check_C(C, m, n).T}
+    if H is not None:
+        arrays["H"] = np.moveaxis(
+            val.check_H(H, n, p=p, multivariate=True), -1, 0)
+    val.check_missingness(arrays)
+    return m, {k: dev(v) for k, v in arrays.items()}
+
+
 def _make_model(base, update_fn, prior_fn, init_theta, kind, extra,
                 names, device, dtype) -> Model:
     theta0 = np.atleast_1d(np.asarray(init_theta, dtype=np.float64))
     d, n = theta0.shape[0], base.n
 
+    core_of = core_ndim(base)
+
     def leaf(k, v, B):
-        if k not in CORE_NDIM:
+        if k not in core_of or not hasattr(base, k):
             raise ValueError(f"update_fn returned an unknown leaf {k!r}")
         v = torch.as_tensor(v, dtype=dtype, device=device)
-        c, cur = CORE_NDIM[k], getattr(base, k)
+        c, cur = core_of[k], getattr(base, k)
         core = tuple(v.shape[v.dim() - c:])
         want = tuple(cur.shape[cur.dim() - c:])
         if k in _TIMED:
@@ -77,9 +100,7 @@ def _make_model(base, update_fn, prior_fn, init_theta, kind, extra,
             return base
         new = {k: leaf(k, v, theta.shape[0])
                for k, v in update_fn(theta).items()}
-        if isinstance(base, LGSpec):
-            return base._replace(**new)
-        return dataclasses.replace(base, **new)
+        return _replace(base, **new)
 
     def no_prior(theta: torch.Tensor) -> torch.Tensor:
         return torch.zeros(theta.shape[:-1], dtype=theta.dtype,
@@ -138,3 +159,64 @@ def ssm_ung(y, Z, T, R, distribution, phi=1.0, u=None, a1=None, P1=None,
     return _make_model(spec, update_fn, prior_fn, init_theta, "ng",
                        {"m": m, "n": n, "distribution": dist}, theta_names,
                        device, dtype)
+
+
+def ssm_mlg(y, Z, H, T, R, a1=None, P1=None, D=None, C=None,
+            init_theta=(), update_fn: Optional[Callable] = None,
+            prior_fn: Optional[Callable] = None, theta_names=None,
+            dtype: torch.dtype = DEFAULT_DTYPE, device=None) -> Model:
+    """Multivariate linear-Gaussian model of p series, y ``(n, p)`` (NaN
+    where a series is missing); ``H`` a lower factor of the observation
+    covariance.  ``device=None`` means the CUDA device (raises when there
+    is none)."""
+    device = resolve_device(device)
+    y_np = val.check_y(y, multivariate=True)
+    n, p = y_np.shape
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    m, sysm = _system_mv(Z, H, T, R, a1, P1, D, C, n, p, dev)
+    spec = MVLGSpec(y=dev(y_np), **sysm)
+    return _make_model(spec, update_fn, prior_fn, init_theta, "mlg",
+                       {"m": m, "n": n, "p": p}, theta_names, device, dtype)
+
+
+def ssm_mng(y, Z, T, R, distributions, phi=None, u=None, a1=None, P1=None,
+            D=None, C=None, init_theta=(), update_fn=None, prior_fn=None,
+            theta_names=None, dtype: torch.dtype = DEFAULT_DTYPE,
+            device=None) -> Model:
+    """Multivariate non-Gaussian model of p series, y ``(n, p)``, each of
+    its own family (``distributions``: one name or int for all, or one
+    per series; "gaussian" has the sd ``phi[j]``); ``phi`` ``(p,)`` and
+    ``u`` ``(n, p)`` broadcast.  The Laplace iteration starts from each
+    series' own data-derived mode.  ``device=None`` means the CUDA device
+    (raises when there is none)."""
+    device = resolve_device(device)
+    y_np = val.check_y(y, multivariate=True)
+    n, p = y_np.shape
+    if isinstance(distributions, (str, int)):
+        distributions = [distributions] * p
+    if all(isinstance(d, str) for d in distributions):
+        val.check_distribution(y_np, list(distributions))
+    dists = tuple(_DIST_NAMES[d] if isinstance(d, str) else int(d)
+                  for d in distributions)
+    u_np = np.ones((n, p)) if u is None else np.broadcast_to(
+        np.asarray(u, np.float64), (n, p)).copy()
+    if (u_np <= 0).any() or not np.isfinite(u_np).all():
+        raise ValueError("Argument 'u' must contain only positive finite "
+                         "values.")
+    phi_np = np.ones(p) if phi is None else np.broadcast_to(
+        np.asarray(phi, np.float64), (p,)).copy()
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    m, sysm = _system_mv(Z, None, T, R, a1, P1, D, C, n, p, dev)
+    mode0 = np.stack([init_mode(y_np[:, j], u_np[:, j], dists[j])
+                      for j in range(p)], axis=1)
+    spec = MVNGSpec(y=dev(y_np), **sysm, phi=dev(phi_np), u=dev(u_np),
+                    distributions=dists, initial_mode=dev(mode0))
+    return _make_model(spec, update_fn, prior_fn, init_theta, "mng",
+                       {"m": m, "n": n, "p": p, "distributions": dists},
+                       theta_names, device, dtype)

@@ -49,6 +49,19 @@ def masked_chol(x: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     return L * outer
 
 
+def masked_tri_solve(L: torch.Tensor, b: torch.Tensor, active: torch.Tensor,
+                     lower: bool = True) -> torch.Tensor:
+    """Solve L x = b on the ``active`` subspace (L from ``masked_chol``):
+    L ``(..., k, k)``, b ``(..., k)`` or ``(..., k, r)``; the inactive
+    entries of x are zero."""
+    am = active.to(L.dtype)
+    Ls = L + torch.diag_embed(1.0 - am)
+    vec = b.dim() == L.dim() - 1
+    rhs = b.unsqueeze(-1) if vec else b
+    x = torch.linalg.solve_triangular(Ls, rhs, upper=not lower)
+    return x.squeeze(-1) * am if vec else x * am.unsqueeze(-1)
+
+
 def _eigh2x2(Vs: torch.Tensor):
     """Closed-form eigendecomposition of symmetric 2x2 matrices.
 
@@ -123,6 +136,23 @@ def _psd_pinv(V: torch.Tensor) -> torch.Tensor:
     winv = torch.where(pos, w / torch.where(pos, den, torch.ones_like(den)),
                        torch.zeros_like(w))
     return (U * winv.unsqueeze(-2)) @ U.transpose(-1, -2)
+
+
+def conditional_cov_factors(Vt: torch.Tensor, Ct: torch.Tensor):
+    """Smoothed covariances ``Vt (..., n+1, m, m)`` and lag-one
+    cross-covariances ``Ct`` (``Ct[t]`` = Cov(alpha_t, alpha_{t+1} | y) for
+    t < n) as the parameters of the FORWARD conditional proposal:
+    ``Lcond`` a square-root factor of Var(alpha_t | alpha_{t-1}, y) (of
+    Var(alpha_0 | y) at t = 0) and ``Acond`` the regression coefficients,
+    E[alpha_t | alpha_{t-1}] = ahat_t + Acond_t (alpha_{t-1} - ahat_{t-1}),
+    ``Acond[0] = 0``; both ``(..., n+1, m, m)``."""
+    tr = lambda A: A.transpose(-1, -2)                       # noqa: E731
+    A = tr(Ct[..., :-1, :, :]) @ _psd_pinv(Vt[..., :-1, :, :])
+    Vc = Vt[..., 1:, :, :] - A @ Ct[..., :-1, :, :]
+    Lcond = torch.cat([_psd_factor(Vt[..., :1, :, :]), _psd_factor(Vc)],
+                      dim=-3)
+    Acond = torch.cat([torch.zeros_like(A[..., :1, :, :]), A], dim=-3)
+    return Lcond, Acond
 
 
 def chol_rank1_update(L: torch.Tensor, v: torch.Tensor,

@@ -88,7 +88,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..core.spec import LGSpec, NGSpec, SVM, GAMMA, with_batch
+from ..core.spec import LGSpec, NGSpec, SVM, GAMMA, is_mv, with_batch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -267,9 +267,21 @@ def _batch(spec) -> int:
     return spec.batch or 1
 
 
+def _univariate(name: str, spec) -> None:
+    """Every wrapper takes one observed series: a multivariate spec is
+    refused on either device (the multivariate models reach no kernel;
+    ``ops/kalman_mv``, ``inference/approx_mv``)."""
+    if is_mv(spec):
+        raise TypeError(f"{name}: the kernels take one observed series, got "
+                        f"a {type(spec).__name__}")
+
+
 def _outside_system(spec) -> Optional[str]:
-    """Why the kernels cannot take the system of ``spec`` (its state
-    dimension or a time-varying Z, T, R or C), or None."""
+    """Why the kernels cannot take the system of ``spec`` (several
+    observed series, its state dimension or a time-varying Z, T, R or C),
+    or None."""
+    if is_mv(spec):
+        return "kernels take one observed series"
     m = spec.m
     if m > MAX_M:
         return f"kernels support m <= {MAX_M}, got {m}"
@@ -659,6 +671,7 @@ def log_likelihood(g: LGSpec) -> torch.Tensor:
     is degenerate (-inf) by the rule of the JAX package's kernel wrapper,
     ``ops/kalman.degenerate_h2rr``, on either device; on the card the
     kernel applies it, and a call is one launch."""
+    _univariate("log_likelihood", g)
     from . import kalman
     if not g.y.is_cuda:
         return kalman.log_likelihood(g, degenerate=kalman.degenerate_h2rr)
@@ -671,6 +684,7 @@ def fast_smoother_ll(g: LGSpec, staging: Optional[FsGeometry] = None):
     under the rule of ``log_likelihood``.  On the card a call is one launch,
     laid out as ``fs_geometry`` chooses unless ``staging`` (one of
     ``fs_options``) says otherwise: every layout gives the same bits."""
+    _univariate("fast_smoother_ll", g)
     from . import kalman
     if not g.y.is_cuda:
         return kalman.fast_smoother_ll(g, degenerate=kalman.degenerate_h2rr)
@@ -795,6 +809,7 @@ def laplace_solve(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
     five are views of one allocation, and a call is one launch, staged as
     ``laplace_staging`` chooses unless ``staging`` says otherwise (the kernel
     refuses a geometry that does not match n and m)."""
+    _univariate("laplace_solve", spec)
     if not spec.y.is_cuda:
         from ..inference.approx import laplace_solve_plain
         return laplace_solve_plain(spec, mode0, conv_tol, max_iter)
@@ -838,6 +853,7 @@ def laplace_step(spec: NGSpec, mode: torch.Tensor,
     the card the three are views of one allocation and a call is one
     launch, laid out as ``fs_geometry(..., step=True)`` chooses unless
     ``staging`` says otherwise (every layout gives the same bits)."""
+    _univariate("laplace_step", spec)
     if not spec.y.is_cuda:
         from ..inference.approx import _laplace_step
         return _laplace_step(spec, mode)
@@ -950,6 +966,7 @@ def rts_factors(g: LGSpec):
     linear-Gaussian model ``g``; see ``ops/kalman.smoother_bwd_factors``.
     On the card the three are views of one allocation, and a call is one
     launch laid out as ``rts_geometry`` chooses."""
+    _univariate("rts_factors", g)
     if not g.y.is_cuda:
         from .kalman import smoother_bwd_factors
         return smoother_bwd_factors(g)
@@ -1001,6 +1018,7 @@ def psi_logw(spec: NGSpec, al, ahat: torch.Tensor, Lb: torch.Tensor,
     """psi-APF log-weight ``(B,)`` of every batch row from the proposal
     factors and injected randomness ``eps (B, n+1, N, m)``, ``us (B, n, N)``.
     ``al`` is the row's ``ApproxLoglik`` (mode, ytilde, Htilde, scales)."""
+    _univariate("psi_logw", spec)
     if not spec.y.is_cuda:
         from ..inference.particle import psi_logw_scan
         return psi_logw_scan(spec, al, eps, us, factors=(ahat, Lb, Ab))
@@ -1280,6 +1298,7 @@ def psi_big_logw(spec: NGSpec, al, ahat: torch.Tensor, Lb: torch.Tensor,
     (B, n, N)`` int32, with the injected tensors only, gives the ancestors
     of every resampling step in place of the search (a check: the plain
     version takes the same tensor)."""
+    _univariate("psi_big_logw", spec)
     B, n, m = al.approx.mode.shape[0], spec.n, spec.m
     N, eps, us, key, anc = _randomness("psi_big_logw", B, n + 1, m,
                                        spec.y.device, eps, us, seed, nsim,
@@ -1365,6 +1384,7 @@ def bsf_big_logw(spec: NGSpec, kk: int, *, eps=None, us=None, seed=None,
     (and, as a check, ``anc (B, n-1, N)``), or ``seed`` (a Philox key) with
     ``nsim``; B is then the batch size of ``spec``.  R may have fewer
     columns than states."""
+    _univariate("bsf_big_logw", spec)
     n, m = spec.n, spec.m
     B = eps.shape[0] if eps is not None else _batch(spec)
     N, eps, us, key, anc = _randomness("bsf_big_logw", B, n, m,

@@ -8,6 +8,7 @@
     python3 chip_smoke.py --ab DIR --ab-set big   # the same for K4 / K5
     python3 chip_smoke.py --geometry-sweep   # K4 / K5 launch geometries
     python3 chip_smoke.py --grid-depth 4000  # the replication grid, deep
+    python3 chip_smoke.py --mv-only  # the multivariate models alone
 
 What it does, in order:
 
@@ -73,10 +74,10 @@ What it does, in order:
    plain version's ancestors (every row), float64 against the plain
    version, and timed at 8192 rows; K1-K3 with T, R, a1, P1 and C per row
    (``ar1_ng`` negative binomial, 1024 rows, both dtypes);
-7. drives 24 paths through the public entry points and gates each
-   (finite values, acceptance rate, ESS_IS fraction where there are
-   weights, the path's kernels launched by that very run, and no plain
-   route taken on the card, ``cuda_kalman.PLAIN_ROUTES``):
+7. drives 27 paths and the multivariate API through the public entry
+   points and gates each (finite values, acceptance rate, ESS_IS fraction
+   where there are weights, the path's kernels launched by that very run,
+   and no plain route taken on the card, ``cuda_kalman.PLAIN_ROUTES``):
    ``psi_N10`` / ``psi_N256`` (resampling period 8) / ``psi_N256_refexact``
    (period 1): IS-MCMC (``mcmc_type="is2"``) on a level + slope ``bsm_ng``
    Poisson model, n = 153, 4096 / 4096 / 1024 chains; ``pm_bsf_N200``:
@@ -124,7 +125,21 @@ What it does, in order:
    ``psi_N10``'s, and ``pm_psi_full_N10`` / ``da_spdk_full_N10`` (1024
    chains, state output: rejected slots repeat, every state mean within 6
    combined SEs of ``is2_full``'s weighted mean; a pm theta-output run of
-   the same size times the chain-time ratio);
+   the same size times the chain-time ratio); and the multivariate models
+   (``mv_section``; ``--mv-only`` runs only them), batched tensor code with
+   no kernel (every launch, replay and plain-route count must stay 0):
+   ``mlg_gaussian``, bssm's README example as ``ssm_mlg`` (airquality
+   Ozone and Temp, a local level each, H and R from ``update_fn``; 1024
+   chains, ``--iter`` iterations, full output; the draws within 6
+   sqrt(Vt / draws) of ``smoother_mv``'s moments over the same thetas);
+   ``mng_is2_psi_N10`` / ``mng_da_psi_N10``, the JAX package zoo's
+   Poisson + Gaussian ``ssm_mng`` (n = 80, 1024 chains, ``--mv-iter``
+   iterations; is2's psi weighted means within 5 combined SEs of is2/bsf
+   with 200 particles on the same phase-1 chain, ``post_correct``); and
+   ``mv_api``, the single-model API on that model, its ``predict`` /
+   ``fitted``, and its one-series reduction against ``ssm_ung``; the
+   device operations of the blocks a chain iteration repeats are counted
+   by stream capture and timed eager and replayed (``mv_ops`` line);
 8. the ``diagnostics`` phase on ``psi_N10``'s output (4096 chains x 500
    draws): ``summary`` and ``check_diagnostics`` timed and finite, the
    summary's means equal to the weighted means computed on the card to
@@ -140,7 +155,8 @@ What it does, in order:
    version, timed; the CUDA-graph replay of pm / da estimates against the
    eager calls, to the bit) and ``predict_fitted``;
 9. prints one JSON object per line: ``card``, ``checks``, ``step_checks``,
-   ``big_checks``, ``lg_checks``, ``sv_checks``, the phases' lines, one
+   ``big_checks``, ``lg_checks``, ``sv_checks``, the phases' lines,
+   ``mv_ops``, one
    ``path`` line each (``main_path`` for ``psi_N10``), ``diagnostics``,
    ``kernels`` (each kernel's launches by its wrapper, and apart from
    them ``replayed``, the launches CUDA-graph replays repeated), the
@@ -3500,6 +3516,307 @@ def options_section(bt, ck, m32, mb32, outs, it_full, it_half, lvl_slope,
     return paths, new, phases, problems
 
 
+# ---------------------------------------------------------------------------
+# the multivariate models: batched tensor code, no kernel
+# ---------------------------------------------------------------------------
+
+MV_CHAINS = 1024
+MV_ITER = 300                   # the mng paths; cut for the 120 s budget
+# theta of the bivariate airquality model: the sds of Ozone's and Temp's
+# observation noise, then of their levels (untransformed, as ssm_* samples)
+MLG_INIT = np.array([20.0, 5.0, 5.0, 2.0])
+MLG_GAMMA = ((2.0, 0.1), (2.0, 0.4))        # (shape, rate) of the obs sds
+MLG_HALFNORMAL = (20.0, 5.0)                 # scales of the level sds
+
+
+def mlg_airquality_model(bt, dtype):
+    """bssm's README multivariate example as ``ssm_mlg`` (the reference is
+    not mounted; this is the form used): airquality's Ozone and Temp (n =
+    153, p = 2; Ozone's 37 NAs leave rows partly missing), a local level
+    each (m = 2, Z = T = I), H and R diagonal from a batched ``update_fn``
+    (d = 4: the two observation sds, then the two level sds), gamma priors
+    on the observation sds and half-normal ones on the level sds, a1 the
+    series' means, P1 = diag(1000, 100)."""
+    aq = bt.airquality()
+    y = np.column_stack([aq["Ozone"], aq["Temp"]])
+
+    def update_fn(theta):
+        return {"H": torch.diag_embed(theta[:, :2])[:, None],
+                "R": torch.diag_embed(theta[:, 2:])[:, None]}
+
+    def prior_fn(theta):
+        lp = 0.0
+        for j, (k, r) in enumerate(MLG_GAMMA):
+            lp = lp + (k - 1.0) * torch.log(theta[:, j].clamp(min=1e-30)) \
+                - r * theta[:, j]
+        for j, sc in enumerate(MLG_HALFNORMAL):
+            lp = lp - 0.5 * torch.square(theta[:, 2 + j] / sc)
+        return torch.where((theta > 0).all(-1), lp,
+                           torch.full_like(lp, -torch.inf))
+
+    return bt.ssm_mlg(y, Z=np.eye(2), H=np.diag(MLG_INIT[:2]), T=np.eye(2),
+                      R=np.diag(MLG_INIT[2:]), a1=np.nanmean(y, axis=0),
+                      P1=np.diag([1000.0, 100.0]), init_theta=MLG_INIT,
+                      update_fn=update_fn, prior_fn=prior_fn,
+                      theta_names=("sd_y_ozone", "sd_y_temp",
+                                   "sd_level_ozone", "sd_level_temp"),
+                      dtype=dtype, device="cuda")
+
+
+def zoo_mng_series() -> np.ndarray:
+    """The JAX package zoo's Poisson + Gaussian series (n = 80, p = 2):
+    its numpy draws replayed from ``default_rng(7)`` in the zoo's order
+    (``benchmarks/zoo_tpu.py:64-160``)."""
+    rng = np.random.default_rng(7)
+    rng.poisson(np.exp(np.cumsum(rng.normal(0, .1, 100))))
+    seas = 0.4 * np.sin(2 * np.pi * np.arange(120) / 12)
+    rng.poisson(np.exp(0.5 + seas + np.cumsum(rng.normal(0, 0.05, 120))))
+    rng.normal(0, 1, 200)
+    return np.column_stack([
+        rng.poisson(np.exp(np.cumsum(rng.normal(0, .1, 80)))),
+        rng.normal(0, 1, 80).cumsum()]).astype(float)
+
+
+def zoo_update(theta):
+    """R = exp(theta) I of the zoo's ``ssm_mng``, batched over chains."""
+    return {"R": torch.exp(theta[:, 0])[:, None, None, None]
+            * torch.eye(2, dtype=theta.dtype, device=theta.device)}
+
+
+ZOO_KW = dict(T=0.95 * np.eye(2), R=0.2 * np.eye(2), P1=np.eye(2),
+              init_theta=(np.log(0.2),), update_fn=zoo_update,
+              prior_fn=lambda th: -0.5 * (th ** 2).sum(-1), device="cuda")
+
+
+def zoo_mng_model(bt, dtype, p: int = 2, y=None):
+    """The zoo's ``ssm_mng(pois+gauss)`` (``benchmarks/zoo_tpu.py:157-170``):
+    Z = I, T = 0.95 I, R = exp(theta) I (d = 1, theta ~ N(0, 1) a priori,
+    theta_init log 0.2), P1 = I, phi = 1, on ``zoo_mng_series`` unless ``y``
+    (a future: NaN) is given.  ``p = 1`` keeps the Poisson series alone
+    (Z = (1, 0)): the univariate reduction."""
+    y = zoo_mng_series()[:, :p] if y is None else y
+    return bt.ssm_mng(y, Z=np.eye(2)[:p],
+                      distributions=["poisson", "gaussian"][:p],
+                      phi=np.ones(p), theta_names=("log_sd_state",),
+                      dtype=dtype, **ZOO_KW)
+
+
+def zoo_ung_model(bt, dtype):
+    """The p = 1 reduction of ``zoo_mng_model`` as the port's ``ssm_ung``."""
+    return bt.ssm_ung(zoo_mng_series()[:, 0], Z=np.array([1.0, 0.0]),
+                      distribution="poisson", dtype=dtype, **ZOO_KW)
+
+
+def mv_iteration_ops(bt, model, kind: str, B: int) -> dict:
+    """What paces a multivariate chain iteration: the device operations of
+    the blocks it repeats, counted by stream capture, and their eager and
+    replayed milliseconds (CUDA events) at ``B`` rows, theta_init.  mlg:
+    the log-likelihood, once an iteration.  mng: one Laplace pass (an
+    evaluation runs ``passes`` of them, the mean over the rows) and the
+    psi filter's estimate at N = 10 (pm / da, once an iteration)."""
+    from bssm_tpu_torch.inference import approx_mv as amv
+    from bssm_tpu_torch.inference import mcmc as tm
+    from bssm_tpu_torch.inference.replay import Replay
+    th = torch.as_tensor(model.theta_init, dtype=torch.float32,
+                         device="cuda").expand(B, -1).contiguous()
+    spec = model.build(th)
+    rp = Replay()
+    res = {"rows": B}
+    if kind == "mlg":
+        blocks = {"log_likelihood": (tm._loglik_mv, (spec,))}
+    else:
+        al = amv.approx_loglik_mv(spec)
+        res["passes"] = float(al.approx.niter.float().mean())
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        eps = torch.randn((B, spec.n + 1, 10, spec.m), generator=gen,
+                          device="cuda")
+        us = torch.rand((B, spec.n, 10), generator=gen, device="cuda")
+        blocks = {"laplace_pass": (amv._laplace_step_mv,
+                                   (spec, al.approx.mode)),
+                  "psi_estimate_N10": (tm._psi_states_mv,
+                                       (spec, al, eps, us, None))}
+    for name, (fn, args) in blocks.items():
+        eager = fn(*args)
+        replayed = rp(fn, *args)
+        same = all(torch.equal(a, b) for a, b in zip(eager, replayed))
+        res[name] = {"device_ops": len(graph_nodes(lambda: fn(*args))),
+                     "eager_ms": time_ms(lambda: fn(*args)),
+                     "replayed_ms": time_ms(lambda: rp(fn, *args)),
+                     "replay_bit_equal_to_eager": same}
+        if not same:
+            FAILURES.append({"what": f"{kind} {name}: replay differs from "
+                                     "the eager call"})
+    if kind == "mlg":
+        res["device_ops_per_iteration"] = res["log_likelihood"]["device_ops"]
+    else:
+        res["device_ops_per_evaluation"] = \
+            res["passes"] * res["laplace_pass"]["device_ops"]
+    return res
+
+
+def mv_no_kernels(r: dict, ck) -> None:
+    """Gate of every multivariate path: no kernel launched, replayed or
+    routed plain (the models reach no kernel)."""
+    bad = {k: v for k, v in {**r["launches"], **r["plain_routes"],
+                             **r.get("replayed", {})}.items() if v}
+    if bad:
+        r["problems"].append(f"{r['path']}: kernel counts {bad}")
+
+
+def mv_api_phase(bt, ck, model, model_p1, ung, thetas) -> dict:
+    """The public API on the zoo's mng at theta_init, its launches counted
+    (all must stay 0), then its p = 1 reduction against the port's
+    ``ssm_ung`` (which runs the kernels, outside the counted window): the
+    approximate log-likelihood to 1e-4 relative and the mode to 1e-4 at
+    ``thetas`` (float32), and the psi log-likelihood (N = 10, 4096
+    replications at theta_init) within 5 jackknife standard errors."""
+    from bssm_tpu_torch.inference import approx_mv as amv
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.time()
+    lls = {"approx": bt.logLik(model), "psi_N10": bt.logLik(model, 10),
+           "bsf_N200": bt.logLik(model, 200, method="bsf"),
+           "spdk_N10": bt.logLik(model, 10, method="spdk")}
+    imp = bt.importance_sample(model, 100)
+    kf = bt.kfilter(model)
+    fs = bt.fast_smoother(model)
+    sm = bt.smoother(model)
+    ss = bt.sim_smoother(model, 8)
+    ps = bt.particle_smoother(model, 10)
+    ap = bt.run_mcmc(model, iter=40, mcmc_type="approx", output_type="full",
+                     n_chains=64, seed=2)
+    fut = zoo_mng_model(bt, torch.float32, y=np.full((12, 2), np.nan))
+    pr = bt.predict(ap, fut, "response", 4096, seed=3)
+    fi = bt.fitted(ap, model)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    res = {"path": "mv_api", "model": "the zoo's ssm_mng(pois+gauss) at "
+           "theta_init, n=80, p=2, m=2, float32; its p = 1 reduction "
+           "against ssm_ung", "elapsed_s": elapsed,
+           "launches": dict(ck.LAUNCHES), "plain_routes":
+           dict(ck.PLAIN_ROUTES), "replayed": dict(ck.REPLAYED),
+           "logLik": {k: float(v[0]) for k, v in lls.items()},
+           "importance_sample_loglik": float(imp.loglik),
+           "predict_shape": list(pr.shape), "fitted_shape": list(fi.shape)}
+    tensors = [*lls.values(), imp.alpha, imp.weights, kf.at, kf.Pt, fs,
+               sm.alphahat, sm.Vt, ss, ps.alphahat, ps.Vt]
+    finite = all(bool(torch.isfinite(x).all()) for x in tensors) and bool(
+        np.isfinite(pr).all() and np.isfinite(fi).all()
+        and np.isfinite(ap.alpha).all())
+    res["finite"] = finite
+    problems = []
+    if not finite:
+        problems.append("non-finite outputs")
+    if pr.shape != (4096, 12, 2) or fi.shape != (64 * 20, 80, 2):
+        problems.append(f"predict {pr.shape} / fitted {fi.shape}")
+    res["problems"] = problems
+    mv_no_kernels(res, ck)
+    # the p = 1 reduction against ssm_ung
+    th = torch.as_tensor(thetas, dtype=torch.float32, device="cuda")
+    a_mv = amv.approx_loglik_mv(model_p1.build(th))
+    a_u = bt.approx_loglik(ung.build(th))
+    rel = float(((a_mv.loglik - a_u.loglik).abs()
+                 / a_u.loglik.abs()).max())
+    mode_err = float((a_mv.approx.mode[..., 0] - a_u.approx.mode).abs()
+                     .max())
+    R = 4096
+    th0 = torch.as_tensor(model_p1.theta_init, dtype=torch.float32,
+                          device="cuda").expand(R, -1).contiguous()
+    s_mv, s_u = model_p1.build(th0), ung.build(th0)
+    al_mv = amv.approx_loglik_mv(s_mv)
+    al_u = bt.approx_loglik(s_u)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    ll_mv = amv.psi_filter_mv(s_mv, al_mv, 10, gen, keep_paths=False)
+    ll_u = bt.psi_logw(s_u, al_u, 10, gen)
+    (e_mv, se_mv), (e_u, se_u) = jackknife_loglik(ll_mv), \
+        jackknife_loglik(ll_u)
+    z = abs(e_mv - e_u) / max(np.hypot(se_mv, se_u), 1e-30)
+    res["p1_vs_ssm_ung"] = {"thetas": len(thetas),
+                            "approx_loglik_max_rel_err": rel,
+                            "mode_max_abs_err": mode_err,
+                            "psi_loglik_mv": e_mv, "psi_loglik_se_mv": se_mv,
+                            "psi_loglik_ung": e_u, "psi_loglik_se_ung": se_u,
+                            "z": z}
+    if not (rel <= 1e-4 and mode_err <= 1e-4 and z < 5.0):
+        res["problems"].append(f"mv_api: p = 1 against ssm_ung "
+                               f"{res['p1_vs_ssm_ung']}")
+    return res
+
+
+def mv_section(bt, ck, it_mlg: int, it_mng: int):
+    """The multivariate paths (``mlg_gaussian``, ``mng_is2_psi_N10``,
+    ``mng_da_psi_N10``) and the ``mv_api`` phase, with what paces them
+    (``mv_iteration_ops``).  Each path has ``run_path``'s gates, no
+    kernel count may rise, and its own gates: mlg_gaussian, its full
+    draws within 6 sqrt(Vt / draws) of the smoothed moments over the same
+    thetas (``smoother_mv``, ``lg_states_check``); mng_is2_psi_N10, is2/bsf
+    N = 200 on the same phase-1 chain (``post_correct``) and psi's
+    weighted means within 5 combined SEs of bsf's.  Returns (path objects,
+    problems)."""
+    from bssm_tpu_torch.inference import mcmc as tm
+    mlg = mlg_airquality_model(bt, torch.float32)
+    mng = zoo_mng_model(bt, torch.float32)
+    ops = {"mlg": mv_iteration_ops(bt, mlg, "mlg", MV_CHAINS),
+           "mng": mv_iteration_ops(bt, mng, "mng", MV_CHAINS)}
+    emit("mv_ops", {**ops, "failures": FAILURES})
+    aq = "ssm_mlg airquality Ozone + Temp, local level each (H, R " \
+        "diagonal from update_fn), n=153, p=2, m=2, d=4, float32"
+    zoo = "ssm_mng poisson + gaussian (the zoo's), n=80, p=2, m=2, d=1, " \
+        "float32"
+    r_lg, o_lg = run_path(bt, ck, mlg, "mlg_gaussian", aq, MV_CHAINS,
+                          it_mlg, (), (0.15, 0.6), None,
+                          output_type="full")
+    t0 = time.time()
+    ah, Vt = tm._state_summary(mlg, torch.as_tensor(
+        o_lg.theta, device="cuda"), 65536)
+    from types import SimpleNamespace
+    summ = SimpleNamespace(alphahat=ah.cpu().numpy(), Vt=Vt.cpu().numpy(),
+                           theta=o_lg.theta)
+    r_lg["summary_s"] = time.time() - t0
+    r_lg["states_check"] = lg_states_check(summ, o_lg)
+    if not r_lg["states_check"]["ok"]:
+        r_lg["problems"].append(f"mlg_gaussian: draws disagree with the "
+                                f"smoother {r_lg['states_check']}")
+    r_lg["posterior_mean"] = dict(zip(o_lg.theta_names,
+                                      o_lg.flat_theta().mean(0).tolist()))
+    r_is, o_is = run_path(bt, ck, mng, "mng_is2_psi_N10", zoo, MV_CHAINS,
+                          it_mng, (), (0.15, 0.35), None, particles=10,
+                          mcmc_type="is2", sampling_method="psi",
+                          corr_batch=65536)
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.time()
+    bsf = bt.post_correct(mng, o_is, 200, sampling_method="bsf",
+                          output_type="theta", corr_batch=16384, seed=2)
+    torch.cuda.synchronize()
+    w = bsf.flat_weights()
+    agree = means_agree(flat_stats(o_is), flat_stats(bsf))
+    r_is["bsf_N200_same_chain"] = {
+        "elapsed_s": time.time() - t0,
+        "ess_is_fraction": bt.ess_is(w) / w.size,
+        "launches": dict(ck.LAUNCHES), "plain_routes": dict(ck.PLAIN_ROUTES),
+        "psi_vs_bsf": agree}
+    if not agree["ok"]:
+        r_is["problems"].append(f"mng_is2_psi_N10: psi disagrees with bsf "
+                                f"{agree}")
+    if any(ck.LAUNCHES.values()) or any(ck.PLAIN_ROUTES.values()):
+        r_is["problems"].append("mng_is2_psi_N10: bsf correction launched "
+                                "a kernel")
+    r_da, _ = run_path(bt, ck, mng, "mng_da_psi_N10", zoo, MV_CHAINS,
+                       it_mng, (), (0.05, 0.5), None, particles=10,
+                       mcmc_type="da", sampling_method="psi")
+    paths = [r_lg, r_is, r_da]
+    for r in paths:
+        mv_no_kernels(r, ck)
+        r["iteration_ops"] = ops["mlg" if r is r_lg else "mng"]
+        r["chain_s_per_iteration"] = r["time"]["mcmc"] / r["iter"]
+    api = mv_api_phase(bt, ck, mng, zoo_mng_model(bt, torch.float32, p=1),
+                       zoo_ung_model(bt, torch.float32),
+                       np.log([[0.05], [0.1], [0.2], [0.4], [0.8]]))
+    paths.append(api)
+    return paths, [p for r in paths for p in r["problems"]]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iter", type=int, default=1000,
@@ -3541,6 +3858,13 @@ def main() -> int:
                          "the global approximation's estimators on its "
                          "is2/psi/global draws (global_tails); prints no "
                          "result line")
+    ap.add_argument("--mv-iter", type=int, default=MV_ITER,
+                    help=f"iterations of the multivariate non-Gaussian "
+                         f"paths (default {MV_ITER}; mlg_gaussian runs "
+                         f"--iter)")
+    ap.add_argument("--mv-only", action="store_true",
+                    help="only the multivariate paths and phase "
+                         "(mv_section) and stop; prints no result line")
     ap.add_argument("--geometry-sweep", action="store_true",
                     help="only time the large-ensemble kernel under launch "
                          "geometries the rule does not pick "
@@ -3596,6 +3920,11 @@ def main() -> int:
         big_section(bt, main_path_model(bt, torch.float32),
                     main_path_model(bt, torch.float64))
         return 1 if FAILURES else 0
+    if args.mv_only:
+        mv_paths, mv_problems = mv_section(bt, ck, args.iter, args.mv_iter)
+        for r in mv_paths:
+            emit("path", r)
+        return 1 if mv_problems or FAILURES else 0
     # ---- kernels against their plain versions -----------------------------
     checks = []
     m32 = main_path_model(bt, torch.float32)
@@ -3923,6 +4252,12 @@ def main() -> int:
     paths += opt_paths
     outs.update(opt_outs)
     problems += opt_problems
+    # the multivariate models (no kernel; every count must stay 0)
+    t_mv = time.time()
+    mv_paths, mv_problems = mv_section(bt, ck, it_full, args.mv_iter)
+    mv_paths[0]["mv_section_s"] = time.time() - t_mv
+    paths += mv_paths
+    problems += mv_problems + [f["what"] for f in FAILURES]
     # the replication grid's launches count as one more path's
     paths.append({"path": "replications", "launches":
                   phases["replications"].get(

@@ -6,6 +6,7 @@ On CPU tensors the port's wrapper runs the kernel's plain version
 path (per-row stopping, like the port) in float64 and against the Pallas
 kernel in interpret mode in float32.
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import jax
 import jax.numpy as jnp
 import numpy as np

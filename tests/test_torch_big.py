@@ -15,6 +15,7 @@ known-answer vectors of Philox-4x32-10.  The plain versions fed the
 ancestors their own search chose (the kernel's check-only ``anc`` input)
 reproduce themselves bit for bit.
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import contextlib
 
 import jax

@@ -10,6 +10,7 @@ which underflow to 0 in the far tail, the port as log-weights.  The exact
 check therefore starts from an informative initial state, where the two
 agree; the others compare in mean over keys.
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import jax
 import jax.numpy as jnp
 import numpy as np

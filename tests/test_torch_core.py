@@ -6,6 +6,7 @@ functions are elementwise formulas evaluated in the same order, so the
 tolerance is a few ulps: rtol 1e-12 (lgamma and exp differ in the last
 digits between the two libraries).
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import jax
 import jax.numpy as jnp
 import numpy as np

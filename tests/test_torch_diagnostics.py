@@ -8,6 +8,7 @@ library above; the port's numpy path is also held against its native path
 on the same long series.  ``summary`` and ``check_diagnostics`` take an
 ``McmcOutput`` that each package builds from the same arrays, no MCMC run.
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import numpy as np
 import pytest
 

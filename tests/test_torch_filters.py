@@ -8,6 +8,7 @@ same randomness.  Float64 throughout; both sides run the same recursions
 with sums taken in other orders, so results agree to 1e-10 (1 + |ref|), and
 resampled ancestors exactly.
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import jax
 import jax.numpy as jnp
 import numpy as np

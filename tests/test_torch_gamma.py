@@ -11,6 +11,7 @@ injected normals and uniforms on both sides) are held against the JAX
 package's: the same recursions, summed in another order, hence rtol 1e-9
 (1e-8 through the particle filter's pseudo-inverse).
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,7 @@ Held against the JAX package's ``_family_ops(..., local_approx=False)
 .approx_eval`` row by row, and end to end (approx and is2 runs) within
 Monte-Carlo error.
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import jax
 import jax.numpy as jnp
 import numpy as np

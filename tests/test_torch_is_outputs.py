@@ -13,6 +13,7 @@
 - ``post_correct`` with ``is_correction_generator`` replays a ``run_mcmc``
   correction exactly.
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ Tolerances: both sides are the same recursions in float64, but the products
 are summed in another order (batched matmul vs per-row dot), so over n ~ 30
 steps the results agree to rtol 1e-9, not to the ulp.
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -14,6 +14,7 @@ recursions in float64 with products summed in another order: tolerance
 (``laplace_solve_steps``), held against the JAX package's unbatched
 ``approximate`` (its ``_laplace_solve_base`` loop).
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -22,6 +22,7 @@ CPU: what ``ops/cuda_kalman.py`` hands them, checked without a card.
 Read-back comparisons are exact up to the rounding of one batched matrix
 product (R R'): rtol 1e-12 in float64, 1e-6 in float32.
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import dataclasses
 
 import jax.numpy as jnp

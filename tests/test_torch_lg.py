@@ -13,6 +13,7 @@ summed in another order, so they agree to rtol 1e-9 with an absolute floor
 of 1e-9 times the largest magnitude of the compared array (the smoothed
 means of a diffuse P1 = 100 I start near 1e2).
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import jax
 import jax.numpy as jnp
 import numpy as np

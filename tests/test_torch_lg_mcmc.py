@@ -7,6 +7,7 @@ are compared within Monte-Carlo error; the state summary is compared with
 the JAX package's pooling formula on the same stored thetas, and the state
 draws with the summary of the same theta chains.
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -4,6 +4,7 @@ package's own normals, on the CPU in float64.
 
 The models, thetas and tolerances are those of ``tests/test_torch_lg.py``.
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -2,6 +2,7 @@
 adaptation and one Metropolis step from injected randomness, the phase-2
 correction draw for draw, and IS-MCMC end to end within Monte-Carlo error.
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import subprocess
 import sys
 

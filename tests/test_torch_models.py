@@ -16,6 +16,7 @@ the port and per-theta JAX functions in the JAX package.  Also: the
 validation errors of the new checks, as ``tests/test_validate.py`` has
 them, and rows whose prior is -inf in one batch with valid rows.
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import jax
 import jax.numpy as jnp
 import numpy as np

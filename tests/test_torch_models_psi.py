@@ -6,6 +6,7 @@ port, as ``tests/test_torch_mcmc.py`` holds it for ``bsm_ng``: the Laplace
 solve, the proposal factors and the filter chained, within atol 1e-9.
 The models are ``tests/test_torch_models.py``'s.
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import jax
 import jax.numpy as jnp
 import numpy as np

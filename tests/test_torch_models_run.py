@@ -13,6 +13,7 @@
   chains, both runs' errors combined), the acceptance rates within 0.1,
   and the ESS_IS fraction exceeds 0.8 on both.
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@
   starts where the first ended, as ``tests/test_checkpoint.py`` holds for
   the JAX package.
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import numpy as np
 import pandas as pd
 import pytest

@@ -4,6 +4,7 @@ pseudo-marginal step from injected randomness, the is2 correction draw for
 draw at 64 particles (psi with two resampling periods, and bootstrap), and
 is2 / pm / da end to end within Monte-Carlo error.
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,7 @@ the final weights; it is the chain's aux, kept on rejection and stored per
 slot.  Held end to end against the JAX package within Monte-Carlo error of
 the state means, and the pick against its inverse-CDF definition.
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import numpy as np
 import pytest
 import torch

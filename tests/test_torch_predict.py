@@ -5,6 +5,7 @@ state draws, weights), built here from a seed, so no MCMC runs: fitted
 means must agree to round-off; predictive draws, whose random streams
 differ, within Monte-Carlo error.
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -6,6 +6,7 @@ The same normals and uniforms, drawn with numpy, go through
 ``psi_logw_scan`` (the kernel's plain version, which the wrapper runs on CPU
 tensors), and through the Pallas kernel in interpret mode.
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import jax
 import jax.numpy as jnp
 import numpy as np

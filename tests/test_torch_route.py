@@ -21,6 +21,7 @@ particles.
 - ``logLik`` of a linear-Gaussian model with ``particles`` > 0 is the exact
   Kalman log-likelihood, as the JAX package's, to 1e-9.
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import dataclasses
 from types import SimpleNamespace
 

@@ -11,6 +11,7 @@ simulation smoother it draws with, on the CPU.
   weighted moments, the drawn trajectory) against the JAX package's
   ``_make_correct_one`` on the draws it made.
 """
+import torch_threads  # noqa: F401  (one torch thread; first)
 import jax
 import jax.numpy as jnp
 import numpy as np
