@@ -26,8 +26,17 @@ What runs today:
   psi, bsf or SPDK, local or global approximation, theta / summary / full
   output as above) and the single-model API; batched tensor code with no
   kernel, as in the JAX package;
+- on the nonlinear ``ssm_nlg`` and the ``example_models`` (user model
+  functions batched over rows, ``models/nlg.py``): ``run_mcmc`` with
+  ``mcmc_type`` "ekf" (theta, summary or full output), approx, is1/is2/is3,
+  pm and da with the bootstrap filter (their default) or psi; and on one
+  model ``ekf`` (iterated with ``iekf_iter``), ``ukf``, ``ekf_smoother``,
+  ``ekf_fast_smoother``, ``ekpf_filter``, ``bootstrap_filter``,
+  ``particle_smoother`` (psi, bsf, ekf), ``logLik`` and
+  ``gaussian_approx``; batched tensor code with no kernel, as in the JAX
+  package;
 - on a run with state output and a model of the future or the past:
-  ``predict`` and ``fitted``;
+  ``predict`` and ``fitted`` (``predict`` only for a nonlinear model);
 - on the linear-Gaussian ``bsm_lg``, ``ar1_lg`` and ``ssm_ulg``: marginal
   MCMC (``mcmc_type="gaussian"``) with ``output_type`` "theta", "summary"
   or "full", and ``logLik``, ``fast_smoother``, ``smoother``,
@@ -42,7 +51,9 @@ What runs today:
   ``str()``.
 
 The user functions of ``ssm_ulg`` / ``ssm_ung`` / ``ssm_mlg`` /
-``ssm_mng`` are torch functions batched over chains (``models/ssm.py``).
+``ssm_mng`` are torch functions batched over chains (``models/ssm.py``),
+those of ``ssm_nlg`` torch functions batched over rows of (time, state,
+theta) (``models/nlg.py``).
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.
 """
@@ -68,6 +79,8 @@ from .models.ar1 import ar1_lg, ar1_ng                           # noqa: E402
 from .models.svm import svm                                      # noqa: E402
 from .models.ssm import (ssm_ulg, ssm_ung, ssm_mlg,              # noqa: E402
                          ssm_mng)
+from .models.nlg import ssm_nlg, NLGSpec                        # noqa: E402
+from .models import examples as example_models                  # noqa: E402
 from .inference.mcmc import (run_mcmc, McmcOutput,               # noqa: E402
                              is_correction_generator)
 from .inference.approx import (approximate, approx_loglik,       # noqa: E402
@@ -79,7 +92,9 @@ from .inference.importance import (importance_sample,            # noqa: E402
                                    ImportanceSample)
 from .inference.predict import predict, fitted                   # noqa: E402
 from .inference.filters import (kfilter, bootstrap_filter,       # noqa: E402
-                                particle_smoother)
+                                particle_smoother, ekf, ukf,
+                                ekf_smoother, ekf_fast_smoother,
+                                ekpf_filter)
 from .inference.postcorrect import post_correct, suggest_N       # noqa: E402
 from .inference.particle import (psi_logw, bsf_logw,             # noqa: E402
                                  psi_logw_scan, bsf_logw_scan,

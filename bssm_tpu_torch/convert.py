@@ -16,6 +16,7 @@ from .core.config import DEFAULT_DTYPE, resolve_device
 from .core.spec import (LGSpec, MVLGSpec, MVNGSpec, NGSpec, POISSON,
                         with_batch)
 from .inference.approx import ApproxLoglik, ApproxResult
+from .inference.nlg import NLGApprox
 
 
 def _tensor(x, device, dtype) -> torch.Tensor:
@@ -89,6 +90,24 @@ def mv_approx_from_numpy(d: Mapping, device=None,
                       zero, None)
     scales = with_batch(_tensor(d["scales"], device, dtype), 1)
     return ApproxLoglik(ar, scales, zero, zero)
+
+
+def nlg_approx_from_numpy(d: Mapping, device=None,
+                          dtype: torch.dtype = DEFAULT_DTYPE) -> NLGApprox:
+    """A nonlinear model's mode approximation (the JAX package's
+    ``NLGApprox``): ``mode (n, m)``, ``approx`` a mapping of the linearised
+    ``MVLGSpec``'s arrays (``y (n, p)`` shared, the others with or without
+    the batch axis), ``scales (n,)``, ``loglik`` and ``niter``, each with or
+    without a leading batch axis B."""
+    device = resolve_device(device)
+    mode = with_batch(_tensor(d["mode"], device, dtype), 2)
+    B = mode.shape[0]
+    g = mvlgspec_from_numpy(d["approx"], device, dtype)
+    lead = lambda x: x.reshape(-1).expand(B)                 # noqa: E731
+    return NLGApprox(mode, g,
+                     with_batch(_tensor(d["scales"], device, dtype), 1),
+                     lead(_tensor(d["loglik"], device, dtype)),
+                     lead(_tensor(d["niter"], device, torch.int32)))
 
 
 def approx_from_numpy(d: Mapping, device=None,

@@ -118,10 +118,14 @@ def _solve(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
 
 
 def laplace_solve_plain(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
-                        max_iter: int):
+                        max_iter: int, replay=None):
     """Plain version of the ``laplace_solve`` kernel and of
-    ``laplace_solve_steps``: the loop over ``_laplace_step``."""
-    return _solve(spec, mode0, conv_tol, max_iter, _laplace_step)
+    ``laplace_solve_steps``: the loop over ``_laplace_step``; with
+    ``replay`` (``inference.replay.Replay``) each pass runs through it, one
+    CUDA graph a shape on the card."""
+    step = _laplace_step if replay is None \
+        else (lambda s, mode: replay(_laplace_step, s, mode))
+    return _solve(spec, mode0, conv_tol, max_iter, step)
 
 
 def laplace_solve_steps(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
@@ -138,10 +142,13 @@ def laplace_solve_steps(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
 
 
 def approximate(spec: NGSpec, conv_tol: float = CONV_TOL,
-                max_iter: int = MAX_ITER, mode0=None) -> ApproxResult:
+                max_iter: int = MAX_ITER, mode0=None,
+                replay=None) -> ApproxResult:
     """Full Laplace iteration from ``spec.initial_mode`` (or ``mode0``): an
     unbatched spec through ``laplace_solve_steps``, a batched one through
-    the ``laplace_solve`` kernel.
+    the ``laplace_solve`` kernel, or where the kernel does not take it
+    through ``laplace_solve_plain`` (its passes through ``replay`` when
+    given).
 
     The (ytilde, Htilde) returned are re-derived from the penultimate mode,
     exactly the pair the last smoother pass consumed, and ``gloglik`` is
@@ -157,7 +164,8 @@ def approximate(spec: NGSpec, conv_tol: float = CONV_TOL,
     elif cuda_kalman.route("laplace_solve", spec):
         solve = cuda_kalman.laplace_solve
     else:
-        solve = laplace_solve_plain
+        def solve(*a):
+            return laplace_solve_plain(*a, replay=replay)
     mode, prev, niter, diff, gll = solve(spec, mode0, conv_tol, max_iter)
     yt, H = _one_match(spec, prev)
     return ApproxResult(mode, yt, H, niter, diff, gll)
@@ -190,11 +198,12 @@ def mode_scales(spec: NGSpec, approx: ApproxResult) -> torch.Tensor:
 
 def approx_loglik(spec: NGSpec, approx: Optional[ApproxResult] = None,
                   conv_tol: float = CONV_TOL, max_iter: int = MAX_ITER,
-                  mode0=None) -> ApproxLoglik:
+                  mode0=None, replay=None) -> ApproxLoglik:
     """Approximate marginal log-likelihood = KF loglik of the approximating
     model + exact constant term + sum of the mode-based scales."""
     if approx is None:
-        approx = approximate(spec, conv_tol, max_iter, mode0=mode0)
+        approx = approximate(spec, conv_tol, max_iter, mode0=mode0,
+                             replay=replay)
     if approx.gloglik is not None:
         gll = approx.gloglik
     else:
@@ -263,10 +272,15 @@ def gaussian_approx(model_or_spec, conv_tol: float = CONV_TOL,
                     max_iter: int = MAX_ITER, theta=None) -> LGSpec:
     """The approximating linear-Gaussian model of a non-Gaussian model
     (built at ``theta``, by default its initial value) or spec: an
-    ``LGSpec``, or for several series an ``MVLGSpec``."""
+    ``LGSpec``, or for several series or a nonlinear model (linearised at
+    its mode) an ``MVLGSpec``."""
     from ..core.spec import MVNGSpec
+    from ..models.nlg import NLGSpec
     from .filters import spec_of
     spec = spec_of(model_or_spec, theta)
+    if isinstance(spec, NLGSpec):
+        from .nlg import approximate_nlg
+        return approximate_nlg(spec).approx
     if isinstance(spec, MVNGSpec):
         from .approx_mv import approximate_mv
         return approximate_mv(spec, conv_tol, max_iter).gaussian(spec)

@@ -1,20 +1,22 @@
-"""Public filtering API: the Kalman filter, the bootstrap filter and the
-particle smoother.
+"""Public filtering API: the Kalman filter, the bootstrap filter, the particle
+smoother, and the nonlinear models' extended and unscented Kalman filters,
+extended Kalman smoothers and extended Kalman particle filter.
 
-Counterpart of ``bssm_tpu/inference/filters.py`` (but the nonlinear
-models' filters).  Every function takes a model (built at ``theta``, by
-default its initial value) or a spec.  A model is handed on as ONE
-unbatched model, as the JAX
-package hands it to its functions, so its Gaussian approximation is the
-single-model solve (``inference/approx.laplace_solve_steps``, the
-``laplace_step`` kernel on the card); a spec passes as it is, so a batched
-spec is filtered row by row in one pass.  Results keep a leading batch axis
-(of one for a model).  The randomness of the particle filters comes from
-``generator`` (default: one seeded with ``seed`` on the model's device) or
-is injected as ``eps``/``us`` (see ``inference/particle``).
+Counterpart of ``bssm_tpu/inference/filters.py``.  Every function takes a
+model (built at ``theta``, by default its initial value) or a spec.  A model
+is handed on as ONE unbatched model (a nonlinear one as a spec of one row of
+theta), as the JAX package hands it to its functions, so its Gaussian
+approximation is the single-model solve
+(``inference/approx.laplace_solve_steps``, the ``laplace_step`` kernel on
+the card); a spec passes as it is, so a batched spec is filtered row by row
+in one pass.  Results keep a leading batch axis (of one for a model).  The
+randomness of the particle filters comes from ``generator`` (default: one
+seeded with ``seed`` on the model's device) or is injected as ``eps``/``us``
+(see ``inference/particle``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -22,10 +24,12 @@ import torch
 
 from ..core.spec import LGSpec, MVLGSpec, MVNGSpec, NGSpec, drop_batch
 from ..models.base import Model
+from ..models.nlg import NLGSpec
 from ..ops import kalman, kalman_mv
 from ..ops.resample import ancestor_trace
 from . import approx as approx_mod
 from . import approx_mv as mv_mod
+from . import nlg as nlg_mod
 from . import particle as pf_mod
 
 
@@ -46,7 +50,8 @@ def spec_of(model_or_spec, theta=None):
     th = theta_of(model_or_spec, theta)
     if th.dim() != 1:
         raise ValueError("theta must be one parameter vector (d,)")
-    return drop_batch(model_or_spec.build(th))
+    spec = model_or_spec.build(th)
+    return spec if isinstance(spec, NLGSpec) else drop_batch(spec)
 
 
 def generator_for(spec, generator: Optional[torch.Generator], seed: int):
@@ -73,12 +78,12 @@ def bootstrap_filter(model_or_spec, particles: int,
                      generator: Optional[torch.Generator] = None,
                      seed: int = 1, theta=None, eps=None,
                      us=None) -> pf_mod.PFResult:
-    """Bootstrap particle filter of a non-Gaussian (one or several series)
-    or univariate linear-Gaussian model, trajectories untraced
+    """Bootstrap particle filter of a non-Gaussian (one or several series),
+    univariate linear-Gaussian or nonlinear model, trajectories untraced
     (``ops/resample.ancestor_trace``)."""
     spec = spec_of(model_or_spec, theta)
     runs = {NGSpec: pf_mod.bsf_filter, MVNGSpec: mv_mod.bsf_filter_mv,
-            LGSpec: pf_mod.bsf_filter_lg}
+            LGSpec: pf_mod.bsf_filter_lg, NLGSpec: nlg_mod.bsf_filter_nlg}
     if type(spec) not in runs:
         raise TypeError(f"bootstrap_filter takes no {type(spec).__name__}")
     return runs[type(spec)](spec, particles,
@@ -101,16 +106,26 @@ def particle_smoother(model_or_spec, particles: int, method: str = "psi",
                       max_iter: int = approx_mod.MAX_ITER
                       ) -> ParticleSmootherResult:
     """Filter-smoother state estimates by the psi-auxiliary
-    (``method="psi"``) or the bootstrap (``"bsf"``) particle filter: the
-    weighted mean and covariance of the traced trajectories.  A
-    linear-Gaussian model takes the bootstrap filter whatever ``method``
-    is, as in the JAX package."""
+    (``method="psi"``) or the bootstrap (``"bsf"``) particle filter, or for
+    a nonlinear model also the extended Kalman particle filter
+    (``"ekf"``): the weighted mean and covariance of the traced
+    trajectories.  A linear-Gaussian model takes the bootstrap filter
+    whatever ``method`` is, as in the JAX package."""
     spec = spec_of(model_or_spec, theta)
     gen = generator_for(spec, generator, seed)
-    if method not in ("psi", "bsf"):
+    nlg = isinstance(spec, NLGSpec)
+    if method not in (("psi", "bsf", "ekf") if nlg else ("psi", "bsf")):
         raise NotImplementedError(f"method={method!r}: 'psi' and 'bsf' are "
-                                  "ported")
-    if isinstance(spec, MVNGSpec):
+                                  "ported (and 'ekf' for nonlinear models)")
+    if nlg:
+        if method == "psi":
+            pf = nlg_mod.psi_filter_nlg(spec, nlg_mod.approximate_nlg(spec),
+                                        particles, gen, eps=eps, us=us)
+        elif method == "ekf":
+            pf = nlg_mod.ekpf_filter(spec, particles, gen, eps=eps, us=us)
+        else:
+            pf = nlg_mod.bsf_filter_nlg(spec, particles, gen, eps=eps, us=us)
+    elif isinstance(spec, MVNGSpec):
         if method == "psi":
             al = mv_mod.approx_loglik_mv(spec, conv_tol=conv_tol,
                                          max_iter=max_iter)
@@ -133,3 +148,52 @@ def particle_smoother(model_or_spec, particles: int, method: str = "psi",
     dev = traced - mean[:, None]
     Vt = torch.einsum('bi,bitm,bitk->btmk', w, dev, dev)
     return ParticleSmootherResult(mean, Vt, traced, w, pf.loglik)
+
+
+# ---------------------------------------------------------------------------
+# the nonlinear models' filters
+# ---------------------------------------------------------------------------
+
+def _nlg_spec(model_or_spec, theta, iekf_iter: int = 0) -> NLGSpec:
+    spec = spec_of(model_or_spec, theta)
+    if not isinstance(spec, NLGSpec):
+        raise TypeError(f"a nonlinear model is needed, got "
+                        f"{type(spec).__name__}")
+    return dataclasses.replace(spec, iekf_iter=int(iekf_iter)) \
+        if iekf_iter else spec
+
+
+def ekf(model_or_spec, theta=None, iekf_iter: int = 0) -> nlg_mod.EKFResult:
+    """(Iterated, with ``iekf_iter`` > 0) extended Kalman filter of a
+    nonlinear model."""
+    return nlg_mod.ekf(_nlg_spec(model_or_spec, theta, iekf_iter))
+
+
+def ukf(model_or_spec, theta=None, alpha: float = 1.0, beta: float = 0.0,
+        kappa: float = 2.0) -> nlg_mod.EKFResult:
+    """Unscented Kalman filter of a nonlinear model."""
+    return nlg_mod.ukf(_nlg_spec(model_or_spec, theta), alpha, beta, kappa)
+
+
+def ekf_smoother(model_or_spec, theta=None,
+                 iekf_iter: int = 0) -> kalman_mv.MVSmoothResult:
+    """Extended Kalman smoother of a nonlinear model."""
+    return nlg_mod.ekf_smoother(_nlg_spec(model_or_spec, theta, iekf_iter))
+
+
+def ekf_fast_smoother(model_or_spec, theta=None,
+                      iekf_iter: int = 0) -> torch.Tensor:
+    """Means-only extended Kalman smoother, ``(B, n+1, m)``."""
+    return nlg_mod.ekf_fast_smoother(
+        _nlg_spec(model_or_spec, theta, iekf_iter))
+
+
+def ekpf_filter(model_or_spec, particles: int,
+                generator: Optional[torch.Generator] = None, seed: int = 1,
+                theta=None, eps=None, us=None) -> pf_mod.PFResult:
+    """Extended Kalman particle filter of a nonlinear model, trajectories
+    untraced."""
+    spec = _nlg_spec(model_or_spec, theta)
+    return nlg_mod.ekpf_filter(spec, particles,
+                               generator_for(spec, generator, seed), eps=eps,
+                               us=us)

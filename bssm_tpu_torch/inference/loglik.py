@@ -1,16 +1,19 @@
 """Log-likelihood API.
 
-Counterpart of ``bssm_tpu/inference/loglik.py`` (but the nonlinear
-models').  A univariate linear-Gaussian model's exact log-likelihood goes
-through ``ops/cuda_kalman.log_likelihood`` (the Kalman log-likelihood
-kernel on the GPU, its plain version on the CPU and for models the kernel
-does not take, with the kernel wrapper's degenerate-model rule,
+Counterpart of ``bssm_tpu/inference/loglik.py``.  A univariate
+linear-Gaussian model's exact log-likelihood goes through
+``ops/cuda_kalman.log_likelihood`` (the Kalman log-likelihood kernel on the
+GPU, its plain version on the CPU and for models the kernel does not take,
+with the kernel wrapper's degenerate-model rule,
 ``ops/kalman.degenerate_h2rr``, on both), whatever ``particles`` is; a
-multivariate one's through ``ops/kalman_mv``.  A non-Gaussian model's is
-the approximate log-likelihood of its Laplace approximation
-(``particles=0``) or an importance-sampling estimate: the psi-auxiliary
-filter (``method="psi"``), the bootstrap filter (``"bsf"``) or SPDK draws
-from the approximating model (``"spdk"``, antithetic).
+multivariate one's through ``ops/kalman_mv``.  A non-Gaussian model's is the
+approximate log-likelihood of its Laplace approximation (``particles=0``) or
+an importance-sampling estimate: the psi-auxiliary filter
+(``method="psi"``), the bootstrap filter (``"bsf"``) or SPDK draws from the
+approximating model (``"spdk"``, antithetic).  A nonlinear model's is the
+mode approximation's (``particles=0``) or the extended Kalman filter's
+(``particles=0, method="ekf"``), or the estimate of the psi filter, the
+bootstrap filter or the extended Kalman particle filter (``"ekf"``).
 """
 from __future__ import annotations
 
@@ -19,9 +22,11 @@ from typing import Optional
 import torch
 
 from ..core.spec import MVLGSpec, MVNGSpec, NGSpec
+from ..models.nlg import NLGSpec
 from ..ops import cuda_kalman, kalman_mv
 from . import approx as approx_mod
 from . import approx_mv as mv_mod
+from . import nlg as nlg_mod
 from . import particle as pf_mod
 from .filters import generator_for, spec_of
 
@@ -40,6 +45,8 @@ def logLik(model_or_spec, particles: int = 0, method: str = "psi",
     spec = spec_of(model_or_spec, theta)
     if isinstance(spec, MVLGSpec):
         return kalman_mv.log_likelihood_mv(spec)
+    if isinstance(spec, NLGSpec):
+        return _loglik_nlg(spec, particles, method, generator, seed, eps, us)
     if isinstance(spec, MVNGSpec):
         return _loglik_mv(spec, particles, method, generator, seed,
                           conv_tol, max_iter, eps, us)
@@ -80,3 +87,24 @@ def _loglik_mv(spec, particles, method, generator, seed, conv_tol, max_iter,
         return mv_mod.spdk_sample_mv(spec, al, particles, gen).loglik
     return mv_mod.psi_filter_mv(spec, al, particles, gen, eps=eps, us=us,
                                 keep_paths=False)
+
+
+def _loglik_nlg(spec, particles, method, generator, seed, eps, us):
+    """``logLik`` of a nonlinear model: the mode approximation's or the
+    EKF's (``particles=0``), or a psi, bsf or EKPF (``"ekf"``) estimate.
+    (The JAX package runs the bootstrap filter for any other method; the
+    port refuses it.)"""
+    if method not in ("psi", "bsf", "ekf"):
+        raise ValueError(f"method={method!r}: a nonlinear model takes "
+                         "'psi', 'bsf' or 'ekf'")
+    if particles == 0:
+        if method == "ekf":
+            return nlg_mod.ekf_loglik(spec)
+        return nlg_mod.approximate_nlg(spec).loglik
+    gen = generator_for(spec, generator, seed)
+    if method == "psi":
+        return nlg_mod.psi_filter_nlg(spec, nlg_mod.approximate_nlg(spec),
+                                      particles, gen, eps=eps, us=us,
+                                      keep_paths=False)
+    run = nlg_mod.ekpf_filter if method == "ekf" else nlg_mod.bsf_filter_nlg
+    return run(spec, particles, gen, eps=eps, us=us, keep_paths=False)

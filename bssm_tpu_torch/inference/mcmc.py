@@ -51,6 +51,16 @@ A model the kernels do not take (m > 4, a time-varying system: a seasonal
 model with period 12, say) runs the same chains through their plain
 versions on the card (``cuda_kalman.route``).
 
+The nonlinear models (``kind`` "nlg", ``inference/nlg.py``) run
+``mcmc_type="ekf"`` (RAM Metropolis on the extended Kalman filter's
+log-likelihood, ``output_type`` "theta", "summary" or "full" from the
+model linearised along the EKF) and approx, is1/is2/is3, pm and da on the
+mode approximation (damped Gauss-Newton from the EKF start) with the psi
+filter or the bootstrap filter (``sampling_method`` defaults to "bsf", as
+in the JAX package; SPDK and the global approximation do not exist for
+them).  They reach no kernel either: an EKF log-likelihood, each
+Gauss-Newton pass and pm / da's filter estimate run as CUDA graphs.
+
 The multivariate models reach no kernel (the JAX package has none there
 either): ``kalman_mv`` and ``approx_mv`` are batched tensor code, and a
 chain iteration's repeated blocks of it (the mlg log-likelihood, each
@@ -83,6 +93,7 @@ from ..core.config import resolve_device
 from ..core.priors import LOG
 from ..core.spec import is_mv
 from ..models.base import Model
+from ..models.nlg import NLGSpec
 from ..ops import cuda_kalman
 from ..ops import kalman as kalman_mod
 from ..ops import kalman_mv
@@ -90,6 +101,7 @@ from ..ops.resample import ancestor_trace
 from ..ops.simsmooth import simulate_states_single
 from . import approx as approx_mod
 from . import approx_mv as mv_mod
+from . import nlg as nlg_mod
 from . import particle as pf_mod
 from .ram import adapt_S
 from .replay import Replay
@@ -420,15 +432,20 @@ def _gaussian_chain(model: Model, n_iter, burnin, thin, target, gamma,
     """RAM Metropolis on the exact Kalman log-likelihood, all chains
     batched: one launch of the log-likelihood kernel per iteration, or for
     several series (``kind == "mlg"``) the plain multivariate filter, on
-    the card one CUDA graph replayed per iteration (``replay.Replay``)."""
+    the card one CUDA graph replayed per iteration (``replay.Replay``), as
+    is the plain filter of a model the kernel does not take.  A
+    nonlinear model (``mcmc_type="ekf"``) targets the EKF's log-likelihood
+    the same way, one CUDA graph an iteration."""
     replay = Replay()
 
     def logdens(theta):
         spec = model.build(theta)
         if model.kind == "mlg":
             ll = replay(_loglik_mv, spec)[0]
+        elif model.kind == "nlg":
+            ll = replay(nlg_mod._ekf_ll, spec)[0]
         else:
-            ll = cuda_kalman.routed_log_likelihood(spec)
+            ll = cuda_kalman.routed_log_likelihood(spec, replay)
         return ll, ll, None
 
     def chain(generator, theta0, S0):
@@ -454,6 +471,9 @@ def _state_draws(model: Model, thetas: torch.Tensor, generator,
         spec = model.build(flat[lo:lo + batch_size])
         if model.kind == "mlg":
             a = kalman_mv.simulate_states_mv(spec, 1, generator, False)[:, 0]
+        elif model.kind == "nlg":       # on the model linearised by the EKF
+            a = kalman_mv.simulate_states_mv(
+                nlg_mod._ekf_linearised(spec), 1, generator, False)[:, 0]
         else:
             a = simulate_states_single(spec, generator)
         a = a.cpu().numpy()
@@ -470,12 +490,14 @@ def _state_summary(model: Model, thetas: torch.Tensor, batch_size: int):
     The JAX package pools per chain and then across chains; every chain
     stores as many draws, so that equals pooling all rows at once, which is
     done here in chunks of ``batch_size`` rows, summed in float64 around
-    the first row's smoothed means."""
+    the first row's smoothed means.  A nonlinear model's smoothed moments
+    are the extended Kalman smoother's."""
     flat = thetas.reshape(-1, thetas.shape[-1])
     N = flat.shape[0]
     ref = s1 = s2 = sv = None
-    smoother = kalman_mv.smoother_mv if model.kind == "mlg" \
-        else kalman_mod.smoother
+    smoother = {"mlg": kalman_mv.smoother_mv,
+                "nlg": nlg_mod.ekf_smoother}.get(model.kind,
+                                                 kalman_mod.smoother)
     for lo in range(0, N, batch_size):
         sm = smoother(model.build(flat[lo:lo + batch_size]))
         ah = sm.alphahat.double()
@@ -535,7 +557,13 @@ def _approx_evaluator(model: Model, conv_tol: float, max_iter: int,
     at ``model.theta_init`` (also when a resumed run starts elsewhere), and
     every evaluation is one smoother pass (``approx.global_approx_loglik``).
     Either way the filters propose from the approximation rebuilt at the
-    evaluated mode (``approximate_for_is``)."""
+    evaluated mode (``approximate_for_is``).  A nonlinear model has the
+    local mode approximation only (``nlg.approx_loglik_nlg``, each
+    Gauss-Newton pass one CUDA graph on the card)."""
+    if model.kind == "nlg":
+        replay = Replay()
+        return Approximation(
+            lambda spec: nlg_mod.approx_loglik_nlg(spec, replay), False)
     mv = model.kind == "mng"
     if local_approx:
         replay = Replay()
@@ -545,9 +573,10 @@ def _approx_evaluator(model: Model, conv_tol: float, max_iter: int,
                 al = mv_mod.approx_loglik_mv(spec, conv_tol=conv_tol,
                                              max_iter=max_iter,
                                              replay=replay)
-            else:
+            else:       # the plain route's passes are CUDA graphs too
                 al = approx_mod.approx_loglik(spec, conv_tol=conv_tol,
-                                              max_iter=max_iter)
+                                              max_iter=max_iter,
+                                              replay=replay)
             return al.loglik, al.approx.mode
         return Approximation(evaluate, False)
     if mv:
@@ -590,8 +619,10 @@ def _check_method(model: Model, sampling_method: str) -> None:
         raise NotImplementedError(
             f"sampling_method={sampling_method!r}: 'psi', 'bsf' and 'spdk' "
             "are ported")
-    if model.kind not in ("ng", "mng"):
+    if model.kind not in ("ng", "mng", "nlg"):
         raise NotImplementedError(f"model kind {model.kind!r} is not ported")
+    if model.kind == "nlg" and sampling_method == "spdk":
+        raise ValueError("spdk not available for this model family")
 
 
 def _psi_al(spec, ar):
@@ -599,6 +630,8 @@ def _psi_al(spec, ar):
     its mode-based scales and zero log-likelihood terms."""
     zero = torch.zeros(ar.mode.shape[0], dtype=spec.y.dtype,
                        device=spec.y.device)
+    if isinstance(spec, NLGSpec):       # ar: an NLGApprox, scales inside
+        return ar._replace(loglik=zero)
     scales = mv_mod.mode_scales_mv if is_mv(spec) else approx_mod.mode_scales
     return approx_mod.ApproxLoglik(ar, scales(spec, ar), zero, zero)
 
@@ -607,7 +640,11 @@ def _rebuild(spec, modes, conv_tol=approx_mod.CONV_TOL,
              max_iter=approx_mod.MAX_ITER):
     """The approximation a filter weighs against, as ``_psi_al`` gives it:
     rebuilt at ``modes``, or without them solved anew (cold, as phase 1
-    solved it)."""
+    solved it).  A nonlinear model's is an ``nlg.NLGApprox``."""
+    if isinstance(spec, NLGSpec):
+        if modes is None:
+            return _psi_al(spec, nlg_mod.approximate_nlg(spec))
+        return nlg_mod.approximate_for_is_nlg(spec, modes)
     if is_mv(spec):
         if modes is None:
             return _psi_al(spec, mv_mod.approximate_mv(spec, conv_tol,
@@ -682,6 +719,8 @@ def _make_correct_rows(model: Model, nsim: int, sampling_method: str,
         if model.kind == "mng":
             return correct_rows_mv(spec, modes, generator, eps, us, states,
                                    u_pick)
+        if model.kind == "nlg":
+            return correct_rows_nlg(spec, modes, generator, eps, us, u_pick)
         if sampling_method == "spdk":
             al = approximation(spec, modes)
             if states is None:
@@ -739,6 +778,27 @@ def _make_correct_rows(model: Model, nsim: int, sampling_method: str,
                                           eps=eps, us=us)
                 log_w, traced, w = pf.loglik, pf.alpha, pf.weights[..., -1]
         return finish(log_w, traced, w, generator, u_pick)
+
+    def correct_rows_nlg(spec, modes, generator, eps, us, u_pick):
+        """The same for a nonlinear model (``inference/nlg.py``): psi or
+        bsf, resampling at every step, without trajectories when neither
+        states nor moments are asked for."""
+        keep = want_states or want_moments
+        if sampling_method == "bsf":
+            pf = nlg_mod.bsf_filter_nlg(spec, nsim, generator, eps=eps,
+                                        us=us, keep_paths=keep)
+            if not keep:
+                return {"log_w": pf}
+            traced = ancestor_trace(pf.alpha, pf.indices)
+        else:
+            pf = nlg_mod.psi_filter_nlg(spec, approximation(spec, modes),
+                                        nsim, generator, eps=eps, us=us,
+                                        keep_paths=keep)
+            if not keep:
+                return {"log_w": pf}
+            traced = pf.alpha
+        return finish(pf.loglik, traced, pf.weights[..., -1], generator,
+                      u_pick)
 
     def finish(log_w, traced, w, generator, u_pick):
         out = {"log_w": log_w}
@@ -909,6 +969,9 @@ def _approx_state_draws(model: Model, thetas, modes, generator,
         mo = fmodes[lo:lo + batch_size]
         if model.kind == "mng":
             a = mv_mod.approx_state_draws_mv(spec, mo, generator)
+        elif model.kind == "nlg":
+            a = kalman_mv.simulate_states_mv(
+                nlg_mod.build_approx(spec, mo), 1, generator, False)[:, 0]
         else:
             ar = approx_mod.approximate_for_is(spec, mo)
             a = simulate_states_single(ar.gaussian(spec), generator)
@@ -972,6 +1035,28 @@ def _spdk_estimate_mv(spec, al, um, eps, eta, nsim, u):
     return r.loglik, _pick_trajectory(r.alpha, r.weights, u=u)
 
 
+def _psi_states_nlg(spec, mode, eps, us, u):
+    """``_psi_states`` of a nonlinear model, the linearisation rebuilt at
+    the evaluated ``mode`` inside; without ``u`` the estimate only."""
+    ap = nlg_mod.approximate_for_is_nlg(spec, mode)
+    if u is None:
+        return (nlg_mod.psi_filter_nlg(spec, ap, eps.shape[2], eps=eps,
+                                       us=us, keep_paths=False),)
+    pf = nlg_mod.psi_filter_nlg(spec, ap, eps.shape[2], eps=eps, us=us)
+    return pf.loglik, _pick_trajectory(pf.alpha, pf.weights[..., -1], u=u)
+
+
+def _bsf_states_nlg(spec, eps, us, u):
+    """``_bsf_states`` of a nonlinear model; without ``u`` the estimate
+    only."""
+    if u is None:
+        return (nlg_mod.bsf_filter_nlg(spec, eps.shape[2], eps=eps, us=us,
+                                       keep_paths=False),)
+    pf = nlg_mod.bsf_filter_nlg(spec, eps.shape[2], eps=eps, us=us)
+    return pf.loglik, _pick_trajectory(ancestor_trace(pf.alpha, pf.indices),
+                                       pf.weights[..., -1], u=u)
+
+
 def _eager(fn, spec, *args):
     return fn(spec, *args)
 
@@ -1002,6 +1087,19 @@ def _pf_loglik(model: Model, theta: torch.Tensor, generator, nsim: int,
 
     def uniforms(B):
         return torch.rand((B,), **kw) if need_states else None
+
+    if model.kind == "nlg":             # psi or bsf, always through call
+        B = spec.batch
+        if sampling_method == "bsf":
+            eps = torch.randn((B, n + 1, nsim, max(m, spec.k)), **kw)
+            us = torch.rand((B, n, nsim), **kw)
+            res = call(_bsf_states_nlg, spec, eps, us, uniforms(B))
+            return res[0], res[0], res[1] if need_states else None
+        approx_ll, mode = approx.evaluate(spec)
+        eps = torch.randn((B, n + 1, nsim, m), **kw)
+        us = torch.rand((B, n, nsim), **kw)
+        res = call(_psi_states_nlg, spec, mode, eps, us, uniforms(B))
+        return approx_ll + res[0], approx_ll, res[1] if need_states else None
 
     if sampling_method == "bsf":
         if not (need_states or mv):
@@ -1254,6 +1352,12 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
     keeps the likelihood estimate unbiased for a fixed schedule (check
     ESS_IS when raising it).  The filters of pm and da and those of the
     state outputs always resample at every step.
+    Nonlinear models (``kind`` "nlg"): mcmc_type "is2" (default), "is1",
+    "is3", "approx", "pm", "da" or "ekf" (the EKF's log-likelihood;
+    output_type "theta", "summary" or "full"); sampling_method "bsf"
+    (default) or "psi"; ``local_approx=False`` and "spdk" raise
+    ``ValueError``; the mode approximation takes the model's own
+    ``max_iter`` and ``conv_tol`` (``ssm_nlg``), not this call's.
     ``corr_batch``: rows per chunk of the work after the chain, the IS
     correction (default 256) or the state draws and smoothing (default
     65536); it only bounds memory.
@@ -1279,20 +1383,29 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
                 f"output_type={output_type!r}: 'theta', 'summary' and "
                 "'full' are ported")
     else:
+        nlg = model.kind == "nlg"
         mcmc_type = mcmc_type or "is2"
-        sampling_method = sampling_method or "psi"
-        if mcmc_type not in ("approx", "is1", "is2", "is3", "pm", "da"):
+        # psi for the exponential families, bsf for the nonlinear models
+        sampling_method = sampling_method or ("bsf" if nlg else "psi")
+        if mcmc_type not in ("approx", "is1", "is2", "is3", "pm", "da") \
+                + (("ekf",) if nlg else ()):
             raise NotImplementedError(
                 f"mcmc_type={mcmc_type!r}: only 'approx', 'is1', 'is2', "
-                "'is3', 'pm' and 'da' are ported")
+                "'is3', 'pm', 'da' and, for nonlinear models, 'ekf' are "
+                "ported")
         outputs = ("theta", "full") if mcmc_type in ("approx", "pm", "da") \
             else ("theta", "summary", "full")
         if output_type not in outputs:
             raise NotImplementedError(
                 f"output_type={output_type!r}: mcmc_type={mcmc_type!r} "
                 f"takes {outputs}")
-        _check_method(model, sampling_method)
-        if mcmc_type != "approx":
+        if nlg and not local_approx:
+            raise ValueError(
+                "local_approx=False: a nonlinear model has only the local "
+                "mode approximation")
+        if mcmc_type != "ekf":
+            _check_method(model, sampling_method)
+        if mcmc_type not in ("approx", "ekf"):
             if particles < 2:
                 raise ValueError(
                     "particles >= 2 required for non-approx MCMC")
@@ -1323,7 +1436,7 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
     base = dict(n_iter=iter, burnin=burnin, thin=thin,
                 target=target_acceptance, gamma=gamma,
                 end_ram=end_adaptive_phase)
-    if mcmc_type == "gaussian":
+    if mcmc_type in ("gaussian", "ekf"):
         chain = _gaussian_chain(model, **base)
     else:
         approx = _approx_evaluator(model, conv_tol, max_iter,
@@ -1333,7 +1446,7 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
         chain = make(model, nsim=particles, sampling_method=sampling_method,
                      approx=approx, pf_generator=gen2,
                      store_states=output_type == "full", **base)
-    elif mcmc_type != "gaussian":
+    elif mcmc_type not in ("gaussian", "ekf"):
         # the modes are kept when asked, always for the approx full output,
         # whose state draws replay them, and always on the global
         # approximation, which a cold recompute would replace by the local
@@ -1358,7 +1471,7 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
         S=host(res["S"]), theta_names=model.theta_names, mcmc_type=mcmc_type,
         output_type=output_type, iter=iter, burnin=burnin, thin=thin,
         prior=host(res["prior"]), time={"mcmc": t_mcmc})
-    if mcmc_type == "gaussian" and output_type != "theta":
+    if mcmc_type in ("gaussian", "ekf") and output_type != "theta":
         t1 = _time.time()
         rows = int(corr_batch or 65536)
         if output_type == "full":

@@ -27,6 +27,7 @@ from .mcmc import (Approximation, McmcOutput, _is_postprocess,
                    is_correction_generator)
 from . import approx as approx_mod
 from .approx_mv import approximate_mv
+from .nlg import approximate_nlg
 from .filters import spec_of, theta_of
 
 __all__ = ["post_correct", "suggest_N", "is_correction_generator"]
@@ -96,8 +97,9 @@ def suggest_N(model: Model, theta=None,
     is below 1; ``{"N": ..., "sd": ..., "all": {N: sd}}``.  Candidate N
     draws its randomness from a generator seeded with ``seed + N``."""
     th = theta_of(model, theta)
-    solve = approximate_mv if model.kind == "mng" else approx_mod.approximate
-    mode = solve(spec_of(model, th)).mode              # (1, n) or (1, n, p)
+    solve = {"mng": approximate_mv,
+             "nlg": approximate_nlg}.get(model.kind, approx_mod.approximate)
+    mode = solve(spec_of(model, th)).mode    # (1, n), (1, n, p) or (1, n, m)
     rows = th.expand(replications, -1)
     modes = mode.expand((replications,) + mode.shape[1:]).contiguous()
     results = {}

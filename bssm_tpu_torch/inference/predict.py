@@ -1,9 +1,10 @@
 """Posterior predictive simulation and fitted values.
 
-Counterpart of ``bssm_tpu/inference/predict.py`` (the nonlinear models'
-``_predict_nlg`` waits for their port); several series (``ssm_mlg``,
-``ssm_mng``) give signals, means and responses ``(..., n, p)``, the
-responses drawn series by series.  ``predict`` picks ``nsim`` stored
+Counterpart of ``bssm_tpu/inference/predict.py``; several series
+(``ssm_mlg``, ``ssm_mng``) give signals, means and responses ``(..., n,
+p)``, the responses drawn series by series, and so do the nonlinear models
+(``_predict_nlg``: their state recursion through T_fn and R_fn, their means
+Z_fn, their responses Z_fn + H_fn eps).  ``predict`` picks ``nsim`` stored
 draws with the IS weights as probabilities (``torch.multinomial``), builds
 the future model at all of them at once (``model.build((nsim, d))``) and
 runs the state recursion forward from each draw's final state, one batched
@@ -11,8 +12,8 @@ step per time point (``_sim_states``); ``fitted`` replays the stored state
 draws through the observation equation.  Every draw comes from one
 ``torch.Generator`` seeded with ``seed`` on the model's device, in this
 order: the pick, the state noise, the observation noise; the JAX package's
-threefry streams are not reproduced.  Plain tensor code: the JAX package
-has no TPU kernel here either.
+threefry streams are not reproduced.  Plain tensor code: the JAX package has
+no TPU kernel here either.
 """
 from __future__ import annotations
 
@@ -26,7 +27,9 @@ from ..core.spec import (BINOMIAL, GAMMA, GAUSSIAN, LGSpec, MVLGSpec,
                          MVNGSpec, NEGBIN, POISSON, SVM, at_t, is_mv,
                          with_batch)
 from ..models.base import Model
+from ..models.nlg import NLGSpec
 from .approx_mv import signal_mv
+from .nlg import _ev, _times
 
 
 def _to_sampled(model: Model, theta_nat: torch.Tensor) -> torch.Tensor:
@@ -151,6 +154,41 @@ def _obs_sample(spec, signal: torch.Tensor, alpha: torch.Tensor,
                           with_batch(spec.u, 1), phi)
 
 
+def _sim_states_nlg(spec: NLGSpec, a1: torch.Tensor, generator=None,
+                    eta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A nonlinear model's states simulated forward from ``a1 (B, m)``,
+    ``(B, n, m)``: alpha_1 = a1, alpha_{t+1} = T_fn(t, alpha_t) + R_fn(t,
+    alpha_t) eta_t.  ``eta (B, n, k)`` is drawn from ``generator`` unless
+    given; its last step is not used.  The JAX ``_sim_states_nlg`` emits
+    a1 once too (its scan returns the state before each step)."""
+    n, k = spec.n, spec.k
+    if eta is None:
+        eta = torch.randn((a1.shape[0], n, k), dtype=a1.dtype,
+                          device=a1.device, generator=generator)
+    a = a1
+    out = [a]
+    for t in range(n - 1):
+        a = _ev(spec.T_fn, spec, t, a) \
+            + (_ev(spec.R_fn, spec, t, a) @ eta[:, t, :, None])[..., 0]
+        out.append(a)
+    return torch.stack(out, dim=1)
+
+
+def _predict_nlg(spec: NLGSpec, a1: torch.Tensor, type: str, generator):
+    """``predict`` of a nonlinear model at the picked draws: states ``(B,
+    n, m)``, means Z_fn ``(B, n, p)`` or responses Z_fn + H_fn eps."""
+    states = _sim_states_nlg(spec, a1, generator)
+    if type == "state":
+        return states
+    tr = _times(spec, states.shape[0], spec.n)
+    mean = _ev(spec.Z_fn, spec, tr, states)
+    if type == "mean":
+        return mean
+    eps = torch.randn(mean.shape, dtype=mean.dtype, device=mean.device,
+                      generator=generator)
+    return mean + (_ev(spec.H_fn, spec, tr, states) @ eps[..., None])[..., 0]
+
+
 def _flat(output):
     th = output.flat_theta()
     alpha = output.alpha.reshape((-1,) + output.alpha.shape[2:])
@@ -164,7 +202,7 @@ def predict(output, model: Model, type: str = "response", nsim: int = 1000,
     ignored) and the stored final states (``alpha[:, :, -1]``, the one-step
     prediction beyond the data) start the state recursion.  ``type``
     "state" returns ``(nsim, n, m)``, "mean" and "response" ``(nsim, n)``
-    (``(nsim, n, p)`` for several series).
+    (``(nsim, n, p)`` for several series and for a nonlinear model).
     Needs a run with ``output_type="full"``."""
     if output.alpha is None:
         raise ValueError("predict needs output_type='full'")
@@ -180,6 +218,8 @@ def predict(output, model: Model, type: str = "response", nsim: int = 1000,
     thetas = torch.as_tensor(th, dtype=dt, device=dev)[idx]
     a1 = torch.as_tensor(alpha[:, -1], dtype=dt, device=dev)[idx]
     spec = model.build(_to_sampled(model, thetas))
+    if model.kind == "nlg":
+        return _predict_nlg(spec, a1, type, gen).cpu().numpy()
     states = _sim_states(spec, a1, gen)
     if type == "state":
         return states.cpu().numpy()
@@ -201,6 +241,10 @@ def fitted(output, model: Model, type: str = "mean",
     ``FITTED_ROWS`` draws.  Needs a run with ``output_type="full"``."""
     if output.alpha is None:
         raise ValueError("fitted needs output_type='full'")
+    if model.kind == "nlg":
+        raise ValueError("fitted is not defined for a nonlinear model here "
+                         "(the JAX package's fails on one, as its NLGSpec "
+                         "has no Z); use predict on a model of the past")
     if type not in ("mean", "response"):
         raise ValueError(f"type={type!r}: 'mean' or 'response'")
     dev, dt = model.device, model.dtype

@@ -691,14 +691,21 @@ def fast_smoother_ll(g: LGSpec, staging: Optional[FsGeometry] = None):
     return _lg_launch("fast_smoother_ll", g, smooth=True, staging=staging)
 
 
-def routed_log_likelihood(g: LGSpec) -> torch.Tensor:
+def _plain_log_likelihood(g: LGSpec):
+    from . import kalman
+    return (kalman.log_likelihood(g, degenerate=kalman.degenerate_h2rr),)
+
+
+def routed_log_likelihood(g: LGSpec, replay=None) -> torch.Tensor:
     """``log_likelihood`` at a call site: the kernel where it takes ``g``
     (``route``), else the plain version on ``g``'s own tensors, under the
-    same degenerate-model rule."""
-    from . import kalman
+    same degenerate-model rule; with ``replay``
+    (``inference.replay.Replay``) the plain version runs through it."""
     if route("log_likelihood", g):
         return log_likelihood(g)
-    return kalman.log_likelihood(g, degenerate=kalman.degenerate_h2rr)
+    if replay is None:
+        return _plain_log_likelihood(g)[0]
+    return replay(_plain_log_likelihood, g)[0]
 
 
 def routed_fast_smoother_ll(g: LGSpec):

@@ -9,6 +9,7 @@
     python3 chip_smoke.py --geometry-sweep   # K4 / K5 launch geometries
     python3 chip_smoke.py --grid-depth 4000  # the replication grid, deep
     python3 chip_smoke.py --mv-only  # the multivariate models alone
+    python3 chip_smoke.py --nlg-only # the nonlinear models alone
 
 What it does, in order:
 
@@ -74,10 +75,11 @@ What it does, in order:
    plain version's ancestors (every row), float64 against the plain
    version, and timed at 8192 rows; K1-K3 with T, R, a1, P1 and C per row
    (``ar1_ng`` negative binomial, 1024 rows, both dtypes);
-7. drives 27 paths and the multivariate API through the public entry
-   points and gates each (finite values, acceptance rate, ESS_IS fraction
-   where there are weights, the path's kernels launched by that very run,
-   and no plain route taken on the card, ``cuda_kalman.PLAIN_ROUTES``):
+7. drives 30 paths and the multivariate and nonlinear APIs through the
+   public entry points and gates each (finite values, acceptance rate,
+   ESS_IS fraction where there are weights, the path's kernels launched
+   by that very run, and no plain route taken on the card,
+   ``cuda_kalman.PLAIN_ROUTES``):
    ``psi_N10`` / ``psi_N256`` (resampling period 8) / ``psi_N256_refexact``
    (period 1): IS-MCMC (``mcmc_type="is2"``) on a level + slope ``bsm_ng``
    Poisson model, n = 153, 4096 / 4096 / 1024 chains; ``pm_bsf_N200``:
@@ -139,7 +141,26 @@ What it does, in order:
    ``mv_api``, the single-model API on that model, its ``predict`` /
    ``fitted``, and its one-series reduction against ``ssm_ung``; the
    device operations of the blocks a chain iteration repeats are counted
-   by stream capture and timed eager and replayed (``mv_ops`` line);
+   by stream capture and timed eager and replayed (``mv_ops`` line); and
+   the nonlinear models (``nlg_section``; ``--nlg-only`` runs only them),
+   batched tensor code with no kernel (every count must stay 0), on the
+   JAX package's growth model at its defaults (``simulate_growth()``, n =
+   100, m = 2, d = 3): ``nlg_growth_ekf`` (``mcmc_type="ekf"``, 1024 x
+   300, full output, its draws within 6 sqrt(Vt / draws) of the extended
+   Kalman smoother's moments over the same thetas),
+   ``nlg_growth_is2_psi_N10`` (1024 x 40 from the ekf chains' last theta
+   and RAM scale; ``post_correct`` of its chain with psi N = 100 and bsf
+   N = 200, psi 10's and bsf 200's weighted means within 5 combined SEs
+   of psi 100's) and ``nlg_growth_pm_psi_N10`` (1024 x 40 from draws
+   is2's start does not share: the ekf chains' draws 142 iterations and
+   more before it, importance-resampled to the exact posterior; within 5
+   of is2's), the ``nlg_ops`` line (the device operations of the EKF
+   log-likelihood, a Gauss-Newton start, pass and final likelihood and a
+   psi estimate, eager against replayed, replay bit-equal; the EKF with
+   forward-mode Jacobians replayed too), the ``nlg_checks`` phase
+   (``nlg_linear_gaussian`` against K6 / K7 on its ``ssm_ulg`` twin, EKPF
+   128 against the Kalman likelihood and psi 64 against psi 2048 over
+   4096 replications) and ``nlg_api``, the single-model API;
 8. the ``diagnostics`` phase on ``psi_N10``'s output (4096 chains x 500
    draws): ``summary`` and ``check_diagnostics`` timed and finite, the
    summary's means equal to the weighted means computed on the card to
@@ -156,8 +177,9 @@ What it does, in order:
    eager calls, to the bit) and ``predict_fitted``;
 9. prints one JSON object per line: ``card``, ``checks``, ``step_checks``,
    ``big_checks``, ``lg_checks``, ``sv_checks``, the phases' lines,
-   ``mv_ops``, one
+   ``mv_ops``, ``nlg_ops``, one
    ``path`` line each (``main_path`` for ``psi_N10``), ``diagnostics``,
+   ``nlg_checks``,
    ``kernels`` (each kernel's launches by its wrapper, and apart from
    them ``replayed``, the launches CUDA-graph replays repeated), the
    card's name and power limit, and last ``{"ok": true, "device":
@@ -216,6 +238,7 @@ line.  Tolerances (|a - b| <= tol (1 + |b|)):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -291,13 +314,15 @@ def device_rows(prof) -> list:
             and not e.key.startswith(("ProfilerStep", "Activity Buffer"))]
 
 
-def graph_nodes(fn) -> list:
+def graph_nodes(fn, warm: bool = True) -> list:
     """The types of the nodes of the CUDA graph that one call of ``fn``
     records under stream capture (0: kernel): the device work a call
-    enqueues, counted exactly."""
+    enqueues, counted exactly.  ``warm=False``: ``fn`` has run already,
+    so the eager call before the capture is left out."""
     import ctypes
     cudart = ctypes.CDLL("libcudart.so.12")
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(g, capture_error_mode="relaxed"):
@@ -2510,16 +2535,17 @@ def profile_main_path(bt, model, run: dict, iters: int = 60) -> dict:
 # ---------------------------------------------------------------------------
 
 def run_path(bt, ck, model, label: str, desc: str, chains: int, iters: int,
-             required, acc_range, ess_min, plain=(), **run):
-    """Drives one ``run_mcmc`` path at full width: a short warm-up, launch
-    and plain-route counts set to 0 just before the run and read just
-    after, then the gates.  ``plain``: the wrappers whose plain versions a
-    model outside the kernels' contract must take on the card; such a path
-    must launch no kernel, and every other path must take no plain route.
-    Returns the path's JSON object with its ``problems``, and the run's
-    output."""
+             required, acc_range, ess_min, plain=(), warmup: int = 20,
+             **run):
+    """Drives one ``run_mcmc`` path at full width: a short warm-up
+    (``warmup`` iterations), launch and plain-route counts set to 0 just
+    before the run and read just after, then the gates.  ``plain``: the
+    wrappers whose plain versions a model outside the kernels' contract
+    must take on the card; such a path must launch no kernel, and every
+    other path must take no plain route.  Returns the path's JSON object
+    with its ``problems``, and the run's output."""
     kw = {"output_type": "theta", "n_chains": chains, "seed": 1, **run}
-    bt.run_mcmc(model, iter=20, **kw)                     # warm-up
+    bt.run_mcmc(model, iter=warmup, **kw)                 # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ck.reset_launch_counts()
@@ -3817,6 +3843,457 @@ def mv_section(bt, ck, it_mlg: int, it_mng: int):
     return paths, [p for r in paths for p in r["problems"]]
 
 
+# --------------------------------------------------------------------------
+# the nonlinear models (no kernel on their paths)
+# --------------------------------------------------------------------------
+
+NLG_CHAINS = 1024
+NLG_EKF_ITER = 300               # nlg_growth_ekf; both cut for the budget
+NLG_ITER = 40                    # the is2 and pm paths
+NLG_ROWS = 4096                  # rows of theta / replications of the checks
+
+
+def growth_model(bt, dtype, y=None, **kw):
+    """The JAX package's growth model at its own defaults: ``nlg_growth`` on
+    ``simulate_growth()`` (n = 100, seed 0, K = 100, theta (0, log 0.05,
+    0)), m = 2, k = 2, d = 3, unless ``y`` is given."""
+    ex = bt.example_models
+    return ex.nlg_growth(ex.simulate_growth() if y is None else y,
+                         dtype=dtype, device="cuda", **kw)
+
+
+def linear_nlg_series(n: int = 100, seed: int = 8) -> np.ndarray:
+    """A random walk plus noise (sds 1), one missing value."""
+    rng = np.random.default_rng(seed)
+    y = np.cumsum(rng.normal(size=n)) + rng.normal(size=n)
+    y[n // 4] = np.nan
+    return y
+
+
+def nlg_iteration_ops(bt, model, B: int) -> dict:
+    """What paces a nonlinear chain iteration: the device operations of the
+    blocks it repeats (counted by stream capture) and their eager and
+    replayed milliseconds (CUDA events) at ``B`` rows of theta_init, the
+    replay held to the eager call to the bit: the EKF log-likelihood
+    (``ekf``'s iteration), the Gauss-Newton start, one pass and the final
+    likelihood (an evaluation of approx, is2's phase 1, pm: ``passes`` of
+    them, the mean over the rows), and the psi filter's estimate at N = 10
+    (pm).  The growth model with forward-mode Jacobians
+    (``forward_jacobian``, ``torch.func`` under capture) replays its EKF
+    log-likelihood to the bit too, and equals the closed forms' within
+    float32 roundoff (its eager time is not taken: ``torch.func``'s first
+    use costs the host some 10 s).  ``seconds``: the host's time for a
+    block's measurement."""
+    from bssm_tpu_torch.inference import mcmc as tm
+    from bssm_tpu_torch.inference import nlg as tn
+    from bssm_tpu_torch.inference.replay import Replay
+    from bssm_tpu_torch.models.nlg import forward_jacobian
+    th = torch.as_tensor(model.theta_init, dtype=torch.float32,
+                         device="cuda").expand(B, -1).contiguous()
+    spec = model.build(th)
+    mode, ok, niter = tn.nlg_mode(spec)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    eps = torch.randn((B, spec.n + 1, 10, spec.m), generator=gen,
+                      device="cuda")
+    us = torch.rand((B, spec.n, 10), generator=gen, device="cuda")
+    s = spec
+    auto = dataclasses.replace(spec, Z_gn=forward_jacobian(spec.Z_fn),
+                               T_gn=forward_jacobian(spec.T_fn))
+    blocks = {"ekf_loglik": (tn._ekf_ll, (s,)),
+              "gauss_newton_start": (tn._ekf_start, (s,)),
+              "gauss_newton_pass": (tn._gn_pass, (s, mode)),
+              "final_loglik": (tn._final_ll, (s, mode)),
+              "psi_estimate_N10": (tm._psi_states_nlg,
+                                   (s, mode, eps, us, None)),
+              "ekf_loglik_forward_mode": (tn._ekf_ll, (auto,))}
+    rp = Replay()
+    res = {"rows": B, "passes": float(niter.float().mean()),
+           "all_converged": bool(ok.all())}
+    eager = {}
+    for name, (fn, args) in blocks.items():
+        t0 = time.time()
+        eager[name] = fn(*args)
+        replayed = rp(fn, *args)
+        same = all(torch.equal(a, b) for a, b in zip(eager[name], replayed))
+        res[name] = {"device_ops": len(graph_nodes(lambda: fn(*args),
+                                                   warm=False)),
+                     "replayed_ms": time_ms(lambda: rp(fn, *args)),
+                     "replay_bit_equal_to_eager": same}
+        if name != "ekf_loglik_forward_mode":
+            res[name]["eager_ms"] = time_ms(lambda: fn(*args), 1, 0)
+        res[name]["seconds"] = time.time() - t0
+        if not same:
+            FAILURES.append({"what": f"nlg {name}: replay differs from the "
+                                     "eager call"})
+    ll = eager["ekf_loglik"][0]
+    ll_auto = eager["ekf_loglik_forward_mode"][0]
+    err = float(((ll_auto - ll).abs() / (1.0 + ll.abs())).max())
+    res["forward_mode_vs_closed_form_max_rel_err"] = err
+    if not err <= 1e-5:
+        FAILURES.append({"what": "nlg: forward-mode Jacobians disagree with "
+                                 "the closed forms", "err": err})
+    res["device_ops_per_evaluation"] = (
+        res["gauss_newton_start"]["device_ops"]
+        + res["passes"] * res["gauss_newton_pass"]["device_ops"]
+        + res["final_loglik"]["device_ops"])
+    return res
+
+
+def nlg_pm_start(bt, model, ekf_out, is2_start, rows: int = 8):
+    """pm's start, which is2's start does not share: the ekf chains' draws
+    of their first ``rows`` kept iterations (a pool of chains x ``rows``,
+    at least iter / 2 - ``rows`` iterations before the last draws is2
+    starts from), importance-resampled towards the exact posterior, one
+    draw a chain (numpy seed 4): the weights are the psi estimate (N =
+    100) over the EKF likelihood the ekf chain targets.  (The nonlinear
+    models sample theta untransformed.)  Returns (thetas (chains, d), what
+    to report: the pool, its weights' ESS fraction, the least lag, and
+    each parameter's correlation over the chains with ``is2_start``)."""
+    from bssm_tpu_torch.inference import nlg as tn
+    chains, kept, d = ekf_out.theta.shape
+    pool = torch.as_tensor(ekf_out.theta[:, :rows].reshape(-1, d),
+                           dtype=torch.float32, device="cuda")
+    spec = model.build(pool)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    lw = tn.psi_filter_nlg(spec, tn.approximate_nlg(spec), 100, gen,
+                           keep_paths=False) - tn.ekf_loglik(spec)
+    lw = lw.double().cpu().numpy()
+    w = np.exp(np.where(np.isfinite(lw), lw - lw[np.isfinite(lw)].max(),
+                        -np.inf))
+    idx = np.random.default_rng(4).choice(w.size, chains, p=w / w.sum())
+    start = pool.cpu().numpy()[idx]
+    return start, {
+        "pool": int(w.size), "kept_iterations": rows,
+        "ess_fraction": float(w.sum() ** 2 / np.square(w).sum() / w.size),
+        "distinct": int(np.unique(idx).size),
+        "least_lag_to_is2_start": int(ekf_out.iter - ekf_out.burnin - rows),
+        "corr_with_is2_start": [float(np.corrcoef(start[:, j],
+                                                  is2_start[:, j])[0, 1])
+                                for j in range(d)]}
+
+
+def nlg_states_check(summary, full) -> dict:
+    """``lg_states_check`` on an ekf run: the full draws' mean within 6
+    sqrt(Vt / draws) of the summary's alphahat at every (t, j)."""
+    res = lg_states_check(summary, full)
+    for k in ("alphahat_154", "sd_154"):
+        res.pop(k)
+    res["alphahat_last"] = summary.alphahat[-1].tolist()
+    res["sd_last"] = np.sqrt(np.diagonal(summary.Vt[-1])).tolist()
+    return res
+
+
+def linear_ulg(bt, y, dtype):
+    """``nlg_linear_gaussian``'s model as the port's ``ssm_ulg``: a local
+    level, H = exp(theta), R = 1, a1 = 0, P1 = 100."""
+    return bt.ssm_ulg(y, Z=np.array([1.0]), H=1.0, T=np.array([[1.0]]),
+                      R=np.array([[1.0]]), a1=np.zeros(1),
+                      P1=100.0 * np.eye(1), init_theta=np.zeros(1),
+                      update_fn=lambda th: {"H": torch.exp(th[:, :1])},
+                      dtype=dtype, device="cuda")
+
+
+def nlg_linear_checks(bt, ck) -> list:
+    """``nlg_linear_gaussian`` (n = 100, 4096 rows of theta) against the
+    Kalman kernels on the same local level built as ``ssm_ulg`` (H =
+    exp(theta), R = 1, a1 = 0, P1 = 100), float64 and float32: the EKF's,
+    the UKF's and the mode approximation's log-likelihoods against K6
+    (``log_likelihood``) and ``ekf_fast_smoother`` against K7
+    (``fast_smoother_ll``).  float64 1e-9 (1 + |ref|); float32 the
+    log-likelihood 1e-5 + 2e-5 |ref| (the JAX package's kernel tests'),
+    the UKF's 1e-4 (1 + |ref|) (its sigma points at sqrt(3 P) cancel in
+    float32), the means 3e-4 (1 + the row's largest |ref|); every row."""
+    from bssm_tpu_torch.inference import nlg as tn
+    y = linear_nlg_series()
+    out = []
+    for dt in (torch.float64, torch.float32):
+        nl = bt.example_models.nlg_linear_gaussian(y, dtype=dt,
+                                                   device="cuda")
+        lg = linear_ulg(bt, y, dt)
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        th = 0.5 * torch.randn((NLG_ROWS, 1), generator=gen, device="cuda",
+                               dtype=dt)
+        s, g = nl.build(th), lg.build(th)
+        before = dict(ck.LAUNCHES)
+        ll = ck.log_likelihood(g)
+        alpha, _ = ck.fast_smoother_ll(g)
+        launched = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES
+                    if ck.LAUNCHES[k] != before[k]}
+        f64 = dt == torch.float64
+        ll_tol = (lambda r: 1e-9 * (1 + r.abs())) if f64 \
+            else (lambda r: 1e-5 + 2e-5 * r.abs())
+        checks = {"ekf": (tn.ekf(s).logLik, ll, ll_tol),
+                  "ukf": (tn.ukf(s).logLik, ll, (lambda r: 1e-9 * (
+                      1 + r.abs())) if f64 else (lambda r: 1e-4 * (
+                          1 + r.abs()))),
+                  "approx": (tn.approximate_nlg(s).loglik, ll, ll_tol)}
+        res = {"dtype": str(dt)[6:], "rows": NLG_ROWS, "n": len(y),
+               "kernel_launches": launched}
+        for name, (got, ref, tol) in checks.items():
+            err = (got - ref).abs()
+            res[name + "_max_abs_err"] = float(err.max())
+            if not bool((err <= tol(ref)).all()):
+                FAILURES.append({"what": f"nlg_linear {name} vs "
+                                         f"log_likelihood {res['dtype']}",
+                                 "max_abs_err": float(err.max())})
+        fs = tn.ekf_fast_smoother(s)
+        scale = 1.0 + alpha.abs().amax((1, 2), keepdim=True)
+        err = ((fs - alpha).abs() / scale).max()
+        res["ekf_fast_smoother_max_scaled_err"] = float(err)
+        if not float(err) <= (1e-9 if f64 else 3e-4):
+            FAILURES.append({"what": f"nlg_linear ekf_fast_smoother vs "
+                                     f"fast_smoother_ll {res['dtype']}",
+                             "err": float(err)})
+        if launched != {"log_likelihood": 1, "fast_smoother_ll": 1}:
+            FAILURES.append({"what": "nlg_linear: K6 / K7 not launched once "
+                                     "each", "launched": launched})
+        out.append(res)
+    return out
+
+
+def nlg_estimator_checks(bt, ck) -> dict:
+    """Unbiasedness, by the likelihood the estimators estimate, over 4096
+    replications at theta_init (float32): EKPF with 128 particles on
+    ``nlg_linear_gaussian`` against its Kalman log-likelihood (K6 on the
+    ``ssm_ulg`` twin), and psi with 64 particles against psi with 2048 on
+    the growth model; each within 5 jackknife standard errors (the 2048
+    runs in chunks of 1024 rows)."""
+    from bssm_tpu_torch.inference import nlg as tn
+    R = NLG_ROWS
+    y = linear_nlg_series()
+    nl = bt.example_models.nlg_linear_gaussian(y, dtype=torch.float32,
+                                               device="cuda")
+    th = torch.zeros((R, 1), device="cuda")
+    lg = linear_ulg(bt, y, torch.float32)
+    ref = float(ck.log_likelihood(lg.build(th[:1]))[0])
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    t0 = time.time()
+    ll = tn.ekpf_filter(nl.build(th), 128, gen, keep_paths=False)
+    e, se = jackknife_loglik(ll)
+    res = {"ekpf_N128": {"estimate": e, "jackknife_se": se,
+                         "kalman_loglik": ref, "z": (e - ref) / se,
+                         "seconds": time.time() - t0}}
+    gm = growth_model(bt, torch.float32)
+    spec = gm.build(torch.as_tensor(gm.theta_init, dtype=torch.float32,
+                                    device="cuda").expand(R, -1))
+    ap = tn.approximate_nlg(spec)
+    t0 = time.time()
+    lo = tn.psi_filter_nlg(spec, ap, 64, gen, keep_paths=False)
+    parts = []
+    step = min(R, 1024)
+    for lo_row in range(0, R, step):
+        rows = slice(lo_row, lo_row + step)
+        sub = dataclasses.replace(spec, theta=spec.theta[rows])
+        ap_sub = tn.NLGApprox(ap.mode[rows],
+                              kalman_mv_rows(ap.approx, lo_row, step),
+                              ap.scales[rows], ap.loglik[rows],
+                              ap.niter[rows])
+        parts.append(tn.psi_filter_nlg(sub, ap_sub, 2048, gen,
+                                       keep_paths=False))
+    hi = torch.cat(parts)
+    (e1, s1), (e2, s2) = jackknife_loglik(lo), jackknife_loglik(hi)
+    res["psi_N64_vs_N2048"] = {"N64": e1, "N64_se": s1, "N2048": e2,
+                               "N2048_se": s2,
+                               "z": (e1 - e2) / float(np.hypot(s1, s2)),
+                               "seconds": time.time() - t0}
+    for k, r in res.items():
+        if not abs(r["z"]) < 5.0:
+            FAILURES.append({"what": f"nlg estimator {k} biased", **r})
+    return res
+
+
+def kalman_mv_rows(g, lo: int, size: int):
+    """Rows ``lo:lo+size`` of a batched ``MVLGSpec`` (``y`` shared)."""
+    return g._replace(**{f: getattr(g, f)[lo:lo + size]
+                         for f in g._fields if f != "y"})
+
+
+def nlg_api_phase(bt, ck) -> dict:
+    """The single-model API on the growth model at theta_init (float32),
+    every kernel count read around it (all must stay 0): ``ekf``, the
+    iterated EKF, ``ukf``, the smoothers, ``ekpf_filter``,
+    ``bootstrap_filter``, ``particle_smoother`` (psi, bsf, ekf), every
+    ``logLik`` method, ``gaussian_approx``, ``suggest_N``, and ``predict``
+    (state, mean, response) of a short approx run with full output onto a
+    model of 12 future points; all finite."""
+    gm = growth_model(bt, torch.float32)
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.time()
+    lls = {"approx": bt.logLik(gm), "ekf": bt.logLik(gm, method="ekf"),
+           "psi_N10": bt.logLik(gm, 10),
+           "bsf_N200": bt.logLik(gm, 200, method="bsf"),
+           "ekpf_N50": bt.logLik(gm, 50, method="ekf")}
+    ek, iek = bt.ekf(gm), bt.ekf(gm, iekf_iter=2)
+    uk = bt.ukf(gm)
+    sm, fs = bt.ekf_smoother(gm), bt.ekf_fast_smoother(gm)
+    ep, bs = bt.ekpf_filter(gm, 50), bt.bootstrap_filter(gm, 200)
+    ps = {m: bt.particle_smoother(gm, 50, method=m)
+          for m in ("psi", "bsf", "ekf")}
+    ga = bt.gaussian_approx(gm)
+    sug = bt.suggest_N(gm, candidates=(10, 20), replications=50)
+    ap = bt.run_mcmc(gm, iter=8, mcmc_type="approx", output_type="full",
+                     n_chains=64, seed=2)
+    fut = growth_model(bt, torch.float32, y=np.full(12, np.nan))
+    pr = {t: bt.predict(ap, fut, t, 4096, seed=3)
+          for t in ("state", "mean", "response")}
+    torch.cuda.synchronize()
+    res = {"path": "nlg_api", "model": "nlg_growth on simulate_growth(), "
+           "n=100, m=2, at theta_init, float32", "elapsed_s":
+           time.time() - t0, "launches": dict(ck.LAUNCHES),
+           "plain_routes": dict(ck.PLAIN_ROUTES),
+           "replayed": dict(ck.REPLAYED),
+           "logLik": {k: float(v[0]) for k, v in lls.items()},
+           "ekf_loglik_iekf2": float(iek.logLik[0]),
+           "ukf_loglik": float(uk.logLik[0]), "suggest_N": sug["N"],
+           "predict_shapes": {k: list(v.shape) for k, v in pr.items()}}
+    tensors = [*lls.values(), *ek, *iek, *uk, sm.alphahat, sm.Vt, fs,
+               ep.alpha, ep.loglik, bs.alpha, bs.loglik,
+               *(p.alphahat for p in ps.values()),
+               *(p.Vt for p in ps.values()), ga.Z, ga.D, ga.T, ga.C]
+    finite = all(bool(torch.isfinite(x).all()) for x in tensors) and all(
+        np.isfinite(v).all() for v in pr.values()) and bool(
+        np.isfinite(ap.alpha).all()) and np.isfinite(sug["sd"])
+    res["finite"] = finite = bool(finite)
+    res["problems"] = [] if finite else ["nlg_api: non-finite outputs"]
+    shapes = {"state": [4096, 12, 2], "mean": [4096, 12, 1],
+              "response": [4096, 12, 1]}
+    if res["predict_shapes"] != shapes:
+        res["problems"].append(f"nlg_api: predict {res['predict_shapes']}")
+    mv_no_kernels(res, ck)
+    return res
+
+
+def nlg_section(bt, ck, it_ekf: int, it_nlg: int):
+    """The nonlinear paths (``nlg_growth_ekf``, ``nlg_growth_is2_psi_N10``,
+    ``nlg_growth_pm_psi_N10``) on the growth model at its JAX defaults, with
+    what paces them (``nlg_iteration_ops``, the ``nlg_ops`` line), and the
+    ``nlg_checks`` phase (``nlg_linear_checks``, ``nlg_estimator_checks``,
+    the API).  is2 and pm start from the ekf chains' last theta and RAM
+    scale; pm from draws is2 does not share (``nlg_pm_start``) with the
+    same scale.  Every path has ``run_path``'s gates and no kernel count
+    may rise on it; its own gates: the ekf full draws within 6 sqrt(Vt /
+    draws) of the summary over the same thetas; is2's weighted means and
+    those of ``post_correct`` with bsf 200 within 5 combined SEs of
+    ``post_correct`` with psi 100 on the same phase-1 chain; pm's within 5
+    of is2's.  ``steps_s`` of the phase's object: the section's seconds by
+    step.  Returns (path objects, problems, the phase's object)."""
+    t_start = time.time()
+    steps, t_lap = {}, [t_start]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        steps[name] = time.time() - t_lap[0]
+        t_lap[0] = time.time()
+
+    gm = growth_model(bt, torch.float32)
+    ops = nlg_iteration_ops(bt, gm, NLG_CHAINS)
+    emit("nlg_ops", {**ops, "failures": FAILURES})
+    lap("nlg_ops")
+    desc = "nlg_growth on simulate_growth() (n=100, K=100, theta (0, log " \
+        "0.05, 0)), m=2, k=2, d=3, float32"
+    r_ek, o_ek = run_path(bt, ck, gm, "nlg_growth_ekf", desc, NLG_CHAINS,
+                          it_ekf, (), (0.15, 0.6), None, warmup=2,
+                          mcmc_type="ekf", output_type="full")
+    # the summary output of the same theta chain: what run_mcmc's
+    # output_type="summary" computes (the EKF smoother pooled by the law
+    # of total variance), over the stored thetas
+    from types import SimpleNamespace
+    from bssm_tpu_torch.inference import mcmc as tm
+    t0 = time.time()
+    ah, Vt = tm._state_summary(gm, torch.as_tensor(o_ek.theta,
+                                                   device="cuda"), 65536)
+    torch.cuda.synchronize()
+    summ = SimpleNamespace(alphahat=ah.cpu().numpy(), Vt=Vt.cpu().numpy(),
+                           theta=o_ek.theta)
+    r_ek["summary_s"] = time.time() - t0
+    r_ek["states_check"] = nlg_states_check(summ, o_ek)
+    if not r_ek["states_check"]["ok"]:
+        r_ek["problems"].append(f"nlg_growth_ekf: full draws disagree with "
+                                f"the summary {r_ek['states_check']}")
+    o_ek.alpha = None                     # 414 MB on the host
+    lap("ekf")
+    # is2 resumes from the ekf chains: their last theta and adapted RAM
+    # scale (a user's ``theta_init=out.last_theta(model), S=out.S``); pm
+    # starts elsewhere (nlg_pm_start), so that the two runs' means are
+    # independent
+    resume = dict(theta_init=o_ek.last_theta(gm), S=o_ek.S)
+    pm_init, pm_start = nlg_pm_start(bt, gm, o_ek, resume["theta_init"])
+    lap("pm_start")
+    r_is, o_is = run_path(bt, ck, gm, "nlg_growth_is2_psi_N10", desc,
+                          NLG_CHAINS, it_nlg, (), (0.15, 0.35), None,
+                          warmup=2, **resume, particles=10, mcmc_type="is2",
+                          sampling_method="psi", corr_batch=65536)
+    lap("is2")
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    corr = {}
+    for label, N, method, rows in (("psi_N100", 100, "psi", 16384),
+                                   ("bsf_N200", 200, "bsf", 8192)):
+        t0 = time.time()
+        pc = bt.post_correct(gm, o_is, N, sampling_method=method,
+                             output_type="theta", corr_batch=rows, seed=2)
+        torch.cuda.synchronize()
+        w = pc.flat_weights()
+        corr[label] = (pc, {"elapsed_s": time.time() - t0,
+                            "ess_is_fraction": bt.ess_is(w) / w.size,
+                            "finite": bool(np.isfinite(w).all())})
+    ref = flat_stats(corr["psi_N100"][0])
+    r_is["post_correct"] = {k: v[1] for k, v in corr.items()}
+    r_is["post_correct"]["launches"] = dict(ck.LAUNCHES)
+    r_is["post_correct"]["plain_routes"] = dict(ck.PLAIN_ROUTES)
+    for label, out in (("psi_N10", o_is), ("bsf_N200", corr["bsf_N200"][0])):
+        agree = means_agree(flat_stats(out), ref)
+        r_is["post_correct"][f"{label}_vs_psi_N100"] = agree
+        if not agree["ok"]:
+            r_is["problems"].append(f"nlg_growth_is2_psi_N10: {label} "
+                                    f"disagrees with psi N=100 {agree}")
+    if not all(v[1]["finite"] for v in corr.values()):
+        r_is["problems"].append("nlg_growth_is2_psi_N10: non-finite "
+                                "post_correct weights")
+    if any(ck.LAUNCHES.values()) or any(ck.PLAIN_ROUTES.values()) \
+            or any(ck.REPLAYED.values()):
+        r_is["problems"].append("nlg_growth_is2_psi_N10: post_correct "
+                                "launched a kernel")
+    del corr
+    lap("post_correct")
+    r_pm, o_pm = run_path(bt, ck, gm, "nlg_growth_pm_psi_N10", desc,
+                          NLG_CHAINS, it_nlg, (), (0.10, 0.55), None,
+                          warmup=2, theta_init=pm_init, S=o_ek.S,
+                          particles=10, mcmc_type="pm",
+                          sampling_method="psi")
+    lap("pm")
+    r_pm["start"] = pm_start
+    agree = means_agree(flat_stats(o_pm), flat_stats(o_is))
+    r_pm["vs_is2_psi_N10"] = agree
+    if not agree["ok"]:
+        r_pm["problems"].append(f"nlg_growth_pm_psi_N10: disagrees with "
+                                f"is2 {agree}")
+    approx_blocks = ("gauss_newton_start", "gauss_newton_pass",
+                     "final_loglik", "psi_estimate_N10", "passes",
+                     "device_ops_per_evaluation")
+    for r, out in ((r_ek, o_ek), (r_is, o_is), (r_pm, o_pm)):
+        mv_no_kernels(r, ck)
+        r["iteration_ops"] = {k: ops[k] for k in (
+            ("ekf_loglik",) if r is r_ek else approx_blocks)}
+        r["chain_s_per_iteration"] = r["time"]["mcmc"] / r["iter"]
+        r["posterior_mean"] = dict(zip(out.theta_names,
+                                       out.flat_theta().mean(0).tolist()))
+    paths = [r_ek, r_is, r_pm]
+    t0 = time.time()
+    phase = {"linear": nlg_linear_checks(bt, ck),
+             "estimators": nlg_estimator_checks(bt, ck)}
+    phase["seconds"] = time.time() - t0
+    lap("checks")
+    api = nlg_api_phase(bt, ck)
+    paths.append(api)
+    lap("api")
+    phase["section_s"] = time.time() - t_start
+    phase["steps_s"] = steps
+    phase["failures"] = [f for f in FAILURES if "nlg" in f["what"]]
+    return paths, [p for r in paths for p in r["problems"]], phase
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iter", type=int, default=1000,
@@ -3865,6 +4342,9 @@ def main() -> int:
     ap.add_argument("--mv-only", action="store_true",
                     help="only the multivariate paths and phase "
                          "(mv_section) and stop; prints no result line")
+    ap.add_argument("--nlg-only", action="store_true",
+                    help="only the nonlinear paths and phase "
+                         "(nlg_section) and stop; prints no result line")
     ap.add_argument("--geometry-sweep", action="store_true",
                     help="only time the large-ensemble kernel under launch "
                          "geometries the rule does not pick "
@@ -3925,6 +4405,13 @@ def main() -> int:
         for r in mv_paths:
             emit("path", r)
         return 1 if mv_problems or FAILURES else 0
+    if args.nlg_only:
+        nlg_paths, nlg_problems, nlg_phase = nlg_section(
+            bt, ck, min(args.iter, NLG_EKF_ITER), min(args.iter, NLG_ITER))
+        emit("nlg_checks", nlg_phase)
+        for r in nlg_paths:
+            emit("path", r)
+        return 1 if nlg_problems or FAILURES else 0
     # ---- kernels against their plain versions -----------------------------
     checks = []
     m32 = main_path_model(bt, torch.float32)
@@ -4257,7 +4744,11 @@ def main() -> int:
     mv_paths, mv_problems = mv_section(bt, ck, it_full, args.mv_iter)
     mv_paths[0]["mv_section_s"] = time.time() - t_mv
     paths += mv_paths
-    problems += mv_problems + [f["what"] for f in FAILURES]
+    # the nonlinear models (no kernel on their paths either)
+    nlg_paths, nlg_problems, nlg_phase = nlg_section(
+        bt, ck, min(it_full, NLG_EKF_ITER), min(it_full, NLG_ITER))
+    paths += nlg_paths
+    problems += mv_problems + nlg_problems + [f["what"] for f in FAILURES]
     # the replication grid's launches count as one more path's
     paths.append({"path": "replications", "launches":
                   phases["replications"].get(
@@ -4405,6 +4896,7 @@ def main() -> int:
         r["total_s"] = time.time() - t_start
         emit("main_path" if r["path"] == "psi_N10" else "path", r)
     emit("diagnostics", diag)
+    emit("nlg_checks", nlg_phase)
     if args.profile:
         theta = dict(output_type="theta", seed=1)
         for label, model, run in (
