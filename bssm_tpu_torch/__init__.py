@@ -35,6 +35,14 @@ What runs today:
   ``particle_smoother`` (psi, bsf, ekf), ``logLik`` and
   ``gaussian_approx``; batched tensor code with no kernel, as in the JAX
   package;
+- on the SDE models ``ssm_sde``, ``sde_gbm`` and ``sde_poisson_ou`` (user
+  functions batched over rows, ``models/sde.py``): ``run_mcmc`` with
+  approx, is1/is2/is3, pm and da, always the bootstrap filter, the
+  coarse level coupled to the fine one by per-row seeds
+  (``inference/sde.py``), and on one model ``logLik`` and
+  ``bootstrap_filter``; batched tensor code with no kernel;
+- ``as_bssm``: the port model of a KFAS ``SSModel`` (an ``.rds`` path or
+  the dict ``load_rds`` parses) or of raw system matrices;
 - on a run with state output and a model of the future or the past:
   ``predict`` and ``fitted`` (``predict`` only for a nonlinear model);
 - on the linear-Gaussian ``bsm_lg``, ``ar1_lg`` and ``ssm_ulg``: marginal
@@ -53,7 +61,8 @@ What runs today:
 The user functions of ``ssm_ulg`` / ``ssm_ung`` / ``ssm_mlg`` /
 ``ssm_mng`` are torch functions batched over chains (``models/ssm.py``),
 those of ``ssm_nlg`` torch functions batched over rows of (time, state,
-theta) (``models/nlg.py``).
+theta) (``models/nlg.py``), those of ``ssm_sde`` over rows of (state,
+theta) (``models/sde.py``).
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.
 """
@@ -78,8 +87,10 @@ from .models.bsm import bsm_lg, bsm_ng                           # noqa: E402
 from .models.ar1 import ar1_lg, ar1_ng                           # noqa: E402
 from .models.svm import svm                                      # noqa: E402
 from .models.ssm import (ssm_ulg, ssm_ung, ssm_mlg,              # noqa: E402
-                         ssm_mng)
+                         ssm_mng, as_bssm)
 from .models.nlg import ssm_nlg, NLGSpec                        # noqa: E402
+from .models.sde import (ssm_sde, sde_gbm, sde_poisson_ou,      # noqa: E402
+                         SDESpec)
 from .models import examples as example_models                  # noqa: E402
 from .inference.mcmc import (run_mcmc, McmcOutput,               # noqa: E402
                              is_correction_generator)
@@ -100,6 +111,7 @@ from .inference.particle import (psi_logw, bsf_logw,             # noqa: E402
                                  psi_logw_scan, bsf_logw_scan,
                                  psi_filter, bsf_filter, bsf_filter_lg,
                                  spdk_sample, spdk_weights, PFResult)
+from .inference.sde import bsf_filter_sde, SDEPFResult          # noqa: E402
 from .inference.approx_mv import (approximate_mv,               # noqa: E402
                                   approx_loglik_mv, psi_filter_mv,
                                   bsf_filter_mv, spdk_sample_mv)
@@ -110,3 +122,4 @@ from .diagnostics.summary import (weighted_mean, weighted_var,   # noqa: E402
                                   estimate_ess, rhat, ess_bulk, ess_tail,
                                   rhat_rank, summary, check_diagnostics)
 from .utils.datasets import airquality                           # noqa: E402
+from .utils.rdata import load_rds, load_rda                      # noqa: E402

@@ -276,8 +276,8 @@ def gaussian_approx(model_or_spec, conv_tol: float = CONV_TOL,
     its mode) an ``MVLGSpec``."""
     from ..core.spec import MVNGSpec
     from ..models.nlg import NLGSpec
-    from .filters import spec_of
-    spec = spec_of(model_or_spec, theta)
+    from .filters import refuse_sde, spec_of
+    spec = refuse_sde(spec_of(model_or_spec, theta), "gaussian_approx")
     if isinstance(spec, NLGSpec):
         from .nlg import approximate_nlg
         return approximate_nlg(spec).approx

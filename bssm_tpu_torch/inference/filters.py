@@ -1,6 +1,9 @@
 """Public filtering API: the Kalman filter, the bootstrap filter, the particle
 smoother, and the nonlinear models' extended and unscented Kalman filters,
-extended Kalman smoothers and extended Kalman particle filter.
+extended Kalman smoothers and extended Kalman particle filter.  An SDE
+model takes the bootstrap filter (``inference/sde.py``) and nothing else
+here: the JAX package's other filters fail on one, and the port's refuse
+it with a ``ValueError`` (``refuse_sde``).
 
 Counterpart of ``bssm_tpu/inference/filters.py``.  Every function takes a
 model (built at ``theta``, by default its initial value) or a spec.  A model
@@ -25,12 +28,14 @@ import torch
 from ..core.spec import LGSpec, MVLGSpec, MVNGSpec, NGSpec, drop_batch
 from ..models.base import Model
 from ..models.nlg import NLGSpec
+from ..models.sde import SDESpec
 from ..ops import kalman, kalman_mv
 from ..ops.resample import ancestor_trace
 from . import approx as approx_mod
 from . import approx_mv as mv_mod
 from . import nlg as nlg_mod
 from . import particle as pf_mod
+from . import sde as sde_mod
 
 
 def theta_of(model: Model, theta=None) -> torch.Tensor:
@@ -51,7 +56,17 @@ def spec_of(model_or_spec, theta=None):
     if th.dim() != 1:
         raise ValueError("theta must be one parameter vector (d,)")
     spec = model_or_spec.build(th)
-    return spec if isinstance(spec, NLGSpec) else drop_batch(spec)
+    return spec if isinstance(spec, (NLGSpec, SDESpec)) else drop_batch(spec)
+
+
+def refuse_sde(spec, what: str):
+    """``spec``, or a ``ValueError`` for an SDE model, which ``what`` does
+    not take (the JAX package fails on one there)."""
+    if isinstance(spec, SDESpec):
+        raise ValueError(f"{what}: not defined for an SDE model, which has "
+                         "no Gaussian approximation; bootstrap_filter, "
+                         "logLik and run_mcmc take one")
+    return spec
 
 
 def generator_for(spec, generator: Optional[torch.Generator], seed: int):
@@ -64,7 +79,7 @@ def kfilter(model_or_spec, theta=None):
     """Kalman filter (``kalman.FilterResult``, or for several series
     ``kalman_mv.MVFilterResult``); a non-Gaussian model is filtered through
     its Gaussian approximation."""
-    spec = spec_of(model_or_spec, theta)
+    spec = refuse_sde(spec_of(model_or_spec, theta), "kfilter")
     if isinstance(spec, NGSpec):
         spec = approx_mod.approximate(spec).gaussian(spec)
     elif isinstance(spec, MVNGSpec):
@@ -77,11 +92,18 @@ def kfilter(model_or_spec, theta=None):
 def bootstrap_filter(model_or_spec, particles: int,
                      generator: Optional[torch.Generator] = None,
                      seed: int = 1, theta=None, eps=None,
-                     us=None) -> pf_mod.PFResult:
+                     us=None, dBf=None) -> pf_mod.PFResult:
     """Bootstrap particle filter of a non-Gaussian (one or several series),
-    univariate linear-Gaussian or nonlinear model, trajectories untraced
-    (``ops/resample.ancestor_trace``)."""
+    univariate linear-Gaussian, nonlinear or SDE model, trajectories
+    untraced (``ops/resample.ancestor_trace``).  An SDE model's filter runs
+    at its fine level ``L_f`` (``sde.bsf_filter_sde``, an ``SDEPFResult``);
+    its randomness is injected as ``dBf`` and ``us``, or drawn from seeds
+    taken from the generator."""
     spec = spec_of(model_or_spec, theta)
+    if isinstance(spec, SDESpec):
+        return sde_mod.bsf_filter_sde(
+            spec, particles, spec.L_f, dBf=dBf, us=us,
+            generator=generator_for(spec, generator, seed))
     runs = {NGSpec: pf_mod.bsf_filter, MVNGSpec: mv_mod.bsf_filter_mv,
             LGSpec: pf_mod.bsf_filter_lg, NLGSpec: nlg_mod.bsf_filter_nlg}
     if type(spec) not in runs:
@@ -111,7 +133,7 @@ def particle_smoother(model_or_spec, particles: int, method: str = "psi",
     (``"ekf"``): the weighted mean and covariance of the traced
     trajectories.  A linear-Gaussian model takes the bootstrap filter
     whatever ``method`` is, as in the JAX package."""
-    spec = spec_of(model_or_spec, theta)
+    spec = refuse_sde(spec_of(model_or_spec, theta), "particle_smoother")
     gen = generator_for(spec, generator, seed)
     nlg = isinstance(spec, NLGSpec)
     if method not in (("psi", "bsf", "ekf") if nlg else ("psi", "bsf")):
@@ -155,7 +177,8 @@ def particle_smoother(model_or_spec, particles: int, method: str = "psi",
 # ---------------------------------------------------------------------------
 
 def _nlg_spec(model_or_spec, theta, iekf_iter: int = 0) -> NLGSpec:
-    spec = spec_of(model_or_spec, theta)
+    spec = refuse_sde(spec_of(model_or_spec, theta),
+                      "the extended / unscented Kalman API")
     if not isinstance(spec, NLGSpec):
         raise TypeError(f"a nonlinear model is needed, got "
                         f"{type(spec).__name__}")

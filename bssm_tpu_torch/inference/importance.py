@@ -15,7 +15,7 @@ import torch
 from ..core.spec import MVNGSpec, NGSpec
 from . import approx as approx_mod
 from . import approx_mv as mv_mod
-from .filters import generator_for, spec_of
+from .filters import generator_for, refuse_sde, spec_of
 from .particle import spdk_sample
 
 
@@ -34,7 +34,7 @@ def importance_sample(model_or_spec, nsim: int,
     and the log-likelihood estimate.  The approximation is the single-model
     Laplace solve; the randomness comes from ``generator`` (default: one
     seeded with ``seed`` on the model's device)."""
-    spec = spec_of(model_or_spec, theta)
+    spec = refuse_sde(spec_of(model_or_spec, theta), "importance_sample")
     if not isinstance(spec, (NGSpec, MVNGSpec)):
         raise TypeError("importance_sample requires a non-Gaussian model")
     if (spec.batch or 1) != 1:

@@ -13,7 +13,10 @@ an importance-sampling estimate: the psi-auxiliary filter
 approximating model (``"spdk"``, antithetic).  A nonlinear model's is the
 mode approximation's (``particles=0``) or the extended Kalman filter's
 (``particles=0, method="ekf"``), or the estimate of the psi filter, the
-bootstrap filter or the extended Kalman particle filter (``"ekf"``).
+bootstrap filter or the extended Kalman particle filter (``"ekf"``).  An
+SDE model's is the estimate of the bootstrap filter at its fine level
+with max(particles, 2) particles, whatever ``method`` is, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -23,11 +26,13 @@ import torch
 
 from ..core.spec import MVLGSpec, MVNGSpec, NGSpec
 from ..models.nlg import NLGSpec
+from ..models.sde import SDESpec
 from ..ops import cuda_kalman, kalman_mv
 from . import approx as approx_mod
 from . import approx_mv as mv_mod
 from . import nlg as nlg_mod
 from . import particle as pf_mod
+from . import sde as sde_mod
 from .filters import generator_for, spec_of
 
 
@@ -35,14 +40,19 @@ def logLik(model_or_spec, particles: int = 0, method: str = "psi",
            generator: Optional[torch.Generator] = None, seed: int = 1,
            theta=None, conv_tol: float = approx_mod.CONV_TOL,
            max_iter: int = approx_mod.MAX_ITER, eps=None,
-           us=None) -> torch.Tensor:
+           us=None, dBf=None) -> torch.Tensor:
     """Log-likelihood ``(B,)`` of a model (built at ``theta``, by default
     its initial value) or spec: exact for a linear-Gaussian one, whatever
     ``particles`` is (as in the JAX package), else approximate
     (``particles=0``) or the estimate of a ``particles``-particle filter,
     whose randomness comes from ``generator`` (default: seeded with
-    ``seed``) or, for the particle filters, ``eps``/``us``."""
+    ``seed``) or, for the particle filters, ``eps``/``us`` (an SDE
+    model's ``dBf``/``us``, ``inference/sde.py``)."""
     spec = spec_of(model_or_spec, theta)
+    if isinstance(spec, SDESpec):
+        return sde_mod.bsf_filter_sde(
+            spec, max(int(particles), 2), spec.L_f, dBf=dBf, us=us,
+            generator=generator_for(spec, generator, seed), keep_paths=False)
     if isinstance(spec, MVLGSpec):
         return kalman_mv.log_likelihood_mv(spec)
     if isinstance(spec, NLGSpec):

@@ -61,6 +61,16 @@ in the JAX package; SPDK and the global approximation do not exist for
 them).  They reach no kernel either: an EKF log-likelihood, each
 Gauss-Newton pass and pm / da's filter estimate run as CUDA graphs.
 
+The SDE models (``kind`` "sde", ``inference/sde.py``) run approx,
+is1/is2/is3, pm and da with the bootstrap filter (``sampling_method`` is
+"bsf" whatever is asked, as in the JAX package): the approximation of
+phase 1 and of da's first stage is the coarse-level (2^L_c) filter with
+max(particles, 2) particles, coupled to the fine-level (2^L_f) filter that
+corrects it: both draw from one per-row seed (the "mode" stored per draw),
+so the IS weights and da's second-stage ratio exp(ll_f - ll_c) are the
+coupled multilevel estimators.  No kernel either: each filter runs as a
+CUDA graph on the card.
+
 The multivariate models reach no kernel (the JAX package has none there
 either): ``kalman_mv`` and ``approx_mv`` are batched tensor code, and a
 chain iteration's repeated blocks of it (the mlg log-likelihood, each
@@ -103,6 +113,7 @@ from . import approx as approx_mod
 from . import approx_mv as mv_mod
 from . import nlg as nlg_mod
 from . import particle as pf_mod
+from . import sde as sde_mod
 from .ram import adapt_S
 from .replay import Replay
 
@@ -247,6 +258,9 @@ class McmcOutput:
     # (cold-started) Laplace approximation, which post_correct may
     # recompute when the modes were not stored
     local_approx: Optional[bool] = None
+    # da: the share of proposals after burn-in that passed the first stage
+    # (acceptance_rate over it is the second stage's acceptance)
+    stage1_acceptance_rate: Optional[float] = None
 
     @property
     def counts(self) -> np.ndarray:
@@ -549,7 +563,8 @@ class Approximation(NamedTuple):
 
 
 def _approx_evaluator(model: Model, conv_tol: float, max_iter: int,
-                      local_approx: bool = True) -> Approximation:
+                      local_approx: bool = True, generator=None,
+                      coarse_nsim: int = 2) -> Approximation:
     """The approximation that phase 1, pm and da's stage 1 evaluate.
     Local: the Laplace iteration, cold-started from the data-derived mode
     at every evaluation, so the approximate posterior does not depend on a
@@ -559,7 +574,18 @@ def _approx_evaluator(model: Model, conv_tol: float, max_iter: int,
     Either way the filters propose from the approximation rebuilt at the
     evaluated mode (``approximate_for_is``).  A nonlinear model has the
     local mode approximation only (``nlg.approx_loglik_nlg``, each
-    Gauss-Newton pass one CUDA graph on the card)."""
+    Gauss-Newton pass one CUDA graph on the card).  An SDE model's is the
+    coarse-level filter with ``coarse_nsim`` particles and fresh seeds from
+    ``generator``, which it returns as the mode (one CUDA graph on the
+    card)."""
+    if model.kind == "sde":
+        replay = Replay()
+
+        def evaluate(spec):
+            seeds = sde_mod.new_seeds(spec.batch, spec.y.device, generator)
+            return replay(_sde_coarse, spec, seeds, int(coarse_nsim))[0], \
+                seeds
+        return Approximation(evaluate, False)
     if model.kind == "nlg":
         replay = Replay()
         return Approximation(
@@ -619,10 +645,49 @@ def _check_method(model: Model, sampling_method: str) -> None:
         raise NotImplementedError(
             f"sampling_method={sampling_method!r}: 'psi', 'bsf' and 'spdk' "
             "are ported")
-    if model.kind not in ("ng", "mng", "nlg"):
+    if model.kind not in ("ng", "mng", "nlg", "sde"):
         raise NotImplementedError(f"model kind {model.kind!r} is not ported")
     if model.kind == "nlg" and sampling_method == "spdk":
         raise ValueError("spdk not available for this model family")
+    if model.kind == "sde" and sampling_method != "bsf":
+        # the JAX package dies here (its SDE family has no psi / spdk)
+        raise ValueError(f"sampling_method={sampling_method!r}: an SDE model "
+                         "is corrected by the bootstrap filter ('bsf') only")
+
+
+def _sde_coarse(spec, seeds, N):
+    """The coarse-level filter's estimate (the SDE approximation), coupled
+    to the fine level."""
+    return (sde_mod.bsf_filter_sde(spec, N, spec.L_c, True, seeds=seeds,
+                                   keep_paths=False),)
+
+
+def _sde_fine(spec, seeds, N, keep):
+    """The fine-level filter's estimate, with ``keep`` also its traced
+    trajectories ``(B, N, n+1, 1)`` and final weights."""
+    pf = sde_mod.bsf_filter_sde(spec, N, spec.L_f, True, seeds=seeds,
+                                keep_paths=keep)
+    if not keep:
+        return (pf,)
+    return (pf.loglik, ancestor_trace(pf.alpha, pf.indices),
+            pf.weights[..., -1])
+
+
+def _sde_states(spec, seeds, N, Nc, u):
+    """pm / da's evaluation of an SDE model: the fine estimate, with ``Nc``
+    the coarse one from the same seeds (so the same Brownian path and
+    uniforms on the slots they share), with uniforms ``u`` one trajectory
+    picked by the final weights."""
+    pf = sde_mod.bsf_filter_sde(spec, N, spec.L_f, True, seeds=seeds,
+                                keep_paths=u is not None)
+    out = (pf if u is None else pf.loglik,)
+    if Nc:
+        out += (sde_mod.bsf_filter_sde(spec, Nc, spec.L_c, True, seeds=seeds,
+                                       keep_paths=False),)
+    if u is not None:
+        out += (_pick_trajectory(ancestor_trace(pf.alpha, pf.indices),
+                                 pf.weights[..., -1], u=u),)
+    return out
 
 
 def _psi_al(spec, ar):
@@ -708,6 +773,7 @@ def _make_correct_rows(model: Model, nsim: int, sampling_method: str,
     weighted moments of the row's trajectories."""
     _check_method(model, sampling_method)
     kk = int(psi_resample_every)
+    replay = Replay()
 
     def approximation(spec, modes):
         al = _rebuild(spec, modes, conv_tol, max_iter)
@@ -721,6 +787,8 @@ def _make_correct_rows(model: Model, nsim: int, sampling_method: str,
                                    u_pick)
         if model.kind == "nlg":
             return correct_rows_nlg(spec, modes, generator, eps, us, u_pick)
+        if model.kind == "sde":
+            return correct_rows_sde(spec, modes, generator, u_pick)
         if sampling_method == "spdk":
             al = approximation(spec, modes)
             if states is None:
@@ -799,6 +867,19 @@ def _make_correct_rows(model: Model, nsim: int, sampling_method: str,
             traced = pf.alpha
         return finish(pf.loglik, traced, pf.weights[..., -1], generator,
                       u_pick)
+
+    def correct_rows_sde(spec, seeds, generator, u_pick):
+        """The same for an SDE model: the fine-level filter from the stored
+        evaluation seeds ``seeds (B,)``, which couples it to the coarse
+        estimate phase 1 stored (one CUDA graph a chunk shape on the
+        card)."""
+        if seeds is None:
+            raise ValueError("an SDE run's correction needs its stored seeds")
+        keep = want_states or want_moments
+        res = replay(_sde_fine, spec, seeds.to(torch.int64), nsim, keep)
+        if not keep:
+            return {"log_w": res[0]}
+        return finish(*res, generator, u_pick)
 
     def finish(log_w, traced, w, generator, u_pick):
         out = {"log_w": log_w}
@@ -1063,7 +1144,8 @@ def _eager(fn, spec, *args):
 
 def _pf_loglik(model: Model, theta: torch.Tensor, generator, nsim: int,
                sampling_method: str, approx: Approximation,
-               need_states: bool = False, replay=None):
+               need_states: bool = False, replay=None,
+               coarse_nsim: Optional[int] = None):
     """``(ll (C,), approx_ll (C,), alpha (C, n+1, m) or None)`` of every row
     of ``theta``: the importance-sampling estimate of the log-likelihood,
     the approximation's (``approx.evaluate``), and with ``need_states`` one
@@ -1078,7 +1160,10 @@ def _pf_loglik(model: Model, theta: torch.Tensor, generator, nsim: int,
     ``psi_filter`` / ``bsf_filter``.  The randomness is drawn here, in the
     order the filters would draw it, and the tensor code with trajectories
     (and SPDK) goes through ``replay`` (``replay.Replay``: one CUDA graph
-    per shape on the card) when given."""
+    per shape on the card) when given.  An SDE model: the fine-level
+    bootstrap filter from fresh seeds, and its estimate twice, or with
+    ``coarse_nsim`` as the second value the coupled coarse estimate from
+    the same seeds (da's first stage)."""
     call = replay or _eager
     spec = model.build(theta)
     n, m = spec.n, spec.m
@@ -1088,6 +1173,12 @@ def _pf_loglik(model: Model, theta: torch.Tensor, generator, nsim: int,
     def uniforms(B):
         return torch.rand((B,), **kw) if need_states else None
 
+    if model.kind == "sde":             # bsf, always through call
+        seeds = sde_mod.new_seeds(spec.batch, spec.y.device, generator)
+        res = call(_sde_states, spec, seeds, nsim, coarse_nsim,
+                   uniforms(spec.batch))
+        second = res[1] if coarse_nsim else res[0]
+        return res[0], second, res[-1] if need_states else None
     if model.kind == "nlg":             # psi or bsf, always through call
         B = spec.batch
         if sampling_method == "bsf":
@@ -1166,6 +1257,7 @@ class DaState(NamedTuple):
     ll_approx: torch.Tensor    # (C,) approximate log-likelihood
     S: torch.Tensor            # (C, d, d)
     alpha: Optional[torch.Tensor] = None   # (C, n+1, m) with state output
+    passed: Optional[torch.Tensor] = None  # (C,) passed the first stage
 
 
 def _da_step(full_eval: Callable, log_prior: Callable, state: DaState,
@@ -1206,21 +1298,23 @@ def _da_step(full_eval: Callable, log_prior: Callable, state: DaState,
         lp_prior=torch.where(accept, lp_prop, state.lp_prior),
         ll=torch.where(accept, ll_prop, state.ll),
         ll_approx=torch.where(accept, ll_approx_prop, state.ll_approx), S=S,
-        alpha=alpha)
+        alpha=alpha, passed=pass1)
     return new, accept
 
 
 def _da_init(model: Model, theta0, S0, pf_generator, nsim: int,
              sampling_method: str, approx: Approximation,
-             store_states: bool = False, replay=None) -> DaState:
+             store_states: bool = False, replay=None,
+             coarse_nsim: Optional[int] = None) -> DaState:
     """The initial state of delayed acceptance.  As in the JAX package,
     ``ll_approx`` starts at the second value of ``_pf_loglik``: the
     approximation's log-likelihood for psi and spdk, the bootstrap estimate
-    itself for bsf (which changes only the first stage-1 ratio)."""
+    itself for bsf (which changes only the first stage-1 ratio), the
+    coupled coarse estimate for an SDE model (``coarse_nsim``)."""
     dt = theta0.dtype
     ll0, all0, alpha0 = _pf_loglik(model, theta0, pf_generator, nsim,
                                    sampling_method, approx, store_states,
-                                   replay)
+                                   replay, coarse_nsim)
     return DaState(theta0, model.log_prior(theta0), ll0.to(dt), all0.to(dt),
                    S0, alpha0)
 
@@ -1230,15 +1324,21 @@ def _da_chain(model: Model, n_iter, burnin, thin, target, gamma, end_ram,
               store_states=False):
     """Delayed-acceptance RAM Metropolis, all chains batched; stores the
     post-burn-in slots like ``_ram_scan``, with ``store_states`` also the
-    current trajectory ``(C, S, n+1, m)``."""
+    current trajectory ``(C, S, n+1, m)``.  An SDE model's two stages are
+    the coarse and the fine filter from one draw of seeds, so stage 2's
+    ratio is the coupled multilevel one; both take ``nsim`` particles
+    (the JAX package's coarse count max(particles, 2): da takes 2 or
+    more)."""
     _check_method(model, sampling_method)
     replay = Replay()
+    coarse_nsim = nsim if model.kind == "sde" else None
 
     def full_eval(theta):
         ll, approx_ll, alpha = _pf_loglik(model, theta, pf_generator, nsim,
                                           sampling_method, approx,
-                                          store_states, replay)
-        if sampling_method == "bsf":        # stage 1 needs the approximation
+                                          store_states, replay, coarse_nsim)
+        if sampling_method == "bsf" and not coarse_nsim:
+            # stage 1 needs the approximation
             approx_ll = approx.evaluate(model.build(theta))[0]
         return ll, approx_ll, alpha
 
@@ -1246,7 +1346,8 @@ def _da_chain(model: Model, n_iter, burnin, thin, target, gamma, end_ram,
         C, d = theta0.shape
         dt, dev = theta0.dtype, theta0.device
         state = _da_init(model, theta0, S0, pf_generator, nsim,
-                         sampling_method, approx, store_states, replay)
+                         sampling_method, approx, store_states, replay,
+                         coarse_nsim)
         Sn = len(range(burnin, n_iter, thin))
         thetas = torch.empty((C, Sn, d), dtype=dt, device=dev)
         lps = torch.empty((C, Sn), dtype=dt, device=dev)
@@ -1257,6 +1358,7 @@ def _da_chain(model: Model, n_iter, burnin, thin, target, gamma, end_ram,
             alphas = torch.empty((C, Sn) + tuple(state.alpha.shape[1:]),
                                  dtype=dt, device=dev)
         n_acc = torch.zeros(C, dtype=dt, device=dev)
+        n_pass = torch.zeros(C, dtype=dt, device=dev)
         k = 0
         for i in range(1, n_iter + 1):
             u = torch.randn((C, d), dtype=dt, device=dev,
@@ -1270,6 +1372,7 @@ def _da_chain(model: Model, n_iter, burnin, thin, target, gamma, end_ram,
             pos = i - 1
             if pos >= burnin:
                 n_acc += accept.to(dt)
+                n_pass += state.passed.to(dt)
                 if (pos - burnin) % thin == 0:
                     thetas[:, k] = state.theta
                     lps[:, k] = state.lp_prior
@@ -1278,9 +1381,10 @@ def _da_chain(model: Model, n_iter, burnin, thin, target, gamma, end_ram,
                     if store_states:
                         alphas[:, k] = state.alpha
                     k += 1
+        kept = max(n_iter - burnin, 1)
         return dict(theta=thetas, prior=lps, ll=lls, accepted=accs,
-                    S=state.S, acc_rate=n_acc / max(n_iter - burnin, 1),
-                    alpha=alphas)
+                    S=state.S, acc_rate=n_acc / kept, alpha=alphas,
+                    stage1_rate=n_pass / kept)
 
     return chain
 
@@ -1352,6 +1456,10 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
     keeps the likelihood estimate unbiased for a fixed schedule (check
     ESS_IS when raising it).  The filters of pm and da and those of the
     state outputs always resample at every step.
+    SDE models (``kind`` "sde"): mcmc_type "is2" (default), "is1", "is3",
+    "approx" (theta output), "pm" or "da", always with the bootstrap
+    filter; phase 1 and da's first stage run the coarse level with
+    max(particles, 2) particles, coupled to the fine-level correction.
     Nonlinear models (``kind`` "nlg"): mcmc_type "is2" (default), "is1",
     "is3", "approx", "pm", "da" or "ekf" (the EKF's log-likelihood;
     output_type "theta", "summary" or "full"); sampling_method "bsf"
@@ -1383,10 +1491,12 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
                 f"output_type={output_type!r}: 'theta', 'summary' and "
                 "'full' are ported")
     else:
-        nlg = model.kind == "nlg"
+        nlg, sde = model.kind == "nlg", model.kind == "sde"
         mcmc_type = mcmc_type or "is2"
-        # psi for the exponential families, bsf for the nonlinear models
-        sampling_method = sampling_method or ("bsf" if nlg else "psi")
+        # psi for the exponential families, bsf for the nonlinear models;
+        # an SDE model takes bsf whatever is asked, as in the JAX package
+        sampling_method = "bsf" if sde else (
+            sampling_method or ("bsf" if nlg else "psi"))
         if mcmc_type not in ("approx", "is1", "is2", "is3", "pm", "da") \
                 + (("ekf",) if nlg else ()):
             raise NotImplementedError(
@@ -1403,6 +1513,14 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
             raise ValueError(
                 "local_approx=False: a nonlinear model has only the local "
                 "mode approximation")
+        if sde and not local_approx:
+            raise ValueError("local_approx=False: an SDE model has no "
+                             "Gaussian approximation")
+        if sde and mcmc_type == "approx" and output_type == "full":
+            # the JAX package dies here (its state draws rebuild a
+            # Gaussian approximation)
+            raise ValueError("an approximate SDE run has no state draws; "
+                             "take output_type='full' of is1/is2/is3")
         if mcmc_type != "ekf":
             _check_method(model, sampling_method)
         if mcmc_type not in ("approx", "ekf"):
@@ -1440,7 +1558,8 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
         chain = _gaussian_chain(model, **base)
     else:
         approx = _approx_evaluator(model, conv_tol, max_iter,
-                                   bool(local_approx))
+                                   bool(local_approx), gen1,
+                                   max(int(particles), 2))
     if mcmc_type in ("pm", "da"):
         make = _pm_chain if mcmc_type == "pm" else _da_chain
         chain = make(model, nsim=particles, sampling_method=sampling_method,
@@ -1448,10 +1567,13 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
                      store_states=output_type == "full", **base)
     elif mcmc_type not in ("gaussian", "ekf"):
         # the modes are kept when asked, always for the approx full output,
-        # whose state draws replay them, and always on the global
-        # approximation, which a cold recompute would replace by the local
+        # whose state draws replay them, always on the global
+        # approximation, which a cold recompute would replace by the local,
+        # and always for an SDE model, whose "modes" are the seeds that
+        # couple the correction to phase 1
         store_modes = bool(store_modes) or not local_approx or (
-            mcmc_type == "approx" and output_type == "full")
+            mcmc_type == "approx" and output_type == "full") \
+            or model.kind == "sde"
         chain = _approx_chain(model, approx=approx, scan_modes=store_modes,
                               **base)
     res = chain(gen1, theta0, S0)
@@ -1482,6 +1604,8 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
         out.time["states"] = _time.time() - t1
     if mcmc_type in ("pm", "da") and output_type == "full":
         out.alpha = host(res["alpha"])
+    if mcmc_type == "da":
+        out.stage1_acceptance_rate = float(res["stage1_rate"].mean())
     if mcmc_type == "approx" or mcmc_type.startswith("is"):
         out.approx_loglik = host(res["approx_ll"])
         out.theta_sampled = host(res["theta"])

@@ -67,7 +67,13 @@ def post_correct(model: Model, output: McmcOutput, particles: int,
 
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(int(seed))
-    modes = None if output.modes is None else on_dev(output.modes)
+    if output.modes is None:
+        modes = None
+    elif model.kind == "sde":       # the stored evaluation seeds
+        modes = torch.as_tensor(np.asarray(output.modes), dtype=torch.int64,
+                                device=dev)
+    else:
+        modes = on_dev(output.modes)
     approx_ll = on_dev(output.approx_loglik)
     post, n_rows = _is_postprocess(
         model, on_dev(output.theta_sampled), modes,
@@ -95,7 +101,11 @@ def suggest_N(model: Model, theta=None,
     """Smallest N of ``candidates`` whose log-weight standard deviation over
     ``replications`` corrections at ``theta`` (default: the initial value)
     is below 1; ``{"N": ..., "sd": ..., "all": {N: sd}}``.  Candidate N
-    draws its randomness from a generator seeded with ``seed + N``."""
+    draws its randomness from a generator seeded with ``seed + N``.  An
+    SDE model raises ``ValueError`` (the JAX package's ``suggest_N`` fails
+    on one with either method)."""
+    if model.kind == "sde":
+        raise ValueError("suggest_N does not take an SDE model")
     th = theta_of(model, theta)
     solve = {"mng": approximate_mv,
              "nlg": approximate_nlg}.get(model.kind, approx_mod.approximate)

@@ -204,6 +204,9 @@ def predict(output, model: Model, type: str = "response", nsim: int = 1000,
     "state" returns ``(nsim, n, m)``, "mean" and "response" ``(nsim, n)``
     (``(nsim, n, p)`` for several series and for a nonlinear model).
     Needs a run with ``output_type="full"``."""
+    if model.kind == "sde":
+        raise ValueError("predict does not take an SDE model (the JAX "
+                         "package's fails on one)")
     if output.alpha is None:
         raise ValueError("predict needs output_type='full'")
     if type not in ("state", "mean", "response"):
@@ -239,6 +242,9 @@ def fitted(output, model: Model, type: str = "mean",
     mean (``type="mean"``) or one observation draw (``"response"``) at the
     stored states, the model built at the stored theta; in chunks of
     ``FITTED_ROWS`` draws.  Needs a run with ``output_type="full"``."""
+    if model.kind == "sde":
+        raise ValueError("fitted does not take an SDE model (the JAX "
+                         "package's fails on one)")
     if output.alpha is None:
         raise ValueError("fitted needs output_type='full'")
     if model.kind == "nlg":

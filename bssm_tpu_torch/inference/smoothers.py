@@ -20,10 +20,11 @@ from ..ops import kalman, kalman_mv
 from ..ops.simsmooth import simulate_states
 from . import approx as approx_mod
 from . import approx_mv as mv_mod
-from .filters import generator_for, spec_of
+from .filters import generator_for, refuse_sde, spec_of
 
 
 def _to_gaussian(spec):
+    refuse_sde(spec, "the smoothers")
     if isinstance(spec, NGSpec):
         return approx_mod.approximate(spec).gaussian(spec)
     if isinstance(spec, MVNGSpec):

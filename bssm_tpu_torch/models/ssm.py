@@ -220,3 +220,34 @@ def ssm_mng(y, Z, T, R, distributions, phi=None, u=None, a1=None, P1=None,
     return _make_model(spec, update_fn, prior_fn, init_theta, "mng",
                        {"m": m, "n": n, "p": p, "distributions": dists},
                        theta_names, device, dtype)
+
+
+def as_bssm(y, Z=None, H=None, T=None, R=None, a1=None, P1=None, D=None,
+            C=None, distribution=None, phi=1.0, u=None, kappa: float = 100.0,
+            **kwargs) -> Model:
+    """The port model of a KFAS ``SSModel``, a parsed dict or the path of
+    an ``.rds`` file written by ``saveRDS`` (``utils/kfas.as_bssm_kfas``:
+    diffuse initial states get the variance ``kappa``, Q and a
+    multivariate H are re-factorised by LDL), or of raw system matrices in
+    the R package's layout: ``ssm_ulg`` (one series, ``H`` the sd),
+    ``ssm_mlg`` (several, ``H`` a lower factor), or with ``distribution``
+    ``ssm_ung`` / ``ssm_mng``.  ``kwargs`` (``dtype``, ``device``,
+    ``update_fn``, ``prior_fn``, ``init_theta``, ...) go to the
+    constructor; ``device=None`` means the CUDA device."""
+    if isinstance(y, (str, dict)):
+        from ..utils.kfas import as_bssm_kfas
+        return as_bssm_kfas(y, kappa=kappa, **kwargs)
+    if Z is None or H is None and distribution is None or T is None \
+            or R is None:
+        raise ValueError("as_bssm needs an SSModel (dict or .rds path) or "
+                         "the full Z / H / T / R system")
+    y_np = np.asarray(y, np.float64)
+    multivariate = y_np.ndim == 2 and y_np.shape[1] > 1
+    if distribution is None:
+        make = ssm_mlg if multivariate else ssm_ulg
+        return make(y, Z, H, T, R, a1=a1, P1=P1, D=D, C=C, **kwargs)
+    if multivariate:
+        return ssm_mng(y, Z, T, R, distributions=distribution, phi=phi, u=u,
+                       a1=a1, P1=P1, D=D, C=C, **kwargs)
+    return ssm_ung(y, Z, T, R, distribution=distribution, phi=phi, u=u,
+                   a1=a1, P1=P1, D=D, C=C, **kwargs)

@@ -10,6 +10,7 @@
     python3 chip_smoke.py --grid-depth 4000  # the replication grid, deep
     python3 chip_smoke.py --mv-only  # the multivariate models alone
     python3 chip_smoke.py --nlg-only # the nonlinear models alone
+    python3 chip_smoke.py --sde-only # the SDE models and as_bssm alone
 
 What it does, in order:
 
@@ -75,7 +76,8 @@ What it does, in order:
    plain version's ancestors (every row), float64 against the plain
    version, and timed at 8192 rows; K1-K3 with T, R, a1, P1 and C per row
    (``ar1_ng`` negative binomial, 1024 rows, both dtypes);
-7. drives 30 paths and the multivariate and nonlinear APIs through the
+7. drives 35 paths and the multivariate, nonlinear, SDE and KFAS APIs
+   through the
    public entry points and gates each (finite values, acceptance rate,
    ESS_IS fraction where there are weights, the path's kernels launched
    by that very run, and no plain route taken on the card,
@@ -160,7 +162,26 @@ What it does, in order:
    forward-mode Jacobians replayed too), the ``nlg_checks`` phase
    (``nlg_linear_gaussian`` against K6 / K7 on its ``ssm_ulg`` twin, EKPF
    128 against the Kalman likelihood and psi 64 against psi 2048 over
-   4096 replications) and ``nlg_api``, the single-model API;
+   4096 replications) and ``nlg_api``, the single-model API; and the SDE
+   models (``sde_section``; ``--sde-only`` runs only them, with
+   ``as_bssm``), batched tensor code with no kernel (every count must stay
+   0), 1024 chains: ``sde_gbm_is2_N16`` (the JAX package zoo's row,
+   ``sde_gbm`` on its n = 40 series, L_f = 4, L_c = 2, is2/bsf with 16
+   particles, 500 iterations; acceptance and ESS_IS printed beside the
+   zoo's; weighted means within 4 SEs of the paired difference of its
+   ``post_correct`` with 128 particles from the stored seeds),
+   ``sde_poisson_ou_da_N16`` and ``sde_poisson_ou_is2_N16``
+   (``sde_poisson_ou`` at its defaults on
+   an n = 100 series of its own law, 300 iterations each from unrelated
+   seeds, their means within 4 combined SEs; da's first- and second-stage
+   acceptance), the ``sde_ops`` line (the device operations of the coarse
+   and fine filters and of da's pair, eager against replayed, replay
+   bit-equal), the ``sde_checks`` phase (Milstein's moments against the
+   exact GBM law, the coupling of one seed's coarse and fine filters,
+   seeded and stream mode on the card against the CPU in float64),
+   ``sde_api`` and ``kfas_api`` (``as_bssm`` of five KFAS layouts against
+   hand-built twins, then ``kfas_ulg_gaussian`` (K6) and
+   ``kfas_ung_is2_psi_N10`` (K1-K3), 1024 x 100);
 8. the ``diagnostics`` phase on ``psi_N10``'s output (4096 chains x 500
    draws): ``summary`` and ``check_diagnostics`` timed and finite, the
    summary's means equal to the weighted means computed on the card to
@@ -177,9 +198,9 @@ What it does, in order:
    eager calls, to the bit) and ``predict_fitted``;
 9. prints one JSON object per line: ``card``, ``checks``, ``step_checks``,
    ``big_checks``, ``lg_checks``, ``sv_checks``, the phases' lines,
-   ``mv_ops``, ``nlg_ops``, one
+   ``mv_ops``, ``nlg_ops``, ``sde_ops``, one
    ``path`` line each (``main_path`` for ``psi_N10``), ``diagnostics``,
-   ``nlg_checks``,
+   ``nlg_checks``, ``sde_checks``,
    ``kernels`` (each kernel's launches by its wrapper, and apart from
    them ``replayed``, the launches CUDA-graph replays repeated), the
    card's name and power limit, and last ``{"ok": true, "device":
@@ -2891,6 +2912,34 @@ def means_agree(stats: dict, ref: dict, k: float = 5.0) -> dict:
     return res
 
 
+def paired_means_agree(out, ref, k: float = 4.0) -> dict:
+    """Each parameter's weighted mean of ``out`` against ``ref``'s where
+    both weigh the same draws (``ref`` a ``post_correct`` of ``out``): the
+    gap over the standard error of the paired difference, from each
+    pooled mean's linearisation sum_c (A_c - mean W_c) / mean(W) over the
+    independent chains (A_c, W_c a chain's weighted sum and weight)."""
+    th = out.theta.astype(np.float64)                     # (C, S, d)
+    if not np.array_equal(th, ref.theta.astype(np.float64)):
+        raise ValueError("paired_means_agree: the runs' draws differ")
+    means, lin = [], []
+    for o in (out, ref):
+        w = o.weights.astype(np.float64)                  # (C, S)
+        A, W = np.einsum("cs,csd->cd", w, th), w.sum(1)
+        mean = A.sum(0) / W.sum()
+        means.append(mean)
+        lin.append((A - mean * W[:, None]) / W.mean())
+    se = (lin[0] - lin[1]).std(0, ddof=1) / np.sqrt(th.shape[0])
+    res = {}
+    for j, name in enumerate(out.theta_names):
+        res[name] = {"mean": float(means[0][j]),
+                     "ref_mean": float(means[1][j]),
+                     "paired_se": float(se[j]),
+                     "z": float(abs(means[0][j] - means[1][j])
+                                / max(se[j], 1e-30))}
+    res["ok"] = all(v["z"] < k for v in res.values())
+    return res
+
+
 def pm_states_check(out, ref) -> dict:
     """A pm / da run's state draws against ``is2_full``'s (another chain on
     the same model): at every (t, j) the mean of the draws within 6 sqrt(Vt
@@ -3589,18 +3638,23 @@ def mlg_airquality_model(bt, dtype):
                       dtype=dtype, device="cuda")
 
 
-def zoo_mng_series() -> np.ndarray:
-    """The JAX package zoo's Poisson + Gaussian series (n = 80, p = 2):
-    its numpy draws replayed from ``default_rng(7)`` in the zoo's order
-    (``benchmarks/zoo_tpu.py:64-160``)."""
+def _zoo_draws():
+    """The JAX package zoo's numpy draws replayed from ``default_rng(7)``
+    in the zoo's order (``benchmarks/zoo_tpu.py:64-160``) up to its
+    Poisson + Gaussian series: (the generator after them, that series)."""
     rng = np.random.default_rng(7)
     rng.poisson(np.exp(np.cumsum(rng.normal(0, .1, 100))))
     seas = 0.4 * np.sin(2 * np.pi * np.arange(120) / 12)
     rng.poisson(np.exp(0.5 + seas + np.cumsum(rng.normal(0, 0.05, 120))))
     rng.normal(0, 1, 200)
-    return np.column_stack([
+    return rng, np.column_stack([
         rng.poisson(np.exp(np.cumsum(rng.normal(0, .1, 80)))),
         rng.normal(0, 1, 80).cumsum()]).astype(float)
+
+
+def zoo_mng_series() -> np.ndarray:
+    """The JAX package zoo's Poisson + Gaussian series (n = 80, p = 2)."""
+    return _zoo_draws()[1]
 
 
 def zoo_update(theta):
@@ -4294,6 +4348,436 @@ def nlg_section(bt, ck, it_ekf: int, it_nlg: int):
     return paths, [p for r in paths for p in r["problems"]], phase
 
 
+# ---------------------------------------------------------------------------
+# the SDE models and as_bssm
+# ---------------------------------------------------------------------------
+
+SDE_CHAINS = 1024
+SDE_GBM_ITER = 500               # sde_gbm_is2_N16: the zoo row's depth
+SDE_OU_ITER = 300                # the two sde_poisson_ou paths
+SDE_ROWS = 4096                  # rows / replications of sde_checks
+# the JAX package zoo's sde_gbm(is2) row, 128 chains x 500 iterations on
+# its TPU (ZOO_r05.json), printed beside sde_gbm_is2_N16's, not gated on
+ZOO_SDE = {"acceptance": 0.245, "ess_is_fraction": 0.6517}
+
+
+def zoo_gbm_series() -> np.ndarray:
+    """The JAX package zoo's ``sde_gbm`` series (n = 40, Poisson counts of
+    a log-normal walk), its numpy draws replayed after the mng series'
+    (``benchmarks/zoo_tpu.py:179-183``)."""
+    rng = _zoo_draws()[0]
+    return rng.poisson(np.exp(np.cumsum(rng.normal(0.02, 0.15, 40)))
+                       ).astype(float)
+
+
+def gbm_model(bt, dtype, device="cuda"):
+    """The zoo's ``sde_gbm`` row: x0 = max(y_1, 1), L_f = 4, L_c = 2."""
+    y = zoo_gbm_series()
+    return bt.sde_gbm(y, x0=max(float(y[0]), 1.0), L_f=4, L_c=2,
+                      dtype=dtype, device=device)
+
+
+def ou_series(n: int = 100, seed: int = 13) -> np.ndarray:
+    """``sde_poisson_ou``'s law at its theta_init (rho 0.5, nu 0, sigma
+    0.3) from x0 = 0: exact OU transitions over unit time, Poisson counts
+    of exp(x)."""
+    rng = np.random.default_rng(seed)
+    rho, nu, sig = 0.5, 0.0, 0.3
+    a = np.exp(-rho)
+    sd = sig * np.sqrt((1.0 - a * a) / (2.0 * rho))
+    x, y = 0.0, np.zeros(n)
+    for t in range(n):
+        x = nu + (x - nu) * a + sd * rng.normal()
+        y[t] = rng.poisson(np.exp(x))
+    return y
+
+
+def ou_model(bt, dtype):
+    """``sde_poisson_ou`` at its defaults (L_f = 5, L_c = 2, x0 = 0) on
+    ``ou_series``."""
+    return bt.sde_poisson_ou(ou_series(), dtype=dtype, device="cuda")
+
+
+def sde_iteration_ops(bt, B: int) -> dict:
+    """What paces an SDE chain iteration: the device operations of its
+    filters (counted by stream capture) and their eager and replayed
+    milliseconds (CUDA events) at ``B`` rows of theta_init, 16 particles,
+    the replay held to the eager call to the bit: the coarse filter of the
+    gbm and the OU model (phase 1's evaluation), the OU fine filter (is2's
+    correction, pm) and the pair from one draw (da's evaluation)."""
+    from bssm_tpu_torch.inference import mcmc as tm
+    from bssm_tpu_torch.inference import sde as ts
+    from bssm_tpu_torch.inference.replay import Replay
+    res = {"rows": B, "particles": 16}
+    rp = Replay()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for label, model in (("gbm", gbm_model(bt, torch.float32)),
+                         ("ou", ou_model(bt, torch.float32))):
+        th = torch.as_tensor(model.theta_init, dtype=torch.float32,
+                             device="cuda").expand(B, -1).contiguous()
+        spec = model.build(th)
+        seeds = ts.new_seeds(B, "cuda", gen)
+        blocks = {f"{label}_coarse": (tm._sde_coarse, (spec, seeds, 16))}
+        if label == "ou":
+            blocks["ou_fine"] = (tm._sde_fine, (spec, seeds, 16, False))
+            blocks["ou_da_pair"] = (tm._sde_states,
+                                    (spec, seeds, 16, 16, None))
+        for name, (fn, args) in blocks.items():
+            t0 = time.time()
+            eager = fn(*args)
+            replayed = rp(fn, *args)
+            same = all(torch.equal(a, b) for a, b in zip(eager, replayed))
+            res[name] = {"device_ops": len(graph_nodes(lambda: fn(*args),
+                                                       warm=False)),
+                         "replayed_ms": time_ms(lambda: rp(fn, *args)),
+                         "eager_ms": time_ms(lambda: fn(*args), 1, 0),
+                         "replay_bit_equal_to_eager": same,
+                         "seconds": time.time() - t0}
+            if not same:
+                FAILURES.append({"what": f"sde {name}: replay differs from "
+                                         "the eager call"})
+    return res
+
+
+def sde_checks(bt) -> dict:
+    """The SDE filters on the card: Milstein's terminal moments at L = 8
+    against the exact GBM law over 65536 paths (mean and variance within 5
+    standard errors, float32 paths summed in float64); the coupling, over
+    ``SDE_ROWS`` replications of the gbm model at theta_init (16
+    particles): coarse and fine log-likelihoods of one seed correlated
+    above 0.2, and their difference's sd below 0.8 of that against
+    independent seeds (the JAX package's ``tests/test_sde.py`` bounds);
+    and seeded and stream mode in float64 on the card against the CPU,
+    1e-10 (1 + |ref|) on the log-likelihood and the states, every row."""
+    from bssm_tpu_torch.inference import sde as ts
+    from bssm_tpu_torch.models import sde as msde
+    res = {}
+    t0 = time.time()
+    R = 65536
+    gm = gbm_model(bt, torch.float32)
+    spec = gm.build(torch.tensor([0.05, 0.2, 1.5], device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = msde.milstein(spec, torch.ones(R, device="cuda"), 8, generator=gen,
+                      theta=spec.theta.expand(R, -1)).double()
+    mean, var = float(x.mean()), float(x.var())
+    m4 = float(((x - mean) ** 4).mean())
+    want_mean = float(np.exp(0.05))
+    want_var = float(np.exp(0.1) * (np.exp(0.04) - 1.0))
+    z_mean = (mean - want_mean) / np.sqrt(var / R)
+    z_var = (var - want_var) / np.sqrt(max(m4 - var * var, 1e-30) / R)
+    res["milstein_moments"] = {"paths": R, "L": 8, "mean": mean,
+                               "exact_mean": want_mean, "z_mean": z_mean,
+                               "var": var, "exact_var": want_var,
+                               "z_var": z_var}
+    if not (abs(z_mean) < 5 and abs(z_var) < 5):
+        FAILURES.append({"what": "sde: Milstein moments off the GBM law",
+                         **res["milstein_moments"]})
+    # coarse and fine from one seed against independent seeds
+    th = torch.as_tensor(gm.theta_init, dtype=torch.float32,
+                         device="cuda").expand(SDE_ROWS, -1).contiguous()
+    spec = gm.build(th)
+    s1 = ts.new_seeds(SDE_ROWS, "cuda", gen)
+    s2 = ts.new_seeds(SDE_ROWS, "cuda", gen)
+    llc = ts.bsf_filter_sde(spec, 16, 2, True, seeds=s1, keep_paths=False)
+    llf = ts.bsf_filter_sde(spec, 16, 4, True, seeds=s1, keep_paths=False)
+    lli = ts.bsf_filter_sde(spec, 16, 4, True, seeds=s2, keep_paths=False)
+    llc, llf, lli = (v.double().cpu().numpy() for v in (llc, llf, lli))
+    r = float(np.corrcoef(llc, llf)[0, 1])
+    sd_same, sd_ind = float(np.std(llf - llc)), float(np.std(lli - llc))
+    res["coupling"] = {"rows": SDE_ROWS, "corr_same_seed": r,
+                       "corr_independent": float(np.corrcoef(llc, lli)[0, 1]),
+                       "sd_fine_minus_coarse_same_seed": sd_same,
+                       "sd_fine_minus_coarse_independent": sd_ind}
+    if not (r > 0.2 and sd_same < 0.8 * sd_ind):
+        FAILURES.append({"what": "sde: coarse and fine filters of one seed "
+                                 "not coupled", **res["coupling"]})
+    # the card against the CPU in float64, seeded and stream mode
+    cards = {dev: gbm_model(bt, torch.float64, dev) for dev in ("cuda", "cpu")}
+    rows = torch.as_tensor(gm.theta_init, dtype=torch.float64) + 0.05 * \
+        torch.randn((64, 3), dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(2))
+    rows[:, 2] = rows[:, 2].abs() + 0.5
+    seeds = ts.new_seeds(64, "cpu", torch.Generator().manual_seed(4))
+    n = cards["cpu"].extra["n"]
+    dBf, us = ts.philox_draws(seeds, 16, 4, 0, n + 1, torch.float64)
+    worst = {}
+    for mode in ("seeded", "stream"):
+        for L, couple in ((2, True), (4, False)):
+            out = {}
+            for dev, model in cards.items():
+                sp = model.build(rows.to(dev))
+                kw = dict(seeds=seeds.to(dev)) if mode == "seeded" else dict(
+                    dBf=dBf.to(dev), us=us[:, 1:].to(dev))
+                out[dev] = ts.bsf_filter_sde(sp, 16, L, couple, **kw)
+            for name in ("loglik", "alpha"):
+                got = getattr(out["cuda"], name).cpu()
+                ref = getattr(out["cpu"], name)
+                err = float(((got - ref).abs() / (1 + ref.abs())).max())
+                worst[f"{mode}_L{L}_{name}"] = err
+                if not err <= 1e-10:
+                    FAILURES.append({"what": f"sde {mode} L={L} {name}: "
+                                             "card against CPU", "err": err})
+    res["card_vs_cpu_f64_max_rel_err"] = worst
+    res["seconds"] = time.time() - t0
+    return res
+
+
+def sde_api_phase(bt, ck, gm) -> dict:
+    """The single-model API on the gbm model at theta_init (float32), every
+    kernel count read around it (all must stay 0): ``logLik`` (2 and 16
+    particles), ``bootstrap_filter``, a short approx run (64 x 20) and its
+    ``post_correct`` with summary and full output; the functions the JAX
+    package fails on refuse the model with a ``ValueError``."""
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.time()
+    lls = {"N2": bt.logLik(gm), "N16": bt.logLik(gm, 16, seed=2)}
+    bf = bt.bootstrap_filter(gm, 16, seed=3)
+    ap = bt.run_mcmc(gm, iter=20, mcmc_type="approx", n_chains=64, seed=2,
+                     particles=16)
+    pcs = {ot: bt.post_correct(gm, ap, 16, sampling_method="bsf",
+                               output_type=ot) for ot in ("summary", "full")}
+    refused = []
+    for name, fn in (("particle_smoother",
+                      lambda: bt.particle_smoother(gm, 16)),
+                     ("suggest_N", lambda: bt.suggest_N(gm)),
+                     ("post_correct psi", lambda: bt.post_correct(gm, ap,
+                                                                  16))):
+        try:
+            fn()
+        except ValueError:
+            refused.append(name)
+    torch.cuda.synchronize()
+    res = {"path": "sde_api", "model": "sde_gbm on the zoo's series, n=40, "
+           "L_f=4, L_c=2, at theta_init, float32",
+           "elapsed_s": time.time() - t0, "launches": dict(ck.LAUNCHES),
+           "plain_routes": dict(ck.PLAIN_ROUTES),
+           "replayed": dict(ck.REPLAYED),
+           "logLik": {k: float(v[0]) for k, v in lls.items()},
+           "bootstrap_filter_loglik": float(bf.loglik[0]),
+           "refused": refused, "problems": []}
+    finite = all(np.isfinite(v) for v in res["logLik"].values()) and bool(
+        torch.isfinite(bf.alpha).all()) and np.isfinite(
+        pcs["summary"].alphahat).all() and np.isfinite(
+        pcs["full"].alpha).all() and np.isfinite(pcs["full"].weights).all()
+    if not finite:
+        res["problems"].append("sde_api: non-finite values")
+    if len(refused) != 3:
+        res["problems"].append(f"sde_api: refused only {refused}")
+    mv_no_kernels(res, ck)
+    return res
+
+
+def kfas_dicts(rng) -> dict:
+    """KFAS ``SSModel`` objects as ``load_rds`` parses them (the layouts of
+    ``tests/test_kfas.py``), with the port's hand-built twin of each: a
+    local level with a diffuse initial state (kappa 1e4), a bivariate
+    Gaussian with LDL-factored H and Q, Poisson with exposure 2, negative
+    binomial with phi 3.5 in u, and a Poisson + Gaussian pair (u 4 for
+    the Gaussian: phi 2).  The twins take ``(bt, dtype)``."""
+    n = 100
+    y = 900 + np.cumsum(rng.normal(0, 5, n)) + rng.normal(0, 10, n)
+    level = dict(Z=np.ones((1, 1, 1)), H=np.full((1, 1, 1), 2.0),
+                 T=np.ones((1, 1, 1)), R=np.ones((1, 1, 1)),
+                 Q=np.full((1, 1, 1), 2.0), a1=np.zeros((1, 1)),
+                 P1=np.zeros((1, 1)), P1inf=np.ones((1, 1)),
+                 u=np.ones((n, 1)))
+    counts = rng.poisson(np.exp(np.cumsum(rng.normal(0, 0.1, n)))).astype(
+        float)
+    y2 = rng.normal(size=(n, 2)).cumsum(axis=0)
+    Hf = np.array([[2.0, 0.5], [0.5, 1.0]])
+    Qf = np.array([[0.3, 0.1], [0.1, 0.2]])
+    ym = np.column_stack([rng.poisson(3.0, n).astype(float),
+                          rng.normal(0, 1, n)])
+    eye = np.eye(2).reshape(2, 2, 1)
+    one = dict(Z=np.ones(1), T=np.ones((1, 1)), a1=np.zeros(1),
+               P1=np.full((1, 1), 1e4))
+    r2 = np.full((1, 1), np.sqrt(2.0))
+    return {
+        "gaussian_diffuse": (
+            dict(y=y[:, None], distribution="gaussian", **level),
+            lambda bt, dt: bt.ssm_ulg(y, H=np.sqrt(2.0), R=r2, dtype=dt,
+                                      device="cuda", **one)),
+        "mlg_ldl": (
+            dict(y=y2, Z=eye, H=Hf[:, :, None], T=eye, R=eye,
+                 Q=Qf[:, :, None], a1=np.zeros((2, 1)), P1=5.0 * np.eye(2),
+                 P1inf=np.zeros((2, 2)), u=np.ones((n, 2)),
+                 distribution=["gaussian", "gaussian"]),
+            lambda bt, dt: bt.ssm_mlg(
+                y2, Z=np.eye(2), H=np.linalg.cholesky(Hf), T=np.eye(2),
+                R=np.linalg.cholesky(Qf), a1=np.zeros(2),
+                P1=5.0 * np.eye(2), dtype=dt, device="cuda")),
+        "poisson_exposure": (
+            dict(y=counts[:, None], distribution="poisson",
+                 **{**level, "u": np.full((n, 1), 2.0)}),
+            lambda bt, dt: bt.ssm_ung(counts, R=r2, distribution="poisson",
+                                      u=np.full(n, 2.0), dtype=dt,
+                                      device="cuda", **one)),
+        "negbin_phi": (
+            dict(y=counts[:, None], distribution="negative binomial",
+                 **{**level, "u": np.full((n, 1), 3.5)}),
+            lambda bt, dt: bt.ssm_ung(counts, R=r2,
+                                      distribution="negative binomial",
+                                      phi=3.5, dtype=dt, device="cuda",
+                                      **one)),
+        "mng_mixed": (
+            dict(y=ym, Z=eye, H=np.zeros((2, 2, 1)), T=eye, R=eye,
+                 Q=(0.1 * np.eye(2))[:, :, None], a1=np.zeros((2, 1)),
+                 P1=np.eye(2), P1inf=np.zeros((2, 2)),
+                 u=np.column_stack([np.ones(n), np.full(n, 4.0)]),
+                 distribution=["poisson", "gaussian"]),
+            lambda bt, dt: bt.ssm_mng(
+                ym, Z=np.eye(2), T=np.eye(2), R=np.sqrt(0.1) * np.eye(2),
+                distributions=["poisson", "gaussian"], phi=[1.0, 2.0],
+                a1=np.zeros(2), P1=np.eye(2), dtype=dt, device="cuda"))}
+
+
+def kfas_section(bt, ck) -> tuple:
+    """``as_bssm`` on the card: the model of each ``kfas_dicts`` layout
+    against its hand-built twin, the same kind and ``logLik`` within 1e-9
+    (1 + |ref|) in float64 (exact for lg / mlg, the approximation's, by
+    the single-model solve, for ng / mng: roundoff); then one short run
+    each, float32, of the diffuse local level as ``ssm_ulg`` with H and R
+    from ``update_fn`` (gaussian, K6) and of the Poisson one as
+    ``ssm_ung`` with R from ``update_fn`` (is2/psi N = 10, K1-K3), 1024 x
+    100.  Returns (the ``kfas_api`` object, its runs' path objects)."""
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.time()
+    layouts = kfas_dicts(np.random.default_rng(42))
+    lls, problems = {}, []
+    for name, (d, twin) in layouts.items():
+        m = bt.as_bssm(d, kappa=1e4, dtype=torch.float64, device="cuda")
+        h = twin(bt, torch.float64)
+        got, ref = (float(bt.logLik(x).reshape(-1)[0]) for x in (m, h))
+        err = abs(got - ref) / (1.0 + abs(ref))
+        lls[name] = {"kind": m.kind, "logLik": got, "hand_built": ref,
+                     "rel_err": err}
+        if m.kind != h.kind or not err <= 1e-9:
+            problems.append(f"kfas_api: {name} differs from its hand-built "
+                            f"model {lls[name]}")
+    torch.cuda.synchronize()
+    api = {"path": "kfas_api", "model": "as_bssm of five KFAS SSModel "
+           "layouts, n=100, float64", "elapsed_s": time.time() - t0,
+           "launches": dict(ck.LAUNCHES), "plain_routes":
+           dict(ck.PLAIN_ROUTES), "replayed": dict(ck.REPLAYED),
+           "logLik": lls, "problems": problems}
+    if not any(api["launches"].values()):
+        problems.append("kfas_api: no kernel launched")
+    gauss = layouts["gaussian_diffuse"][0]
+    ulg = bt.as_bssm(gauss, kappa=1e4, init_theta=np.log([np.sqrt(2.0)] * 2),
+                     update_fn=lambda th: {"H": torch.exp(th[:, :1]),
+                                           "R": torch.exp(th[:, 1])[
+                                               :, None, None, None]},
+                     prior_fn=lambda th: -0.5 * ((th - 2.0) ** 2).sum(-1),
+                     theta_names=("log_H", "log_R"), dtype=torch.float32,
+                     device="cuda")
+    ung = bt.as_bssm(layouts["poisson_exposure"][0], kappa=1e4,
+                     init_theta=[np.log(0.1)],
+                     update_fn=lambda th: {"R": torch.exp(th[:, 0])[
+                         :, None, None, None]},
+                     prior_fn=lambda th: th[:, 0] - 0.5 * torch.exp(
+                         th[:, 0]) ** 2,
+                     theta_names=("log_R",), dtype=torch.float32,
+                     device="cuda")
+    runs = [run_path(bt, ck, ulg, "kfas_ulg_gaussian",
+                     "as_bssm local level (diffuse P1, kappa 1e4), H and R "
+                     "from update_fn, n=100, d=2, float32", SDE_CHAINS, 100,
+                     ("log_likelihood",), (0.1, 0.7), None, warmup=5),
+            run_path(bt, ck, ung, "kfas_ung_is2_psi_N10",
+                     "as_bssm Poisson local level, exposure 2, R from "
+                     "update_fn, n=100, d=1, float32", SDE_CHAINS, 100,
+                     ("laplace_solve", "rts_factors", "psi_logw"),
+                     (0.1, 0.7), 0.9, warmup=5, particles=10,
+                     sampling_method="psi", corr_batch=16384)]
+    return api, [r for r, _ in runs]
+
+
+def sde_section(bt, ck, it_gbm: int, it_ou: int):
+    """The SDE paths, each 1024 chains, float32, no kernel (every count
+    must stay 0): ``sde_gbm_is2_N16`` (the zoo's row, is2/bsf N = 16;
+    acceptance and ESS_IS beside the zoo's; its weighted means within 4
+    SEs of the paired difference of its ``post_correct`` at N = 128 from
+    the same seeds, which catches a fault in the correction that depends
+    on N and not one that moves both alike),
+    ``sde_poisson_ou_da_N16`` and ``sde_poisson_ou_is2_N16`` (from seeds 1
+    and 2; da's and is2's means within 4 combined SEs; da's first and
+    second stage acceptance), with what paces them (``sde_ops``), the
+    ``sde_checks`` phase, ``sde_api`` and ``as_bssm`` (``kfas_section``,
+    whose runs launch K6 and K1-K3).  ``steps_s``: the section's seconds
+    by step.  Returns (path objects, problems, the phase's object)."""
+    t_start = time.time()
+    steps, t_lap = {}, [t_start]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        steps[name] = time.time() - t_lap[0]
+        t_lap[0] = time.time()
+
+    ops = sde_iteration_ops(bt, SDE_CHAINS)
+    emit("sde_ops", {**ops, "failures": FAILURES})
+    lap("sde_ops")
+    gm = gbm_model(bt, torch.float32)
+    r_g, o_g = run_path(bt, ck, gm, "sde_gbm_is2_N16", "sde_gbm on the JAX "
+                        "package zoo's series (n=40, x0=max(y1, 1)), L_f=4, "
+                        "L_c=2, d=3, float32", SDE_CHAINS, it_gbm, (),
+                        (0.05, 0.5), None, warmup=2, particles=16,
+                        mcmc_type="is2", corr_batch=16384)
+    r_g["zoo_128x500"] = ZOO_SDE
+    lap("gbm_is2")
+    t0 = time.time()
+    pc = bt.post_correct(gm, o_g, 128, sampling_method="bsf",
+                         output_type="theta", corr_batch=8192)
+    torch.cuda.synchronize()
+    w = pc.flat_weights()
+    agree = paired_means_agree(o_g, pc, k=4.0)
+    r_g["post_correct_N128"] = {"elapsed_s": time.time() - t0,
+                                "ess_is_fraction": bt.ess_is(w) / w.size,
+                                "N16_vs_N128": agree}
+    if not agree["ok"]:
+        r_g["problems"].append(f"sde_gbm_is2_N16: disagrees with "
+                               f"post_correct N=128 {agree}")
+    del pc
+    lap("gbm_post_correct")
+    om = ou_model(bt, torch.float32)
+    desc = "sde_poisson_ou at its defaults (L_f=5, L_c=2, x0=0) on a " \
+        "series of its law at theta_init (n=100, numpy seed 13), d=3, " \
+        "float32"
+    r_da, o_da = run_path(bt, ck, om, "sde_poisson_ou_da_N16", desc,
+                          SDE_CHAINS, it_ou, (), (0.03, 0.5), None, warmup=2,
+                          particles=16, mcmc_type="da", seed=1)
+    r_da["stage1_acceptance_rate"] = o_da.stage1_acceptance_rate
+    r_da["stage2_acceptance_rate"] = (o_da.acceptance_rate
+                                      / o_da.stage1_acceptance_rate)
+    lap("ou_da")
+    r_is, o_is = run_path(bt, ck, om, "sde_poisson_ou_is2_N16", desc,
+                          SDE_CHAINS, it_ou, (), (0.05, 0.5), None, warmup=2,
+                          particles=16, mcmc_type="is2", seed=2,
+                          corr_batch=16384)
+    agree = means_agree(flat_stats(o_da), flat_stats(o_is), k=4.0)
+    r_da["vs_is2"] = agree
+    if not agree["ok"]:
+        r_da["problems"].append(f"sde_poisson_ou_da_N16: disagrees with "
+                                f"is2 {agree}")
+    lap("ou_is2")
+    for r, out in ((r_g, o_g), (r_da, o_da), (r_is, o_is)):
+        mv_no_kernels(r, ck)
+        r["chain_s_per_iteration"] = r["time"]["mcmc"] / r["iter"]
+        r["posterior_mean"] = dict(zip(out.theta_names,
+                                       out.flat_theta().mean(0).tolist()))
+    phase = {"checks": sde_checks(bt)}
+    lap("checks")
+    api = sde_api_phase(bt, ck, gm)
+    lap("api")
+    kfas, kfas_runs = kfas_section(bt, ck)
+    lap("kfas")
+    paths = [r_g, r_da, r_is, api, kfas] + kfas_runs
+    phase["section_s"] = time.time() - t_start
+    phase["steps_s"] = steps
+    phase["failures"] = [f for f in FAILURES if "sde" in f["what"]]
+    return paths, [p for r in paths for p in r["problems"]], phase
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iter", type=int, default=1000,
@@ -4345,6 +4829,9 @@ def main() -> int:
     ap.add_argument("--nlg-only", action="store_true",
                     help="only the nonlinear paths and phase "
                          "(nlg_section) and stop; prints no result line")
+    ap.add_argument("--sde-only", action="store_true",
+                    help="only the SDE paths, their phase and as_bssm "
+                         "(sde_section) and stop; prints no result line")
     ap.add_argument("--geometry-sweep", action="store_true",
                     help="only time the large-ensemble kernel under launch "
                          "geometries the rule does not pick "
@@ -4412,6 +4899,13 @@ def main() -> int:
         for r in nlg_paths:
             emit("path", r)
         return 1 if nlg_problems or FAILURES else 0
+    if args.sde_only:
+        sde_paths, sde_problems, sde_phase = sde_section(
+            bt, ck, min(args.iter, SDE_GBM_ITER), min(args.iter, SDE_OU_ITER))
+        emit("sde_checks", sde_phase)
+        for r in sde_paths:
+            emit("path", r)
+        return 1 if sde_problems or FAILURES else 0
     # ---- kernels against their plain versions -----------------------------
     checks = []
     m32 = main_path_model(bt, torch.float32)
@@ -4748,7 +5242,13 @@ def main() -> int:
     nlg_paths, nlg_problems, nlg_phase = nlg_section(
         bt, ck, min(it_full, NLG_EKF_ITER), min(it_full, NLG_ITER))
     paths += nlg_paths
-    problems += mv_problems + nlg_problems + [f["what"] for f in FAILURES]
+    # the SDE models (no kernel on their paths) and as_bssm (whose runs
+    # launch K6 and K1-K3)
+    sde_paths, sde_problems, sde_phase = sde_section(
+        bt, ck, min(it_full, SDE_GBM_ITER), min(it_full, SDE_OU_ITER))
+    paths += sde_paths
+    problems += mv_problems + nlg_problems + sde_problems + [
+        f["what"] for f in FAILURES]
     # the replication grid's launches count as one more path's
     paths.append({"path": "replications", "launches":
                   phases["replications"].get(
@@ -4897,6 +5397,7 @@ def main() -> int:
         emit("main_path" if r["path"] == "psi_N10" else "path", r)
     emit("diagnostics", diag)
     emit("nlg_checks", nlg_phase)
+    emit("sde_checks", sde_phase)
     if args.profile:
         theta = dict(output_type="theta", seed=1)
         for label, model, run in (

@@ -258,23 +258,53 @@ def _agree(jout, tout, acc_tol):
     return jess, tess
 
 
+def _big_kw(method, kk):
+    return dict(iter=300, particles=64, mcmc_type="is2",
+                sampling_method=method, output_type="theta", n_chains=8,
+                seed=3, psi_resample_every=kk)
+
+
+@pytest.fixture(scope="module")
+def big_is2():
+    """The models of the is2 cases and the port's is2/psi run at period 4.
+    Its phase-1 chain is the other cases' too (one seed, and phase 1 does
+    not depend on the correction), so they correct it by ``post_correct``
+    with ``run_mcmc``'s correction generator, which gives what their own
+    ``run_mcmc`` would, bit for bit (held below on a short run), without
+    running the chain again."""
+    jm, tm = _models(n=30, seed=8, a1=np.array([1.0, 0.0]),
+                     P1=np.diag([1.0, 0.01]))
+    return jm, tm, bt.run_mcmc(tm, device="cpu", **_big_kw("psi", 4))
+
+
 @pytest.mark.parametrize("method,kk,ess_min", [("psi", 1, 0.9),
                                                ("psi", 4, 0.9),
                                                ("bsf", 1, 0.0)])
-def test_is2_big_end_to_end_matches_within_monte_carlo_error(method, kk,
-                                                             ess_min):
+def test_is2_big_end_to_end_matches_within_monte_carlo_error(big_is2, method,
+                                                             kk, ess_min):
     """run_mcmc(is2, N = 64) on both sides with different random streams:
     weighted posterior means within 4 combined Monte-Carlo standard errors,
     acceptance within 0.08, ESS_IS fractions above 0.9 for the psi filter
     and within 0.15 of each other for the bootstrap filter (whose weights
     carry the filter's own noise)."""
-    jm, tm = _models(n=30, seed=8, a1=np.array([1.0, 0.0]),
-                     P1=np.diag([1.0, 0.01]))
-    kw = dict(iter=300, particles=64, mcmc_type="is2",
-              sampling_method=method, output_type="theta", n_chains=8,
-              seed=3, psi_resample_every=kk)
+    jm, tm, base = big_is2
+    kw = _big_kw(method, kk)
     jout = jmcmc.run_mcmc(jm, **kw)
-    tout = bt.run_mcmc(tm, device="cpu", **kw)
+    if (method, kk) == ("psi", 4):
+        tout = base
+    else:                   # run_mcmc's output, without a second chain
+        tout = bt.post_correct(tm, base, 64, sampling_method=method,
+                               output_type="theta",
+                               generator=bt.is_correction_generator(3, "cpu"))
+        # the replay this relies on: run_mcmc against approx + post_correct
+        short = {**kw, "iter": 10, "n_chains": 2}
+        run = bt.run_mcmc(tm, device="cpu", **short)
+        ap = bt.run_mcmc(tm, device="cpu", **{**short, "mcmc_type": "approx"})
+        pc = bt.post_correct(tm, ap, 64, sampling_method=method,
+                             output_type="theta",
+                             generator=bt.is_correction_generator(3, "cpu"))
+        np.testing.assert_array_equal(pc.weights, run.weights)
+        np.testing.assert_array_equal(pc.posterior, run.posterior)
     assert tout.theta.shape == jout.theta.shape == (8, 150, 2)
     assert np.isfinite(tout.posterior).all()
     jess, tess = _agree(jout, tout, 0.08)
