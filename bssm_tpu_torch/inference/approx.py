@@ -15,7 +15,12 @@ launch; an unbatched spec (one model: the public API, ``suggest_N``) goes to
 tests convergence after every pass.  ``laplace_solve_plain`` is the plain
 version of both (``ops/cuda_kalman.py``), and what runs, on either device,
 for a model the kernels do not take (``cuda_kalman.kernel_takes``: m > 4,
-a time-varying system); all stop row by row.
+a time-varying system); all stop row by row.  With
+``config.time_parallel`` set every spec, batched or not, iterates by
+``_laplace_step_parallel`` instead (the associative-scan smoother of
+``ops/pkalman.py``, each pass through ``replay`` when given), as the JAX
+package switches at the same two places: the mode iteration and the
+Gaussian log-likelihood of ``approx_loglik``.
 
 The global approximation (``run_mcmc(local_approx=False)``) solves the
 pseudo-observations once, at the model's initial theta
@@ -33,9 +38,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..core import config
 from ..core import distributions as fam
 from ..core.spec import LGSpec, NGSpec, SVM, with_batch
-from ..ops import cuda_kalman, kalman
+from ..ops import cuda_kalman, kalman, pkalman
 
 CONV_TOL = 1e-8
 MAX_ITER = 100
@@ -78,14 +84,20 @@ def _one_match(spec: NGSpec, mode: torch.Tensor):
     return yt, H
 
 
-def _laplace_step(spec: NGSpec, mode: torch.Tensor):
+def _laplace_step(spec: NGSpec, mode: torch.Tensor,
+                  smoother=kalman.fast_smoother_ll):
     """One body of the iteration: (new mode, KF loglik of the approximating
     model at match(mode), mean-squared change), all per row."""
     yt, H = _one_match(spec, mode)
-    alpha, ll = kalman.fast_smoother_ll(spec.approx_gaussian(yt, H))
+    alpha, ll = smoother(spec.approx_gaussian(yt, H))
     new_mode = signal_from_states(spec, alpha[:, :spec.n])
     diff = torch.square(new_mode - mode).sum(-1) / spec.n
     return new_mode, ll, diff
+
+
+def _laplace_step_parallel(spec: NGSpec, mode: torch.Tensor):
+    """``_laplace_step`` through the time-parallel smoother."""
+    return _laplace_step(spec, mode, pkalman.fast_smoother_ll_parallel)
 
 
 def _solve(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
@@ -117,15 +129,20 @@ def _solve(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
     return mode, prev, niter, diff, ll
 
 
+def _replayed(step, replay):
+    """``step`` itself, or each call of it through ``replay``."""
+    return step if replay is None else (
+        lambda s, mode: replay(step, s, mode))
+
+
 def laplace_solve_plain(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
                         max_iter: int, replay=None):
     """Plain version of the ``laplace_solve`` kernel and of
     ``laplace_solve_steps``: the loop over ``_laplace_step``; with
     ``replay`` (``inference.replay.Replay``) each pass runs through it, one
     CUDA graph a shape on the card."""
-    step = _laplace_step if replay is None \
-        else (lambda s, mode: replay(_laplace_step, s, mode))
-    return _solve(spec, mode0, conv_tol, max_iter, step)
+    return _solve(spec, mode0, conv_tol, max_iter,
+                  _replayed(_laplace_step, replay))
 
 
 def laplace_solve_steps(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
@@ -148,7 +165,8 @@ def approximate(spec: NGSpec, conv_tol: float = CONV_TOL,
     unbatched spec through ``laplace_solve_steps``, a batched one through
     the ``laplace_solve`` kernel, or where the kernel does not take it
     through ``laplace_solve_plain`` (its passes through ``replay`` when
-    given).
+    given); under ``config.time_parallel`` any spec through the
+    time-parallel pass (through ``replay`` when given).
 
     The (ytilde, Htilde) returned are re-derived from the penultimate mode,
     exactly the pair the last smoother pass consumed, and ``gloglik`` is
@@ -159,7 +177,12 @@ def approximate(spec: NGSpec, conv_tol: float = CONV_TOL,
     # a conv_tol below the dtype's noise floor would always exhaust max_iter
     # (float32 eps ~1e-7); clamp to a resolvable tolerance
     conv_tol = max(conv_tol, 50.0 * float(torch.finfo(spec.y.dtype).eps))
-    if spec.batch is None:
+    if config.time_parallel:
+        # every pass by associative scans (any batch, m, time variation);
+        # neither Laplace kernel runs and no plain route is counted
+        def solve(*a):
+            return _solve(*a, _replayed(_laplace_step_parallel, replay))
+    elif spec.batch is None:
         solve = laplace_solve_steps
     elif cuda_kalman.route("laplace_solve", spec):
         solve = cuda_kalman.laplace_solve
@@ -206,6 +229,8 @@ def approx_loglik(spec: NGSpec, approx: Optional[ApproxResult] = None,
                              replay=replay)
     if approx.gloglik is not None:
         gll = approx.gloglik
+    elif config.time_parallel:
+        gll = pkalman.log_likelihood_parallel(approx.gaussian(spec))
     else:
         gll = kalman.log_likelihood(approx.gaussian(spec))
     sc = mode_scales(spec, approx)

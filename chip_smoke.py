@@ -11,6 +11,7 @@
     python3 chip_smoke.py --mv-only  # the multivariate models alone
     python3 chip_smoke.py --nlg-only # the nonlinear models alone
     python3 chip_smoke.py --sde-only # the SDE models and as_bssm alone
+    python3 chip_smoke.py --tp-only  # the time-parallel option alone
 
 What it does, in order:
 
@@ -76,7 +77,7 @@ What it does, in order:
    plain version's ancestors (every row), float64 against the plain
    version, and timed at 8192 rows; K1-K3 with T, R, a1, P1 and C per row
    (``ar1_ng`` negative binomial, 1024 rows, both dtypes);
-7. drives 35 paths and the multivariate, nonlinear, SDE and KFAS APIs
+7. drives 39 paths and the multivariate, nonlinear, SDE and KFAS APIs
    through the
    public entry points and gates each (finite values, acceptance rate,
    ESS_IS fraction where there are weights, the path's kernels launched
@@ -181,7 +182,23 @@ What it does, in order:
    seeded and stream mode on the card against the CPU in float64),
    ``sde_api`` and ``kfas_api`` (``as_bssm`` of five KFAS layouts against
    hand-built twins, then ``kfas_ulg_gaussian`` (K6) and
-   ``kfas_ung_is2_psi_N10`` (K1-K3), 1024 x 100);
+   ``kfas_ung_is2_psi_N10`` (K1-K3), 1024 x 100); and the time-parallel
+   Kalman option (``tp_section``; ``--tp-only`` runs only it), where
+   neither Laplace kernel may launch
+   and no plain route may be taken: ``tp_checks`` (the Laplace solve under
+   ``parallel_time()`` against K1 at the main path's and
+   ``svm_is2_N64``'s shapes, ``kfilter_parallel`` and
+   ``fast_smoother_parallel`` in float32 against the float64 sequential
+   plain versions), ``tp_grid`` (n in {512, 4096, 16384} x B in {1, 8,
+   64}: K6 and K1 against the scans, timed, every float32 value against
+   float64), ``psi_N10_tp`` (4096 x 500) and ``svm_is2_N64_tp`` (2048 x
+   300) under ``parallel_time()``, gated as ``psi_N10`` / ``svm_is2_N64``
+   are and their weighted means within 5 combined SEs of their sequential
+   twins' (``_tp_twin``: the same runs, depths and seeds), ``tp_api``
+   (the single-model API under the flag against without it, float64) and
+   a ``profile_trace`` of one ``logLik`` (a Chrome trace with CUDA
+   kernels, in ``chiprun_out/tp_profile``), the phases timed by
+   ``PhaseTimer``;
 8. the ``diagnostics`` phase on ``psi_N10``'s output (4096 chains x 500
    draws): ``summary`` and ``check_diagnostics`` timed and finite, the
    summary's means equal to the weighted means computed on the card to
@@ -200,7 +217,7 @@ What it does, in order:
    ``big_checks``, ``lg_checks``, ``sv_checks``, the phases' lines,
    ``mv_ops``, ``nlg_ops``, ``sde_ops``, one
    ``path`` line each (``main_path`` for ``psi_N10``), ``diagnostics``,
-   ``nlg_checks``, ``sde_checks``,
+   ``nlg_checks``, ``sde_checks``, ``tp_checks``,
    ``kernels`` (each kernel's launches by its wrapper, and apart from
    them ``replayed``, the launches CUDA-graph replays repeated), the
    card's name and power limit, and last ``{"ok": true, "device":
@@ -259,8 +276,10 @@ line.  Tolerances (|a - b| <= tol (1 + |b|)):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -459,12 +478,12 @@ def outer(L: torch.Tensor) -> torch.Tensor:
 # models and inputs
 # ---------------------------------------------------------------------------
 
-def bench_series():
+def bench_series(n: int = 153):
     """The two series of the JAX package's bench.py (numpy recipe, seed 1,
     drawn in its order): n = 153 Poisson counts around a slowly drifting
-    level, and the calmer level-only series of its bootstrap-filter row."""
+    level, and the calmer level-only series of its bootstrap-filter row;
+    another ``n`` draws the same recipe at that length."""
     rng = np.random.default_rng(1)
-    n = 153
     slope = np.cumsum(rng.normal(0, 0.01, n))
     level = np.cumsum(slope + rng.normal(0, 0.1, n)) + 2.0
     y = rng.poisson(np.exp(0.5 * level / np.abs(level).max() + 1.0))
@@ -472,8 +491,8 @@ def bench_series():
     return y.astype(float), yb.astype(float)
 
 
-def main_path_series() -> np.ndarray:
-    return bench_series()[0]
+def main_path_series(n: int = 153) -> np.ndarray:
+    return bench_series(n)[0]
 
 
 def calm_model(bt, dtype):
@@ -483,8 +502,10 @@ def calm_model(bt, dtype):
                      distribution="poisson", dtype=dtype, device="cuda")
 
 
-def main_path_model(bt, dtype):
-    return bt.bsm_ng(main_path_series(),
+def main_path_model(bt, dtype, n: int = 153):
+    """The main path's model; another ``n``: on bench.py's series recipe
+    at that length."""
+    return bt.bsm_ng(main_path_series(n),
                      sd_level=bt.halfnormal_prior(0.1, 1.0),
                      sd_slope=bt.halfnormal_prior(0.01, 0.1),
                      distribution="poisson", dtype=dtype, device="cuda")
@@ -4778,6 +4799,320 @@ def sde_section(bt, ck, it_gbm: int, it_ou: int):
     return paths, [p for r in paths for p in r["problems"]], phase
 
 
+# ---------------------------------------------------------------------------
+# the time-parallel Kalman option (core.config.parallel_time, ops/pkalman.py)
+# ---------------------------------------------------------------------------
+
+TP_ITER = 500          # psi_N10_tp and svm_is2_N64_tp, and their twins:
+TP_SV_ITER = 300       # cut from 1000 for the section's budget
+TP_GRID_N = (512, 4096, 16384)
+TP_GRID_B = (1, 8, 64)
+# The scan's float32 mode against K1's: both stop once a row's mean squared
+# change falls below 50 eps (an RMS change of 2.4e-3), so two rows that stop
+# a pass apart differ by about the last change or less; a fault in the scan
+# moves a mode by O(1).  99% of the entries within 1e-3 (1 + |K1|), all
+# within 0.5, as ``compare`` holds float32 kernels.
+TP_MODE_TOL = 1e-3
+# every entry of a float32 mode (scan or K1) within 1e-2 (1 + |ref|) of the
+# float64 K1 mode of the same inputs (the same stopping rule, at 1e-8 in
+# float64)
+TP_GRID_MODE_TOL = 1e-2
+TP_PROFILE_DIR = "chiprun_out/tp_profile"
+
+
+@contextlib.contextmanager
+def tp_only_scans(label: str):
+    """The block under ``parallel_time()``; it must launch neither Laplace
+    kernel (``laplace_solve``, ``laplace_step``) and take no plain route."""
+    from bssm_tpu_torch.core import config
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    l0, p0 = dict(ck.LAUNCHES), dict(ck.PLAIN_ROUTES)
+    with config.parallel_time():
+        yield
+    rise = {k: ck.LAUNCHES[k] - l0[k] for k in ("laplace_solve",
+                                                 "laplace_step")}
+    plain = {k: v - p0[k] for k, v in ck.PLAIN_ROUTES.items() if v != p0[k]}
+    if any(rise.values()) or plain:
+        FAILURES.append({"what": f"{label}: a Laplace kernel or a plain "
+                                 "route under parallel_time()",
+                         "launches": rise, "plain_routes": plain})
+
+
+def _tp_ll(spec):
+    from bssm_tpu_torch.ops import pkalman
+    return (pkalman.log_likelihood_parallel(spec),)
+
+
+def _f64(g):
+    return g._replace(**{k: v.double() for k, v in g._asdict().items()})
+
+
+def _row_tol(ref: torch.Tensor, tol: float) -> torch.Tensor:
+    """tol (1 + the row's largest |ref|), broadcast over the row."""
+    scale = ref.double().abs().flatten(1).max(1).values
+    return (tol * (1.0 + scale)).view((-1,) + (1,) * (ref.dim() - 1))
+
+
+def tp_checks(bt) -> list:
+    """The time-parallel Laplace solve (``approximate`` under
+    ``parallel_time()``, each pass a replayed CUDA graph) against K1 at the
+    main path's shape (n = 153, m = 2, 4096 rows) and ``svm_is2_N64``'s
+    (n = 945, m = 1, 2048 rows), float32: modes (``TP_MODE_TOL``), the
+    Gaussian log-likelihood of the last pass (``F32_TOL["ll"]``, as K1
+    against its plain version), the share of rows that stop at K1's pass;
+    both timed.  Then on the approximating model of that solution
+    ``kfilter_parallel`` and ``fast_smoother_parallel`` in float32 against
+    the float64 sequential plain versions on the card: the moments and
+    smoothed means within 3e-4 (1 + the row's largest |ref|) and the
+    log-likelihood within 1e-5 + 2e-5 |ref|, the float32 tolerances of the
+    sequential kernels K6 / K7 (the JAX package's tests/test_pallas.py).
+    The scan's elements are not in Joseph form; this is where float32
+    would show it."""
+    from bssm_tpu_torch.inference import approx as amod
+    from bssm_tpu_torch.inference.replay import Replay
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    from bssm_tpu_torch.ops import kalman, pkalman
+    conv_tol = 50.0 * float(torch.finfo(torch.float32).eps)
+    runs = []
+    for label, model, B, spread in (
+            ("main f32 B=4096 n=153", main_path_model(bt, torch.float32),
+             CHAINS, 0.5),
+            ("svm f32 B=2048 n=945", svm_model(bt, torch.float32),
+             CHAINS // 2, SV_SPREAD)):
+        spec = model.build(thetas_around_init(model, B, 7, spread))
+        mode0 = spec.initial_mode
+        k_mode, _, k_niter, _, k_ll = ck.laplace_solve(spec, mode0,
+                                                       conv_tol, 100)
+        replay = Replay()
+
+        def solve():
+            return amod.approximate(spec, conv_tol, 100, replay=replay)
+        with tp_only_scans(f"tp_checks {label}"):
+            ap = solve()
+            ms = time_ms(solve, reps=3, warmup=1)
+        same = ap.niter == k_niter
+        r = {"label": label, "B": B, "n": spec.n, "m": spec.m,
+             "checks": [compare("tp mode vs laplace_solve", ap.mode, k_mode,
+                                TP_MODE_TOL, False),
+                        compare("tp gloglik vs laplace_solve", ap.gloglik,
+                                k_ll, F32_TOL["ll"], False)],
+             "same_niter_share": float(same.double().mean()),
+             "niter_mean": float(ap.niter.double().mean()),
+             "niter_mean_laplace_solve": float(k_niter.double().mean()),
+             "ms": ms, "ms_laplace_solve": time_ms(
+                 lambda: ck.laplace_solve(spec, mode0, conv_tol, 100))}
+        g = ap.gaussian(spec)
+        g64 = _f64(g)
+        pf = pkalman.kfilter_parallel(g)
+        alpha = pkalman.fast_smoother_parallel(g)
+        sf = kalman.kfilter(g64)
+        s_alpha = kalman.fast_smoother_ll(g64)[0]
+        for name, got, ref in (("att", pf.att, sf.att),
+                               ("Ptt", pf.Ptt, sf.Ptt),
+                               ("at", pf.at, sf.at[:, :-1]),
+                               ("Pt", pf.Pt, sf.Pt[:, :-1]),
+                               ("fast_smoother_parallel", alpha, s_alpha)):
+            r["checks"].append(compare_lg(
+                f"{name} f32 vs f64 sequential ({label})", got, ref,
+                _row_tol(ref, 3e-4), 0.0))
+        r["checks"].append(compare_lg(
+            f"kfilter_parallel.logLik f32 vs f64 sequential ({label})",
+            pf.logLik, sf.logLik, 1e-5, 2e-5))
+        runs.append(r)
+        del pf, alpha, sf, s_alpha
+        torch.cuda.empty_cache()
+    return runs
+
+
+def tp_grid(bt) -> list:
+    """The same Poisson level + slope model on bench.py's series recipe at
+    n in ``TP_GRID_N``, float32, B in ``TP_GRID_B`` thetas: per cell the
+    Kalman log-likelihood of the approximating model (the scan's solution)
+    by K6 and by ``log_likelihood_parallel`` replayed as one CUDA graph,
+    and the Laplace solve by K1 and under ``parallel_time()`` (each pass
+    replayed), milliseconds by CUDA events; every float32 value against
+    float64 K6 / K1 on the same inputs (log-likelihood 1e-5 + 2e-5 |ref|,
+    modes ``TP_GRID_MODE_TOL``)."""
+    from bssm_tpu_torch.inference import approx as amod
+    from bssm_tpu_torch.inference.replay import Replay
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    conv_tol = 50.0 * float(torch.finfo(torch.float32).eps)
+    cells = []
+    for n in TP_GRID_N:
+        m32 = main_path_model(bt, torch.float32, n=n)
+        m64 = main_path_model(bt, torch.float64, n=n)
+        for B in TP_GRID_B:
+            label = f"tp_grid n={n} B={B}"
+            th = thetas_around_init(m64, B, 11, 0.5)
+            spec, spec64 = m32.build(th.float()), m64.build(th)
+            mode0 = spec.initial_mode
+            replay = Replay()
+
+            def solve():
+                return amod.approximate(spec, conv_tol, 100, replay=replay)
+
+            def k1():
+                return ck.laplace_solve(spec, mode0, conv_tol, 100)
+            k_mode, _, k_niter, _, _ = k1()
+            r_mode, _, r_niter, _, _ = ck.laplace_solve(
+                spec64, spec64.initial_mode, 1e-8, 100)
+            with tp_only_scans(label):
+                ap = solve()
+                g = ap.gaussian(spec)
+                par_ll = replay(_tp_ll, g)[0]
+                t = {"solve_ms": time_ms(solve, reps=3, warmup=1),
+                     "ll_ms": time_ms(lambda: replay(_tp_ll, g))}
+            t["solve_ms_laplace_solve"] = time_ms(k1, reps=3, warmup=1)
+            t["ll_ms_log_likelihood"] = time_ms(lambda: ck.log_likelihood(g))
+            ref_ll = ck.log_likelihood(_f64(g))
+            mode_tol = TP_GRID_MODE_TOL * (1.0 + r_mode.double().abs())
+            cell = {"n": n, "B": B, "niter_mean": float(
+                        ap.niter.double().mean()),
+                    "niter_mean_laplace_solve": float(
+                        k_niter.double().mean()),
+                    "niter_mean_f64": float(r_niter.double().mean()),
+                    **t,
+                    "checks": [
+                        compare_lg(f"{label} tp mode vs f64", ap.mode, r_mode,
+                                   mode_tol, 0.0),
+                        compare_lg(f"{label} log_likelihood_parallel vs f64",
+                                   par_ll, ref_ll, 1e-5, 2e-5)],
+                    "laplace_solve_mode_max_abs_err_vs_f64": float(
+                        (k_mode.double() - r_mode).abs().max()),
+                    "log_likelihood_max_abs_err_vs_f64": float(
+                        (ck.log_likelihood(g).double() - ref_ll).abs()
+                        .max())}
+            cells.append(cell)
+            del replay, ap, g
+        torch.cuda.empty_cache()
+    return cells
+
+
+def tp_api(bt) -> dict:
+    """The single-model API on the main path's model at ``theta_init``,
+    float64, under ``parallel_time()`` against the same calls without it
+    (the single-model solve is K8 there): ``logLik`` (approximate, and psi
+    with 10 particles from one seed), ``gaussian_approx``, ``smoother`` and
+    ``importance_sample`` (64 draws, one seed), each within 1e-8 (1 + |ref|)
+    at every entry: both reach the same fixed point, to roundoff in
+    float64."""
+    m64 = main_path_model(bt, torch.float64)
+
+    def calls():
+        g = bt.gaussian_approx(m64)
+        sm = bt.smoother(m64)
+        imp = bt.importance_sample(m64, 64, seed=5)
+        return {"logLik": bt.logLik(m64),
+                "logLik_psi10": bt.logLik(m64, 10, seed=3),
+                "gaussian_approx.y": g.y, "gaussian_approx.H": g.H,
+                "smoother.alphahat": sm.alphahat, "smoother.Vt": sm.Vt,
+                "importance_sample.alpha": imp.alpha,
+                "importance_sample.weights": imp.weights,
+                "importance_sample.loglik": imp.loglik}
+    t0 = time.time()
+    seq = calls()
+    with tp_only_scans("tp_api"):
+        par = calls()
+    torch.cuda.synchronize()
+    return {"elapsed_s": time.time() - t0,
+            "checks": [compare(f"tp_api {k}", par[k], seq[k], 1e-8, True)
+                       for k in seq]}
+
+
+def tp_profile(bt, model, phase) -> dict:
+    """``diagnostics.profiling.profile_trace`` around one ``logLik`` of the
+    main path's model under ``parallel_time()`` (the single-model solve by
+    scans, eager): the Chrome trace must exist and hold CUDA kernels."""
+    import glob
+    import shutil
+    from bssm_tpu_torch.diagnostics.profiling import profile_trace
+    shutil.rmtree(TP_PROFILE_DIR, ignore_errors=True)
+    with tp_only_scans("tp_profile"), profile_trace(TP_PROFILE_DIR):
+        phase.sync(bt.logLik(model))
+    files = sorted(glob.glob(f"{TP_PROFILE_DIR}/*.json"))
+    kernels = {}
+    if files:
+        with open(files[0]) as f:
+            for e in json.load(f)["traceEvents"]:
+                if e.get("cat") == "kernel":
+                    name = e.get("name", "")[:60]
+                    kernels[name] = kernels.get(name, 0) + 1
+    res = {"files": files, "bytes": [os.path.getsize(f) for f in files],
+           "kernel_events": sum(kernels.values()),
+           "top_kernels": sorted(kernels.items(), key=lambda kv: -kv[1])[:8],
+           "ok": len(files) == 1 and sum(kernels.values()) > 0}
+    if not res["ok"]:
+        FAILURES.append({"what": "tp_profile: no trace with CUDA kernels",
+                         **res})
+    return res
+
+
+def tp_section(bt, ck, it_main: int, it_sv: int, is2: dict):
+    """The time-parallel option on the card: ``tp_checks``, ``tp_grid``,
+    the paths ``psi_N10_tp`` (4096 chains, is2/psi N = 10) and
+    ``svm_is2_N64_tp`` (2048 chains, N = 64, period 4) under
+    ``parallel_time()`` at ``it_main`` / ``it_sv`` iterations, each gated
+    as ``psi_N10`` / ``svm_is2_N64`` are (acceptance band, ESS_IS floor),
+    on zero Laplace kernel launches and plain routes, and on its weighted
+    means within 5 combined SEs of its sequential twin's (``_tp_twin``:
+    the same run without the flag, at the same depth and seed: at another
+    depth the slowly mixing SV chains differ by their burn-in, not by MC
+    error), then ``tp_api`` and ``tp_profile``.  Phases timed by
+    ``diagnostics.profiling.PhaseTimer``.  Returns (path objects,
+    problems, the section's object)."""
+    from bssm_tpu_torch.core import config
+    from bssm_tpu_torch.diagnostics.profiling import PhaseTimer
+    timer = PhaseTimer()
+    phase = {}
+    n_failures = len(FAILURES)
+    with timer("tp_checks"):
+        phase["checks"] = tp_checks(bt)
+    with timer("tp_grid"):
+        phase["grid"] = tp_grid(bt)
+    m32 = main_path_model(bt, torch.float32)
+    twins = {
+        "psi_N10": (m32, "bsm_ng poisson level+slope, n=153, m=2, d=2, "
+                    "float32", CHAINS, it_main, (0.15, 0.35), 0.95,
+                    ("rts_factors", "psi_logw"), dict(particles=10, **is2)),
+        "svm_is2_N64": (svm_model(bt, torch.float32), "svm sigma type, "
+                        "simulated n=945, m=1, d=3, float32", CHAINS // 2,
+                        it_sv, (0.10, 0.65), 0.9,
+                        ("rts_factors", "psi_big_logw"),
+                        dict(particles=64, psi_resample_every=4,
+                             **{**is2, "corr_batch": 8192}))}
+    paths = []
+    for name, (model, desc, chains, it, acc, ess, req, kw) in twins.items():
+        twin = name + "_tp_twin"
+        with timer(twin):
+            r, seq = run_path(bt, ck, model, twin, desc, chains, it,
+                              ("laplace_solve",) + req, acc, ess, **kw)
+        paths.append(r)
+        label = name + "_tp"
+        with timer(label):
+            with config.parallel_time():
+                r, out = run_path(bt, ck, model, label, desc, chains, it,
+                                  req, acc, ess, **kw)
+        for k in ("laplace_solve", "laplace_step"):
+            if r["launches"][k]:
+                r["problems"].append(f"{label}: {k} launched "
+                                     f"{r['launches'][k]} times")
+        agree = means_agree(flat_stats(out), flat_stats(seq), k=5.0)
+        r["vs_sequential"] = agree
+        if not agree["ok"]:
+            r["problems"].append(f"{label}: disagrees with {twin} {agree}")
+        r["chain_s_per_iteration"] = r["time"]["mcmc"] / r["iter"]
+        paths.append(r)
+        del out, seq
+    with timer("tp_api"):
+        phase["api"] = tp_api(bt)
+    with timer("tp_profile") as ph:
+        phase["profile"] = tp_profile(bt, m32, ph)
+    phase["steps_s"] = timer.report()
+    phase["section_s"] = timer.total
+    phase["failures"] = FAILURES[n_failures:]
+    return paths, [p for r in paths for p in r["problems"]], phase
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iter", type=int, default=1000,
@@ -4832,6 +5167,9 @@ def main() -> int:
     ap.add_argument("--sde-only", action="store_true",
                     help="only the SDE paths, their phase and as_bssm "
                          "(sde_section) and stop; prints no result line")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="only the time-parallel section (tp_section) "
+                         "and stop; prints no result line")
     ap.add_argument("--geometry-sweep", action="store_true",
                     help="only time the large-ensemble kernel under launch "
                          "geometries the rule does not pick "
@@ -4906,6 +5244,15 @@ def main() -> int:
         for r in sde_paths:
             emit("path", r)
         return 1 if sde_problems or FAILURES else 0
+    is2 = dict(mcmc_type="is2", sampling_method="psi", store_modes=False,
+               corr_batch=16384)
+    if args.tp_only:
+        tp_paths, tp_problems, tp_phase = tp_section(
+            bt, ck, min(args.iter, TP_ITER), min(args.iter, TP_SV_ITER), is2)
+        emit("tp_checks", tp_phase)
+        for r in tp_paths:
+            emit("path", r)
+        return 1 if tp_problems or FAILURES else 0
     # ---- kernels against their plain versions -----------------------------
     checks = []
     m32 = main_path_model(bt, torch.float32)
@@ -5078,8 +5425,6 @@ def main() -> int:
     it_full = args.iter
     it_half = max(args.iter // 2, 40)
     lvl_slope = "bsm_ng poisson level+slope, n=153, m=2, d=2, float32"
-    is2 = dict(mcmc_type="is2", sampling_method="psi", store_modes=False,
-               corr_batch=16384)
     runs = [
         run_path(bt, ck, m32, "psi_N10", lvl_slope, CHAINS, it_full,
                  ("laplace_solve", "rts_factors", "psi_logw"), (0.15, 0.35),
@@ -5247,7 +5592,11 @@ def main() -> int:
     sde_paths, sde_problems, sde_phase = sde_section(
         bt, ck, min(it_full, SDE_GBM_ITER), min(it_full, SDE_OU_ITER))
     paths += sde_paths
-    problems += mv_problems + nlg_problems + sde_problems + [
+    # the time-parallel option: no Laplace kernel, the correction's K2-K4
+    tp_paths, tp_problems, tp_phase = tp_section(
+        bt, ck, min(it_full, TP_ITER), min(it_full, TP_SV_ITER), is2)
+    paths += tp_paths
+    problems += mv_problems + nlg_problems + sde_problems + tp_problems + [
         f["what"] for f in FAILURES]
     # the replication grid's launches count as one more path's
     paths.append({"path": "replications", "launches":
@@ -5398,6 +5747,7 @@ def main() -> int:
     emit("diagnostics", diag)
     emit("nlg_checks", nlg_phase)
     emit("sde_checks", sde_phase)
+    emit("tp_checks", tp_phase)
     if args.profile:
         theta = dict(output_type="theta", seed=1)
         for label, model, run in (
