@@ -2,7 +2,8 @@
 hand-written CUDA kernels for NVIDIA Hopper.
 
 The port of the JAX package ``bssm_tpu`` that lives beside it, module for
-module (``core/``, ``ops/``, ``models/``, ``inference/``, ``diagnostics/``).
+module (``core/``, ``ops/``, ``models/``, ``inference/``, ``diagnostics/``,
+``parallel/``).
 It imports torch and numpy and nothing of JAX or of ``bssm_tpu``.
 
 What runs today:
@@ -64,7 +65,10 @@ those of ``ssm_nlg`` torch functions batched over rows of (time, state,
 theta) (``models/nlg.py``), those of ``ssm_sde`` over rows of (state,
 theta) (``models/sde.py``).
 Entry points run on the CUDA device unless the caller passes
-``device="cpu"``.
+``device="cpu"``.  ``run_mcmc`` and ``post_correct`` take ``mesh=``
+(``make_mesh``; ``parallel.distributed`` starts ``torch.distributed``):
+one process a GPU, rows split over the ranks, each row drawn as without a
+mesh, the whole output on every rank.
 """
 
 __version__ = "0.1.0"
@@ -107,6 +111,7 @@ from .inference.filters import (kfilter, bootstrap_filter,       # noqa: E402
                                 ekf_smoother, ekf_fast_smoother,
                                 ekpf_filter)
 from .inference.postcorrect import post_correct, suggest_N       # noqa: E402
+from .parallel.mesh import make_mesh                             # noqa: E402
 from .inference.particle import (psi_logw, bsf_logw,             # noqa: E402
                                  psi_logw_scan, bsf_logw_scan,
                                  psi_filter, bsf_filter, bsf_filter_lg,

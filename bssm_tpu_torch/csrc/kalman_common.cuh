@@ -750,7 +750,9 @@ __device__ __forceinline__ R warp_inclusive_scan(R x, int lane) {
 // A value is a pure function of (key, counter), so it depends neither on the
 // launch geometry nor on the order in which threads run.  The plain PyTorch
 // version is ops/cuda_kalman.philox_fill_plain; both follow the layout
-//   counter = (particle, step, row, which),  key = (key0, key1).
+//   counter = (particle, step, row, which),  key = (key0, key1),
+// row being the row's place in the whole batch (row0 + the launch's row), so
+// that a window of the batch draws what the whole batch draws there.
 // which = 0: words (w0, w1) feed the Box-Muller pair of normals 0 and 1.  For
 // M <= 2 word w2 of the same call feeds the resampling uniform, so a
 // particle-step costs one Philox call.  For M > 2 the pair (w2, w3) feeds

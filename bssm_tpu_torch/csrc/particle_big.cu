@@ -92,7 +92,7 @@ namespace bssm {
 
 // eps (B, S+1, N, M) and us (B, S, N) as the Philox mode consumes them
 template <typename R, int M>
-__global__ void philox_fill_kernel(long B, int S, int N,
+__global__ void philox_fill_kernel(long B, int S, int N, long row0,
                                    const long long* __restrict__ key,
                                    R* __restrict__ eps, R* __restrict__ us) {
   const long total = B * (long)(S + 1) * N;
@@ -103,15 +103,16 @@ __global__ void philox_fill_kernel(long B, int S, int N,
   const long bs = i / N;
   const int s = (int)(bs % (S + 1));
   const long b = bs / (S + 1);
+  const unsigned grow = (unsigned)(row0 + b);
   unsigned w[4];
-  philox_words(k0, k1, (unsigned)b, (unsigned)s, (unsigned)p, w);
+  philox_words(k0, k1, grow, (unsigned)s, (unsigned)p, w);
   R e[M];
   philox_normals<R, M>(w, e);
 #pragma unroll
   for (int j = 0; j < M; ++j) eps[i * M + j] = e[j];
   if (s >= 1)
     us[(b * (long)S + (s - 1)) * N + p] = philox_uniform<R, M>(
-        w, k0, k1, (unsigned)b, (unsigned)s, (unsigned)p);
+        w, k0, k1, grow, (unsigned)s, (unsigned)p);
 }
 
 }  // namespace bssm
@@ -126,7 +127,8 @@ extern "C" int bssm_particle_big(const void* args, long long size) {
   BigLaunch g;
   memcpy(&g, args, sizeof g);
   const long long N = g.N, T = g.threads_per_row, rows = g.rows_per_block;
-  if (N < 2 || N > bssm::kMaxNBig || g.kk < 1 || g.S < 0 || g.B < 1)
+  if (N < 2 || N > bssm::kMaxNBig || g.kk < 1 || g.S < 0 || g.B < 1 ||
+      g.row0 < 0)
     return -2;
   if (T < 32 || T % 32 != 0 || T > 32 * bssm::kMaxWarpsRow || rows < 1 ||
       (T > 32 && rows != 1) || T * rows > bssm::kMaxThreadsBig)
@@ -139,11 +141,11 @@ extern "C" int bssm_particle_big(const void* args, long long size) {
 }
 
 // eps (B, S+1, N, m) and us (B, S, N) filled with the values the Philox mode
-// of bssm_particle_big consumes for the same key.
+// of bssm_particle_big consumes for the same key and row0.
 extern "C" int bssm_philox_fill(int is_double, int m, long B, int S, int N,
-                                const void* key, void* eps, void* us,
-                                void* stream) {
-  if (N < 1 || S < 0 || B < 1) return -2;
+                                long row0, const void* key, void* eps,
+                                void* us, void* stream) {
+  if (N < 1 || S < 0 || B < 1 || row0 < 0) return -2;
   const long total = B * (long)(S + 1) * N;
   const int threads = 256;
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
@@ -151,7 +153,7 @@ extern "C" int bssm_philox_fill(int is_double, int m, long B, int S, int N,
 #define LAUNCH(R, M)                                                      \
   bssm::philox_fill_kernel<R, M><<<blocks, threads, 0,                    \
                                     (cudaStream_t)stream>>>(              \
-      B, S, N, (const long long*)key, (R*)eps, (R*)us)
+      B, S, N, row0, (const long long*)key, (R*)eps, (R*)us)
   BSSM_DISPATCH(is_double, m, known, LAUNCH);
 #undef LAUNCH
   if (!known) return -1;

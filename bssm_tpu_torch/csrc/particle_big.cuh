@@ -32,6 +32,7 @@ __host__ __device__ inline long big_row_elems(int N, int M, bool bsf) {
 template <typename R> struct BigArgs {
   int dist, N, S, kk, philox, T, rows, k;
   long B;
+  long row0;      // Philox mode: the global index of row 0 of the launch
   // psi mode, dense: ytilde, Htilde, scales (B, S); ahat (B, S+1, M);
   // Lb, Ab (B, S+1, M, M)
   const R* ytilde;
@@ -171,7 +172,11 @@ particle_big_kernel(const BigArgs<R> a) {
   // (j >= cnt) computes on a clamped particle index and is masked out of the
   // weights and the stores, so that the slots' independent chains of
   // generator, special functions and loads overlap.
+  // the counter's row word is the row's place in the whole batch (a rank
+  // of a mesh launches a window of it), so that the stream does not depend
+  // on how the batch is split
   unsigned k0 = 0, k1 = 0;
+  const unsigned grow = (unsigned)(a.row0 + b);
   if (a.philox) {
     k0 = (unsigned)a.key[0];
     k1 = (unsigned)a.key[1];
@@ -185,8 +190,7 @@ particle_big_kernel(const BigArgs<R> a) {
     if (a.philox) {
 #pragma unroll
       for (int j = 0; j < P; ++j)
-        philox_words(k0, k1, (unsigned)b, (unsigned)s, (unsigned)(plo + j),
-                     wd[j]);
+        philox_words(k0, k1, grow, (unsigned)s, (unsigned)(plo + j), wd[j]);
     }
   };
   auto normals = [&](int s, R (&e)[P][M]) {
@@ -205,7 +209,7 @@ particle_big_kernel(const BigArgs<R> a) {
     if (a.philox) {
 #pragma unroll
       for (int j = 0; j < P; ++j)
-        u[j] = philox_uniform<R, M>(wd[j], k0, k1, (unsigned)b, (unsigned)s,
+        u[j] = philox_uniform<R, M>(wd[j], k0, k1, grow, (unsigned)s,
                                     (unsigned)(plo + j));
     } else {
 #pragma unroll
@@ -490,9 +494,10 @@ __host__ __device__ constexpr bool big_all_p() {
 // they are.  Both: y, u, D and the leaves Z, phi where the spec holds them.
 // Stream mode (philox = 0): eps (B, S+1, N, m), us (B, S, N), and anc
 // (B, S, N) int32 or 0.  Philox mode: key points to two 64-bit words on the
-// device.  out (B,).  The dense tensors are contiguous.
+// device, and row b of the launch draws as row row0 + b of the batch.
+// out (B,).  The dense tensors are contiguous.
 struct BigLaunch {
-  long long is_double, m, dist, bsf, philox, N, B, S, kk;
+  long long is_double, m, dist, bsf, philox, N, B, S, kk, row0;
   long long threads_per_row, rows_per_block, pmax;
   long long ytilde, Htilde, scales, ahat, Lb, Ab;
   bssm::SeriesArg y, u, D;
@@ -523,6 +528,7 @@ int launch_big_p(const BigLaunch& g) {
   a.dist = (int)g.dist; a.N = (int)g.N; a.S = (int)g.S; a.kk = (int)g.kk;
   a.philox = (int)g.philox; a.T = (int)g.threads_per_row;
   a.rows = (int)g.rows_per_block; a.k = (int)g.k; a.B = (long)g.B;
+  a.row0 = (long)g.row0;
   a.ytilde = in(g.ytilde); a.Htilde = in(g.Htilde); a.scales = in(g.scales);
   a.ahat = in(g.ahat); a.Lb = in(g.Lb); a.Ab = in(g.Ab);
   a.y = g.y; a.u = g.u; a.D = g.D;

@@ -91,7 +91,9 @@ gamma = 2/3, RAM adaptation at every iteration unless
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import time as _time
 import warnings
 from typing import Callable, NamedTuple, Optional
@@ -99,6 +101,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..core import rows
 from ..core.config import resolve_device
 from ..core.priors import LOG
 from ..core.spec import is_mv
@@ -202,8 +205,8 @@ def _ram_scan(logdens: Callable, log_prior: Callable, theta0: torch.Tensor,
     n_acc = torch.zeros(C, dtype=dt, device=dev)
     k = 0
     for i in range(1, n_iter + 1):
-        u = torch.randn((C, d), dtype=dt, device=dev, generator=generator)
-        unif = torch.rand((C,), dtype=dt, device=dev, generator=generator)
+        u = rows.randn((C, d), dtype=dt, device=dev, generator=generator)
+        unif = rows.rand((C,), dtype=dt, device=dev, generator=generator)
         adapt = (i <= burnin) if end_ram else True
         state, accept = _ram_step(logdens, log_prior, state, u, unif, i,
                                   target, gamma, adapt)
@@ -472,32 +475,69 @@ def _gaussian_chain(model: Model, n_iter, burnin, thin, target, gamma,
     return chain
 
 
+def _chunk_rows(n: int, batch: int, own: Optional[slice] = None):
+    """The chunks of a list of ``n`` rows, ``batch`` rows each, as ``(rows,
+    keep, window)``: without ``own`` each chunk's rows, kept, under no
+    window.  With ``own`` (a rank's rows on a mesh) the chunk's rows inside
+    ``own``, to be drawn under ``window``, the row window of the whole chunk
+    (``core.rows``); a chunk that holds none of them gives its first row
+    with ``keep`` False, computed only so that the generator draws as in the
+    unsharded run, and dropped."""
+    for lo in range(0, n, batch):
+        hi = min(lo + batch, n)
+        if own is None:
+            yield slice(lo, hi), True, contextlib.nullcontext()
+            continue
+        a, b = max(lo, own.start), min(hi, own.stop)
+        keep = a < b
+        if not keep:
+            a, b = lo, lo + 1
+        yield slice(a, b), keep, rows.window(a - lo, hi - lo)
+
+
+def _draw_chunks(C: int, Sn: int, batch_size: int, own: Optional[slice],
+                 draw: Callable) -> np.ndarray:
+    """``draw(rows)`` (a tensor of the flat rows ``rows`` of ``C S``) over
+    the chunks of ``batch_size`` rows, each copied to the host before the
+    next: all rows as ``(C, S, ...)``, or with ``own`` those rows, flat
+    (``_chunk_rows``)."""
+    lo0, n_out = (0, C * Sn) if own is None \
+        else (own.start, own.stop - own.start)
+    out = None
+    for sl, keep, win in _chunk_rows(C * Sn, batch_size, own):
+        with win:
+            a = draw(sl).cpu().numpy()
+        if out is None:
+            out = np.empty((n_out,) + a.shape[1:], dtype=a.dtype)
+        if keep:
+            out[sl.start - lo0:sl.stop - lo0] = a
+    return out if own is not None else out.reshape((C, Sn) + out.shape[1:])
+
+
 def _state_draws(model: Model, thetas: torch.Tensor, generator,
-                 batch_size: int) -> np.ndarray:
+                 batch_size: int, own: Optional[slice] = None) -> np.ndarray:
     """``output_type="full"``: one simulation-smoother draw of the states at
     every stored theta ``(C, S, d)``, returned on the host as
     ``(C, S, n+1, m)``.  Drawn on the device in chunks of ``batch_size``
-    rows, each copied to the host before the next."""
+    rows, each copied to the host before the next.  With ``own`` only the
+    flat rows ``own`` of ``C S``, returned flat (``_draw_chunks``)."""
     C, Sn, d = thetas.shape
     flat = thetas.reshape(C * Sn, d)
-    out = None
-    for lo in range(0, C * Sn, batch_size):
-        spec = model.build(flat[lo:lo + batch_size])
+
+    def draw(sl):
+        spec = model.build(flat[sl])
         if model.kind == "mlg":
-            a = kalman_mv.simulate_states_mv(spec, 1, generator, False)[:, 0]
-        elif model.kind == "nlg":       # on the model linearised by the EKF
-            a = kalman_mv.simulate_states_mv(
+            return kalman_mv.simulate_states_mv(spec, 1, generator,
+                                                False)[:, 0]
+        if model.kind == "nlg":         # on the model linearised by the EKF
+            return kalman_mv.simulate_states_mv(
                 nlg_mod._ekf_linearised(spec), 1, generator, False)[:, 0]
-        else:
-            a = simulate_states_single(spec, generator)
-        a = a.cpu().numpy()
-        if out is None:
-            out = np.empty((C * Sn,) + a.shape[1:], dtype=a.dtype)
-        out[lo:lo + a.shape[0]] = a
-    return out.reshape((C, Sn) + out.shape[1:])
+        return simulate_states_single(spec, generator)
+    return _draw_chunks(C, Sn, batch_size, own, draw)
 
 
-def _state_summary(model: Model, thetas: torch.Tensor, batch_size: int):
+def _state_summary(model: Model, thetas: torch.Tensor, batch_size: int,
+                   mesh_run=None):
     """``output_type="summary"``: the posterior mean of the states and
     their covariance by the law of total variance over the stored thetas,
     mean of the smoothed covariances plus covariance of the smoothed means.
@@ -505,15 +545,25 @@ def _state_summary(model: Model, thetas: torch.Tensor, batch_size: int):
     stores as many draws, so that equals pooling all rows at once, which is
     done here in chunks of ``batch_size`` rows, summed in float64 around
     the first row's smoothed means.  A nonlinear model's smoothed moments
-    are the extended Kalman smoother's."""
+    are the extended Kalman smoother's.  On a mesh (``mesh_run``) each rank
+    sums its flat rows around the first row's means, smoothed alone, and
+    the sums are added over the ranks."""
     flat = thetas.reshape(-1, thetas.shape[-1])
     N = flat.shape[0]
     ref = s1 = s2 = sv = None
     smoother = {"mlg": kalman_mv.smoother_mv,
                 "nlg": nlg_mod.ekf_smoother}.get(model.kind,
                                                  kalman_mod.smoother)
-    for lo in range(0, N, batch_size):
-        sm = smoother(model.build(flat[lo:lo + batch_size]))
+    own = None if mesh_run is None else mesh_run.flat.slice(N)
+    if own is not None:         # one reference for every rank
+        sm = smoother(model.build(flat[:1]))
+        ref = sm.alphahat.double()[0]
+        s1, s2 = torch.zeros_like(ref), torch.zeros_like(sm.Vt[0]).double()
+        sv = torch.zeros_like(s2)
+    for sl, keep, _ in _chunk_rows(N, batch_size, own):
+        if not keep:            # no draws here: a foreign chunk is skipped
+            continue
+        sm = smoother(model.build(flat[sl]))
         ah = sm.alphahat.double()
         if ref is None:
             ref = ah[0]
@@ -523,6 +573,8 @@ def _state_summary(model: Model, thetas: torch.Tensor, batch_size: int):
         s1 = s1 + dev.sum(0)
         s2 = s2 + torch.einsum('bti,btj->tij', dev, dev)
         sv = sv + sm.Vt.double().sum(0)
+    if mesh_run is not None:
+        s1, s2, sv = (mesh_run.all_reduce(x) for x in (s1, s2, sv))
     mean_dev = s1 / N
     Vt = sv / N + s2 / N - mean_dev.unsqueeze(-1) * mean_dev.unsqueeze(-2)
     return (ref + mean_dev).to(model.dtype), Vt.to(model.dtype)
@@ -729,8 +781,8 @@ def _pick_trajectory(traced: torch.Tensor, w: torch.Tensor, generator=None,
     Returns ``(B, n+1, m)``."""
     cw = torch.cumsum(w, dim=-1)
     if u is None:
-        u = torch.rand(w.shape[0], dtype=w.dtype, device=w.device,
-                       generator=generator)
+        u = rows.rand((w.shape[0],), dtype=w.dtype, device=w.device,
+                      generator=generator)
     pick = torch.searchsorted(cw, (u * cw[:, -1])[:, None], right=True)
     pick = torch.clamp(pick, max=w.shape[-1] - 1)
     return torch.gather(traced, 1, pick[:, :, None, None].expand(
@@ -901,18 +953,27 @@ def _is_correction_flat(model: Model, thetas, modes, generator, nsim,
                         sampling_method, batch_size, conv_tol=1e-8,
                         max_iter=100, psi_resample_every=1,
                         want_states=False, want_moments=False,
-                        approx: Approximation = Approximation()):
+                        approx: Approximation = Approximation(),
+                        own: Optional[slice] = None):
     """IS correction over a flat axis of stored draws, in chunks of
     ``batch_size`` rows.  thetas ``(Ns, d)``; modes ``(Ns, n)`` or None.
-    Returns the dict of ``_make_correct_rows`` with leading axis Ns."""
+    Returns the dict of ``_make_correct_rows`` with leading axis Ns, or
+    with ``own`` (a rank's rows on a mesh, ``_chunk_rows``) that of the rows
+    ``own``."""
     correct_rows = _make_correct_rows(model, nsim, sampling_method, conv_tol,
                                       max_iter, psi_resample_every,
                                       want_states, want_moments, approx)
-    parts = []
-    for lo in range(0, thetas.shape[0], batch_size):
-        mo = None if modes is None else modes[lo:lo + batch_size]
-        parts.append(correct_rows(thetas[lo:lo + batch_size], mo,
-                                  generator))
+    parts, dropped = [], None
+    for sl, keep, win in _chunk_rows(thetas.shape[0], batch_size, own):
+        mo = None if modes is None else modes[sl]
+        with win:
+            r = correct_rows(thetas[sl], mo, generator)
+        if keep:
+            parts.append(r)
+        elif dropped is None:
+            dropped = r
+    if not parts:               # a rank with no rows: the shapes, empty
+        return {k: v[:0] for k, v in dropped.items()}
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
@@ -920,7 +981,7 @@ def _is_postprocess(model: Model, thetas, modes, accepted, approx_ll,
                     generator, *, nsim, sampling_method, batch_size,
                     is_type=2, want_states=False, want_moments=False,
                     conv_tol=1e-8, max_iter=100, psi_resample_every=1,
-                    approx: Approximation = Approximation()):
+                    approx: Approximation = Approximation(), mesh_run=None):
     """The IS correction of a stored approximate run.  thetas ``(C, S, d)``,
     approx_ll ``(C, S)``.
 
@@ -928,7 +989,15 @@ def _is_postprocess(model: Model, thetas, modes, accepted, approx_ll,
     duplicate slots share the head's result.  is1: correct every stored
     slot and average each jump-chain segment's estimates in probability
     space (``_is_finish``).  is3: correct every slot on its own.  Returns
-    (the dict of ``_is_finish``, the number of rows corrected)."""
+    (the dict of ``_is_finish``, the number of rows corrected).
+
+    On a mesh (``mesh_run``, every rank holding the whole stored run) the
+    flat slots are cut over the ranks at jump-chain heads (is1, is2: a
+    rank gets whole segments, split by head count; is3 by slot count).  A
+    rank corrects its rows under the row windows of the unsharded run's
+    chunks and finishes its slots; the slots are gathered in rank order
+    and the weighted moments summed over the ranks (``_weighted_moments``),
+    so that every rank returns the whole result."""
     C, Sn = thetas.shape[:2]
     hmask = accepted.clone()
     hmask[:, 0] = True                      # slot 0 of a chain is a head
@@ -940,13 +1009,42 @@ def _is_postprocess(model: Model, thetas, modes, accepted, approx_ll,
         hidx = torch.nonzero(hmask).squeeze(-1)
         th_rows = th_rows[hidx]
         mo_rows = None if mo_rows is None else mo_rows[hidx]
+    n_rows = int(th_rows.shape[0])
+    slots = own = None
+    if mesh_run is not None:
+        slots, own = _own_slots(mesh_run, hmask, is_type)
     corr = _is_correction_flat(model, th_rows, mo_rows, generator, nsim,
                                sampling_method, batch_size, conv_tol,
                                max_iter, psi_resample_every, want_states,
-                               want_moments, approx)
-    return (_is_finish(corr, hmask, (C, Sn), approx_ll, sampling_method,
-                       is_type, generator, approx=approx),
-            int(th_rows.shape[0]))
+                               want_moments, approx, own=own)
+    if mesh_run is None:
+        return (_is_finish(corr, hmask, (C, Sn), approx_ll, sampling_method,
+                           is_type, generator, approx=approx), n_rows)
+    with rows.window(slots.start, C * Sn):    # is1's Gumbel noise
+        fin = _is_finish(corr, hmask[slots], (1, slots.stop - slots.start),
+                         approx_ll.reshape(-1)[slots], sampling_method,
+                         is_type, generator, approx=approx,
+                         mesh_run=mesh_run)
+    fin["log_w"] = mesh_run.gather(fin["log_w"][0]).reshape(C, Sn)
+    if "alpha" in fin:
+        a = mesh_run.gather(fin["alpha"][0])
+        fin["alpha"] = a.reshape((C, Sn) + a.shape[1:])
+    return fin, n_rows
+
+
+def _own_slots(mesh_run, hmask: torch.Tensor, is_type: int):
+    """A rank's flat slots and its rows of the correction's row list (the
+    heads for is2, the slots for is1 and is3), both as slices: is1 and is2
+    split the heads over the mesh's flat axis and take the slots from each
+    head to the next, is3 splits the slots."""
+    CS = hmask.shape[0]
+    if is_type == 3:
+        sl = mesh_run.flat.slice(CS)
+        return sl, sl
+    hidx = torch.nonzero(hmask).squeeze(-1).tolist() + [CS]
+    h = mesh_run.flat.slice(len(hidx) - 1)
+    slots = slice(hidx[h.start], hidx[h.stop])
+    return slots, (h if is_type == 2 else slots)
 
 
 def _segment_max(x: torch.Tensor, seg: torch.Tensor, fill) -> torch.Tensor:
@@ -960,7 +1058,7 @@ def _segment_sum(x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
 
 def _is_finish(corr, hmask, shape, approx_ll=None, sampling_method="psi",
                is_type=2, generator=None, gumbel=None,
-               approx: Approximation = Approximation()):
+               approx: Approximation = Approximation(), mesh_run=None):
     """Assembly pass: jump-chain fill of is2's head results, is1's segment
     mixture, and the global weighted moments of summary output.
 
@@ -974,7 +1072,9 @@ def _is_finish(corr, hmask, shape, approx_ll=None, sampling_method="psi",
     ``generator`` unless given); its moments are the weight-mixture of its
     slots' moments.  Returns ``{"log_w": (C, S)}`` plus ``alpha (C, S, n+1,
     m)`` for full output or ``alphahat (n+1, m)`` / ``Vt (n+1, m, m)`` for
-    summary output."""
+    summary output.  On a mesh (``mesh_run``) ``corr`` and ``hmask`` are a
+    rank's slots, whole segments, and the moments are summed over the
+    ranks."""
     C, Sn = shape
     CS = C * Sn
     if is_type == 2:
@@ -999,8 +1099,10 @@ def _is_finish(corr, hmask, shape, approx_ll=None, sampling_method="psi",
         pn = p / torch.where(psum[seg] > 0, psum[seg], torch.ones_like(p))
         if alpha is not None:
             if gumbel is None:
-                gumbel = -torch.log(torch.empty_like(p).exponential_(
-                    generator=generator))
+                gumbel = -torch.log(rows.draw(
+                    lambda s: torch.empty(s, dtype=p.dtype, device=p.device
+                                          ).exponential_(generator=generator),
+                    p.shape))
             val = torch.where(p > 0, torch.log(p) + gumbel, ninf)
             vmax = _segment_max(val, seg, -torch.inf)[seg]
             slot = torch.arange(CS, device=p.device)
@@ -1018,49 +1120,57 @@ def _is_finish(corr, hmask, shape, approx_ll=None, sampling_method="psi",
     if alpha is not None:
         out["alpha"] = alpha.reshape((C, Sn) + alpha.shape[1:])
     if mean_s is not None:
-        # global weighted moments over all slots (law of total variance,
-        # the between-draw deviation term included)
-        mx = log_w.max()
-        w = torch.exp(log_w - torch.where(torch.isfinite(mx), mx,
-                                          torch.zeros_like(mx)))
-        sw = torch.clamp(w.sum(), min=torch.finfo(w.dtype).tiny)
-        mean = torch.einsum('s,stm->tm', w, mean_s) / sw
-        dev = mean_s - mean
-        out["alphahat"] = mean
-        out["Vt"] = (torch.einsum('s,stmk->tmk', w, vt_s)
-                     + torch.einsum('s,stm,stk->tmk', w, dev, dev)) / sw
+        out.update(_weighted_moments(log_w, mean_s, vt_s, mesh_run))
     return out
 
 
+def _weighted_moments(log_w, mean_s, vt_s, mesh_run=None) -> dict:
+    """``alphahat``, ``Vt``: the global weighted moments over all slots
+    (law of total variance, the between-draw deviation term included) of
+    per-slot log-weights ``(S,)``, means ``(S, n+1, m)`` and covariances.
+    On a mesh (``mesh_run``) each rank holds its slots: the maximum
+    log-weight, the shift, is taken over the ranks first, then each sum
+    (the JAX package's psum design)."""
+    def red(x, op="sum"):
+        return x if mesh_run is None else mesh_run.all_reduce(x, op)
+
+    mx = red(log_w.max() if log_w.numel() else
+             torch.full((), -torch.inf, dtype=log_w.dtype,
+                        device=log_w.device), "max")
+    w = torch.exp(log_w - torch.where(torch.isfinite(mx), mx,
+                                      torch.zeros_like(mx)))
+    sw = torch.clamp(red(w.sum()), min=torch.finfo(w.dtype).tiny)
+    mean = red(torch.einsum('s,stm->tm', w, mean_s)) / sw
+    dev = mean_s - mean
+    return {"alphahat": mean,
+            "Vt": red(torch.einsum('s,stmk->tmk', w, vt_s)
+                      + torch.einsum('s,stm,stk->tmk', w, dev, dev)) / sw}
+
+
 def _approx_state_draws(model: Model, thetas, modes, generator,
-                        batch_size: int) -> np.ndarray:
+                        batch_size: int,
+                        own: Optional[slice] = None) -> np.ndarray:
     """``mcmc_type="approx"`` with ``output_type="full"``: one draw of the
     states from the approximating Gaussian model (rebuilt from the stored
     mode) at every stored theta, by the simulation smoother; ``(C, S, n+1,
     m)`` on the host.  Drawn in chunks of ``batch_size`` rows.  A
     multivariate model rebuilds its approximation with ``approx_mv`` (the
     JAX package's ``_approx_state_draws`` takes the univariate rebuild for
-    every model and fails there)."""
+    every model and fails there).  ``own`` as in ``_state_draws``."""
     C, Sn, d = thetas.shape
     flat = thetas.reshape(C * Sn, d)
     fmodes = modes.reshape((C * Sn,) + tuple(modes.shape[2:]))
-    out = None
-    for lo in range(0, C * Sn, batch_size):
-        spec = model.build(flat[lo:lo + batch_size])
-        mo = fmodes[lo:lo + batch_size]
+
+    def draw(sl):
+        spec, mo = model.build(flat[sl]), fmodes[sl]
         if model.kind == "mng":
-            a = mv_mod.approx_state_draws_mv(spec, mo, generator)
-        elif model.kind == "nlg":
-            a = kalman_mv.simulate_states_mv(
+            return mv_mod.approx_state_draws_mv(spec, mo, generator)
+        if model.kind == "nlg":
+            return kalman_mv.simulate_states_mv(
                 nlg_mod.build_approx(spec, mo), 1, generator, False)[:, 0]
-        else:
-            ar = approx_mod.approximate_for_is(spec, mo)
-            a = simulate_states_single(ar.gaussian(spec), generator)
-        a = a.cpu().numpy()
-        if out is None:
-            out = np.empty((C * Sn,) + a.shape[1:], dtype=a.dtype)
-        out[lo:lo + a.shape[0]] = a
-    return out.reshape((C, Sn) + out.shape[1:])
+        ar = approx_mod.approximate_for_is(spec, mo)
+        return simulate_states_single(ar.gaussian(spec), generator)
+    return _draw_chunks(C, Sn, batch_size, own, draw)
 
 
 # --------------------------------------------------------------------------
@@ -1171,7 +1281,7 @@ def _pf_loglik(model: Model, theta: torch.Tensor, generator, nsim: int,
     kw = dict(dtype=spec.y.dtype, device=spec.y.device, generator=generator)
 
     def uniforms(B):
-        return torch.rand((B,), **kw) if need_states else None
+        return rows.rand((B,), **kw) if need_states else None
 
     if model.kind == "sde":             # bsf, always through call
         seeds = sde_mod.new_seeds(spec.batch, spec.y.device, generator)
@@ -1182,13 +1292,13 @@ def _pf_loglik(model: Model, theta: torch.Tensor, generator, nsim: int,
     if model.kind == "nlg":             # psi or bsf, always through call
         B = spec.batch
         if sampling_method == "bsf":
-            eps = torch.randn((B, n + 1, nsim, max(m, spec.k)), **kw)
-            us = torch.rand((B, n, nsim), **kw)
+            eps = rows.randn((B, n + 1, nsim, max(m, spec.k)), **kw)
+            us = rows.rand((B, n, nsim), **kw)
             res = call(_bsf_states_nlg, spec, eps, us, uniforms(B))
             return res[0], res[0], res[1] if need_states else None
         approx_ll, mode = approx.evaluate(spec)
-        eps = torch.randn((B, n + 1, nsim, m), **kw)
-        us = torch.rand((B, n, nsim), **kw)
+        eps = rows.randn((B, n + 1, nsim, m), **kw)
+        us = rows.rand((B, n, nsim), **kw)
         res = call(_psi_states_nlg, spec, mode, eps, us, uniforms(B))
         return approx_ll + res[0], approx_ll, res[1] if need_states else None
 
@@ -1197,8 +1307,8 @@ def _pf_loglik(model: Model, theta: torch.Tensor, generator, nsim: int,
             ll = pf_mod.bsf_logw(spec, nsim, generator)
             return ll, ll, None
         B = spec.batch or 1
-        eps = torch.randn((B, n + 1, nsim, m), **kw)
-        us = torch.rand((B, n, nsim), **kw)
+        eps = rows.randn((B, n + 1, nsim, m), **kw)
+        us = rows.rand((B, n, nsim), **kw)
         res = call(_bsf_states_mv if mv else _bsf_states, spec, eps, us,
                    uniforms(B))
         return res[0], res[0], res[1] if need_states else None
@@ -1208,17 +1318,17 @@ def _pf_loglik(model: Model, theta: torch.Tensor, generator, nsim: int,
     B = mode.shape[0]
     if sampling_method == "spdk":
         nb = (nsim + 1) // 2
-        um = torch.randn((B, nb, m), **kw)
-        eps = torch.randn((B, nb, n) + ((spec.p,) if mv else ()), **kw)
-        eta = torch.randn((B, nb, n, spec.k), **kw)
+        um = rows.randn((B, nb, m), **kw)
+        eps = rows.randn((B, nb, n) + ((spec.p,) if mv else ()), **kw)
+        eta = rows.randn((B, nb, n, spec.k), **kw)
         res = call(_spdk_estimate_mv if mv else _spdk_estimate, spec, al,
                    um, eps, eta, nsim, uniforms(B))
     elif not (need_states or mv):
         return (base + pf_mod.psi_logw(spec, al, nsim, generator),
                 approx_ll, None)
     else:
-        eps = torch.randn((B, n + 1, nsim, m), **kw)
-        us = torch.rand((B, n, nsim), **kw)
+        eps = rows.randn((B, n + 1, nsim, m), **kw)
+        us = rows.rand((B, n, nsim), **kw)
         res = call(_psi_states_mv if mv else _psi_states, spec, al, eps, us,
                    uniforms(B))
     return base + res[0], approx_ll, res[1] if need_states else None
@@ -1361,10 +1471,10 @@ def _da_chain(model: Model, n_iter, burnin, thin, target, gamma, end_ram,
         n_pass = torch.zeros(C, dtype=dt, device=dev)
         k = 0
         for i in range(1, n_iter + 1):
-            u = torch.randn((C, d), dtype=dt, device=dev,
-                            generator=generator)
-            unif = torch.rand((2, C), dtype=dt, device=dev,
-                              generator=generator)
+            u = rows.randn((C, d), dtype=dt, device=dev,
+                           generator=generator)
+            unif = rows.rand((2, C), axis=1, dtype=dt, device=dev,
+                             generator=generator)
             adapt = (i <= burnin) if end_ram else True
             state, accept = _da_step(full_eval, model.log_prior, state, u,
                                      unif[0], unif[1], i, target, gamma,
@@ -1425,6 +1535,18 @@ def _store_correction(out: McmcOutput, post: dict, base_lp: torch.Tensor,
         out.alphahat, out.Vt = host(post["alphahat"]), host(post["Vt"])
 
 
+def _flat_draws(mesh_run, thetas: torch.Tensor, draws) -> np.ndarray:
+    """``draws(own)`` (``_state_draws`` or ``_approx_state_draws`` with
+    their other arguments bound): all rows without a mesh; on one, this
+    rank's flat rows of the mesh's flat split, gathered from every rank in
+    order and shaped ``(C, S, ...)``."""
+    if mesh_run is None:
+        return draws(None)
+    C, Sn = thetas.shape[:2]
+    a = mesh_run.gather(torch.from_numpy(draws(mesh_run.flat.slice(C * Sn))))
+    return a.numpy().reshape((C, Sn) + tuple(a.shape[1:]))
+
+
 def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
              thin: int = 1, particles: int = 0,
              mcmc_type: Optional[str] = None,
@@ -1435,7 +1557,8 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
              conv_tol: float = 1e-8, max_iter: int = 100, theta_init=None,
              corr_batch: Optional[int] = None, store_modes: bool = True,
              psi_resample_every: int = 1, local_approx: bool = True,
-             device=None, dtype: Optional[torch.dtype] = None) -> McmcOutput:
+             device=None, dtype: Optional[torch.dtype] = None,
+             mesh=None) -> McmcOutput:
     """Bayesian inference via adaptive MCMC.
 
     Linear-Gaussian models (``kind`` "lg", "mlg"): mcmc_type "gaussian" (the
@@ -1471,7 +1594,17 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
     65536); it only bounds memory.
     ``device=None`` means the CUDA device and raises when there is none; it
     must agree with the device the model was built on.  ``dtype`` defaults
-    to the model's."""
+    to the model's.
+    ``mesh``: a ``torch.distributed`` device mesh (``parallel.make_mesh``),
+    one process a device; every rank calls ``run_mcmc`` with the same
+    arguments.  The chains are split over the mesh's first ("chains")
+    axis, in ceil-divided blocks (every block must hold a chain; ranks of
+    one "chains" coordinate run the same block), the rows of the IS
+    correction and of the state outputs over the whole mesh; under a seed
+    every row gets the draws it gets without a mesh (``core/rows.py``), and
+    every rank returns the whole output.  Per-row fields equal the
+    unsharded run's; sums (acceptance rate aside, the weighted moments)
+    differ from it only in the order of their additions."""
     t0 = _time.time()
     device = resolve_device(device)
     dtype = model.dtype if dtype is None else dtype
@@ -1543,6 +1676,15 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
     S0 = dev(model.initial_S() if S is None else S)
     if S0.dim() == 2:
         S0 = S0.expand(n_chains, -1, -1).contiguous()
+    mesh_run = None
+    if mesh is not None:
+        from ..parallel.mesh import MeshRun
+        mesh_run = MeshRun(mesh, device)
+        block = mesh_run.chains.slice(n_chains)
+        if block.start >= block.stop:
+            raise ValueError(
+                f"n_chains={n_chains} leaves a rank of the mesh's "
+                f"{mesh_run.chains.parts} chain blocks no chain")
     # gen1: proposals and accept tests; gen2: the particle filters or the
     # state draws
     gen1, gen2 = _generators(seed, device)
@@ -1576,7 +1718,12 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
             or model.kind == "sde"
         chain = _approx_chain(model, approx=approx, scan_modes=store_modes,
                               **base)
-    res = chain(gen1, theta0, S0)
+    if mesh_run is None:
+        res = chain(gen1, theta0, S0)
+    else:       # this rank's block of chains, then every block everywhere
+        with rows.window(block.start, n_chains):
+            res = chain(gen1, theta0[block], S0[block])
+        res = mesh_run.gather_chains(res)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t_mcmc = _time.time() - t0
@@ -1595,11 +1742,13 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
         prior=host(res["prior"]), time={"mcmc": t_mcmc})
     if mcmc_type in ("gaussian", "ekf") and output_type != "theta":
         t1 = _time.time()
-        rows = int(corr_batch or 65536)
+        batch = int(corr_batch or 65536)
         if output_type == "full":
-            out.alpha = _state_draws(model, res["theta"], gen2, rows)
+            out.alpha = _flat_draws(mesh_run, res["theta"], functools.partial(
+                _state_draws, model, res["theta"], gen2, batch))
         else:
-            alphahat, Vt = _state_summary(model, res["theta"], rows)
+            alphahat, Vt = _state_summary(model, res["theta"], batch,
+                                          mesh_run)
             out.alphahat, out.Vt = host(alphahat), host(Vt)
         out.time["states"] = _time.time() - t1
     if mcmc_type in ("pm", "da") and output_type == "full":
@@ -1614,8 +1763,9 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
             out.modes = host(res["modes"])
     if mcmc_type == "approx" and output_type == "full":
         t1 = _time.time()
-        out.alpha = _approx_state_draws(model, res["theta"], res["modes"],
-                                        gen2, int(corr_batch or 65536))
+        out.alpha = _flat_draws(mesh_run, res["theta"], functools.partial(
+            _approx_state_draws, model, res["theta"], res["modes"], gen2,
+            int(corr_batch or 65536)))
         out.time["states"] = _time.time() - t1
 
     if mcmc_type.startswith("is"):
@@ -1628,7 +1778,7 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
             want_states=output_type == "full",
             want_moments=output_type == "summary", conv_tol=conv_tol,
             max_iter=max_iter, psi_resample_every=psi_resample_every,
-            approx=approx)
+            approx=approx, mesh_run=mesh_run)
         _store_correction(out, post, res["prior"] + res["approx_ll"], host)
         if device.type == "cuda":
             torch.cuda.synchronize(device)

@@ -68,6 +68,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core import distributions as fam
+from ..core import rows
 from ..core.spec import LGSpec, NGSpec, SVM, at_t, is_mv, with_batch
 from ..ops import cuda_kalman
 from ..ops.chol import psd_chol
@@ -167,12 +168,12 @@ class _Draws:
     def normals(self, s: int) -> torch.Tensor:
         if self.eps is not None:
             return self.eps[:, s].contiguous()
-        return torch.randn(self.shape, **self.kw)
+        return rows.randn(self.shape, **self.kw)
 
     def uniforms(self, s: int) -> torch.Tensor:
         if self.eps is not None:
             return self.us[:, s - 1].contiguous()
-        return torch.rand(self.shape[:2], **self.kw)
+        return rows.rand(self.shape[:2], **self.kw)
 
 
 def stream_draws(generator: torch.Generator, B: int, steps: int, N: int,
@@ -334,11 +335,13 @@ def _factors(spec: NGSpec, al: ApproxLoglik):
 
 def _plain_draws(key, B, steps, N, m, dt, eps, us):
     """The injected tensors, or those a Philox key stands for
-    (``philox_fill_plain``): the randomness of a plain route in seed mode,
-    as the wrappers' own CPU branches draw it."""
+    (``philox_fill_plain``, the local rows counted from ``rows.offset()``):
+    the randomness of a plain route in seed mode, as the wrappers' own CPU
+    branches draw it."""
     if eps is not None:
         return eps, us
-    return cuda_kalman.philox_fill_plain(key, B, steps, N, m, dt)
+    return cuda_kalman.philox_fill_plain(key, B, steps, N, m, dt,
+                                         rows.offset())
 
 
 def psi_logw(spec: NGSpec, al: ApproxLoglik, nsim: int,
@@ -355,7 +358,10 @@ def psi_logw(spec: NGSpec, al: ApproxLoglik, nsim: int,
     ``resample_every``; unless ``eps`` and ``us`` are given it draws a
     Philox key from ``generator`` and the kernel makes its own randomness
     (the injected tensors of one 16384-row chunk at n = 153, N = 256 would
-    be gigabytes).  A model the kernels do not take
+    be gigabytes), keyed by each row's place in the batch (``row0``, the
+    row window's ``rows.offset()``).  Every draw from ``generator`` is
+    made with the whole batch's shape inside a row window
+    (``core.rows``).  A model the kernels do not take
     (``cuda_kalman.kernel_takes``) runs the plain version,
     ``psi_logw_scan``, on the same randomness.  Above 512 particles every
     model runs ``psi_logw_scan`` with its draws made step by step from
@@ -374,17 +380,18 @@ def psi_logw(spec: NGSpec, al: ApproxLoglik, nsim: int,
         if cuda_kalman.route("psi_big_logw", spec):
             return al.loglik + cuda_kalman.psi_big_logw(
                 spec, al, ahat, Lb, Ab, resample_every, eps=eps, us=us,
-                seed=key, nsim=None if key is None else nsim)
+                seed=key, nsim=None if key is None else nsim,
+                row0=0 if key is None else rows.offset())
         eps, us = _plain_draws(key, B, n + 1, nsim, m, dt, eps, us)
         return al.loglik + psi_logw_scan(spec, al, eps, us,
                                          factors=(ahat, Lb, Ab),
                                          resample_every=resample_every)
     if eps is None:
-        eps = torch.randn((B, n + 1, nsim, m), dtype=dt, device=dev,
-                          generator=generator)
+        eps = rows.randn((B, n + 1, nsim, m), dtype=dt, device=dev,
+                         generator=generator)
     if us is None:
-        us = torch.rand((B, n, nsim), dtype=dt, device=dev,
-                        generator=generator)
+        us = rows.rand((B, n, nsim), dtype=dt, device=dev,
+                       generator=generator)
     if cuda_kalman.route("psi_logw", spec):
         return al.loglik + cuda_kalman.psi_logw(spec, al, ahat, Lb, Ab, eps,
                                                 us)
@@ -413,7 +420,8 @@ def bsf_logw(spec: NGSpec, nsim: int,
     if cuda_kalman.route("bsf_big_logw", spec):
         return const + cuda_kalman.bsf_big_logw(
             spec, resample_every, eps=eps, us=us, seed=key,
-            nsim=None if key is None else nsim)
+            nsim=None if key is None else nsim,
+            row0=0 if key is None else rows.offset())
     eps, us = _plain_draws(key, spec.batch or 1, spec.n, nsim, spec.m,
                            spec.y.dtype, eps, us)
     return const + bsf_logw_scan(spec, eps, us,
@@ -445,10 +453,10 @@ def _draws(name, B, steps, N, w, dt, dev, generator, eps, us):
     if (eps is None) != (us is None):
         raise ValueError(f"{name}: give both eps and us, or neither")
     if eps is None:
-        eps = torch.randn((B, steps, N, w), dtype=dt, device=dev,
-                          generator=generator)
-        us = torch.rand((B, steps - 1, N), dtype=dt, device=dev,
-                        generator=generator)
+        eps = rows.randn((B, steps, N, w), dtype=dt, device=dev,
+                         generator=generator)
+        us = rows.rand((B, steps - 1, N), dtype=dt, device=dev,
+                       generator=generator)
     if eps.shape[:2] != (B, steps) or eps.shape[-1] != w \
             or tuple(us.shape) != (B, steps - 1, eps.shape[2]):
         raise ValueError(f"{name}: eps must be (B, {steps}, N, {w}) and us "

@@ -37,7 +37,8 @@ def post_correct(model: Model, output: McmcOutput, particles: int,
                  sampling_method: str = "psi", is_type: int = 2,
                  seed: int = 1, corr_batch: int = 256,
                  output_type: str = "full",
-                 generator: Optional[torch.Generator] = None) -> McmcOutput:
+                 generator: Optional[torch.Generator] = None,
+                 mesh=None) -> McmcOutput:
     """IS-correct a stored approximate run; returns a new output with
     weights, posterior and, for ``output_type`` "full" / "summary", the
     states.  ``generator`` defaults to one seeded from ``seed`` on the
@@ -49,7 +50,12 @@ def post_correct(model: Model, output: McmcOutput, particles: int,
     starts too); that holds only for a run on the local approximation, so
     any other run without modes is refused.  A run on the global
     approximation (``local_approx`` False) is weighed against its stored
-    approximate likelihood (``Approximation.estimates_loglik``)."""
+    approximate likelihood (``Approximation.estimates_loglik``).
+
+    ``mesh`` (``parallel.make_mesh``): every rank calls ``post_correct`` on
+    the whole stored run; the rows of the correction are split over the
+    mesh as in ``run_mcmc``'s, each drawn as without a mesh, and every rank
+    returns the whole output."""
     if output.theta_sampled is None or output.approx_loglik is None:
         raise ValueError("post_correct needs an approximate or IS run of "
                          "the port (theta_sampled and approx_loglik)")
@@ -75,6 +81,10 @@ def post_correct(model: Model, output: McmcOutput, particles: int,
     else:
         modes = on_dev(output.modes)
     approx_ll = on_dev(output.approx_loglik)
+    mesh_run = None
+    if mesh is not None:
+        from ..parallel.mesh import MeshRun
+        mesh_run = MeshRun(mesh, torch.device(dev))
     post, n_rows = _is_postprocess(
         model, on_dev(output.theta_sampled), modes,
         torch.as_tensor(np.asarray(output.accepted), dtype=torch.bool,
@@ -82,7 +92,8 @@ def post_correct(model: Model, output: McmcOutput, particles: int,
         sampling_method=sampling_method, batch_size=int(corr_batch),
         is_type=int(is_type), want_states=output_type == "full",
         want_moments=output_type == "summary",
-        approx=Approximation(is_global=output.local_approx is False))
+        approx=Approximation(is_global=output.local_approx is False),
+        mesh_run=mesh_run)
     out = copy.copy(output)
     out.alpha = out.alphahat = out.Vt = None
     _store_correction(out, post, on_dev(output.prior) + approx_ll,

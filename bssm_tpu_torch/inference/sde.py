@@ -35,6 +35,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..core import rows
 from ..models.sde import SDESpec, milstein
 from ..ops.cuda_kalman import _u01, philox4x32_10
 from ..ops.resample import stratified_indices_from_uniforms
@@ -54,8 +55,9 @@ def new_seeds(B: int, device, generator: Optional[torch.Generator] = None
               ) -> torch.Tensor:
     """``(B,)`` int64 seeds of the seeded mode, drawn from ``generator``
     without a host synchronisation."""
-    return torch.randint(0, 2 ** 62, (B,), dtype=torch.int64, device=device,
-                         generator=generator)
+    return rows.draw(lambda s: torch.randint(
+        0, 2 ** 62, s, dtype=torch.int64, device=device,
+        generator=generator), (B,))
 
 
 def philox_draws(seeds: torch.Tensor, N: int, gen_L: int, s0: int, s1: int,

@@ -242,7 +242,7 @@ def _load():
         fn.restype = I
         fn.argtypes = [ctypes.c_char_p, ctypes.c_longlong]
     lib.bssm_philox_fill.restype = I
-    lib.bssm_philox_fill.argtypes = [I, I, L, I, I, P, P, P, P]
+    lib.bssm_philox_fill.argtypes = [I, I, L, I, I, L, P, P, P, P]
     lib.bssm_error_string.restype = ctypes.c_char_p
     lib.bssm_error_string.argtypes = [I]
     _lib = lib
@@ -485,7 +485,7 @@ _STEP_ARGS = struct.Struct("=39q")
 _KALMAN_ARGS = struct.Struct("=36q")
 _RTS_ARGS = struct.Struct("=35q")
 _PSI_ARGS = struct.Struct("=30q")
-_BIG_ARGS = struct.Struct("=48q")
+_BIG_ARGS = struct.Struct("=49q")
 
 
 def _call(fn, layout: struct.Struct, *fields) -> int:
@@ -1116,19 +1116,20 @@ def _u01(w: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def philox_fill_plain(key: torch.Tensor, B: int, steps: int, N: int, m: int,
-                      dtype):
+                      dtype, row0: int = 0):
     """Plain version of ``philox_fill``: the same counter layout (particle,
-    step, row, which) in tensor code.  Words 0 and 1 of the call with
-    which = 0 feed normals 0 and 1.  For m <= 2 its word 2 feeds the
-    resampling uniform; for m > 2 words 2 and 3 feed normals 2 and 3 and the
-    uniform is word 0 of a second call, which = 1.  Beyond the kernels'
-    m <= 4 (the plain routes of larger models), normals 4j..4j+3 come from
-    the call with which = j + 1 in the same way."""
+    step, row, which) in tensor code, row ``b`` counted as ``row0 + b``.
+    Words 0 and 1 of the call with which = 0 feed normals 0 and 1.  For
+    m <= 2 its word 2 feeds the resampling uniform; for m > 2 words 2 and 3
+    feed normals 2 and 3 and the uniform is word 0 of a second call,
+    which = 1.  Beyond the kernels' m <= 4 (the plain routes of larger
+    models), normals 4j..4j+3 come from the call with which = j + 1 in the
+    same way."""
     dev = key.device
     k = (key[0] & 0xFFFFFFFF, key[1] & 0xFFFFFFFF)
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=dev)  # noqa: E731
-    row, step, part = ar(B)[:, None, None], ar(steps)[None, :, None], \
-        ar(N)[None, None, :]
+    row = ((ar(B) + int(row0)) & 0xFFFFFFFF)[:, None, None]
+    step, part = ar(steps)[None, :, None], ar(N)[None, None, :]
     zero = torch.zeros((B, steps, N), dtype=torch.int64, device=dev)
     ctr = [part + zero, step + zero, row + zero]
     call = lambda which: philox4x32_10(ctr + [zero + which], k)  # noqa
@@ -1146,13 +1147,16 @@ def philox_fill_plain(key: torch.Tensor, B: int, steps: int, N: int, m: int,
 
 
 def philox_fill(key: torch.Tensor, B: int, steps: int, N: int, m: int,
-                dtype):
+                dtype, row0: int = 0):
     """``(eps (B, steps, N, m), us (B, steps - 1, N))``: the standard
     normals and the resampling uniforms that the Philox mode of
-    ``psi_big_logw`` / ``bsf_big_logw`` consumes for ``key`` (``us[:, s-1]``
-    belongs to generation step ``s``)."""
+    ``psi_big_logw`` / ``bsf_big_logw`` consumes for ``key`` and ``row0``
+    (``us[:, s-1]`` belongs to generation step ``s``; row ``b`` is drawn as
+    row ``row0 + b`` of a larger batch)."""
+    if int(row0) < 0:
+        raise ValueError("philox_fill: row0 must be >= 0")
     if not key.is_cuda:
-        return philox_fill_plain(key, B, steps, N, m, dtype)
+        return philox_fill_plain(key, B, steps, N, m, dtype, row0)
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"kernels take float32 or float64, got {dtype}")
     if not 1 <= m <= MAX_M or steps < 1:
@@ -1164,8 +1168,8 @@ def philox_fill(key: torch.Tensor, B: int, steps: int, N: int, m: int,
     lib = _load()
     with torch.cuda.device(dev):
         code = lib.bssm_philox_fill(
-            int(dtype == torch.float64), m, B, steps - 1, N, key.data_ptr(),
-            eps.data_ptr(), us.data_ptr(), _stream(dev))
+            int(dtype == torch.float64), m, B, steps - 1, N, int(row0),
+            key.data_ptr(), eps.data_ptr(), us.data_ptr(), _stream(dev))
     _check_launch(lib, code, "philox_fill")
     LAUNCHES["philox_fill"] += 1
     return eps, us
@@ -1225,13 +1229,15 @@ def big_geometry(N: int, m: int, itemsize: int, bsf: bool) -> BigGeometry:
     return BigGeometry(threads, rows, pmax, rows * row_bytes)
 
 
-def _randomness(name, B, steps, m, dev, eps, us, seed, nsim, anc):
+def _randomness(name, B, steps, m, dev, eps, us, seed, nsim, anc, row0):
     """Checks the randomness arguments of the large-ensemble wrappers.
     Returns ``(N, eps, us, key, anc)`` with either the stream tensors (and
     the injected ancestors, if any) or the key set.  ``steps`` counts the
     initial draw."""
     if (eps is None) != (us is None) or (eps is None) == (seed is None):
         raise ValueError(f"{name}: give either eps and us, or seed")
+    if int(row0) < 0 or (int(row0) and seed is None):
+        raise ValueError(f"{name}: row0 >= 0, and only with a Philox seed")
     if anc is not None and eps is None:
         raise ValueError(f"{name}: injected ancestors need eps and us")
     if eps is not None:
@@ -1253,10 +1259,12 @@ def _randomness(name, B, steps, m, dev, eps, us, seed, nsim, anc):
     return N, eps, us, key, anc
 
 
-def _launch_big(name, spec, bsf, B, N, S, kk, psi_t, eps, us, anc, key):
+def _launch_big(name, spec, bsf, B, N, S, kk, psi_t, eps, us, anc, key,
+                row0):
     """Shared launch of the two modes; ``psi_t`` = (ytilde, Htilde, scales,
-    ahat, Lb, Ab) or None.  The bootstrap mode hands over a1, chol(P1), C, T
-    and R as leaves where the spec holds them (``_bootstrap_leaves``)."""
+    ahat, Lb, Ab) or None; ``row0`` the first row's place in the batch that
+    the Philox counters count.  The bootstrap mode hands over a1, chol(P1),
+    C, T and R as leaves where the spec holds them (``_bootstrap_leaves``)."""
     m = spec.m
     dt, dev = spec.y.dtype, spec.y.device
     n = spec.n
@@ -1277,7 +1285,8 @@ def _launch_big(name, spec, bsf, B, N, S, kk, psi_t, eps, us, anc, key):
         code = _call(lib.bssm_particle_big, _BIG_ARGS,
                      int(dt == torch.float64), m, int(spec.distribution),
                      int(bsf), int(key is not None), N, B, S, int(kk),
-                     geo.threads_per_row, geo.rows_per_block, geo.pmax,
+                     int(row0), geo.threads_per_row, geo.rows_per_block,
+                     geo.pmax,
                      *psi_ptrs, *series, *leaf_args, k, ptr(eps),
                      ptr(us), ptr(anc), ptr(key), out.data_ptr(),
                      _stream(dev))
@@ -1297,11 +1306,13 @@ def _check_big(name, spec, kk) -> None:
 
 def psi_big_logw(spec: NGSpec, al, ahat: torch.Tensor, Lb: torch.Tensor,
                  Ab: torch.Tensor, kk: int, *, eps=None, us=None, seed=None,
-                 nsim: Optional[int] = None, anc=None) -> torch.Tensor:
+                 nsim: Optional[int] = None, anc=None,
+                 row0: int = 0) -> torch.Tensor:
     """psi-APF log-weight ``(B,)`` of every batch row with 2 <= N <= 512
     particles, resampling at every ``kk``-th step.  Randomness: either
     injected ``eps (B, n+1, N, m)`` and ``us (B, n, N)``, or ``seed``, a
-    Philox key (``philox_key``), together with ``nsim`` = N.  ``anc
+    Philox key (``philox_key``), together with ``nsim`` = N; row ``b`` then
+    draws as row ``row0 + b`` of its batch (``core.rows``).  ``anc
     (B, n, N)`` int32, with the injected tensors only, gives the ancestors
     of every resampling step in place of the search (a check: the plain
     version takes the same tensor)."""
@@ -1309,11 +1320,12 @@ def psi_big_logw(spec: NGSpec, al, ahat: torch.Tensor, Lb: torch.Tensor,
     B, n, m = al.approx.mode.shape[0], spec.n, spec.m
     N, eps, us, key, anc = _randomness("psi_big_logw", B, n + 1, m,
                                        spec.y.device, eps, us, seed, nsim,
-                                       anc)
+                                       anc, row0)
     if not spec.y.is_cuda:
         from ..inference.particle import psi_logw_scan
         if eps is None:
-            eps, us = philox_fill_plain(key, B, n + 1, N, m, spec.y.dtype)
+            eps, us = philox_fill_plain(key, B, n + 1, N, m, spec.y.dtype,
+                                        row0)
         return psi_logw_scan(spec, al, eps, us, factors=(ahat, Lb, Ab),
                              resample_every=kk, anc=anc)
     _check_big("psi_big_logw", spec, kk)
@@ -1332,7 +1344,7 @@ def psi_big_logw(spec: NGSpec, al, ahat: torch.Tensor, Lb: torch.Tensor,
              _dense(Lb, (B, n + 1, m, m), "Lb"),
              _dense(Ab, (B, n + 1, m, m), "Ab"))
     return _launch_big("psi_big_logw", spec, False, B, N, n, kk, psi_t, eps,
-                       us, anc, key)
+                       us, anc, key, row0)
 
 
 def pack_bootstrap_system(spec: NGSpec, B: int) -> torch.Tensor:
@@ -1384,23 +1396,24 @@ def _bootstrap_leaves(spec: NGSpec, B: int):
 
 
 def bsf_big_logw(spec: NGSpec, kk: int, *, eps=None, us=None, seed=None,
-                 nsim: Optional[int] = None, anc=None) -> torch.Tensor:
+                 nsim: Optional[int] = None, anc=None,
+                 row0: int = 0) -> torch.Tensor:
     """Bootstrap-filter log-likelihood ``(B,)`` less the observation
     constants, 2 <= N <= 512 particles, resampling at every ``kk``-th step.
     Randomness: either injected ``eps (B, n, N, m)`` and ``us (B, n-1, N)``
     (and, as a check, ``anc (B, n-1, N)``), or ``seed`` (a Philox key) with
-    ``nsim``; B is then the batch size of ``spec``.  R may have fewer
-    columns than states."""
+    ``nsim``; B is then the batch size of ``spec``, and row ``b`` draws as
+    row ``row0 + b``.  R may have fewer columns than states."""
     _univariate("bsf_big_logw", spec)
     n, m = spec.n, spec.m
     B = eps.shape[0] if eps is not None else _batch(spec)
     N, eps, us, key, anc = _randomness("bsf_big_logw", B, n, m,
                                        spec.y.device, eps, us, seed, nsim,
-                                       anc)
+                                       anc, row0)
     if not spec.y.is_cuda:
         from ..inference.particle import bsf_logw_scan
         if eps is None:
-            eps, us = philox_fill_plain(key, B, n, N, m, spec.y.dtype)
+            eps, us = philox_fill_plain(key, B, n, N, m, spec.y.dtype, row0)
         return bsf_logw_scan(spec, eps, us, resample_every=kk, anc=anc)
     _check_big("bsf_big_logw", spec, kk)
     if spec.k > m:
@@ -1415,4 +1428,4 @@ def bsf_big_logw(spec: NGSpec, kk: int, *, eps=None, us=None, seed=None,
         named += [("eps", eps), ("us", us)]
     _check_tensors(named, spec.y)
     return _launch_big("bsf_big_logw", spec, True, B, N, n - 1, kk, None, eps,
-                       us, anc, key)
+                       us, anc, key, row0)

@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..core import rows
 from ..core.spec import MVLGSpec, at_t, with_batch
 from .kalman import _mv, _sym
 
@@ -318,9 +319,9 @@ def _normals(spec: MVLGSpec, B: int, n_base: int, generator, um, eps, eta):
             raise ValueError("give all of um, eps and eta, or none")
         return um, eps, eta
     kw = dict(dtype=spec.y.dtype, device=spec.y.device, generator=generator)
-    return (torch.randn((B, n_base, spec.m), **kw),
-            torch.randn((B, n_base, spec.n, spec.p), **kw),
-            torch.randn((B, n_base, spec.n, spec.k), **kw))
+    return (rows.randn((B, n_base, spec.m), **kw),
+            rows.randn((B, n_base, spec.n, spec.p), **kw),
+            rows.randn((B, n_base, spec.n, spec.k), **kw))
 
 
 def _rows(x: torch.Tensor, reps: int) -> torch.Tensor:

@@ -27,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from ..core import rows
 from ..core.spec import LGSpec, at_t, with_batch
 from . import cuda_kalman
 from .chol import psd_chol
@@ -41,8 +42,8 @@ def _normals(spec: LGSpec, B: int, generator, um, eps, eta):
             raise ValueError("give all of um, eps and eta, or none")
         return um, eps, eta
     kw = dict(dtype=spec.y.dtype, device=spec.y.device, generator=generator)
-    return (torch.randn((B, spec.m), **kw), torch.randn((B, spec.n), **kw),
-            torch.randn((B, spec.n, spec.k), **kw))
+    return (rows.randn((B, spec.m), **kw), rows.randn((B, spec.n), **kw),
+            rows.randn((B, spec.n, spec.k), **kw))
 
 
 def _simulate_prior_and_obs(spec: LGSpec, zero_mean: bool, um, eps, eta):
@@ -146,9 +147,9 @@ def simulate_states_batched(spec: LGSpec, nsim: int, generator=None,
     if um is None:
         kw = dict(dtype=spec.y.dtype, device=spec.y.device,
                   generator=generator)
-        um = torch.randn((B, n_base, m), **kw)
-        eps = torch.randn((B, n_base, n), **kw)
-        eta = torch.randn((B, n_base, n, k), **kw)
+        um = rows.randn((B, n_base, m), **kw)
+        eps = rows.randn((B, n_base, n), **kw)
+        eta = rows.randn((B, n_base, n, k), **kw)
     elif eps is None or eta is None:
         raise ValueError("give all of um, eps and eta, or none")
     alphahat, _ = cuda_kalman.routed_fast_smoother_ll(spec)      # (B, n+1, m)

@@ -12,6 +12,7 @@
     python3 chip_smoke.py --nlg-only # the nonlinear models alone
     python3 chip_smoke.py --sde-only # the SDE models and as_bssm alone
     python3 chip_smoke.py --tp-only  # the time-parallel option alone
+    python3 chip_smoke.py --mesh-only  # run_mcmc(mesh=...) alone
 
 What it does, in order:
 
@@ -77,7 +78,7 @@ What it does, in order:
    plain version's ancestors (every row), float64 against the plain
    version, and timed at 8192 rows; K1-K3 with T, R, a1, P1 and C per row
    (``ar1_ng`` negative binomial, 1024 rows, both dtypes);
-7. drives 39 paths and the multivariate, nonlinear, SDE and KFAS APIs
+7. drives 40 paths and the multivariate, nonlinear, SDE and KFAS APIs
    through the
    public entry points and gates each (finite values, acceptance rate,
    ESS_IS fraction where there are weights, the path's kernels launched
@@ -198,7 +199,21 @@ What it does, in order:
    (the single-model API under the flag against without it, float64) and
    a ``profile_trace`` of one ``logLik`` (a Chrome trace with CUDA
    kernels, in ``chiprun_out/tp_profile``), the phases timed by
-   ``PhaseTimer``;
+   ``PhaseTimer``; and ``run_mcmc(mesh=...)`` over ``torch.distributed``
+   (``mesh_section``; ``--mesh-only`` runs only it): run 1, a world of
+   one over NCCL (``make_mesh()``), ``psi_N10``'s run at 4096 chains x
+   200 iterations with the mesh against two runs of the same seed without
+   it (path ``mesh_psi_N10_nccl``); run 2, two ranks on the one card in
+   processes of their own (this script with ``--mesh-rank``; gloo, whose
+   collectives go through host memory, since NCCL refuses two ranks on
+   one device), 2048 chains each on ``psi_N10``'s and ``lg_theta``'s runs
+   (200 iterations) and 512 on ``pm_bsf_N200``'s and ``psi_N256``'s at
+   period 8 (100), every rank's gathered output against this process's
+   run without a mesh; thetas, acceptance flags, posteriors, weights and
+   RAM factors bit for bit, the weighted means within the gap of the two
+   unsharded runs, the runs' kernels launched in the ranks (K4 and K5 in
+   Philox mode, their counters offset by the rank's first row) and no
+   plain route;
 8. the ``diagnostics`` phase on ``psi_N10``'s output (4096 chains x 500
    draws): ``summary`` and ``check_diagnostics`` timed and finite, the
    summary's means equal to the weighted means computed on the card to
@@ -217,7 +232,7 @@ What it does, in order:
    ``big_checks``, ``lg_checks``, ``sv_checks``, the phases' lines,
    ``mv_ops``, ``nlg_ops``, ``sde_ops``, one
    ``path`` line each (``main_path`` for ``psi_N10``), ``diagnostics``,
-   ``nlg_checks``, ``sde_checks``, ``tp_checks``,
+   ``nlg_checks``, ``sde_checks``, ``tp_checks``, ``mesh``,
    ``kernels`` (each kernel's launches by its wrapper, and apart from
    them ``replayed``, the launches CUDA-graph replays repeated), the
    card's name and power limit, and last ``{"ok": true, "device":
@@ -5113,6 +5128,268 @@ def tp_section(bt, ck, it_main: int, it_sv: int, is2: dict):
     return paths, [p for r in paths for p in r["problems"]], phase
 
 
+# ---------------------------------------------------------------------------
+# the mesh (parallel/): run_mcmc(mesh=...) over torch.distributed
+# ---------------------------------------------------------------------------
+
+MESH_ITER = 200        # the two 4096-chain runs; cut from 1000 for the
+MESH_SHORT_ITER = 100  # section's 60 s; the two 1024-chain runs
+MESH_RANKS = 2
+MESH_TIMEOUT = 600     # seconds the two ranks may take
+# the fields a rank saves: per row bit for bit, the rest summed
+MESH_ROW_FIELDS = ("theta", "accepted", "posterior", "weights", "S")
+
+
+def mesh_runs(bt) -> dict:
+    """The runs of the mesh section, ``label: (model, run_mcmc kwargs)``,
+    at the full widths of their paths: ``psi_N10``'s model and run
+    (K1-K3), ``lg_theta``'s (K6), ``pm_bsf_N200``'s (K5 in Philox mode)
+    and ``psi_N256``'s at period 8 (K4 in Philox mode); only iterations
+    cut."""
+    m32 = main_path_model(bt, torch.float32)
+    is2 = dict(mcmc_type="is2", sampling_method="psi", store_modes=False,
+               corr_batch=16384, output_type="theta", seed=1)
+    return {
+        "psi_N10": (m32, dict(iter=MESH_ITER, n_chains=CHAINS,
+                              particles=10, **is2)),
+        "lg_theta": (airquality_model(bt, torch.float32),
+                     dict(iter=MESH_ITER, n_chains=CHAINS,
+                          output_type="theta", seed=1)),
+        "pm_bsf_N200": (calm_model(bt, torch.float32),
+                        dict(iter=MESH_SHORT_ITER, n_chains=CHAINS // 4,
+                             particles=200, mcmc_type="pm",
+                             sampling_method="bsf", output_type="theta",
+                             seed=1)),
+        "psi_N256": (m32, dict(iter=MESH_SHORT_ITER, n_chains=CHAINS // 4,
+                               particles=256, psi_resample_every=8, **is2))}
+
+
+
+MESH_REQUIRED = {"psi_N10": ("laplace_solve", "rts_factors", "psi_logw"),
+                 "lg_theta": ("log_likelihood",),
+                 "pm_bsf_N200": ("bsf_big_logw",),
+                 "psi_N256": ("laplace_solve", "rts_factors",
+                              "psi_big_logw")}
+
+
+def mesh_fields(out) -> dict:
+    """An output's per-row fields (those it has) and acceptance rate, as
+    numpy."""
+    f = {k: getattr(out, k) for k in MESH_ROW_FIELDS
+         if getattr(out, k) is not None}
+    f["acceptance_rate"] = np.asarray(out.acceptance_rate)
+    return f
+
+
+def mesh_compare(got: dict, want: dict, gap: dict = None) -> dict:
+    """``got`` against ``want`` (``mesh_fields``): every per-row field bit
+    for bit (NaN equal to NaN); the weighted posterior means, a sum, within
+    ``gap``, the largest difference two unsharded runs of one seed showed
+    (or bit for bit when there is none)."""
+    res = {"bit_equal": {}, "problems": []}
+    for k in MESH_ROW_FIELDS + ("acceptance_rate",):
+        if (k in got) != (k in want):
+            res["problems"].append(f"{k} present on one side only")
+            continue
+        if k not in want:
+            continue
+        same = got[k].shape == want[k].shape and bool(np.array_equal(
+            got[k], want[k], equal_nan=got[k].dtype.kind == "f"))
+        res["bit_equal"][k] = same
+        if not same:
+            d = np.abs(got[k].astype(float) - want[k].astype(float))
+            res["problems"].append(
+                f"{k} differs: {int((d > 0).sum())} entries, largest "
+                f"{float(np.nanmax(d))}" if got[k].shape == want[k].shape
+                else f"{k} shape {got[k].shape} vs {want[k].shape}")
+
+    def means(f):
+        w = f["weights"].reshape(-1) if "weights" in f \
+            else np.ones(f["theta"].shape[0] * f["theta"].shape[1])
+        th = f["theta"].reshape(-1, f["theta"].shape[-1]).astype(float)
+        return (w[:, None] * th).sum(0) / w.sum()
+
+    diff = float(np.abs(means(got) - means(want)).max())
+    res["weighted_mean_diff"] = diff
+    allowed = 0.0 if gap is None else gap["weighted_mean_diff"]
+    res["allowed"] = allowed
+    if diff > allowed:
+        res["problems"].append(f"weighted means differ by {diff} > {allowed}")
+    return res
+
+
+def mesh_rank(args) -> int:
+    """One rank of the section's two-rank run, in a process of its own
+    (``--mesh-rank``): gloo (NCCL refuses two ranks on one device) over
+    ``--mesh-port``, the one card, every run of ``mesh_runs`` with
+    ``mesh=``; saves each run's gathered output and the launch and
+    plain-route counts of that run (set to 0 just before it) under
+    ``--mesh-out``."""
+    import bssm_tpu_torch as bt
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    from bssm_tpu_torch.parallel.distributed import initialize
+    torch.cuda.set_device(0)
+    rank = int(args.mesh_rank)
+    if not initialize(f"127.0.0.1:{args.mesh_port}", MESH_RANKS, rank,
+                      backend="gloo"):
+        raise RuntimeError("no process group")
+    mesh = bt.make_mesh()
+    info = {"backend": torch.distributed.get_backend(),
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            "device": str(torch.cuda.current_device()), "runs": {}}
+    for label, (model, kw) in mesh_runs(bt).items():
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        t0 = time.time()
+        out = bt.run_mcmc(model, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        info["runs"][label] = {"elapsed_s": time.time() - t0,
+                               "time": out.time,
+                               "launches": dict(ck.LAUNCHES),
+                               "plain_routes": dict(ck.PLAIN_ROUTES)}
+        np.savez(os.path.join(args.mesh_out, f"rank{rank}_{label}.npz"),
+                 **mesh_fields(out))
+    with open(os.path.join(args.mesh_out, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_section(bt, ck) -> tuple:
+    """``run_mcmc(mesh=...)`` on the card (``parallel/``).  Run 1, a world
+    of one (NCCL, ``make_mesh()`` with no process group): ``psi_N10``'s run
+    at 4096 chains x ``MESH_ITER`` with the mesh against two runs without
+    it, the same seed.  Run 2, two ranks on the one card in processes of
+    their own (``mesh_rank``: gloo, whose collectives go through host
+    memory, 2048 chains each on ``psi_N10``'s and ``lg_theta``'s runs, 512
+    on ``pm_bsf_N200``'s and ``psi_N256``'s): every rank's gathered output
+    against this process's run without a mesh.  Gates: thetas, acceptance
+    flags, posteriors, weights and RAM factors bit for bit, the weighted
+    means within the gap of the two unsharded runs; the path's kernels
+    launched in that run (the ranks: K4, K5 in Philox mode with their row
+    offsets) and no plain route.  Returns (path objects, problems, the
+    section's object)."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="mesh_") as out_dir:
+        return _mesh_section(bt, ck, out_dir)
+
+
+def _mesh_section(bt, ck, out_dir: str) -> tuple:
+    """``mesh_section`` with the ranks' outputs in ``out_dir``."""
+    import socket
+    import torch.distributed as dist
+    t0 = time.time()
+    runs = mesh_runs(bt)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    # the ranks start first and run while this process runs run 1 and the
+    # unsharded references; they build nothing (the library is built)
+    logs = [os.path.join(out_dir, f"rank{r}.log") for r in range(MESH_RANKS)]
+    procs = []
+    for r, log in enumerate(logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                 str(r), "--mesh-port", str(port), "--mesh-out", out_dir],
+                stdout=f, stderr=subprocess.STDOUT))
+    phase = {"run1": {"backend": "nccl", "world": 1},
+             "run2": {"backend": "gloo", "staging": "host", "world":
+                      MESH_RANKS, "ranks_on_one_device": True}}
+    problems, paths = [], []
+    try:
+        model, kw = runs["psi_N10"]
+        bt.run_mcmc(model, **{**kw, "iter": 20})            # warm-up
+        refs, seconds = {}, {}
+        for tag in ("a", "b"):
+            t1 = time.time()
+            refs[tag] = mesh_fields(bt.run_mcmc(model, **kw))
+            torch.cuda.synchronize()
+            seconds["unsharded_" + tag] = time.time() - t1
+        gap = mesh_compare(refs["b"], refs["a"], {"weighted_mean_diff":
+                                                  float("inf")})
+        phase["run1"]["unsharded_gap"] = {
+            "bit_equal": gap["bit_equal"],
+            "weighted_mean_diff": gap["weighted_mean_diff"]}
+        mesh = bt.make_mesh()
+        phase["run1"]["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        phase["run1"]["backend"] = dist.get_backend()
+        # a warm-up with the mesh: NCCL sets its communicator up at the
+        # first collective (1.3 s on the card)
+        t1 = time.time()
+        bt.run_mcmc(model, mesh=mesh, **{**kw, "iter": 20})
+        torch.cuda.synchronize()
+        seconds["mesh_warmup"] = time.time() - t1
+        ck.reset_launch_counts()
+        t1 = time.time()
+        out = bt.run_mcmc(model, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        seconds["mesh"] = time.time() - t1
+        launches, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_ROUTES)
+        dist.destroy_process_group()
+        cmp1 = mesh_compare(mesh_fields(out), refs["a"], gap)
+        phase["run1"].update(seconds=seconds, compare=cmp1,
+                             acceptance_rate=out.acceptance_rate)
+        r1 = {"path": "mesh_psi_N10_nccl", "chains": kw["n_chains"],
+              "iter": kw["iter"], "elapsed_s": seconds["mesh"],
+              "launches": launches, "plain_routes": plain,
+              "replayed": {}, "problems": []}
+        r1["problems"] += [f"mesh run 1: {p}" for p in cmp1["problems"]]
+        for k in MESH_REQUIRED["psi_N10"]:
+            if launches[k] <= 0:
+                r1["problems"].append(f"mesh run 1: {k} not launched")
+        if any(plain.values()):
+            r1["problems"].append(f"mesh run 1: plain routes {plain}")
+        paths.append(r1)
+        del out
+        # run 2's references, the same runs without a mesh
+        refs2 = {"psi_N10": refs["a"]}
+        for label in ("lg_theta", "pm_bsf_N200", "psi_N256"):
+            m, k2 = runs[label]
+            t1 = time.time()
+            refs2[label] = mesh_fields(bt.run_mcmc(m, **k2))
+            seconds[f"unsharded_{label}"] = time.time() - t1
+        for p in procs:
+            p.wait(timeout=MESH_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    run2 = phase["run2"]
+    run2["ranks"] = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            with open(log) as f:
+                problems.append(f"mesh rank {r} exited {p.returncode}: "
+                                f"{f.read()[-3000:]}")
+            continue
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            info = json.load(f)
+        info["compare"] = {}
+        for label, rinfo in info["runs"].items():
+            with np.load(os.path.join(out_dir, f"rank{r}_{label}.npz")) as z:
+                got = {k: z[k] for k in z.files}
+            c = mesh_compare(got, refs2[label],
+                             gap if label == "psi_N10" else None)
+            info["compare"][label] = c
+            problems += [f"mesh run 2 rank {r} {label}: {q}"
+                         for q in c["problems"]]
+            for k in MESH_REQUIRED[label]:
+                if rinfo["launches"][k] <= 0:
+                    problems.append(f"mesh run 2 rank {r} {label}: {k} not "
+                                    "launched")
+            if any(rinfo["plain_routes"].values()):
+                problems.append(f"mesh run 2 rank {r} {label}: plain routes "
+                                f"{rinfo['plain_routes']}")
+        if info["backend"] != "gloo":
+            problems.append(f"mesh rank {r}: backend {info['backend']}")
+        run2["ranks"].append(info)
+    phase["section_s"] = time.time() - t0
+    problems += [q for r in paths for q in r["problems"]]
+    return paths, problems, phase
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iter", type=int, default=1000,
@@ -5174,6 +5451,14 @@ def main() -> int:
                     help="only time the large-ensemble kernel under launch "
                          "geometries the rule does not pick "
                          "(geometry_sweep); prints no result line")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="only the mesh section (mesh_section: a world of "
+                         "one over NCCL, two gloo ranks on the one card) "
+                         "and stop; prints no result line")
+    # one rank of the mesh section's two-rank run (mesh_rank)
+    ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-out", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     t_start = time.time()
@@ -5183,6 +5468,8 @@ def main() -> int:
     import bssm_tpu_torch as bt
     from bssm_tpu_torch.ops import cuda_kalman as ck
     assert "jax" not in sys.modules and "bssm_tpu" not in sys.modules
+    if args.mesh_rank is not None:
+        return mesh_rank(args)
 
     smi = nvidia_smi_line()
     ck.build()
@@ -5246,6 +5533,15 @@ def main() -> int:
         return 1 if sde_problems or FAILURES else 0
     is2 = dict(mcmc_type="is2", sampling_method="psi", store_modes=False,
                corr_batch=16384)
+    if args.mesh_only:
+        mesh_paths, mesh_problems, mesh_phase = mesh_section(bt, ck)
+        emit("mesh", mesh_phase)
+        for r in mesh_paths:
+            emit("path", r)
+        if mesh_problems:
+            print("chip_smoke: mesh section failed: "
+                  + "; ".join(mesh_problems), file=sys.stderr)
+        return 1 if mesh_problems else 0
     if args.tp_only:
         tp_paths, tp_problems, tp_phase = tp_section(
             bt, ck, min(args.iter, TP_ITER), min(args.iter, TP_SV_ITER), is2)
@@ -5596,8 +5892,12 @@ def main() -> int:
     tp_paths, tp_problems, tp_phase = tp_section(
         bt, ck, min(it_full, TP_ITER), min(it_full, TP_SV_ITER), is2)
     paths += tp_paths
-    problems += mv_problems + nlg_problems + sde_problems + tp_problems + [
-        f["what"] for f in FAILURES]
+    # the mesh: a world of one over NCCL here, two gloo ranks in processes
+    # of their own (their launches are in the mesh line)
+    mesh_paths, mesh_problems, mesh_phase = mesh_section(bt, ck)
+    paths += mesh_paths
+    problems += mv_problems + nlg_problems + sde_problems + tp_problems \
+        + mesh_problems + [f["what"] for f in FAILURES]
     # the replication grid's launches count as one more path's
     paths.append({"path": "replications", "launches":
                   phases["replications"].get(
@@ -5748,6 +6048,7 @@ def main() -> int:
     emit("nlg_checks", nlg_phase)
     emit("sde_checks", sde_phase)
     emit("tp_checks", tp_phase)
+    emit("mesh", mesh_phase)
     if args.profile:
         theta = dict(output_type="theta", seed=1)
         for label, model, run in (
