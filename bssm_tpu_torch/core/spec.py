@@ -172,8 +172,16 @@ class MVLGSpec(NamedTuple):
         return torch.isfinite(self.y)
 
 
+class Replaceable:
+    """``spec.replace(**updates)`` of the JAX package's dataclass specs."""
+
+    def replace(self, **updates):
+        """A copy with the fields ``updates`` names replaced."""
+        return dataclasses.replace(self, **updates)
+
+
 @dataclasses.dataclass(frozen=True)
-class NGSpec:
+class NGSpec(Replaceable):
     """Univariate non-Gaussian model: linear-Gaussian state dynamics and
     exponential-family observations.  ``distribution`` is a plain int,
     ``phi`` the auxiliary parameter (SV sigma, negbin dispersion, gamma
@@ -220,7 +228,7 @@ class NGSpec:
 
 
 @dataclasses.dataclass(frozen=True)
-class MVNGSpec:
+class MVNGSpec(Replaceable):
     """Multivariate non-Gaussian model: linear-Gaussian state dynamics and
     ``p`` observed series, each of its own family (``distributions``, a
     tuple of the ints above; ``GAUSSIAN`` with sd ``phi[j]`` included),

@@ -1,20 +1,21 @@
 """Argument validation with friendly errors.
 
-Own copy of the numpy checks of ``bssm_tpu/core/validate.py`` that the
-model constructors of this package call (NaN allowed only in y;
-positivity of u; the families' supports; dimension rules for
-Z/H/T/R/a1/P1/D/C and xreg/beta), the multivariate branches included.
-The arguments keep this package's order (``n`` first, then ``p`` and
-``multivariate`` by keyword); the same bad input raises the same exception
-type as in the JAX package.  The package imports nothing of the JAX
-package, so the checks live here too.
+Own copy of the numpy checks of ``bssm_tpu/core/validate.py``, all 26 of
+them, with the JAX package's signatures: NaN allowed only in y; positivity
+of u; the families' supports; dimension rules for Z/H/T/R/a1/P1/D/C and
+xreg/beta, the multivariate branches included; the scalar checks of sds,
+phi, rho, proportions, counts and theta.  The same input gives the same
+result, and the same bad input the same exception and message, as in the
+JAX package.  The package imports nothing of the JAX package, so the
+checks live here too; ``check_beta``, ``check_mu`` and ``check_prior``
+recognise this package's priors (``core/priors.py``).
 """
 from __future__ import annotations
 
 import numpy as np
 
 
-def check_y(y, distribution=None, *, multivariate=False):
+def check_y(y, multivariate=False, distribution=None):
     y = np.asarray(y, dtype=np.float64)
     if multivariate:
         if y.ndim != 2:
@@ -48,6 +49,47 @@ def check_u(u, y):
         raise ValueError("Argument 'u' must contain only positive finite "
                          "values.")
     return u
+
+
+def check_sd(x, name):
+    if not np.isscalar(x) and np.asarray(x).size != 1:
+        raise ValueError(f"Argument 'sd_{name}' must be a scalar or prior.")
+    if float(np.asarray(x).reshape(())) < 0:
+        raise ValueError(f"Standard deviation parameter 'sd_{name}' must "
+                         "be non-negative.")
+
+
+def check_phi(x):
+    if float(x) <= 0:
+        raise ValueError("Parameter 'phi' must be positive.")
+
+
+def check_rho(x):
+    if not (-1.0 < float(x) < 1.0):
+        raise ValueError("Parameter 'rho' must be strictly between -1 "
+                         "and 1.")
+
+
+def check_prop(x, name="target_acceptance"):
+    if not (0.0 < float(x) < 1.0):
+        raise ValueError(f"Argument '{name}' must be on the open interval "
+                         "(0, 1).")
+
+
+def check_positive_int(x, name):
+    if int(x) != x or x <= 0:
+        raise ValueError(f"Argument '{name}' must be a positive integer.")
+
+
+def check_matrix(x, name, shape):
+    x = np.asarray(x, dtype=np.float64)
+    if x.shape != tuple(shape):
+        raise ValueError(f"Argument '{name}' must have shape {shape}, "
+                         f"got {x.shape}.")
+    if not np.isfinite(x).all():
+        raise ValueError(f"Argument '{name}' must contain only finite "
+                         "values.")
+    return x
 
 
 def check_period(period, n):
@@ -108,7 +150,29 @@ def check_beta(beta, k):
     return beta
 
 
-def check_D(D, n, *, p=1):
+def check_mu(mu):
+    from .priors import Prior
+    if isinstance(mu, Prior):
+        return mu
+    arr = np.asarray(mu, dtype=np.float64)
+    if arr.size != 1:
+        raise ValueError("Argument 'mu' must be of length one.")
+    if not np.isfinite(arr).all():
+        raise ValueError("Argument 'mu' must contain only finite values.")
+    return mu
+
+
+def check_prior(x, name):
+    from .priors import Prior
+    if isinstance(x, Prior):
+        return x
+    if isinstance(x, (list, tuple)) and x and \
+            all(isinstance(p, Prior) for p in x):
+        return x
+    raise TypeError(f"{name} must be a Prior or a list of Priors.")
+
+
+def check_D(D, p, n):
     """Observation intercept: scalar or (n,) for one series, returned 1-D;
     (p,), (p, 1) or (p, n) for p > 1 series, returned (p, 1|n)."""
     if D is None:
@@ -140,7 +204,7 @@ def check_C(C, m, n):
     return C
 
 
-def check_Z(Z, n, *, p=1, multivariate=False):
+def check_Z(Z, p, n, multivariate=False):
     """Observation vector: scalar, (m,) or (m, n), returned (m, 1|n); with
     ``multivariate`` a (p, m) matrix or (p, m, n) array, returned
     (p, m, 1|n)."""
@@ -219,7 +283,7 @@ def check_P1(P1, m):
     return P1
 
 
-def check_H(H, n, *, p=1, multivariate=False):
+def check_H(H, p, n, multivariate=False):
     """Observation noise sd: scalar or (n,), returned 1-D; with
     ``multivariate`` a lower factor of the observation covariance, a
     scalar (times the identity), (p, p) or (p, p, n), returned
@@ -240,6 +304,32 @@ def check_H(H, n, *, p=1, multivariate=False):
         raise ValueError("'H' must be a scalar or length n, where n is "
                          "the length of the time series y.")
     return H.reshape(-1)
+
+
+def check_intmax(x, name="particles", positive=True, max=100000):
+    """Bounded integer check."""
+    xi = int(x)
+    if xi != x or (positive and xi <= 0) or (not positive and xi < 0):
+        kind = "positive" if positive else "non-negative"
+        raise ValueError(f"Argument '{name}' should be a {kind} integer.")
+    if xi > max:
+        raise ValueError(f"You probably do not want '{name}' > {max}.")
+    return xi
+
+
+def check_positive_real(x, name):
+    v = float(x)
+    if not np.isfinite(v) or v < 0:
+        raise ValueError(f"Argument '{name}' should be positive real "
+                         "value.")
+    return v
+
+
+def check_theta(theta):
+    theta = np.atleast_1d(np.asarray(theta, dtype=np.float64))
+    if theta.ndim != 1:
+        raise ValueError("Argument 'theta' should be a numeric vector.")
+    return theta
 
 
 def check_missingness(arrays, allow=("y",)):

@@ -293,16 +293,16 @@ def rebuilt_loglik(spec: NGSpec, approx: ApproxResult) -> torch.Tensor:
             + sc.sum(-1))
 
 
-def gaussian_approx(model_or_spec, conv_tol: float = CONV_TOL,
+def gaussian_approx(spec, conv_tol: float = CONV_TOL,
                     max_iter: int = MAX_ITER, theta=None) -> LGSpec:
-    """The approximating linear-Gaussian model of a non-Gaussian model
-    (built at ``theta``, by default its initial value) or spec: an
+    """The approximating linear-Gaussian model of ``spec``, a non-Gaussian
+    model (built at ``theta``, by default its initial value) or spec: an
     ``LGSpec``, or for several series or a nonlinear model (linearised at
     its mode) an ``MVLGSpec``."""
     from ..core.spec import MVNGSpec
     from ..models.nlg import NLGSpec
     from .filters import refuse_sde, spec_of
-    spec = refuse_sde(spec_of(model_or_spec, theta), "gaussian_approx")
+    spec = refuse_sde(spec_of(spec, theta), "gaussian_approx")
     if isinstance(spec, NLGSpec):
         from .nlg import approximate_nlg
         return approximate_nlg(spec).approx

@@ -316,7 +316,7 @@ def spdk_weights_mv(spec: MVNGSpec, al: ApproxLoglik, alpha: torch.Tensor):
 
 def spdk_sample_mv(spec: MVNGSpec, al: ApproxLoglik, nsim: int,
                    generator: Optional[torch.Generator] = None,
-                   use_antithetic: bool = True, *,
+                   antithetic: bool = True, *,
                    um: Optional[torch.Tensor] = None,
                    eps: Optional[torch.Tensor] = None,
                    eta: Optional[torch.Tensor] = None) -> SPDKResult:
@@ -325,7 +325,7 @@ def spdk_sample_mv(spec: MVNGSpec, al: ApproxLoglik, nsim: int,
     ``um``/``eps``/``eta`` inject its normals) weighed by
     ``spdk_weights_mv``."""
     alpha = kalman_mv.simulate_states_mv(al.approx.gaussian(spec), nsim,
-                                         generator, use_antithetic, um=um,
+                                         generator, antithetic, um=um,
                                          eps=eps, eta=eta)
     ll, w = spdk_weights_mv(spec, al, alpha)
     return SPDKResult(ll, alpha, w)

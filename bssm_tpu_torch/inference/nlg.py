@@ -84,9 +84,10 @@ def _masked_HH(H: torch.Tensor, mp: torch.Tensor) -> torch.Tensor:
 # extended and unscented Kalman filters
 # ---------------------------------------------------------------------------
 
-def _linear_update(spec: NLGSpec, t: int, a, P, a_lin):
-    """The measurement update linearised at ``a_lin`` (``_masked_lin`` and
-    the JAX ``linear_update``), every row: (Zg, HHm, cholF, v, K, ok)."""
+def _linear_update(spec: NLGSpec, t: int, y_t, a, P, a_lin):
+    """The measurement update of ``y_t`` linearised at ``a_lin``
+    (``_masked_lin`` and the JAX ``linear_update``), every row: (Zg, HHm,
+    cholF, v, K, ok).  The missing series are those of ``spec.y[t]``."""
     mask = torch.isfinite(spec.y[t])
     mp = mask.to(a.dtype)
     Zg = _ev(spec.Z_gn, spec, t, a_lin) * mp[:, None]
@@ -100,28 +101,30 @@ def _linear_update(spec: NLGSpec, t: int, a, P, a_lin):
         & (diag > 0).all(-1)
     eye = torch.eye(spec.p, dtype=a.dtype, device=a.device)
     cholF = torch.where(ok[:, None, None], cholF, eye)
-    v = torch.where(mask, spec.y[t] - zfn - _mv(Zg, a - a_lin),
+    v = torch.where(mask, y_t - zfn - _mv(Zg, a - a_lin),
                     torch.zeros_like(zfn))
     K = _tr(_cho_solve(cholF, ZP))
     return Zg, HHm, cholF, v, K, ok
 
 
-def ekf_update_step(spec: NLGSpec, t: int, a: torch.Tensor,
-                    P: torch.Tensor):
+def ekf_update_step(spec: NLGSpec, t: int, y_t: torch.Tensor,
+                    a: torch.Tensor, P: torch.Tensor):
     """One (iterated) EKF measurement update of rows ``a (R, m)``, ``P
-    (R, m, m)`` at time t; R is the batch or a multiple of it (particles
-    of every row).  The iterations of the iterated EKF run per row while
-    the mean squared change exceeds 1e-4.  Returns (att, Ptt, loglik
-    contribution ``(R,)``); a row whose F has no Cholesky factor gets the
-    identity in its place and -inf."""
+    (R, m, m)`` by the observation ``y_t (p,)`` (or ``(R, p)``; the
+    filters pass ``spec.y[t]``) at time t, whose missing series are those
+    of ``spec.y[t]``, as in the JAX package; R is the batch or a multiple
+    of it (particles of every row).  The iterations of the iterated EKF
+    run per row while the mean squared change exceeds 1e-4.  Returns (att,
+    Ptt, loglik contribution ``(R,)``); a row whose F has no Cholesky
+    factor gets the identity in its place and -inf."""
     mask = torch.isfinite(spec.y[t])
-    lin = _linear_update(spec, t, a, P, a)
+    lin = _linear_update(spec, t, y_t, a, P, a)
     att = a + _mv(lin[4], lin[3])
     if spec.iekf_iter > 0:
         diff = torch.ones(a.shape[0], dtype=a.dtype, device=a.device)
         for _ in range(spec.iekf_iter):
             go = diff > 1e-4
-            new = _linear_update(spec, t, a, P, att)
+            new = _linear_update(spec, t, y_t, a, P, att)
             att_new = a + _mv(new[4], new[3])
             d_new = torch.square(att - att_new).mean(-1)
             lin = tuple(torch.where(go.reshape((-1,) + (1,) * (x.dim() - 1)),
@@ -166,7 +169,7 @@ def ekf(spec: NLGSpec) -> EKFResult:
     a, P = spec.a1(), spec.P1()
     at, Pt, atts, Ptts, ll = [], [], [], [], 0.0
     for t in range(spec.n):
-        att, Ptt, llt = ekf_update_step(spec, t, a, P)
+        att, Ptt, llt = ekf_update_step(spec, t, spec.y[t], a, P)
         at.append(a)
         Pt.append(P)
         atts.append(att)
@@ -589,7 +592,7 @@ def ekpf_filter(spec: NLGSpec, nsim: int,
     y_any = torch.isfinite(spec.y).any(-1)
     a1 = spec.a1().expand(B, -1)
     P1 = spec.P1().expand(B, -1, -1)
-    att1, Ptt1, _ = ekf_update_step(spec, 0, a1, P1)
+    att1, Ptt1, _ = ekf_update_step(spec, 0, spec.y[0], a1, P1)
     L1 = psd_chol(Ptt1)
     alpha = att1[:, None, :] + eps[:, 0] @ _tr(L1)
     lw = _obs_logdens(spec, 0, alpha) \
@@ -606,7 +609,7 @@ def ekpf_filter(spec: NLGSpec, nsim: int,
         R = _ev(spec.R_fn, part, t, anc)
         Pt = R @ _tr(R)
         if s < n:
-            att, Ptt, _ = ekf_update_step(part, s, at, Pt)
+            att, Ptt, _ = ekf_update_step(part, s, part.y[s], at, Pt)
             L = psd_chol(Ptt)
         else:
             att, L = at, psd_chol(Pt)

@@ -671,7 +671,7 @@ def spdk_weights(spec: NGSpec, al: ApproxLoglik, alpha: torch.Tensor):
 
 def spdk_sample(spec: NGSpec, al: ApproxLoglik, nsim: int,
                 generator: Optional[torch.Generator] = None,
-                use_antithetic: bool = True, *,
+                antithetic: bool = True, *,
                 um: Optional[torch.Tensor] = None,
                 eps: Optional[torch.Tensor] = None,
                 eta: Optional[torch.Tensor] = None) -> SPDKResult:
@@ -681,7 +681,7 @@ def spdk_sample(spec: NGSpec, al: ApproxLoglik, nsim: int,
     ``eta`` inject its normals) weighed by ``spdk_weights``."""
     from ..ops.simsmooth import simulate_states_batched
     alpha = simulate_states_batched(al.approx.gaussian(spec), nsim,
-                                    generator, use_antithetic, um=um,
+                                    generator, antithetic, um=um,
                                     eps=eps, eta=eta)
     ll, w = spdk_weights(spec, al, alpha)
     return SPDKResult(ll, alpha, w)

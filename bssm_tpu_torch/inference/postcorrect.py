@@ -35,13 +35,13 @@ __all__ = ["post_correct", "suggest_N", "is_correction_generator"]
 
 def post_correct(model: Model, output: McmcOutput, particles: int,
                  sampling_method: str = "psi", is_type: int = 2,
-                 seed: int = 1, corr_batch: int = 256,
+                 seed: int = 1, mesh=None, corr_batch: int = 256,
                  output_type: str = "full",
-                 generator: Optional[torch.Generator] = None,
-                 mesh=None) -> McmcOutput:
+                 generator: Optional[torch.Generator] = None) -> McmcOutput:
     """IS-correct a stored approximate run; returns a new output with
     weights, posterior and, for ``output_type`` "full" / "summary", the
-    states.  ``generator`` defaults to one seeded from ``seed`` on the
+    states.  The arguments bind in the JAX package's order, ``generator``
+    in ``key``'s place; it defaults to one seeded from ``seed`` on the
     model's device.  The correction uses the defaults of ``run_mcmc``
     (``conv_tol``, ``max_iter``, ``psi_resample_every``).
 

@@ -30,9 +30,10 @@ class Model:
     theta_names: Tuple[str, ...]
     transforms: np.ndarray            # per-theta transform code (0 id, 1 log)
     kind: str                         # 'lg', 'ng', 'mlg' or 'mng'
-    device: torch.device
-    dtype: torch.dtype
     extra: dict = dataclasses.field(default_factory=dict)
+    # keyword-only, so that the JAX package's positional order binds
+    device: torch.device = dataclasses.field(kw_only=True)
+    dtype: torch.dtype = dataclasses.field(kw_only=True)
 
     @property
     def n_par(self) -> int:

@@ -35,11 +35,12 @@ import numpy as np
 import torch
 
 from ..core.config import DEFAULT_DTYPE, resolve_device
+from ..core.spec import Replaceable
 from .base import Model
 
 
 @dataclasses.dataclass(frozen=True)
-class NLGSpec:
+class NLGSpec(Replaceable):
     """A nonlinear model at a batch of thetas: ``y (n, p)`` shared by the
     rows, ``theta (B, d)``; the functions and sizes are static fields."""
     y: torch.Tensor

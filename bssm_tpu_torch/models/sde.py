@@ -38,11 +38,12 @@ import numpy as np
 import torch
 
 from ..core.config import DEFAULT_DTYPE, resolve_device
+from ..core.spec import Replaceable
 from .base import Model
 
 
 @dataclasses.dataclass(frozen=True)
-class SDESpec:
+class SDESpec(Replaceable):
     """An SDE model at a batch of thetas: ``y (n,)`` shared by the rows,
     ``theta (B, d)``, the fixed initial state ``x0``; the functions, the
     ``positive`` flag (take |x| after each step) and the levels are static

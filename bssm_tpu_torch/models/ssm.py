@@ -38,13 +38,13 @@ _TIMED = ("Z", "H", "T", "R", "D", "C")
 def _system(Z, H, T, R, a1, P1, D, C, n, dev):
     """The R-layout arrays checked and moved to the spec's layout, as
     tensors by ``dev``; returns (m, dict of leaves)."""
-    Z = val.check_Z(Z, n)                              # (m, 1|n)
+    Z = val.check_Z(Z, 1, n)                            # (m, 1|n)
     m = Z.shape[0]
-    arrays = {"Z": Z.T, "H": val.check_H(H, n),
+    arrays = {"Z": Z.T, "H": val.check_H(H, 1, n),
               "T": np.moveaxis(val.check_T(T, m, n), -1, 0),
               "R": np.moveaxis(val.check_R(R, m, n), -1, 0),
               "a1": val.check_a1(a1, m), "P1": val.check_P1(P1, m),
-              "D": val.check_D(D, n), "C": val.check_C(C, m, n).T}
+              "D": val.check_D(D, 1, n), "C": val.check_C(C, m, n).T}
     val.check_missingness(arrays)
     return m, {k: dev(v) for k, v in arrays.items()}
 
@@ -53,17 +53,17 @@ def _system_mv(Z, H, T, R, a1, P1, D, C, n, p, dev):
     """``_system`` for p series: Z ``(p, m, 1|n)``, H ``(p, p, 1|n)``
     (None for a non-Gaussian model) and D ``(p, 1|n)``, moved to the
     spec's layout."""
-    Z = val.check_Z(Z, n, p=p, multivariate=True)
+    Z = val.check_Z(Z, p, n, multivariate=True)
     m = Z.shape[1]
     arrays = {"Z": np.moveaxis(Z, -1, 0),
               "T": np.moveaxis(val.check_T(T, m, n), -1, 0),
               "R": np.moveaxis(val.check_R(R, m, n), -1, 0),
               "a1": val.check_a1(a1, m), "P1": val.check_P1(P1, m),
-              "D": np.atleast_2d(val.check_D(D, n, p=p)).T,
+              "D": np.atleast_2d(val.check_D(D, p, n)).T,
               "C": val.check_C(C, m, n).T}
     if H is not None:
         arrays["H"] = np.moveaxis(
-            val.check_H(H, n, p=p, multivariate=True), -1, 0)
+            val.check_H(H, p, n, multivariate=True), -1, 0)
     val.check_missingness(arrays)
     return m, {k: dev(v) for k, v in arrays.items()}
 

@@ -307,14 +307,15 @@ class SmoothResult(NamedTuple):
     logLik: torch.Tensor    # (B,)
 
 
-def smoother(spec: LGSpec) -> SmoothResult:
+def smoother(spec: LGSpec, want_ccov: bool = False) -> SmoothResult:
     """Smoothed means, variances and lag-one cross-covariances by the
     J-form recursion
         J_t = Ptt_t T_t' P_{t+1|t}^+,
         alphahat_t = att_t + J_t (alphahat_{t+1} - a_{t+1}),
         V_t = Ptt_t + J_t (V_{t+1} - P_{t+1|t}) J_t',
     which float32 keeps where the N-recursion V = P - P N P cancels a
-    diffuse P1 away."""
+    diffuse P1 away.  ``ccov`` is computed whatever ``want_ccov`` says, as
+    in the JAX package; the flag is taken for its call form only."""
     from .chol import _psd_pinv
     r = kfilter(spec)
     s = _sys(spec)

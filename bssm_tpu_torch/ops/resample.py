@@ -1,14 +1,17 @@
-"""Stratified resampling from caller-supplied uniforms and ancestor
-tracing, batched.
+"""Stratified and systematic resampling and ancestor tracing, batched.
 
-Counterpart of ``bssm_tpu/ops/resample.py:76-139``.  With normalised
-weights w and uniforms r_p ~ U(0,1), particle p takes the ancestor
+Counterpart of ``bssm_tpu/ops/resample.py``.  With normalised weights w
+and uniforms r_p ~ U(0,1), particle p takes the ancestor
 min{q : cumsum(w)_q >= (p + r_p)/N}, with the last cumulative weight set to
-exactly 1.  The JAX package selects with a one-hot matrix product because
-its accelerator has no per-particle gather; here it is ``searchsorted`` and
-``gather``, which pick the same ancestors.
+exactly 1: stratified resampling draws one r_p a particle, systematic one r
+for all.  The JAX package selects with a one-hot matrix product because
+its accelerator has no per-particle gather (``stratified_select``,
+``stratified_gather``); here it is ``searchsorted`` and ``gather``, which
+pick the same ancestors.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -23,6 +26,28 @@ def stratified_indices_from_uniforms(weights: torch.Tensor,
     u = (torch.arange(N, dtype=weights.dtype, device=weights.device) + r) / N
     idx = torch.searchsorted(cp, u.contiguous(), right=False)
     return torch.clamp(idx, 0, N - 1)
+
+
+def stratified_indices(weights: torch.Tensor,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+    """Stratified resampling indices ``(..., N)`` of normalised ``weights
+    (..., N)``: one uniform a particle, drawn from ``generator`` on
+    ``weights``' device."""
+    r = torch.rand(weights.shape, dtype=weights.dtype,
+                   device=weights.device, generator=generator)
+    return stratified_indices_from_uniforms(weights, r)
+
+
+def systematic_indices(weights: torch.Tensor,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+    """Systematic resampling indices ``(..., N)`` of normalised ``weights
+    (..., N)``: one uniform a row of weights, drawn from ``generator`` on
+    ``weights``' device, shared by its N strata."""
+    r = torch.rand(weights.shape[:-1] + (1,), dtype=weights.dtype,
+                   device=weights.device, generator=generator)
+    return stratified_indices_from_uniforms(weights, r.expand(weights.shape))
 
 
 def stratified_gather_from_uniforms(weights: torch.Tensor, r: torch.Tensor,

@@ -13,6 +13,7 @@
     python3 chip_smoke.py --sde-only # the SDE models and as_bssm alone
     python3 chip_smoke.py --tp-only  # the time-parallel option alone
     python3 chip_smoke.py --mesh-only  # run_mcmc(mesh=...) alone
+    python3 chip_smoke.py --api-only   # approx_full and the api phase alone
 
 What it does, in order:
 
@@ -104,8 +105,19 @@ What it does, in order:
    with the weighted moments (the draws must average to its alphahat
    within 6 sqrt(Vt / ESS)), and approx with one simulation-smoother draw
    per slot, which ``post_correct`` with the run's correction generator
-   must turn into is2_full's weights; ``ng_api``: the non-Gaussian public
-   API on one model (the single-model Laplace solve, K8);
+   must turn into is2_full's weights; then the ``api`` phase
+   (``api_phase``; ``--api-only`` runs ``approx_full`` and it alone), the
+   JAX package's call forms at the main path's width: ``post_correct``
+   with its arguments in the JAX package's positional order on
+   ``approx_full``'s run, full and theta output, equal to the keyword
+   calls to the bit with their launches and no plain route;
+   ``spdk_sample`` at 4096 rows (``antithetic=True`` equal to the default
+   to the bit, ``antithetic=False`` within 5 jackknife SEs, K7 launched);
+   ``systematic_indices`` / ``stratified_indices`` on 16384 x 256 weights
+   (counts within 1 / 2 of N w); ``smoother(spec, want_ccov=True)`` equal
+   to ``smoother(spec)``; the phase within 30 s; ``ng_api``: the
+   non-Gaussian public API on one model (the single-model Laplace solve,
+   K8);
    ``seasonal_ng_is2`` / ``seasonal_lg_gaussian``: models outside the
    kernels' contract on a simulated monthly series (n = 144, seed 12),
    is2/psi with 10 particles on a Poisson level + seasonal(12) ``bsm_ng``
@@ -232,7 +244,7 @@ What it does, in order:
    ``big_checks``, ``lg_checks``, ``sv_checks``, the phases' lines,
    ``mv_ops``, ``nlg_ops``, ``sde_ops``, one
    ``path`` line each (``main_path`` for ``psi_N10``), ``diagnostics``,
-   ``nlg_checks``, ``sde_checks``, ``tp_checks``, ``mesh``,
+   ``nlg_checks``, ``sde_checks``, ``tp_checks``, ``mesh``, ``api``,
    ``kernels`` (each kernel's launches by its wrapper, and apart from
    them ``replayed``, the launches CUDA-graph replays repeated), the
    card's name and power limit, and last ``{"ok": true, "device":
@@ -5390,6 +5402,212 @@ def _mesh_section(bt, ck, out_dir: str) -> tuple:
     return paths, problems, phase
 
 
+# ---------------------------------------------------------------------------
+# the JAX package's call forms on the card
+# ---------------------------------------------------------------------------
+
+API_ROWS = 4096            # spdk_sample's rows at theta_init
+API_PARTICLES = 10
+API_RESAMPLE = (16384, 256)            # rows x N of the resamplers
+API_BUDGET_S = 30.0
+# float32 slack of the resamplers' count bounds: a uniform (j + r) / N is
+# rounded by some 6e-8, so a stratum boundary moves by N x 6e-8 of a count
+API_COUNT_SLACK = 1e-3
+
+
+def keyword_post_correct(bt, ck, m32, out):
+    """``post_correct`` of ``approx_full``'s stored run by keyword with the
+    run's correction generator, which replays ``is2_full``'s correction;
+    launch and plain-route counts set to 0 just before and read just
+    after.  Returns (output, elapsed s, launches, plain routes)."""
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.time()
+    pc = bt.post_correct(m32, out, 10, is_type=2, output_type="full",
+                         corr_batch=16384,
+                         generator=bt.is_correction_generator(1, "cuda"))
+    torch.cuda.synchronize()
+    return pc, time.time() - t0, dict(ck.LAUNCHES), dict(ck.PLAIN_ROUTES)
+
+
+def _array_fields(out) -> dict:
+    return {f.name: getattr(out, f.name) for f in dataclasses.fields(out)
+            if isinstance(getattr(out, f.name), np.ndarray)}
+
+
+def _fields_equal(a, b) -> dict:
+    """``{field: equal to the bit}`` over the array fields of two outputs
+    (NaN equal to NaN)."""
+    fa, fb = _array_fields(a), _array_fields(b)
+    return {f: f in fb and fa[f].shape == fb[f].shape
+            and bool(np.array_equal(fa[f], fb[f], equal_nan=True))
+            for f in sorted(set(fa) | set(fb))}
+
+
+def _resampler_counts(idx: torch.Tensor, w: torch.Tensor) -> dict:
+    """Largest |count - N w_k| of every row's particles, against the
+    strata the resampler drew over (the float32 cumulative weights, the
+    last set to 1) and against the weights themselves."""
+    N = w.shape[-1]
+    counts = torch.zeros_like(idx).scatter_add_(-1, idx,
+                                                torch.ones_like(idx))
+    cp = torch.cumsum(w, -1).double()
+    cp[..., -1] = 1.0
+    width = torch.diff(cp, dim=-1, prepend=torch.zeros_like(cp[..., :1]))
+    return {"in_range": bool((idx >= 0).all() and (idx < N).all()),
+            "max_dev_strata": float((counts - N * width).abs().max()),
+            "max_dev_weights": float((counts - N * w.double()).abs().max())}
+
+
+def api_phase(bt, ck, m32, a32, outs, pc_kw, kw_launches) -> dict:
+    """The JAX package's call forms on the card, at the main path's width.
+    ``post_correct`` in the JAX positional order, (model, output, particles,
+    sampling_method, is_type, seed, mesh, corr_batch, output_type,
+    generator in key's place), on ``approx_full``'s stored run (1024 x
+    1000, N = 10): with full output against the keyword call ``pc_kw``
+    (``kw_launches`` its launches), every array field (weights, alpha,
+    posterior, ...) equal to the bit, the same launches and no plain
+    route; with theta output the same pair, both made here.
+    ``spdk_sample`` on the main path's model at ``theta_init`` over 4096
+    rows, N = 10: ``antithetic=True`` equal to the call without the flag
+    from one generator seed, to the bit; ``antithetic=False``'s log mean
+    likelihood within 5 combined jackknife SEs of the antithetic one's;
+    K7 (``fast_smoother_ll``) launched.  ``systematic_indices`` /
+    ``stratified_indices`` on 16384 rows of N = 256 random float32
+    weights: every index in range, every count within 1 (systematic) / 2
+    (stratified) of N times its stratum's width, for any draw.
+    ``smoother(spec, want_ccov=True)`` on ``lg_theta``'s model (4096 rows
+    at theta_init) equal to ``smoother(spec)`` to the bit.  The phase
+    within ``API_BUDGET_S``."""
+    from bssm_tpu_torch.inference import approx as amod
+    from bssm_tpu_torch.inference import particle as P
+    from bssm_tpu_torch.ops import kalman as K
+    from bssm_tpu_torch.ops import resample as RS
+    t_phase = time.time()
+    problems = []
+    res = {"nvidia_smi": nvidia_smi_line()}
+    total = {k: 0 for k in ck.LAUNCHES}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        t0 = time.time()
+        r = fn()
+        torch.cuda.synchronize()
+        for k in total:
+            total[k] += ck.LAUNCHES[k]
+        return r, time.time() - t0, dict(ck.LAUNCHES), dict(ck.PLAIN_ROUTES)
+
+    # post_correct by position
+    ap = outs["approx_full"]
+    pcs = {}
+    for ot in ("full", "theta"):
+        pos, t_pos, l_pos, p_pos = counted(lambda: bt.post_correct(
+            m32, ap, 10, "psi", 2, 1, None, 16384, ot,
+            bt.is_correction_generator(1, "cuda")))
+        if ot == "full":
+            kw, l_kw = pc_kw, kw_launches
+        else:
+            kw, _, l_kw, _ = counted(lambda: bt.post_correct(
+                m32, ap, 10, output_type="theta", corr_batch=16384,
+                generator=bt.is_correction_generator(1, "cuda")))
+        eq = _fields_equal(pos, kw)
+        pcs[ot] = {"elapsed_s": t_pos, "launches": l_pos,
+                   "keyword_launches": l_kw, "plain_routes": p_pos,
+                   "fields_equal": eq, "output_type": pos.output_type}
+        if not (all(eq.values()) and "weights" in eq):
+            problems.append(f"post_correct {ot}: positional differs from "
+                            f"keyword {eq}")
+        if (ot == "full") != ("alpha" in eq):
+            problems.append(f"post_correct {ot}: output_type bound wrong")
+        if l_pos != l_kw:
+            problems.append(f"post_correct {ot}: launches {l_pos} != "
+                            f"keyword's {l_kw}")
+        need = ("rts_factors",) if ot == "full" else ("rts_factors",
+                                                      "psi_logw")
+        for k in need:
+            if l_pos[k] <= 0:
+                problems.append(f"post_correct {ot}: {k} not launched")
+        if any(p_pos.values()):
+            problems.append(f"post_correct {ot}: plain routes {p_pos}")
+        del pos, kw
+    res["post_correct"] = pcs
+
+    # spdk_sample with the JAX keyword
+    th = torch.as_tensor(m32.theta_init, dtype=m32.dtype,
+                         device="cuda").expand(API_ROWS, -1)
+    spec = m32.build(th)
+    al = amod.approx_loglik(spec)
+
+    def spdk(seed, **kw):
+        return P.spdk_sample(spec, al, API_PARTICLES,
+                             torch.Generator(device="cuda").manual_seed(seed),
+                             **kw)
+    r_def, _, _, _ = counted(lambda: spdk(11))
+    r_on, t_on, l_on, p_on = counted(lambda: spdk(11, antithetic=True))
+    r_off, t_off, l_off, p_off = counted(lambda: spdk(12, antithetic=False))
+    same = all(torch.equal(a, b) for a, b in zip(r_on, r_def))
+    est_on, se_on = jackknife_loglik(r_on.loglik)
+    est_off, se_off = jackknife_loglik(r_off.loglik)
+    z = abs(est_on - est_off) / np.hypot(se_on, se_off)
+    res["spdk_sample"] = {
+        "rows": API_ROWS, "particles": API_PARTICLES,
+        "antithetic_equals_default": same,
+        "log_mean_lik_antithetic": [est_on, se_on],
+        "log_mean_lik_independent": [est_off, se_off], "z": float(z),
+        "ms_antithetic": 1e3 * t_on, "ms_independent": 1e3 * t_off,
+        "launches": {k: l_on[k] + l_off[k] for k in l_on},
+        "plain_routes": {k: p_on[k] + p_off[k] for k in p_on}}
+    if not same:
+        problems.append("spdk_sample: antithetic=True differs from the "
+                        "default call")
+    if not z <= 5.0:
+        problems.append(f"spdk_sample: antithetic=False {z} SEs away")
+    if min(l_on["fast_smoother_ll"], l_off["fast_smoother_ll"]) <= 0:
+        problems.append("spdk_sample: fast_smoother_ll not launched")
+    if any(p_on.values()) or any(p_off.values()):
+        problems.append("spdk_sample: plain routes")
+    if not all(bool(torch.isfinite(r.loglik).all()) for r in (r_on, r_off)):
+        problems.append("spdk_sample: non-finite log-likelihoods")
+    del r_def, r_on, r_off, al, spec
+
+    # the keyed resamplers
+    B, N = API_RESAMPLE
+    g = torch.Generator(device="cuda").manual_seed(21)
+    w = torch.exp(1.5 * torch.randn(B, N, device="cuda", generator=g))
+    w = w / w.sum(-1, keepdim=True)
+    res["resamplers"] = {"rows": B, "particles": N}
+    for kind, bound in (("systematic", 1.0), ("stratified", 2.0)):
+        fn = getattr(RS, f"{kind}_indices")
+        idx, t_r, _, _ = counted(lambda: fn(
+            w, torch.Generator(device="cuda").manual_seed(5)))
+        again = fn(w, torch.Generator(device="cuda").manual_seed(5))
+        c = _resampler_counts(idx, w)
+        c.update(bound=bound, ms=1e3 * t_r, replays=bool(torch.equal(
+            idx, again)))
+        res["resamplers"][kind] = c
+        if not (c["in_range"] and c["replays"]
+                and c["max_dev_strata"] <= bound + API_COUNT_SLACK):
+            problems.append(f"{kind}_indices: {c}")
+
+    # smoother's want_ccov
+    lg = a32.build(torch.as_tensor(a32.theta_init, dtype=a32.dtype,
+                                   device="cuda").expand(API_ROWS, -1))
+    with_flag, t_s, _, _ = counted(lambda: K.smoother(lg, want_ccov=True))
+    plain = K.smoother(lg)
+    eq = [bool(torch.equal(a, b)) for a, b in zip(with_flag, plain)]
+    res["smoother"] = {"rows": API_ROWS, "ms": 1e3 * t_s,
+                       "fields_equal": dict(zip(with_flag._fields, eq))}
+    if not all(eq):
+        problems.append(f"smoother: want_ccov=True differs {eq}")
+    res["launches"] = total
+    res["section_s"] = time.time() - t_phase
+    if not res["section_s"] <= API_BUDGET_S:
+        problems.append(f"api phase took {res['section_s']} s")
+    res["problems"] = [f"api: {p}" for p in problems]
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iter", type=int, default=1000,
@@ -5455,6 +5673,10 @@ def main() -> int:
                     help="only the mesh section (mesh_section: a world of "
                          "one over NCCL, two gloo ranks on the one card) "
                          "and stop; prints no result line")
+    ap.add_argument("--api-only", action="store_true",
+                    help="only approx_full (--iter iterations), its "
+                         "post_correct and the api phase (api_phase) and "
+                         "stop; prints no result line")
     # one rank of the mesh section's two-rank run (mesh_rank)
     ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-port", type=int, help=argparse.SUPPRESS)
@@ -5542,6 +5764,23 @@ def main() -> int:
             print("chip_smoke: mesh section failed: "
                   + "; ".join(mesh_problems), file=sys.stderr)
         return 1 if mesh_problems else 0
+    if args.api_only:
+        m32 = main_path_model(bt, torch.float32)
+        r_ap, o_ap = run_path(
+            bt, ck, m32, "approx_full", "bsm_ng poisson level+slope, n=153, "
+            "m=2, d=2, float32", CHAINS // 4, args.iter,
+            ("laplace_solve", "fast_smoother_ll"), (0.15, 0.35), None,
+            mcmc_type="approx", output_type="full", store_modes=True)
+        pc, _, pc_launches, _ = keyword_post_correct(bt, ck, m32, o_ap)
+        api = api_phase(bt, ck, m32, airquality_model(bt, torch.float32),
+                        {"approx_full": o_ap}, pc, pc_launches)
+        emit("path", r_ap)
+        emit("api", api)
+        problems = r_ap["problems"] + api["problems"]
+        if problems:
+            print("chip_smoke: api phase failed: " + "; ".join(problems),
+                  file=sys.stderr)
+        return 1 if problems else 0
     if args.tp_only:
         tp_paths, tp_problems, tp_phase = tp_section(
             bt, ck, min(args.iter, TP_ITER), min(args.iter, TP_SV_ITER), is2)
@@ -5798,19 +6037,12 @@ def main() -> int:
                         f"the reference's {ga}")
     # post_correct replays is2_full's correction on the approx run
     r_ap = next(r for r in paths if r["path"] == "approx_full")
-    torch.cuda.synchronize()
-    ck.reset_launch_counts()
-    t0 = time.time()
-    pc = bt.post_correct(m32, outs["approx_full"], 10, is_type=2,
-                         output_type="full", corr_batch=16384,
-                         generator=bt.is_correction_generator(1, "cuda"))
-    torch.cuda.synchronize()
-    pc_launches = dict(ck.LAUNCHES)
-    pc_plain = dict(ck.PLAIN_ROUTES)
+    pc, pc_s, pc_launches, pc_plain = keyword_post_correct(
+        bt, ck, m32, outs["approx_full"])
     wdiff = float(np.abs(pc.weights.astype(np.float64)
                          - outs["is2_full"].weights).max())
     r_ap["post_correct"] = {
-        "elapsed_s": time.time() - t0, "launches": pc_launches,
+        "elapsed_s": pc_s, "launches": pc_launches,
         "max_abs_weight_diff_vs_is2_full": wdiff,
         "alpha_equal_to_is2_full": bool(np.array_equal(
             pc.alpha, outs["is2_full"].alpha))}
@@ -5823,6 +6055,11 @@ def main() -> int:
     if not wdiff <= 1e-6:
         problems.append(f"approx_full: post_correct weights differ from "
                         f"is2_full's by {wdiff}")
+    # the JAX package's call forms, the positional post_correct against pc
+    api = api_phase(bt, ck, m32, a32, outs, pc, pc_launches)
+    problems += api["problems"]
+    paths.append({"path": "api", "launches": api["launches"],
+                  "problems": [], "emitted": True})
     del pc
     st = is_states_check(outs["is1_summary"], outs["is2_full"])
     next(r for r in paths if r["path"] == "is1_summary")["states_check"] = st
@@ -6049,6 +6286,7 @@ def main() -> int:
     emit("sde_checks", sde_phase)
     emit("tp_checks", tp_phase)
     emit("mesh", mesh_phase)
+    emit("api", api)
     if args.profile:
         theta = dict(output_type="theta", seed=1)
         for label, model, run in (

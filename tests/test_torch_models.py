@@ -263,10 +263,10 @@ def test_validation_errors_mirror_the_jax_package():
     constructors use, and the constructors' rejections."""
     n, m = 10, 2
     y = np.arange(1.0, 11.0)
-    assert val.check_Z(np.ones(m), n).shape == (m, 1)
-    assert val.check_Z(np.ones((m, n)), n).shape == (m, n)
+    assert val.check_Z(np.ones(m), 1, n).shape == (m, 1)
+    assert val.check_Z(np.ones((m, n)), 1, n).shape == (m, n)
     with pytest.raises(ValueError, match="'Z'"):
-        val.check_Z(np.ones((m, 3)), n)
+        val.check_Z(np.ones((m, 3)), 1, n)
     assert val.check_T(1.0, 1, n).shape == (1, 1, 1)
     assert val.check_T(np.eye(m), m, n).shape == (m, m, 1)
     for bad in (np.ones((m, 3)), np.ones((m, m, 4))):
@@ -281,13 +281,13 @@ def test_validation_errors_mirror_the_jax_package():
         val.check_a1(np.ones(3), m)
     with pytest.raises(ValueError, match="P1"):
         val.check_P1(np.ones((m, 3)), m)
-    assert val.check_H(2.0, n).shape == (1,)
-    assert val.check_H(np.ones(n), n).shape == (n,)
+    assert val.check_H(2.0, 1, n).shape == (1,)
+    assert val.check_H(np.ones(n), 1, n).shape == (n,)
     with pytest.raises(ValueError, match="'H'"):
-        val.check_H(np.ones(3), n)
-    assert val.check_D(None, n).shape == (1,)
+        val.check_H(np.ones(3), 1, n)
+    assert val.check_D(None, 1, n).shape == (1,)
     with pytest.raises(ValueError, match="'D'"):
-        val.check_D(np.ones(4), n)
+        val.check_D(np.ones(4), 1, n)
     assert val.check_C(None, m, n).shape == (m, 1)
     with pytest.raises(ValueError, match="'C'"):
         val.check_C(np.ones((m, 5)), m, n)
