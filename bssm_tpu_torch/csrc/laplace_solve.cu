@@ -111,7 +111,9 @@ namespace bssm {
 // this order.  `out` is one device buffer: mode (B, n), prev (B, n), ll (B),
 // diff (B), niter (B int32, in the next B values), then, for the
 // device-memory variant, from the next line of 32 values on, the staging of
-// align32(B) rows.
+// align32(B) rows.  `passes`, when not 0, is one unsigned 64-bit counter in
+// device memory to which the kernel adds the sum of niter (the program's
+// trace counts the Laplace passes with it, diagnostics/profiling.py).
 struct LaplaceArgs {
   long long is_double, m, dist, B, n;
   SeriesArg y, u, D, mode;
@@ -123,6 +125,7 @@ struct LaplaceArgs {
   long long shared;       // 1: staging in shared memory, 0: in `out`
   long long smem;         // dynamic shared memory of a block, bytes
   long long block_elems;  // staging values of a block (shared) or a row
+  long long passes;       // the pass counter, or 0
   long long stream;
 };
 
@@ -320,6 +323,7 @@ __global__ void laplace_solve_kernel(const LaplaceArgs a) {
   });
   __syncthreads();
 
+  int passes = 0;  // this thread's row's passes, 0 past the batch
   if (b < B) {
     Sys<R, M> s;
     load_sys_leaves<R, M>(s, a.sys, b);
@@ -345,8 +349,18 @@ __global__ void laplace_solve_kernel(const LaplaceArgs a) {
     ll_out[b] = ll;
     niter_out[b] = it;
     diff_out[b] = diff;
+    passes = it;
   }
   __syncthreads();
+  // the block (one warp) adds its rows' passes to the counter: one atomic a
+  // block, after the pass loop
+  if (a.passes) {
+    const unsigned all = rows == 32 ? 0xffffffffu : (1u << rows) - 1u;
+    const unsigned sum = __reduce_add_sync(all, (unsigned)passes);
+    if (lane == 0)
+      atomicAdd(reinterpret_cast<unsigned long long*>(a.passes),
+                (unsigned long long)sum);
+  }
 
   // the newest and the previous mode out
   each([&](int r, int t) {

@@ -41,6 +41,7 @@ import torch
 from ..core import config
 from ..core import distributions as fam
 from ..core.spec import LGSpec, NGSpec, SVM, with_batch
+from ..diagnostics import profiling
 from ..ops import cuda_kalman, kalman, pkalman
 
 CONV_TOL = 1e-8
@@ -129,6 +130,13 @@ def _solve(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
     return mode, prev, niter, diff, ll
 
 
+def _counted(out):
+    """A Laplace solve's result, its passes added to the open fit's counter
+    (``profiling.count_passes``): the routes the kernel does not count."""
+    profiling.count_passes(out[2])
+    return out
+
+
 def _replayed(step, replay):
     """``step`` itself, or each call of it through ``replay``."""
     return step if replay is None else (
@@ -141,8 +149,8 @@ def laplace_solve_plain(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
     ``laplace_solve_steps``: the loop over ``_laplace_step``; with
     ``replay`` (``inference.replay.Replay``) each pass runs through it, one
     CUDA graph a shape on the card."""
-    return _solve(spec, mode0, conv_tol, max_iter,
-                  _replayed(_laplace_step, replay))
+    return _counted(_solve(spec, mode0, conv_tol, max_iter,
+                           _replayed(_laplace_step, replay)))
 
 
 def laplace_solve_steps(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
@@ -155,7 +163,7 @@ def laplace_solve_steps(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
     does not take loops over the plain pass instead."""
     step = cuda_kalman.laplace_step \
         if cuda_kalman.route("laplace_step", spec) else _laplace_step
-    return _solve(spec, mode0, conv_tol, max_iter, step)
+    return _counted(_solve(spec, mode0, conv_tol, max_iter, step))
 
 
 def approximate(spec: NGSpec, conv_tol: float = CONV_TOL,
@@ -170,7 +178,10 @@ def approximate(spec: NGSpec, conv_tol: float = CONV_TOL,
 
     The (ytilde, Htilde) returned are re-derived from the penultimate mode,
     exactly the pair the last smoother pass consumed, and ``gloglik`` is
-    that pass's Kalman log-likelihood."""
+    that pass's Kalman log-likelihood.  Counts its rows in the counter
+    ``laplace.rows`` and, while spans are on, its passes in the fit's
+    ``laplace.passes`` (``diagnostics/profiling.py``): the kernel adds
+    them on the card, ``_counted`` on every other route."""
     if mode0 is None:
         mode0 = spec.initial_mode
     mode0 = mode0.to(spec.y.dtype)
@@ -181,7 +192,8 @@ def approximate(spec: NGSpec, conv_tol: float = CONV_TOL,
         # every pass by associative scans (any batch, m, time variation);
         # neither Laplace kernel runs and no plain route is counted
         def solve(*a):
-            return _solve(*a, _replayed(_laplace_step_parallel, replay))
+            return _counted(_solve(*a, _replayed(_laplace_step_parallel,
+                                                 replay)))
     elif spec.batch is None:
         solve = laplace_solve_steps
     elif cuda_kalman.route("laplace_solve", spec):
@@ -189,20 +201,24 @@ def approximate(spec: NGSpec, conv_tol: float = CONV_TOL,
     else:
         def solve(*a):
             return laplace_solve_plain(*a, replay=replay)
-    mode, prev, niter, diff, gll = solve(spec, mode0, conv_tol, max_iter)
-    yt, H = _one_match(spec, prev)
+    with profiling.span("bssm.laplace"):
+        mode, prev, niter, diff, gll = solve(spec, mode0, conv_tol,
+                                             max_iter)
+        profiling.HOST["laplace.rows"] += niter.shape[0]
+        yt, H = _one_match(spec, prev)
     return ApproxResult(mode, yt, H, niter, diff, gll)
 
 
 def approximate_for_is(spec: NGSpec, stored_mode: torch.Tensor
                        ) -> ApproxResult:
     """Rebuild the approximation from a stored mode without iterating."""
-    yt, H = _one_match(spec, stored_mode)
-    B = stored_mode.shape[0]
-    dev = stored_mode.device
-    return ApproxResult(stored_mode, yt, H,
-                        torch.ones(B, dtype=torch.int32, device=dev),
-                        torch.zeros(B, dtype=spec.y.dtype, device=dev))
+    with profiling.span("bssm.laplace.rebuild"):
+        yt, H = _one_match(spec, stored_mode)
+        B = stored_mode.shape[0]
+        dev = stored_mode.device
+        return ApproxResult(stored_mode, yt, H,
+                            torch.ones(B, dtype=torch.int32, device=dev),
+                            torch.zeros(B, dtype=spec.y.dtype, device=dev))
 
 
 class ApproxLoglik(NamedTuple):

@@ -105,6 +105,7 @@ from ..core import rows
 from ..core.config import resolve_device
 from ..core.priors import LOG
 from ..core.spec import is_mv
+from ..diagnostics import profiling
 from ..models.base import Model
 from ..models.nlg import NLGSpec
 from ..ops import cuda_kalman
@@ -151,29 +152,33 @@ def _ram_step(logdens: Callable, log_prior: Callable, state: ChainState,
     then masked: log-likelihood -inf, never accepted.  The stored ``ll`` of
     the current state is never evaluated again, which is what makes a noisy
     ``logdens`` a valid pseudo-marginal sampler."""
-    prop = state.theta + (state.S @ u.unsqueeze(-1)).squeeze(-1)
-    lp_prop = log_prior(prop)
-    ok = lp_prop > -torch.inf
-    ninf = torch.full_like(lp_prop, -torch.inf)
-    ll_prop, ll_ram_prop, aux_prop = logdens(
-        torch.where(ok.unsqueeze(-1), prop, state.theta))
-    ll_prop = torch.where(ok, ll_prop.to(prop.dtype), ninf)
-    ll_ram_prop = torch.where(ok, ll_ram_prop.to(prop.dtype), ninf)
-    diff = ll_prop - state.ll + lp_prop - state.lp_prior
-    ram_diff = ll_ram_prop - state.ll_ram + lp_prop - state.lp_prior
-    acc_prob = torch.where(ok, torch.clamp(torch.exp(ram_diff), max=1.0),
-                           torch.zeros_like(diff))
-    accept = ok & (torch.log(unif) < diff)
-    acc1 = accept.unsqueeze(-1)
-    aux = state.aux
-    if aux is not None:
-        aux = torch.where(accept.reshape((-1,) + (1,) * (aux.dim() - 1)),
-                          aux_prop, aux)
-    S = adapt_S(state.S, u, acc_prob, target, i, gamma) if adapt else state.S
-    new = ChainState(theta=torch.where(acc1, prop, state.theta),
-                     lp_prior=torch.where(accept, lp_prop, state.lp_prior),
-                     ll=torch.where(accept, ll_prop, state.ll), aux=aux, S=S,
-                     ll_ram=torch.where(accept, ll_ram_prop, state.ll_ram))
+    with profiling.span("bssm.chain.propose"):
+        prop = state.theta + (state.S @ u.unsqueeze(-1)).squeeze(-1)
+        lp_prop = log_prior(prop)
+        ok = lp_prop > -torch.inf
+        ninf = torch.full_like(lp_prop, -torch.inf)
+        at = torch.where(ok.unsqueeze(-1), prop, state.theta)
+    ll_prop, ll_ram_prop, aux_prop = logdens(at)
+    with profiling.span("bssm.chain.accept"):
+        ll_prop = torch.where(ok, ll_prop.to(prop.dtype), ninf)
+        ll_ram_prop = torch.where(ok, ll_ram_prop.to(prop.dtype), ninf)
+        diff = ll_prop - state.ll + lp_prop - state.lp_prior
+        ram_diff = ll_ram_prop - state.ll_ram + lp_prop - state.lp_prior
+        acc_prob = torch.where(ok, torch.clamp(torch.exp(ram_diff), max=1.0),
+                               torch.zeros_like(diff))
+        accept = ok & (torch.log(unif) < diff)
+        acc1 = accept.unsqueeze(-1)
+        aux = state.aux
+        if aux is not None:
+            aux = torch.where(accept.reshape((-1,) + (1,) * (aux.dim() - 1)),
+                              aux_prop, aux)
+        S = adapt_S(state.S, u, acc_prob, target, i, gamma) if adapt \
+            else state.S
+        new = ChainState(
+            theta=torch.where(acc1, prop, state.theta),
+            lp_prior=torch.where(accept, lp_prop, state.lp_prior),
+            ll=torch.where(accept, ll_prop, state.ll), aux=aux, S=S,
+            ll_ram=torch.where(accept, ll_ram_prop, state.ll_ram))
     return new, accept
 
 
@@ -205,22 +210,25 @@ def _ram_scan(logdens: Callable, log_prior: Callable, theta0: torch.Tensor,
     n_acc = torch.zeros(C, dtype=dt, device=dev)
     k = 0
     for i in range(1, n_iter + 1):
-        u = rows.randn((C, d), dtype=dt, device=dev, generator=generator)
-        unif = rows.rand((C,), dtype=dt, device=dev, generator=generator)
-        adapt = (i <= burnin) if end_ram else True
-        state, accept = _ram_step(logdens, log_prior, state, u, unif, i,
-                                  target, gamma, adapt)
-        pos = i - 1
-        if pos >= burnin:
-            n_acc += accept.to(dt)
-            if (pos - burnin) % thin == 0:
-                thetas[:, k] = state.theta
-                lps[:, k] = state.lp_prior
-                lls[:, k] = state.ll
-                accs[:, k] = accept
-                if store_aux:
-                    auxs[:, k] = state.aux
-                k += 1
+        with profiling.span("bssm.chain.iter", i=i):
+            u = rows.randn((C, d), dtype=dt, device=dev, generator=generator)
+            unif = rows.rand((C,), dtype=dt, device=dev, generator=generator)
+            adapt = (i <= burnin) if end_ram else True
+            state, accept = _ram_step(logdens, log_prior, state, u, unif, i,
+                                      target, gamma, adapt)
+            pos = i - 1
+            if pos < burnin:
+                continue
+            with profiling.span("bssm.chain.store"):
+                n_acc += accept.to(dt)
+                if (pos - burnin) % thin == 0:
+                    thetas[:, k] = state.theta
+                    lps[:, k] = state.lp_prior
+                    lls[:, k] = state.ll
+                    accs[:, k] = accept
+                    if store_aux:
+                        auxs[:, k] = state.aux
+                    k += 1
     acc_rate = n_acc / max(n_iter - burnin, 1)
     return state, thetas, lps, lls, accs, auxs, acc_rate
 
@@ -674,7 +682,9 @@ def _approx_chain(model: Model, n_iter, burnin, thin, target, gamma, end_ram,
     correction recomputes it (local only)."""
 
     def logdens(theta):
-        ll, mode = approx.evaluate(model.build(theta))
+        with profiling.span("bssm.model.build"):
+            spec = model.build(theta)
+        ll, mode = approx.evaluate(spec)
         return ll, ll, mode
 
     def chain(generator, theta0, S0):
@@ -833,7 +843,8 @@ def _make_correct_rows(model: Model, nsim: int, sampling_method: str,
 
     def correct_rows(theta, modes=None, generator=None, eps=None, us=None,
                      states=None, u_pick=None):
-        spec = model.build(theta)
+        with profiling.span("bssm.model.build"):
+            spec = model.build(theta)
         if model.kind == "mng":
             return correct_rows_mv(spec, modes, generator, eps, us, states,
                                    u_pick)
@@ -966,7 +977,9 @@ def _is_correction_flat(model: Model, thetas, modes, generator, nsim,
     parts, dropped = [], None
     for sl, keep, win in _chunk_rows(thetas.shape[0], batch_size, own):
         mo = None if modes is None else modes[sl]
-        with win:
+        profiling.HOST["correct.chunks"] += 1
+        with win, profiling.span("bssm.correct.chunk",
+                                 rows=sl.stop - sl.start):
             r = correct_rows(thetas[sl], mo, generator)
         if keep:
             parts.append(r)
@@ -1013,22 +1026,26 @@ def _is_postprocess(model: Model, thetas, modes, accepted, approx_ll,
     slots = own = None
     if mesh_run is not None:
         slots, own = _own_slots(mesh_run, hmask, is_type)
+    profiling.HOST["correct.heads"] += n_rows
     corr = _is_correction_flat(model, th_rows, mo_rows, generator, nsim,
                                sampling_method, batch_size, conv_tol,
                                max_iter, psi_resample_every, want_states,
                                want_moments, approx, own=own)
-    if mesh_run is None:
-        return (_is_finish(corr, hmask, (C, Sn), approx_ll, sampling_method,
-                           is_type, generator, approx=approx), n_rows)
-    with rows.window(slots.start, C * Sn):    # is1's Gumbel noise
-        fin = _is_finish(corr, hmask[slots], (1, slots.stop - slots.start),
-                         approx_ll.reshape(-1)[slots], sampling_method,
-                         is_type, generator, approx=approx,
-                         mesh_run=mesh_run)
-    fin["log_w"] = mesh_run.gather(fin["log_w"][0]).reshape(C, Sn)
-    if "alpha" in fin:
-        a = mesh_run.gather(fin["alpha"][0])
-        fin["alpha"] = a.reshape((C, Sn) + a.shape[1:])
+    with profiling.span("bssm.correct.finish"):
+        if mesh_run is None:
+            return (_is_finish(corr, hmask, (C, Sn), approx_ll,
+                               sampling_method, is_type, generator,
+                               approx=approx), n_rows)
+        with rows.window(slots.start, C * Sn):    # is1's Gumbel noise
+            fin = _is_finish(corr, hmask[slots],
+                             (1, slots.stop - slots.start),
+                             approx_ll.reshape(-1)[slots], sampling_method,
+                             is_type, generator, approx=approx,
+                             mesh_run=mesh_run)
+        fin["log_w"] = mesh_run.gather(fin["log_w"][0]).reshape(C, Sn)
+        if "alpha" in fin:
+            a = mesh_run.gather(fin["alpha"][0])
+            fin["alpha"] = a.reshape((C, Sn) + a.shape[1:])
     return fin, n_rows
 
 
@@ -1547,6 +1564,60 @@ def _flat_draws(mesh_run, thetas: torch.Tensor, draws) -> np.ndarray:
     return a.numpy().reshape((C, Sn) + tuple(a.shape[1:]))
 
 
+def _run_types(model: Model, mcmc_type, sampling_method, output_type,
+               particles, local_approx):
+    """``run_mcmc``'s checks of the run's types and options against the
+    model; returns the ``(mcmc_type, sampling_method)`` it runs."""
+    if model.kind in ("lg", "mlg"):
+        mcmc_type = mcmc_type or "gaussian"
+        if mcmc_type != "gaussian":
+            raise NotImplementedError(
+                f"mcmc_type={mcmc_type!r}: linear-Gaussian models run "
+                "'gaussian'")
+        if output_type not in ("theta", "summary", "full"):
+            raise NotImplementedError(
+                f"output_type={output_type!r}: 'theta', 'summary' and "
+                "'full' are ported")
+    else:
+        nlg, sde = model.kind == "nlg", model.kind == "sde"
+        mcmc_type = mcmc_type or "is2"
+        # psi for the exponential families, bsf for the nonlinear models;
+        # an SDE model takes bsf whatever is asked, as in the JAX package
+        sampling_method = "bsf" if sde else (
+            sampling_method or ("bsf" if nlg else "psi"))
+        if mcmc_type not in ("approx", "is1", "is2", "is3", "pm", "da") \
+                + (("ekf",) if nlg else ()):
+            raise NotImplementedError(
+                f"mcmc_type={mcmc_type!r}: only 'approx', 'is1', 'is2', "
+                "'is3', 'pm', 'da' and, for nonlinear models, 'ekf' are "
+                "ported")
+        outputs = ("theta", "full") if mcmc_type in ("approx", "pm", "da") \
+            else ("theta", "summary", "full")
+        if output_type not in outputs:
+            raise NotImplementedError(
+                f"output_type={output_type!r}: mcmc_type={mcmc_type!r} "
+                f"takes {outputs}")
+        if nlg and not local_approx:
+            raise ValueError(
+                "local_approx=False: a nonlinear model has only the local "
+                "mode approximation")
+        if sde and not local_approx:
+            raise ValueError("local_approx=False: an SDE model has no "
+                             "Gaussian approximation")
+        if sde and mcmc_type == "approx" and output_type == "full":
+            # the JAX package dies here (its state draws rebuild a
+            # Gaussian approximation)
+            raise ValueError("an approximate SDE run has no state draws; "
+                             "take output_type='full' of is1/is2/is3")
+        if mcmc_type != "ekf":
+            _check_method(model, sampling_method)
+        if mcmc_type not in ("approx", "ekf"):
+            if particles < 2:
+                raise ValueError(
+                    "particles >= 2 required for non-approx MCMC")
+    return mcmc_type, sampling_method
+
+
 def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
              thin: int = 1, particles: int = 0,
              mcmc_type: Optional[str] = None,
@@ -1606,184 +1677,155 @@ def run_mcmc(model: Model, iter: int = 2000, *, burnin: Optional[int] = None,
     unsharded run's; sums (acceptance rate aside, the weighted moments)
     differ from it only in the order of their additions."""
     t0 = _time.time()
-    device = resolve_device(device)
-    dtype = model.dtype if dtype is None else dtype
-    if device != model.device or dtype != model.dtype:
-        raise ValueError(
-            f"the model lives on {model.device} as {model.dtype}; run_mcmc "
-            f"was asked for {device} and {dtype}.  Build the model with the "
-            "same device and dtype.")
-    if model.kind in ("lg", "mlg"):
-        mcmc_type = mcmc_type or "gaussian"
-        if mcmc_type != "gaussian":
-            raise NotImplementedError(
-                f"mcmc_type={mcmc_type!r}: linear-Gaussian models run "
-                "'gaussian'")
-        if output_type not in ("theta", "summary", "full"):
-            raise NotImplementedError(
-                f"output_type={output_type!r}: 'theta', 'summary' and "
-                "'full' are ported")
-    else:
-        nlg, sde = model.kind == "nlg", model.kind == "sde"
-        mcmc_type = mcmc_type or "is2"
-        # psi for the exponential families, bsf for the nonlinear models;
-        # an SDE model takes bsf whatever is asked, as in the JAX package
-        sampling_method = "bsf" if sde else (
-            sampling_method or ("bsf" if nlg else "psi"))
-        if mcmc_type not in ("approx", "is1", "is2", "is3", "pm", "da") \
-                + (("ekf",) if nlg else ()):
-            raise NotImplementedError(
-                f"mcmc_type={mcmc_type!r}: only 'approx', 'is1', 'is2', "
-                "'is3', 'pm', 'da' and, for nonlinear models, 'ekf' are "
-                "ported")
-        outputs = ("theta", "full") if mcmc_type in ("approx", "pm", "da") \
-            else ("theta", "summary", "full")
-        if output_type not in outputs:
-            raise NotImplementedError(
-                f"output_type={output_type!r}: mcmc_type={mcmc_type!r} "
-                f"takes {outputs}")
-        if nlg and not local_approx:
-            raise ValueError(
-                "local_approx=False: a nonlinear model has only the local "
-                "mode approximation")
-        if sde and not local_approx:
-            raise ValueError("local_approx=False: an SDE model has no "
-                             "Gaussian approximation")
-        if sde and mcmc_type == "approx" and output_type == "full":
-            # the JAX package dies here (its state draws rebuild a
-            # Gaussian approximation)
-            raise ValueError("an approximate SDE run has no state draws; "
-                             "take output_type='full' of is1/is2/is3")
-        if mcmc_type != "ekf":
-            _check_method(model, sampling_method)
-        if mcmc_type not in ("approx", "ekf"):
-            if particles < 2:
+    with profiling.fit("run_mcmc", seed, "bssm.fit"):
+        with profiling.span("bssm.fit.setup"):
+            device = resolve_device(device)
+            dtype = model.dtype if dtype is None else dtype
+            if device != model.device or dtype != model.dtype:
                 raise ValueError(
-                    "particles >= 2 required for non-approx MCMC")
-    if int(psi_resample_every) < 1:
-        raise ValueError("psi_resample_every must be >= 1")
-    if burnin is None:
-        burnin = iter // 2
+                    f"the model lives on {model.device} as {model.dtype}; "
+                    f"run_mcmc was asked for {device} and {dtype}.  Build "
+                    "the model with the same device and dtype.")
+            mcmc_type, sampling_method = _run_types(
+                model, mcmc_type, sampling_method, output_type, particles,
+                local_approx)
+            if int(psi_resample_every) < 1:
+                raise ValueError("psi_resample_every must be >= 1")
+            if burnin is None:
+                burnin = iter // 2
 
-    def dev(a):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+            def dev(a):
+                return torch.as_tensor(np.asarray(a), dtype=dtype,
+                                       device=device)
 
-    theta0 = dev(model.theta_init if theta_init is None else theta_init)
-    if theta0.dim() == 1:
-        theta0 = theta0.expand(n_chains, -1).contiguous()
-    elif theta0.shape[0] != n_chains:
-        raise ValueError("theta_init must be (d,) or (n_chains, d)")
-    S0 = dev(model.initial_S() if S is None else S)
-    if S0.dim() == 2:
-        S0 = S0.expand(n_chains, -1, -1).contiguous()
-    mesh_run = None
-    if mesh is not None:
-        from ..parallel.mesh import MeshRun
-        mesh_run = MeshRun(mesh, device)
-        block = mesh_run.chains.slice(n_chains)
-        if block.start >= block.stop:
-            raise ValueError(
-                f"n_chains={n_chains} leaves a rank of the mesh's "
-                f"{mesh_run.chains.parts} chain blocks no chain")
-    # gen1: proposals and accept tests; gen2: the particle filters or the
-    # state draws
-    gen1, gen2 = _generators(seed, device)
+            theta0 = dev(model.theta_init if theta_init is None
+                         else theta_init)
+            if theta0.dim() == 1:
+                theta0 = theta0.expand(n_chains, -1).contiguous()
+            elif theta0.shape[0] != n_chains:
+                raise ValueError("theta_init must be (d,) or (n_chains, d)")
+            S0 = dev(model.initial_S() if S is None else S)
+            if S0.dim() == 2:
+                S0 = S0.expand(n_chains, -1, -1).contiguous()
+            mesh_run = None
+            if mesh is not None:
+                from ..parallel.mesh import MeshRun
+                mesh_run = MeshRun(mesh, device)
+                block = mesh_run.chains.slice(n_chains)
+                if block.start >= block.stop:
+                    raise ValueError(
+                        f"n_chains={n_chains} leaves a rank of the mesh's "
+                        f"{mesh_run.chains.parts} chain blocks no chain")
+            # gen1: proposals and accept tests; gen2: the particle filters
+            # or the state draws
+            gen1, gen2 = _generators(seed, device)
 
-    # fail fast on a non-finite initial prior
-    if not bool(torch.isfinite(model.log_prior(theta0)).all()):
-        raise ValueError("Initial prior probability is not finite.")
+            # fail fast on a non-finite initial prior
+            if not bool(torch.isfinite(model.log_prior(theta0)).all()):
+                raise ValueError("Initial prior probability is not finite.")
 
-    base = dict(n_iter=iter, burnin=burnin, thin=thin,
-                target=target_acceptance, gamma=gamma,
-                end_ram=end_adaptive_phase)
-    if mcmc_type in ("gaussian", "ekf"):
-        chain = _gaussian_chain(model, **base)
-    else:
-        approx = _approx_evaluator(model, conv_tol, max_iter,
-                                   bool(local_approx), gen1,
-                                   max(int(particles), 2))
-    if mcmc_type in ("pm", "da"):
-        make = _pm_chain if mcmc_type == "pm" else _da_chain
-        chain = make(model, nsim=particles, sampling_method=sampling_method,
-                     approx=approx, pf_generator=gen2,
-                     store_states=output_type == "full", **base)
-    elif mcmc_type not in ("gaussian", "ekf"):
-        # the modes are kept when asked, always for the approx full output,
-        # whose state draws replay them, always on the global
-        # approximation, which a cold recompute would replace by the local,
-        # and always for an SDE model, whose "modes" are the seeds that
-        # couple the correction to phase 1
-        store_modes = bool(store_modes) or not local_approx or (
-            mcmc_type == "approx" and output_type == "full") \
-            or model.kind == "sde"
-        chain = _approx_chain(model, approx=approx, scan_modes=store_modes,
-                              **base)
-    if mesh_run is None:
-        res = chain(gen1, theta0, S0)
-    else:       # this rank's block of chains, then every block everywhere
-        with rows.window(block.start, n_chains):
-            res = chain(gen1, theta0[block], S0[block])
-        res = mesh_run.gather_chains(res)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t_mcmc = _time.time() - t0
+            base = dict(n_iter=iter, burnin=burnin, thin=thin,
+                        target=target_acceptance, gamma=gamma,
+                        end_ram=end_adaptive_phase)
+            if mcmc_type in ("gaussian", "ekf"):
+                chain = _gaussian_chain(model, **base)
+            else:
+                approx = _approx_evaluator(model, conv_tol, max_iter,
+                                           bool(local_approx), gen1,
+                                           max(int(particles), 2))
+            if mcmc_type in ("pm", "da"):
+                make = _pm_chain if mcmc_type == "pm" else _da_chain
+                chain = make(model, nsim=particles,
+                             sampling_method=sampling_method, approx=approx,
+                             pf_generator=gen2,
+                             store_states=output_type == "full", **base)
+            elif mcmc_type not in ("gaussian", "ekf"):
+                # the modes are kept when asked, always for the approx full
+                # output, whose state draws replay them, always on the
+                # global approximation, which a cold recompute would
+                # replace by the local, and always for an SDE model, whose
+                # "modes" are the seeds that couple the correction to
+                # phase 1
+                store_modes = bool(store_modes) or not local_approx or (
+                    mcmc_type == "approx" and output_type == "full") \
+                    or model.kind == "sde"
+                chain = _approx_chain(model, approx=approx,
+                                      scan_modes=store_modes, **base)
+        with profiling.span("bssm.chain"):
+            if mesh_run is None:
+                res = chain(gen1, theta0, S0)
+            else:   # this rank's block of chains, then every block
+                with rows.window(block.start, n_chains):
+                    res = chain(gen1, theta0[block], S0[block])
+                res = mesh_run.gather_chains(res)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        t_mcmc = _time.time() - t0
 
-    def host(x):
-        return x.detach().cpu().numpy()
+        def host(x):
+            return x.detach().cpu().numpy()
 
-    out = McmcOutput(
-        theta=host(model.to_natural(res["theta"])),
-        posterior=host(res["prior"] + res["ll" if "ll" in res
-                                          else "approx_ll"]),
-        accepted=host(res["accepted"]),
-        acceptance_rate=float(res["acc_rate"].mean()),
-        S=host(res["S"]), theta_names=model.theta_names, mcmc_type=mcmc_type,
-        output_type=output_type, iter=iter, burnin=burnin, thin=thin,
-        prior=host(res["prior"]), time={"mcmc": t_mcmc})
-    if mcmc_type in ("gaussian", "ekf") and output_type != "theta":
-        t1 = _time.time()
-        batch = int(corr_batch or 65536)
-        if output_type == "full":
+        with profiling.span("bssm.fit.host_copy"):
+            out = McmcOutput(
+                theta=host(model.to_natural(res["theta"])),
+                posterior=host(res["prior"] + res["ll" if "ll" in res
+                                                  else "approx_ll"]),
+                accepted=host(res["accepted"]),
+                acceptance_rate=float(res["acc_rate"].mean()),
+                S=host(res["S"]), theta_names=model.theta_names,
+                mcmc_type=mcmc_type, output_type=output_type, iter=iter,
+                burnin=burnin, thin=thin, prior=host(res["prior"]),
+                time={"mcmc": t_mcmc})
+            if mcmc_type in ("pm", "da") and output_type == "full":
+                out.alpha = host(res["alpha"])
+            if mcmc_type == "da":
+                out.stage1_acceptance_rate = float(
+                    res["stage1_rate"].mean())
+            if mcmc_type == "approx" or mcmc_type.startswith("is"):
+                out.approx_loglik = host(res["approx_ll"])
+                out.theta_sampled = host(res["theta"])
+                out.local_approx = bool(local_approx)
+                if store_modes:
+                    out.modes = host(res["modes"])
+        if mcmc_type in ("gaussian", "ekf") and output_type != "theta":
+            t1 = _time.time()
+            batch = int(corr_batch or 65536)
+            if output_type == "full":
+                out.alpha = _flat_draws(
+                    mesh_run, res["theta"], functools.partial(
+                        _state_draws, model, res["theta"], gen2, batch))
+            else:
+                alphahat, Vt = _state_summary(model, res["theta"], batch,
+                                              mesh_run)
+                out.alphahat, out.Vt = host(alphahat), host(Vt)
+            out.time["states"] = _time.time() - t1
+        if mcmc_type == "approx" and output_type == "full":
+            t1 = _time.time()
             out.alpha = _flat_draws(mesh_run, res["theta"], functools.partial(
-                _state_draws, model, res["theta"], gen2, batch))
-        else:
-            alphahat, Vt = _state_summary(model, res["theta"], batch,
-                                          mesh_run)
-            out.alphahat, out.Vt = host(alphahat), host(Vt)
-        out.time["states"] = _time.time() - t1
-    if mcmc_type in ("pm", "da") and output_type == "full":
-        out.alpha = host(res["alpha"])
-    if mcmc_type == "da":
-        out.stage1_acceptance_rate = float(res["stage1_rate"].mean())
-    if mcmc_type == "approx" or mcmc_type.startswith("is"):
-        out.approx_loglik = host(res["approx_ll"])
-        out.theta_sampled = host(res["theta"])
-        out.local_approx = bool(local_approx)
-        if store_modes:
-            out.modes = host(res["modes"])
-    if mcmc_type == "approx" and output_type == "full":
-        t1 = _time.time()
-        out.alpha = _flat_draws(mesh_run, res["theta"], functools.partial(
-            _approx_state_draws, model, res["theta"], res["modes"], gen2,
-            int(corr_batch or 65536)))
-        out.time["states"] = _time.time() - t1
+                _approx_state_draws, model, res["theta"], res["modes"], gen2,
+                int(corr_batch or 65536)))
+            out.time["states"] = _time.time() - t1
 
-    if mcmc_type.startswith("is"):
-        t1 = _time.time()
-        post, n_rows = _is_postprocess(
-            model, res["theta"], res["modes"], res["accepted"],
-            res["approx_ll"], gen2, nsim=particles,
-            sampling_method=sampling_method,
-            batch_size=int(corr_batch or 256), is_type=int(mcmc_type[-1]),
-            want_states=output_type == "full",
-            want_moments=output_type == "summary", conv_tol=conv_tol,
-            max_iter=max_iter, psi_resample_every=psi_resample_every,
-            approx=approx, mesh_run=mesh_run)
-        _store_correction(out, post, res["prior"] + res["approx_ll"], host)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        out.n_corrected = n_rows
-        out.time["correction"] = _time.time() - t1
+        if mcmc_type.startswith("is"):
+            t1 = _time.time()
+            with profiling.span("bssm.correct"):
+                post, n_rows = _is_postprocess(
+                    model, res["theta"], res["modes"], res["accepted"],
+                    res["approx_ll"], gen2, nsim=particles,
+                    sampling_method=sampling_method,
+                    batch_size=int(corr_batch or 256),
+                    is_type=int(mcmc_type[-1]),
+                    want_states=output_type == "full",
+                    want_moments=output_type == "summary",
+                    conv_tol=conv_tol, max_iter=max_iter,
+                    psi_resample_every=psi_resample_every, approx=approx,
+                    mesh_run=mesh_run)
+                _store_correction(out, post, res["prior"] + res["approx_ll"],
+                                  host)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+            out.n_corrected = n_rows
+            out.time["correction"] = _time.time() - t1
 
     if out.acceptance_rate == 0.0:
         warnings.warn("No proposals were accepted after burn-in. "

@@ -70,6 +70,7 @@ import torch
 from ..core import distributions as fam
 from ..core import rows
 from ..core.spec import LGSpec, NGSpec, SVM, at_t, is_mv, with_batch
+from ..diagnostics import profiling
 from ..ops import cuda_kalman
 from ..ops.chol import psd_chol
 from ..ops.kalman import smoother_bwd_factors
@@ -366,26 +367,35 @@ def psi_logw(spec: NGSpec, al: ApproxLoglik, nsim: int,
     ``psi_logw_scan``, on the same randomness.  Above 512 particles every
     model runs ``psi_logw_scan`` with its draws made step by step from
     ``generator`` (or ``eps`` and ``us`` if given)."""
+    with profiling.span("bssm.psi.factors"):
+        factors = _factors(spec, al)
+    with profiling.span("bssm.psi.filter"):
+        return al.loglik + _psi_logw_filter(spec, al, nsim, generator, eps,
+                                            us, resample_every, factors)
+
+
+def _psi_logw_filter(spec, al, nsim, generator, eps, us, resample_every,
+                     factors):
+    """``psi_logw``'s log-weight from the proposal ``factors``."""
     n, m = spec.n, spec.m
     B = al.approx.mode.shape[0]
     dt, dev = spec.y.dtype, spec.y.device
-    ahat, Lb, Ab = _factors(spec, al)
+    ahat, Lb, Ab = factors
     if nsim > cuda_kalman.MAX_N_BIG:
-        return al.loglik + psi_logw_scan(
-            spec, al, eps, us, factors=(ahat, Lb, Ab),
+        return psi_logw_scan(
+            spec, al, eps, us, factors=factors,
             resample_every=resample_every, generator=generator, nsim=nsim)
     if nsim > cuda_kalman.MAX_N_PSI:
         key = None if eps is not None \
             else cuda_kalman.philox_key(generator, dev)
         if cuda_kalman.route("psi_big_logw", spec):
-            return al.loglik + cuda_kalman.psi_big_logw(
+            return cuda_kalman.psi_big_logw(
                 spec, al, ahat, Lb, Ab, resample_every, eps=eps, us=us,
                 seed=key, nsim=None if key is None else nsim,
                 row0=0 if key is None else rows.offset())
         eps, us = _plain_draws(key, B, n + 1, nsim, m, dt, eps, us)
-        return al.loglik + psi_logw_scan(spec, al, eps, us,
-                                         factors=(ahat, Lb, Ab),
-                                         resample_every=resample_every)
+        return psi_logw_scan(spec, al, eps, us, factors=factors,
+                             resample_every=resample_every)
     if eps is None:
         eps = rows.randn((B, n + 1, nsim, m), dtype=dt, device=dev,
                          generator=generator)
@@ -393,10 +403,8 @@ def psi_logw(spec: NGSpec, al: ApproxLoglik, nsim: int,
         us = rows.rand((B, n, nsim), dtype=dt, device=dev,
                        generator=generator)
     if cuda_kalman.route("psi_logw", spec):
-        return al.loglik + cuda_kalman.psi_logw(spec, al, ahat, Lb, Ab, eps,
-                                                us)
-    return al.loglik + psi_logw_scan(spec, al, eps, us,
-                                     factors=(ahat, Lb, Ab))
+        return cuda_kalman.psi_logw(spec, al, ahat, Lb, Ab, eps, us)
+    return psi_logw_scan(spec, al, eps, us, factors=factors)
 
 
 def bsf_logw(spec: NGSpec, nsim: int,

@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..diagnostics import profiling
 from ..models.base import Model
 from .mcmc import (Approximation, McmcOutput, _is_postprocess,
                    _make_correct_rows, _store_correction,
@@ -73,31 +74,37 @@ def post_correct(model: Model, output: McmcOutput, particles: int,
 
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(int(seed))
-    if output.modes is None:
-        modes = None
-    elif model.kind == "sde":       # the stored evaluation seeds
-        modes = torch.as_tensor(np.asarray(output.modes), dtype=torch.int64,
-                                device=dev)
-    else:
-        modes = on_dev(output.modes)
-    approx_ll = on_dev(output.approx_loglik)
-    mesh_run = None
-    if mesh is not None:
-        from ..parallel.mesh import MeshRun
-        mesh_run = MeshRun(mesh, torch.device(dev))
-    post, n_rows = _is_postprocess(
-        model, on_dev(output.theta_sampled), modes,
-        torch.as_tensor(np.asarray(output.accepted), dtype=torch.bool,
-                        device=dev), approx_ll, generator, nsim=particles,
-        sampling_method=sampling_method, batch_size=int(corr_batch),
-        is_type=int(is_type), want_states=output_type == "full",
-        want_moments=output_type == "summary",
-        approx=Approximation(is_global=output.local_approx is False),
-        mesh_run=mesh_run)
-    out = copy.copy(output)
-    out.alpha = out.alphahat = out.Vt = None
-    _store_correction(out, post, on_dev(output.prior) + approx_ll,
-                      lambda x: x.detach().cpu().numpy())
+    with profiling.fit("post_correct", seed, "bssm.post_correct"):
+        with profiling.span("bssm.post_correct.to_device"):
+            if output.modes is None:
+                modes = None
+            elif model.kind == "sde":       # the stored evaluation seeds
+                modes = torch.as_tensor(np.asarray(output.modes),
+                                        dtype=torch.int64, device=dev)
+            else:
+                modes = on_dev(output.modes)
+            approx_ll = on_dev(output.approx_loglik)
+            thetas = on_dev(output.theta_sampled)
+            accepted = torch.as_tensor(np.asarray(output.accepted),
+                                       dtype=torch.bool, device=dev)
+            base_lp = on_dev(output.prior) + approx_ll
+        mesh_run = None
+        if mesh is not None:
+            from ..parallel.mesh import MeshRun
+            mesh_run = MeshRun(mesh, torch.device(dev))
+        with profiling.span("bssm.correct"):
+            post, n_rows = _is_postprocess(
+                model, thetas, modes, accepted, approx_ll, generator,
+                nsim=particles, sampling_method=sampling_method,
+                batch_size=int(corr_batch), is_type=int(is_type),
+                want_states=output_type == "full",
+                want_moments=output_type == "summary",
+                approx=Approximation(is_global=output.local_approx is False),
+                mesh_run=mesh_run)
+            out = copy.copy(output)
+            out.alpha = out.alphahat = out.Vt = None
+            _store_correction(out, post, base_lp,
+                              lambda x: x.detach().cpu().numpy())
     out.mcmc_type = f"is{int(is_type)}"
     out.output_type = output_type
     out.n_corrected = n_rows

@@ -89,6 +89,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.spec import LGSpec, NGSpec, SVM, GAMMA, is_mv, with_batch
+from ..diagnostics import profiling
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -119,17 +120,20 @@ TILE_BYTES = 48 * 1024
 # chip_smoke.py's staging sweep times both (PERF.md)
 SHARED_WAVES = 1
 
-# launches of each kernel since the last reset_launch_counts()
-LAUNCHES = {"log_likelihood": 0, "fast_smoother_ll": 0, "laplace_solve": 0,
-            "laplace_step": 0, "rts_factors": 0, "psi_logw": 0, "psi_big_logw": 0,
-            "bsf_big_logw": 0, "philox_fill": 0}
+# launches of each kernel since the last reset_launch_counts(); the three
+# counts are counters of diagnostics/profiling.py too
+LAUNCHES = profiling.register("launches", {
+    "log_likelihood": 0, "fast_smoother_ll": 0, "laplace_solve": 0,
+    "laplace_step": 0, "rts_factors": 0, "psi_logw": 0, "psi_big_logw": 0,
+    "bsf_big_logw": 0, "philox_fill": 0})
 # plain versions run on the card in place of each wrapper's kernel, for
 # specs outside the kernels' contract (``route``), since the same reset
-PLAIN_ROUTES = {k: 0 for k in LAUNCHES if k != "philox_fill"}
+PLAIN_ROUTES = profiling.register(
+    "plain_routes", {k: 0 for k in LAUNCHES if k != "philox_fill"})
 # kernels run again by replays of a captured CUDA graph
 # (``inference/replay.py``), counted apart from ``LAUNCHES``: a replay
 # issues the graph, not the wrappers
-REPLAYED = {k: 0 for k in LAUNCHES}
+REPLAYED = profiling.register("replayed", {k: 0 for k in LAUNCHES})
 
 # seconds the last build took (None: library was already built or not loaded)
 build_seconds: Optional[float] = None
@@ -480,7 +484,7 @@ def _launch(fn, layout: struct.Struct, dev, *fields) -> int:
 # The argument structs of csrc/ (LaplaceArgs, StepArgs, KalmanArgs, RtsArgs,
 # PsiArgs, BigLaunch), field for field: "q" a 64-bit integer or pointer, "d"
 # a double.
-_SOLVE_ARGS = struct.Struct("=32qd7q")
+_SOLVE_ARGS = struct.Struct("=32qd8q")
 _STEP_ARGS = struct.Struct("=39q")
 _KALMAN_ARGS = struct.Struct("=36q")
 _RTS_ARGS = struct.Struct("=35q")
@@ -815,7 +819,9 @@ def laplace_solve(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
     log-likelihood of the last pass's approximating model.  On the card the
     five are views of one allocation, and a call is one launch, staged as
     ``laplace_staging`` chooses unless ``staging`` says otherwise (the kernel
-    refuses a geometry that does not match n and m)."""
+    refuses a geometry that does not match n and m).  While spans are on,
+    the kernel adds the sum of ``niter`` to the open fit's pass counter
+    (``profiling.passes_counter``); otherwise it gets no counter."""
     _univariate("laplace_solve", spec)
     if not spec.y.is_cuda:
         from ..inference.approx import laplace_solve_plain
@@ -824,6 +830,7 @@ def laplace_solve(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
     B, n, m = batch or 1, spec.n, spec.m
     dt, dev = spec.y.dtype, spec.y.device
     args, keep = _laplace_args("laplace_solve", spec, mode0, B, batch)
+    passes = profiling.passes_counter(dev)
     st = staging or laplace_staging(n, m, spec.y.element_size(), B,
                                     _sm_count(dev.index))
     Bn = B * n
@@ -838,7 +845,9 @@ def laplace_solve(spec: NGSpec, mode0: torch.Tensor, conv_tol: float,
                      int(dt == torch.float64), m,
                      int(spec.distribution), B, n, *args, float(conv_tol),
                      int(max_iter), buf.data_ptr(), st.rows, int(st.shared),
-                     st.smem_bytes, st.block_elems, _stream(dev))
+                     st.smem_bytes, st.block_elems,
+                     0 if passes is None else passes.data_ptr(),
+                     _stream(dev))
     _check_launch(lib, code, "laplace_solve")
     LAUNCHES["laplace_solve"] += 1
     return (buf[:Bn].view(B, n), buf[Bn:2 * Bn].view(B, n),

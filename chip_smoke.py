@@ -362,25 +362,6 @@ def time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def _dev_us(e) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(e, attr):
-            return float(getattr(e, attr))
-    return 0.0
-
-
-def device_rows(prof) -> list:
-    """``(name, count, device us)`` of the device-side events of a trace:
-    kernels, copies and sets.  The host operators that launched them (an
-    ``aten::`` op carries its kernels' time as its own device time), the
-    profiler's step spans and its buffer requests are left out, so that no
-    device time is counted twice."""
-    from torch.autograd import DeviceType
-    return [(e.key, int(e.count), _dev_us(e)) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and _dev_us(e) > 0
-            and not e.key.startswith(("ProfilerStep", "Activity Buffer"))]
-
-
 def graph_nodes(fn, warm: bool = True) -> list:
     """The types of the nodes of the CUDA graph that one call of ``fn``
     records under stream capture (0: kernel): the device work a call
@@ -766,6 +747,33 @@ def thetas_around_init(model, B: int, seed: int, spread: float = 0.5):
 # kernel against plain version
 # ---------------------------------------------------------------------------
 
+def k1_passes(spec, mode0, conv_tol: float, niter_sum: int,
+              label: str) -> dict:
+    """K1's own count of its passes, the program's ``laplace.passes``: in
+    each staging that holds the shape, two ``laplace_solve`` calls inside
+    one traced fit must count twice the ``niter`` sum (the second call adds
+    to the counter, it does not overwrite it)."""
+    from bssm_tpu_torch.diagnostics import profiling
+    from bssm_tpu_torch.ops import cuda_kalman as ck
+    out = {"niter_sum": niter_sum}
+    for st in ck.staging_options(spec.n, spec.m, spec.y.element_size()):
+        if st is None:
+            continue
+        with profiling.tracing(), profiling.fit("k1", 0, "bssm.fit"):
+            sums = [int(ck.laplace_solve(spec, mode0, conv_tol, 100,
+                                         staging=st)[2].sum())
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+        got = profiling.records()[-1].counters["laplace.passes"]
+        key = "shared" if st.shared else "device"
+        out[key] = got
+        if got != 2 * niter_sum or sums != [niter_sum] * 2:
+            FAILURES.append({"what": "laplace_solve's pass counter",
+                             "label": label, "staging": key, "counted": got,
+                             "niter_sums": sums, "niter_sum": niter_sum})
+    return out
+
+
 def check_kernels(model, B: int, N: int, label: str, timed: bool,
                   seed: int = 7, k1_only: bool = False,
                   spread: float = 0.5) -> dict:
@@ -815,6 +823,8 @@ def check_kernels(model, B: int, N: int, label: str, timed: bool,
                          "label": label})
     out["staging"] = ck.laplace_staging(
         spec.n, m, spec.y.element_size(), B, ck._sm_count(0))._asdict()
+    out["k1_passes"] = k1_passes(spec, mode0, conv_tol, int(k_niter.sum()),
+                                 label)
     if k1_only:
         return out
 
@@ -2567,38 +2577,6 @@ def small_reference(bt) -> dict:
     res = compare("correction.log_w card vs cpu", lw["cuda"], lw["cpu"],
                   1e-8, True)
     return res
-
-
-def profile_main_path(bt, model, run: dict, iters: int = 60) -> dict:
-    """Device time by kernel over a short main-path run, and the share of
-    the wall time the device was busy.  The same run is timed first without
-    the profiler, whose own cost inflates the host side."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.time()
-    bt.run_mcmc(model, iter=iters, **run)
-    torch.cuda.synchronize()
-    wall_plain = time.time() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        out = bt.run_mcmc(model, iter=iters, **run)
-        torch.cuda.synchronize()
-        wall_prof = time.time() - t0
-
-    rows = device_rows(prof)
-    rows.sort(key=lambda r: -r[2])
-    total_us = sum(r[2] for r in rows)
-    return {"iter": iters, "chains": run["n_chains"],
-            "wall_s_unprofiled": wall_plain, "wall_s_profiled": wall_prof,
-            "phase_s_profiled": out.time,
-            "device_busy_s": total_us * 1e-6,
-            "device_busy_share_of_unprofiled_wall":
-                total_us * 1e-6 / wall_plain,
-            "device_kernel_launches": sum(r[1] for r in rows),
-            "top_by_device_time": [
-                {"name": k[:80], "count": c, "device_ms": us * 1e-3,
-                 "share": us / max(total_us, 1e-9)} for k, c, us in rows[:14]]}
 
 
 # ---------------------------------------------------------------------------
@@ -5614,9 +5592,6 @@ def main() -> int:
                     help="iterations of each path (default 1000; the "
                          "pseudo-marginal and delayed-acceptance paths run "
                          "half as many)")
-    ap.add_argument("--profile", action="store_true",
-                    help="also trace short runs of five paths with "
-                         "torch.profiler and print device time by kernel")
     ap.add_argument("--staging-sweep", action="store_true",
                     help="only time the stagings of laplace_solve, "
                          "rts_factors and fast_smoother_ll over B, m and "
@@ -6287,21 +6262,6 @@ def main() -> int:
     emit("tp_checks", tp_phase)
     emit("mesh", mesh_phase)
     emit("api", api)
-    if args.profile:
-        theta = dict(output_type="theta", seed=1)
-        for label, model, run in (
-                ("psi_N10", m32, dict(particles=10, n_chains=CHAINS, **is2)),
-                ("psi_N256", m32, dict(particles=256, psi_resample_every=8,
-                                       n_chains=CHAINS, **is2)),
-                ("pm_bsf_N200", mb32, dict(particles=200, mcmc_type="pm",
-                                           sampling_method="bsf",
-                                           n_chains=CHAINS // 4)),
-                ("lg_theta", a32, dict(n_chains=CHAINS)),
-                ("is2_full", m32, dict(n_chains=CHAINS // 4,
-                                       output_type="full", mcmc_type="is2",
-                                       **st_kw))):
-            emit("profile", {"path": label, **profile_main_path(
-                bt, model, {**theta, **run})})
     print(json.dumps({"kernels": kernels}), flush=True)
     if problems:
         print("chip_smoke: paths failed: " + "; ".join(problems),
